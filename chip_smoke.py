@@ -7,27 +7,53 @@ Phases, each raising on failure:
 
 1. device: require CUDA; print the card, the device count and nvidia-smi's
    name and power limit;
-2. build: compile the kernel source with nvcc and print the build seconds
-   and the -Xptxas -v lines;
+2. build: compile every kernel source with nvcc, in parallel, and print the
+   build seconds and each kernel's registers and spills (-Xptxas -v);
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
-   in bf16, at the shapes the serving path gives it, with q and k drawn from
-   N(0, 0.3^2) and v from N(0, 1) (tolerances: out elementwise
-   atol = rtol = 2e-2 and ||out - plain|| / ||plain|| <= 1e-2, lse2 atol
-   1e-3); as a control, the out check must reject the plain version run with
-   the values of one 16-key block zeroed. Each case prints the kernel's time,
-   the plain version's, a library yardstick (F.scaled_dot_product_attention,
-   timed only) and the bound max(FLOP / 989e12, bytes / 3.35e12);
+   in bf16, at the shapes the serving and train paths give it, with q and k
+   drawn from N(0, 0.3^2) and v (and the backward's cotangent) from
+   N(0, 1). Forward: out elementwise atol = rtol = 2e-2 and
+   ||out - plain|| / ||plain|| <= 1e-2, lse2 atol 1e-3. Backward, on dq, dk
+   and dv each: ||d - plain|| / ||plain|| <= 1e-2 and max|d - plain| <=
+   2e-2 * max|plain|. As a control, each check must reject the plain version
+   run with the values of one 16-key block zeroed. Each case prints the
+   kernel's time, the plain version's, a library yardstick
+   (F.scaled_dot_product_attention, its forward or its backward alone, timed
+   only) and the bound max(FLOP / 989e12, bytes / 3.35e12). Besides the
+   serving and synthetic shapes, the cases take the train phase's own segment
+   ids (packed captions and templates) and batch shapes. Every backward case
+   of at most 128 tokens also checks and times the tiled kernel pair that
+   longer rows take (flash_bwd.cu built a second time with
+   -DLATTECLIP_BWD_SHORT_ROW=0) beside the one-CTA-per-(row, head) kernel,
+   in the order row, tiled, tiled, row;
 4. slice: ViT-B/32 zero-shot classification at full width from seeded random
    weights: the 1000-class ImageNet template classifier, run_zero_shot_eval
    over four batches of 256 images and one of 255, and the prototype
    classifier from a seeded bank; the launch counters are reset just before
-   and read just after, and every kernel of the path must have launched.
-   The same requests then run with the plain attention forced; image
-   features and classifier columns must agree with cosine >= 0.999 and
+   and read just after, and every forward kernel of the path must have
+   launched. The same requests then run with the plain attention forced;
+   image features and classifier columns must agree with cosine >= 0.999 and
    prototype top-1 on >= 99% of rows. A torch.profiler trace of the
    classifier build and of the eval gives each one's device busy time and
-   idle share, and its device time by kind (attention, GEMM, copies, other);
-5. report: one JSON line of kernels, nvidia-smi's line, and the final line
+   idle share, and its device time by kind;
+5. train: the LatteCLIP v2 train step at ViT-B/32 full width and depth,
+   batch 512, 47 classes (DTD's count), AdamW with a constant schedule, the
+   colour augment on: warm-up and 10 timed steps with the captions and
+   templates packed at 128 (K2/K4 at every attention site), then warm-up and
+   10 timed steps with text_packing off (K1/K3 on the text at L=77). The
+   launch counters are set to 0 just before each route's timed steps and read
+   just after; each route must launch exactly the kernels of its attention
+   sites, once a layer and step: packed K2 = K4 = 12 + 2 x 12 a step and no
+   K1/K3; padded K1 = K3 = 2 x 12 and K2 = K4 = 12 (vision pairs). Every loss
+   must be finite, logit_scale in [0, ln 100] and the bank rows unit-norm.
+   10 steps with the plain attention forced give its rate and must launch
+   nothing. From one copied state and one batch with augment off, the kernel
+   and plain routes must agree: loss within 1e-2 relative, the flattened
+   gradient with cosine >= 0.99, the updated bank row by row with cosine >=
+   0.999. A torch.profiler trace of one step of each route gives its device
+   busy time, idle share and device time by kind, attention forward and
+   backward apart;
+6. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -35,8 +61,10 @@ Exits non-zero without a result when CUDA is absent or the package is missing.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,14 +78,26 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 OUT_TOL = 2e-2             # bf16 out, elementwise atol = rtol (tests/test_kernels.py)
 OUT_REL_TOL = 1e-2         # ||out - plain|| / ||plain||: bf16 rounding gives < 2^-8
 LSE_TOL = 1e-3             # base-2 lse (see tests/test_torch_attention.py)
+GRAD_REL_TOL = 1e-2        # ||d - plain|| / ||plain|| for dq, dk, dv each
+GRAD_MAX_TOL = 2e-2        # max|d - plain| / max|plain| (tests/test_torch_kernels_gpu.py)
 # q and k entries ~ N(0, 0.3^2), as the JAX kernel tests draw them, so that
 # rows stay flat enough for LSE_TOL; v does not enter lse2 and is N(0, 1)
 QK_STD = 0.3
-SOURCE = "latteclip_torch/kernels/csrc/flash_fwd.cu"
+SOURCES = {
+    "flash_fwd": "latteclip_torch/kernels/csrc/flash_fwd.cu",
+    "flash_fwd_seg": "latteclip_torch/kernels/csrc/flash_fwd.cu",
+    "flash_bwd": "latteclip_torch/kernels/csrc/flash_bwd.cu",
+    "flash_bwd_seg": "latteclip_torch/kernels/csrc/flash_bwd.cu",
+}
 REPLACES = {
     "flash_fwd": "latteclip_tpu/kernels/attention.py:318",      # _fwd_kernel
     "flash_fwd_seg": "latteclip_tpu/kernels/attention.py:415",  # _fwd_kernel_seg
+    "flash_bwd": "latteclip_tpu/kernels/attention.py:340",      # _bwd_kernel
+    "flash_bwd_seg": "latteclip_tpu/kernels/attention.py:435",  # _bwd_kernel_seg
 }
+LOG100 = 4.6051702  # ln(100), the logit-scale clamp
+ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
+TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
 
 
 def log(msg: str) -> None:
@@ -121,28 +161,35 @@ def out_check(out, ref):
     return bool((d.abs() <= OUT_TOL + OUT_TOL * r.abs()).all()) and rel <= OUT_REL_TOL, rel
 
 
+def visibility(B, L, causal, seg):
+    """(visible (query, key) pairs over the batch, SDPA mask or None)."""
+    idx = torch.arange(L, device="cuda")
+    if seg is None:
+        visible = (idx[None, :] <= idx[:, None]) if causal else torch.ones(L, L, dtype=torch.bool, device="cuda")
+        return int(visible.sum()) * B, None
+    visible = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        visible = visible & (idx[None, :] <= idx[:, None])
+    return int(visible.sum()), visible[:, None]
+
+
+def bound(flops, nbytes):
+    t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_flops, t_bytes), "operations" if t_flops > t_bytes else "bytes"
+
+
 def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     from latteclip_torch.kernels import attention as A
 
     qkv = draw_qkv(gen, B, L, H, D)
-    if seg_np is None:
+    seg = None if seg_np is None else torch.from_numpy(seg_np).cuda()
+    if seg is None:
         kernel = lambda: A.flash_attention_qkv(qkv, H, causal)  # noqa: E731
         plain_of = lambda x: A.flash_fwd_plain(x, H, causal)  # noqa: E731
-        seg = None
-        idx = torch.arange(L, device="cuda")
-        visible = (idx[None, :] <= idx[:, None]) if causal else torch.ones(L, L, dtype=torch.bool, device="cuda")
-        pairs = int(visible.sum()) * B
-        mask = None
     else:
-        seg = torch.from_numpy(seg_np).cuda()
         kernel = lambda: A.flash_attention_qkv_segmented(qkv, H, seg, causal)  # noqa: E731
         plain_of = lambda x: A.flash_fwd_seg_plain(x, seg, H, causal)  # noqa: E731
-        visible = seg[:, :, None] == seg[:, None, :]
-        if causal:
-            idx = torch.arange(L, device="cuda")
-            visible = visible & (idx[None, :] <= idx[:, None])
-        pairs = int(visible.sum())
-        mask = visible[:, None]
+    pairs, mask = visibility(B, L, causal, seg)
     plain = lambda: plain_of(qkv)  # noqa: E731
     out, lse2 = kernel()
     ref_out, ref_lse2 = plain()
@@ -165,25 +212,132 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
     flops = 4 * D * H * pairs
     nbytes = qkv.numel() * 2 + out.numel() * 2 + lse2.numel() * 4 + (0 if seg is None else seg.numel() * 4)
-    t_flops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = bound(flops, nbytes)
     rec = {
         "name": name, "shape": [B, L, 3 * H * D], "heads": H, "head_dim": D, "causal": causal,
         "max_abs_err": err_out, "out_rel_err": rel_out, "max_abs_err_lse2": err_lse, "ok": ok,
         "control_rel_err": rel_dropped, "control_rejected": control_rejected,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops > t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
     return rec
 
 
-def phase_kernels():
+def grad_check(ours, ref, H, D):
+    """(agrees, {dq|dk|dv: [||d - ref|| / ||ref||, max|d - ref| / max|ref|]})."""
+    errs, ok = {}, True
+    for i, part in enumerate(("dq", "dk", "dv")):
+        a = ours[..., i * H * D:(i + 1) * H * D].float()
+        r = ref[..., i * H * D:(i + 1) * H * D].float()
+        rel = float((a - r).norm() / r.norm())
+        worst = float((a - r).abs().max() / r.abs().max())
+        errs[part] = [rel, worst]
+        ok = ok and rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL
+    return ok, errs
+
+
+def tiled_bwd(lib, qkv, seg, out, dout, lse2, H, causal):
+    """dqkv from the tiled-only build of flash_bwd.cu, called as the wrapper
+    calls the kernel. Not counted: it is no part of any path."""
+    from latteclip_torch.kernels import attention as A
+
+    B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    name = "latteclip_flash_bwd" if seg is None else "latteclip_flash_bwd_seg"
+    fn = getattr(lib, name)
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn.argtypes, fn.restype = [kinds[c] for c in A._SIGNATURES[name]], ctypes.c_int
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
+    tensors = [qkv, *([] if seg is None else [seg]), out, dout, lse2, delta, dqkv]
+    err = fn(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal), (D ** -0.5) * A.LOG2E,
+             D ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tiled {name} launch failed with CUDA error {err}")
+    return dqkv
+
+
+def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
+    """A backward kernel against its plain version, from the forward
+    kernel's residuals and an N(0, 1) cotangent; at rows of at most ROW_MAX
+    tokens, also the tiled pair against the same plain result."""
+    from latteclip_torch.kernels import attention as A
+
+    qkv = draw_qkv(gen, B, L, H, D)
+    dout = torch.randn((B, L, H * D), generator=gen, device="cuda").to(torch.bfloat16)
+    seg = None if seg_np is None else torch.from_numpy(seg_np).cuda()
+    if seg is None:
+        out, lse2 = A.flash_attention_qkv(qkv, H, causal)
+        kernel = lambda: A.flash_attention_qkv_bwd(qkv, out, dout, lse2, H, causal)  # noqa: E731
+        plain_of = lambda x: A.flash_bwd_plain(x, out, dout, lse2, H, causal)  # noqa: E731
+    else:
+        out, lse2 = A.flash_attention_qkv_segmented(qkv, H, seg, causal)
+        kernel = lambda: A.flash_attention_qkv_segmented_bwd(  # noqa: E731
+            qkv, seg, out, dout, lse2, H, causal)
+        plain_of = lambda x: A.flash_bwd_seg_plain(x, seg, out, dout, lse2, H, causal)  # noqa: E731
+    pairs, mask = visibility(B, L, causal, seg)
+    plain = lambda: plain_of(qkv)  # noqa: E731
+    ours, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, errs = grad_check(ours, ref, H, D)
+    ok = ok and bool(torch.isfinite(ours.float()).all())
+    # control: the check must see the values of one 16-key block dropped
+    dropped = qkv.clone()
+    dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
+    control_ok, control_errs = grad_check(plain_of(dropped), ref, H, D)
+
+    # library yardstick: SDPA's backward alone, same mask, timed only
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal and mask is None)
+    do4 = dout.view(B, L, H, D).transpose(1, 2)
+    library = lambda: torch.autograd.grad(o, (q, k, v), do4, retain_graph=True)  # noqa: E731
+    ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    del o, q, k, v
+    design = None
+    if L <= ROW_MAX:
+        tiled = lambda: tiled_bwd(tiled_lib, qkv, seg, out, dout, lse2, H, causal)  # noqa: E731
+        tiled_ok, tiled_errs = grad_check(tiled(), ref, H, D)
+        ok = ok and tiled_ok
+        tiled_ms = [timer(tiled), timer(tiled)]
+        design = {"row_ms": [ms, timer(kernel)], "tiled_ms": tiled_ms,
+                  "tiled_grad_err": tiled_errs, "tiled_ok": tiled_ok}
+    flops = 10 * D * H * pairs
+    nbytes = 2 * B * L * 8 * H * D + 4 * B * H * L + (0 if seg is None else 4 * B * L)
+    bound_ms, bound_by = bound(flops, nbytes)
+    rec = {
+        "name": name, "shape": [B, L, 3 * H * D], "heads": H, "head_dim": D, "causal": causal,
+        "max_abs_err": float((ours.float() - ref.float()).abs().max()), "grad_err": errs, "ok": ok,
+        "control_grad_err": control_errs, "control_rejected": not control_ok, "design": design,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+    }
+    rec["bound_share"] = rec["bound_ms"] / ms
+    log("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def phase_kernels(train, tiled_lib):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(1234)
     timer = Timer()
     pair = np.repeat(np.array([1, 2], np.int32), 50)
+    # the train step's own attention calls: its text and vision head counts,
+    # the packed caption rows of its first batch and the packed templates
+    text, vision = train["cfg"].text, train["cfg"].vision
+    Ht, Dt, Hv, Dv = text.heads, text.width // text.heads, vision.heads, vision.head_width
+    cap_seg = train["batches"][0]["cap_seg_ids"].cpu().numpy()
+    tpl_seg = train["tpl"].seg_ids
+    n_cls = len(train["classes"])
+    train_pairs = np.tile(pair, (TRAIN_BATCH // 2, 1))
+    train_cases = [
+        ("flash_fwd", n_cls, 77, Ht, Dt, True, None),                        # templates, padded
+        ("flash_fwd_seg", TRAIN_BATCH // 2, 100, Hv, Dv, False, train_pairs),  # vision pairs
+        ("flash_fwd_seg", len(cap_seg), PACK_LEN, Ht, Dt, True, cap_seg),    # captions, packed
+        ("flash_fwd_seg", len(tpl_seg), PACK_LEN, Ht, Dt, True, tpl_seg),    # templates, packed
+    ]
     cases = [
         # (kernel, B, L, H, D, causal, seg ids or None); the first of each
         # kernel is the one the report line carries
@@ -195,18 +349,31 @@ def phase_kernels():
         ("flash_fwd_seg", 128, 100, 12, 64, False, np.tile(pair, (128, 1))),  # vision pairs
         ("flash_fwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_fwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
+    ] + train_cases
+    bwd_cases = [
+        ("flash_bwd", 2 * TRAIN_BATCH, 77, Ht, Dt, True, None),  # train captions, padded
+        ("flash_bwd", 255, 50, 12, 64, False, None),       # odd vision batch
+        ("flash_bwd", 64, 197, 12, 64, False, None),       # ViT-B/16 vision
+        ("flash_bwd", 8, 577, 16, 64, False, None),        # 336 px vision
+        ("flash_bwd", 64, 197, 6, 128, False, None),       # head_dim 128
+    ] + [("flash_bwd" + n[len("flash_fwd"):], *rest) for n, *rest in train_cases] + [
+        ("flash_bwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
+        ("flash_bwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
     ]
     records = [kernel_case(n, B, L, H, D, c, s, timer, gen) for n, B, L, H, D, c, s in cases]
+    records += [bwd_case(n, B, L, H, D, c, s, timer, gen, tiled_lib)
+                for n, B, L, H, D, c, s in bwd_cases]
     del timer
     torch.cuda.empty_cache()
-    bad = [(r["name"], r["shape"], r["max_abs_err"], r["out_rel_err"], r["max_abs_err_lse2"])
-           for r in records if not r["ok"]]
+    bad = [(r["name"], r["shape"], r["max_abs_err"], r.get("out_rel_err"), r.get("max_abs_err_lse2"),
+            r.get("grad_err"), r.get("design")) for r in records if not r["ok"]]
     if bad:
         raise RuntimeError("kernels disagree with their plain versions "
-                           f"(name, shape, |dout|, rel dout, |dlse2|): {bad}")
-    blind = [(r["name"], r["shape"], r["control_rel_err"]) for r in records if not r["control_rejected"]]
+                           f"(name, shape, max |d|, rel dout, |dlse2|, grad errors): {bad}")
+    blind = [(r["name"], r["shape"], r.get("control_rel_err"), r.get("control_grad_err"))
+             for r in records if not r["control_rejected"]]
     if blind:
-        raise RuntimeError(f"the out check missed a dropped value block (name, shape, rel dout): {blind}")
+        raise RuntimeError(f"a check missed a dropped value block (name, shape, errors): {blind}")
     return records
 
 
@@ -275,11 +442,14 @@ def device_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_kind, by_name = [], {}, {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        # user annotations (record_function ranges such as Optimizer.step)
+        # appear on the device track too and would count their kernels twice
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name.lower()
-        kind = ("attention" if "flash_fwd" in name else
+        kind = ("attention fwd" if "flash_fwd" in name else
+                "attention bwd" if "flash_bwd" in name else
                 "memcpy" if "memcpy" in name or "memset" in name else
                 "gemm" if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")) else "other")
         us = ev.time_range.elapsed_us()
@@ -335,8 +505,8 @@ def phase_slice(smi: str):
     launches = dict(A.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     log(f"slice kernels: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_fwd", "flash_fwd_seg"):  # serving runs no backward
+        if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched on the ViT-B/32 path")
 
     A.reset_launch_counts()
@@ -415,6 +585,202 @@ def phase_slice(smi: str):
     return launches
 
 
+# -- phase 5: the ViT-B/32 train step ------------------------------------------
+
+def caption_lengths(rng: np.random.Generator, n: int, clip_max: int = 77) -> np.ndarray:
+    """LLaVA-caption-like BPE lengths: lognormal, median ~30, long tail,
+    clipped to 8..77 (the generator of bench.py's packed run)."""
+    ln = rng.lognormal(mean=np.log(30.0), sigma=0.35, size=n)
+    return np.clip(np.round(ln).astype(np.int64) + 2, 8, clip_max)
+
+
+def caption_rows(rng: np.random.Generator, lengths: np.ndarray, eot_id: int) -> np.ndarray:
+    rows = np.zeros((len(lengths), 77), np.int32)
+    for i, ln in enumerate(lengths):
+        rows[i, :ln - 1] = rng.integers(1, 40000, size=ln - 1)
+        rows[i, ln - 1] = eot_id
+    return rows
+
+
+def train_batch(rng, batch, image_size, num_classes, eot_id, bucket, pack_len):
+    """Seeded uint8 images, zero-shot pseudo-labels and both caption streams,
+    padded and packed."""
+    from latteclip_torch.data.packing import pack_caption_batch, pack_rows_needed, token_lengths
+
+    b = {
+        "images": rng.integers(0, 256, (batch, image_size, image_size, 3), dtype=np.uint8),
+        "per_image_tokens": caption_rows(rng, caption_lengths(rng, batch), eot_id),
+        "per_group_tokens": caption_rows(rng, caption_lengths(rng, batch), eot_id),
+        "zs_preds": rng.integers(0, num_classes, batch).astype(np.int32),
+    }
+    lengths = token_lengths(np.concatenate([b["per_image_tokens"], b["per_group_tokens"]]))
+    rows = bucket.rows_for(pack_rows_needed(lengths, pack_len))
+    b.update(pack_caption_batch(b["per_image_tokens"], b["per_group_tokens"], pack_len, rows))
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def timed_steps(step_fn, state, batches, gen, n):
+    """n steps; (images/s on the host clock around synchronised steps, losses)."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        losses.append(step_fn(state, batches[i % len(batches)], gen)["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return n * batches[0]["images"].shape[0] / dt, [float(x) for x in losses]
+
+
+def check_state(state, losses, where):
+    bad = [x for x in losses if not np.isfinite(x)]
+    scale = float(state.model.logit_scale.detach())
+    norms = state.memory_bank.norm(dim=1)
+    if bad or not 0.0 <= scale <= LOG100 or float((norms - 1).abs().max()) > 1e-3:
+        raise RuntimeError(f"{where}: losses {losses}, logit_scale {scale}, "
+                           f"bank row norms {float(norms.min())}..{float(norms.max())}")
+
+
+def route_gradients(model, hp, batch, images, state, table, packed, attention):
+    """(loss, flattened gradient, updated bank) of one forward and backward."""
+    from latteclip_torch.train import step as S
+
+    model.zero_grad(set_to_none=True)
+    loss, aux = S.latteclip_loss_fn(model, hp, batch, images, state.memory_bank, state.prototypes,
+                                    table, packed, attention=attention)
+    loss.backward()
+    grad = torch.cat([p.grad.flatten().float() for p in model.parameters()])
+    bank = S.update_memory_bank(state.memory_bank, aux["preds"], aux["zs_preds"],
+                                aux["text_final"], aux["text_final_zs"])
+    return float(loss.detach()), grad, bank
+
+
+def train_inputs() -> dict:
+    """The train phase's config, tokenizer, class list, template table
+    (padded and packed) and two seeded batches on the card. The kernel phase
+    checks the kernels on the same segment ids."""
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data.packing import PackRowBucketer, pack_template_table
+    from latteclip_torch.models.tokenizer import get_tokenizer
+    from latteclip_torch.train import state as St
+
+    cfg = get_model_config("ViT-B-32")
+    classes = [f"class {i}" for i in range(47)]   # DTD-sized class list
+    templates = [lambda c: f"a photo of a {c}."]
+    tok = get_tokenizer()
+    table = St.build_template_table(tok, classes, templates)
+    rng = np.random.default_rng(0)
+    bucket = PackRowBucketer(multiple=8)
+    batches = [train_batch(rng, TRAIN_BATCH, cfg.vision.image_size, len(classes),
+                           tok.eot_token_id, bucket, PACK_LEN) for _ in range(2)]
+    return {"cfg": cfg, "tok": tok, "classes": classes, "templates": templates, "table": table,
+            "tpl": pack_template_table(table, PACK_LEN), "batches": batches}
+
+
+def counted_steps(step_fn, state, batches, gen, n):
+    """n timed steps with the launch counters set to 0 just before and read
+    just after: (images/s, losses, launches)."""
+    from latteclip_torch.kernels import attention as A
+
+    A.reset_launch_counts()
+    ips, losses = timed_steps(step_fn, state, batches, gen, n)
+    return ips, losses, dict(A.launch_counts)
+
+
+def phase_train(smi: str, train: dict):
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St, step as S
+
+    cfg, tok, classes, templates = train["cfg"], train["tok"], train["classes"], train["templates"]
+    table, tpl, batches = train["table"], train["tpl"], train["batches"]
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = TRAIN_STEPS
+    # each attention site launches its forward and backward kernel once a layer
+    text_sites, vision_sites = 2 * cfg.text.layers, cfg.vision.layers  # captions + templates
+    expected = {
+        "packed": {"flash_fwd": 0, "flash_fwd_seg": n * (vision_sites + text_sites),
+                   "flash_bwd": 0, "flash_bwd_seg": n * (vision_sites + text_sites)},
+        "padded": {"flash_fwd": n * text_sites, "flash_fwd_seg": n * vision_sites,
+                   "flash_bwd": n * text_sites, "flash_bwd_seg": n * vision_sites},
+    }
+
+    bank = St.init_memory_bank(model, tok, classes, templates)
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
+    packed_step = S.make_train_step(model, S.LatteHParams(text_packing=True), table,
+                                    T.AugConfig(), template_packed=tpl)
+    padded_step = S.make_train_step(model, S.LatteHParams(text_packing=False), table, T.AugConfig())
+    plain_step = S.make_train_step(model, S.LatteHParams(text_packing=True), table, T.AugConfig(),
+                                   template_packed=tpl, attention="plain")
+    routes = {}
+    for route, step_fn, warm in (("packed", packed_step, 3), ("padded", padded_step, 1),
+                                 ("plain", plain_step, 1)):
+        _, warm_losses = timed_steps(step_fn, state, batches, gen, warm)
+        torch.cuda.reset_peak_memory_stats()
+        ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+        routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
+                         "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        log(f"train kernels {route}: {json.dumps(launches)}")
+        want = expected.get(route, dict.fromkeys(launches, 0))  # the plain route launches nothing
+        if launches != want:
+            raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
+        check_state(state, warm_losses + losses, f"{route} route")
+
+    for route, step_fn in (("packed", packed_step), ("padded", padded_step), ("plain", plain_step)):
+        profile = device_profile(lambda: step_fn(state, batches[0], gen))
+        routes[route]["device_busy_ms_per_step"] = profile["device_busy_ms"]
+        log(f"profile train_step_{route} " + json.dumps(profile))
+
+    # kernel route against plain route from one copied state, augment off
+    hp = S.LatteHParams(augment=False, text_packing=True)
+    batch = batches[1]
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    tpl_t = tuple(torch.from_numpy(a).cuda() for a in tpl)
+    loss_k, grad_k, bank_k = route_gradients(copy.deepcopy(model), hp, batch, images, state,
+                                             table_t, tpl_t, "kernel")
+    loss_p, grad_p, bank_p = route_gradients(copy.deepcopy(model), hp, batch, images, state,
+                                             table_t, tpl_t, "plain")
+    agreement = {
+        "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+        "grad_cos": float(F.cosine_similarity(grad_k, grad_p, dim=0)),
+        "grad_norm_kernel": float(grad_k.norm()), "grad_norm_plain": float(grad_p.norm()),
+        "bank_row_cos_min": float(F.cosine_similarity(bank_k, bank_p, dim=1).min()),
+    }
+    report = {
+        "model": cfg.name, "batch": TRAIN_BATCH, "classes": len(classes), "steps_per_route": n,
+        "caption_rows_per_batch": [int(b["cap_tokens"].shape[0]) for b in batches],
+        "template_rows_packed": int(tpl.tokens.shape[0]),
+        "routes": routes, "logit_scale": float(state.model.logit_scale.detach()),
+        "agreement": agreement, "card": smi,
+    }
+    log("train " + json.dumps(report))
+    if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
+            or agreement["bank_row_cos_min"] < 0.999):
+        raise RuntimeError(f"kernel and plain routes disagree: {agreement}")
+    return {k: routes["packed"]["launches"][k] + routes["padded"]["launches"][k]
+            for k in routes["packed"]["launches"]}
+
+
+def ptxas_usage(lines) -> dict:
+    """{kernel<template args>: "N registers, S bytes spilled"} from -Xptxas -v."""
+    usage, kernel = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '\S*?\d(flash_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+)?", line)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            kernel = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            usage[kernel] = ""
+        elif kernel and "spill stores" in line:
+            usage[kernel] = line.split(",")[1].strip().replace(" stores", "")
+        elif kernel and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            usage[kernel] = f"{regs} registers, {usage[kernel]}"
+    return usage
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -427,21 +793,37 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.load()
-    log(f"build {build.SOURCE.name}: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_log['seconds']:.1f} s)")
-    for line in build.build_log["ptxas"]:
-        log(f"  {line}")
+    # flash_bwd.cu once more with every row sent to the tiled pair, for the
+    # design comparison of the kernel phase; it builds beside the others
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tiled_path = build.BUILD_DIR / "flash_bwd_tiled_only.so"
+    tiled_nvcc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-DLATTECLIP_BWD_SHORT_ROW=0", "-o", str(tiled_path),
+         str(build.SOURCES["flash_bwd"])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        build.load_all()
+    finally:
+        tiled_out, _ = tiled_nvcc.communicate()
+    if tiled_nvcc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the tiled-only flash_bwd.cu:\n{tiled_out}")
+    tiled_lib = ctypes.CDLL(str(tiled_path))
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for name, rec in build.build_log.items():
+        log(f"  {name}.cu: nvcc {rec['seconds']:.1f} s")
+        for kernel, usage in ptxas_usage(rec["ptxas"]).items():
+            log(f"    {kernel}: {usage}")
 
-    records = phase_kernels()
-    launches = phase_slice(smi)
+    train = train_inputs()
+    records = phase_kernels(train, tiled_lib)
+    slice_launches = phase_slice(smi)
+    train_launches = phase_train(smi, train)
 
     kernels = []
-    for name in ("flash_fwd", "flash_fwd_seg"):
+    for name in ("flash_fwd", "flash_fwd_seg", "flash_bwd", "flash_bwd_seg"):
         rec = next(r for r in records if r["name"] == name)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": slice_launches.get(name, 0) + train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

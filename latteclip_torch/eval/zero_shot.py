@@ -4,7 +4,8 @@ Port of ``latteclip_tpu/eval/zero_shot.py``. The README's quick start maps to
 these functions one to one:
 
 * :func:`build_zero_shot_classifier`: template texts per class through the
-  text tower, mean over templates, L2-normalized, stacked to ``[D, C]``;
+  padded or the packed text tower, mean over templates, L2-normalized,
+  stacked to ``[D, C]``;
 * :func:`prototype_classifier`: the LatteCLIP memory bank ``[C, D]`` as a
   normalized ``[D, C]`` classifier;
 * :func:`run_zero_shot_eval`: ``logits = 100 * normalize(f(image)) @
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from latteclip_torch.data import transforms as T
+from latteclip_torch.data.packing import pack_token_rows, token_lengths
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.models.tokenizer import ClipTokenizer
@@ -47,19 +49,25 @@ def build_zero_shot_classifier(
     attention: str = "kernel",
 ) -> torch.Tensor:
     """Classifier weights ``[D, C]`` (template mean, L2-normalized), encoded
-    ``chunk_classes`` classes at a time through the padded text tower."""
-    if packing:
-        raise NotImplementedError(
-            "packing > 0 (the packed text tower) is not ported yet: it comes with "
-            "the training slice (ROADMAP.md, section 1)")
+    ``chunk_classes`` classes at a time through the padded text tower or,
+    with ``packing`` (the pack length, e.g. 128), through the packed one."""
     num_templates = len(templates)
-    tokens = torch.from_numpy(tokenize_class_templates(tokenizer, classnames, templates))
-    tokens = tokens.to(_device(model))
+    table = tokenize_class_templates(tokenizer, classnames, templates)
+    if packing and packing < table.shape[1]:
+        raise ValueError(f"packing={packing} < token context {table.shape[1]}")
+    dev = _device(model)
     chunk = chunk_classes * num_templates
     outs = []
-    for start in range(0, tokens.shape[0], chunk):
-        feats = clip_mod.encode_text(model, tokens[start:start + chunk], normalize=True,
-                                     attention=attention)
+    for start in range(0, table.shape[0], chunk):
+        block = table[start:start + chunk]
+        if packing:
+            pk = pack_token_rows(block, token_lengths(block), packing)
+            feats = clip_mod.encode_text_packed(
+                model, *(torch.from_numpy(a).to(dev) for a in pk), normalize=True,
+                attention=attention)
+        else:
+            feats = clip_mod.encode_text(model, torch.from_numpy(block).to(dev), normalize=True,
+                                         attention=attention)
         feats = feats.reshape(-1, num_templates, feats.shape[-1]).mean(dim=1)
         outs.append(l2_normalize(feats))
     return torch.cat(outs).T

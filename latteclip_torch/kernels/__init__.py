@@ -2,10 +2,12 @@
 
 Port of ``latteclip_tpu/kernels/__init__.py`` (``attention_core_qkv`` and
 ``attention_core_qkv_segmented``). The route follows the JAX package's rule:
-where JAX runs its Pallas kernel (head_dim 64 or 128), a bf16 CUDA tensor runs
-the Hopper kernel; where JAX goes to XLA, the port runs the kernel's plain
-version. A CPU tensor always runs the plain version. ``attention="plain"``
-forces the plain version on the card too, for comparisons.
+where JAX runs its Pallas kernels (head_dim 64 or 128), a bf16 CUDA tensor
+runs the Hopper kernels, forward and, under autograd, backward (the
+``torch.autograd.Function``s of :mod:`.attention`); where JAX goes to XLA,
+the port runs the forward kernel's plain version and autograd differentiates
+it. A CPU tensor always runs the plain version. ``attention="plain"`` forces
+the plain version on the card too, for comparisons.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import torch
 
 from latteclip_torch.kernels.attention import (
     KERNEL_HEAD_DIMS,
-    flash_attention_qkv,
-    flash_attention_qkv_segmented,
+    FlashAttention,
+    FlashAttentionSegmented,
     flash_fwd_plain,
     flash_fwd_seg_plain,
 )
@@ -35,7 +37,7 @@ def attention_core_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False,
                        attention: str = "kernel") -> torch.Tensor:
     """Attention on the packed projection ``qkv [B, L, 3*H*D]`` -> ``[B, L, H*D]``."""
     if kernel_route(qkv.shape[-1], num_heads, qkv.dtype, qkv.device, attention):
-        return flash_attention_qkv(qkv.contiguous(), num_heads, causal)[0]
+        return FlashAttention.apply(qkv.contiguous(), num_heads, causal)[0]
     return flash_fwd_plain(qkv, num_heads, causal)[0]
 
 
@@ -45,5 +47,5 @@ def attention_core_qkv_segmented(qkv: torch.Tensor, num_heads: int, seg_ids: tor
     ``seg_ids [R, P]`` (0 = padding) -> ``[R, P, H*D]``."""
     if kernel_route(qkv.shape[-1], num_heads, qkv.dtype, qkv.device, attention):
         seg = seg_ids.to(torch.int32).contiguous()
-        return flash_attention_qkv_segmented(qkv.contiguous(), num_heads, seg, causal)[0]
+        return FlashAttentionSegmented.apply(qkv.contiguous(), seg, num_heads, causal)[0]
     return flash_fwd_seg_plain(qkv, seg_ids, num_heads, causal)[0]

@@ -50,13 +50,13 @@
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <climits>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace latteclip;
 
 constexpr int SHORT_ROW = 128;  // rows up to this many tokens stay whole in shared memory
 constexpr int LONG_BLOCK_M = 64;  // query rows per CTA on longer rows
@@ -64,62 +64,12 @@ constexpr int LONG_BLOCK_N = 64;  // keys per shared-memory tile on longer rows
 constexpr int MAX_THREADS = 2 * SHORT_ROW;  // one warp per 16 query rows
 constexpr float MASKED = -1e9f;
 
-__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
-
 // Query rows per CTA, and key rows per shared-memory tile, for a row of L tokens.
 __host__ __device__ constexpr int block_rows(int block_n, int L) {
   return block_n >= L ? round16(L) : LONG_BLOCK_M;
 }
 __host__ __device__ constexpr int tile_rows(int block_n, int L) {
   return block_n < round16(L) ? block_n : round16(L);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global->shared copy; copies zeros when !valid.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
 }
 
 // Shared memory: seg ids of one key tile, then Q (later the output), K, V.
@@ -386,20 +336,12 @@ template <int D, int BLOCK_N, bool SEG, bool CAUSAL>
 int launch(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
            float qscale, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D, BLOCK_N, SEG, CAUSAL>;
-  // Allow the most dynamic shared memory this instantiation can take, once
-  // per device: the setting belongs to the current device's context.
-  constexpr int MAX_DEVICES = 64;
+  // the most dynamic shared memory this instantiation can take
   static bool allowed[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(
+      kernel, (int)smem_bytes<D, BLOCK_N>(BLOCK_N == SHORT_ROW ? SHORT_ROW : LONG_BLOCK_M),
+      allowed);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES || !allowed[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<D, BLOCK_N>(BLOCK_N == SHORT_ROW ? SHORT_ROW : LONG_BLOCK_M));
-    if (err != cudaSuccess) return (int)err;
-    if (dev < MAX_DEVICES) allowed[dev] = true;
-  }
   const int block_m = block_rows(BLOCK_N, L);
   const long blocks = (long)B * H * ((L + block_m - 1) / block_m);
   if (B <= 0 || L <= 0 || H <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 """CLIP model: module, seeded init and the encode functions.
 
 Port of ``latteclip_tpu/models/clip.py`` (``init_clip_params``,
-``encode_image``, ``encode_text``) for the native ViT and text towers. The
+``encode_image``, ``encode_text``, ``encode_text_packed``) for the native ViT
+and text towers. The
 module's state dict has OpenCLIP's layout (``visual.*``,
 ``transformer.resblocks.{i}.*``, ``token_embedding.weight``,
 ``positional_embedding``, ``ln_final.*``, ``text_projection``,
@@ -17,7 +18,7 @@ from torch import nn
 from latteclip_torch.config import CLIPConfig
 from latteclip_torch.device import resolve_device
 from latteclip_torch.models import layers
-from latteclip_torch.models.text import text_forward
+from latteclip_torch.models.text import text_forward, text_forward_packed
 from latteclip_torch.models.vit import VisionTransformer, vit_forward
 
 
@@ -98,4 +99,16 @@ def encode_text(model: CLIP, tokens: torch.Tensor, *, normalize: bool = False,
     cfg = model.cfg
     feats = text_forward(model, tokens, dtype=model.compute_dtype,
                          quick_gelu=cfg.quick_gelu, attention=attention)
+    return layers.l2_normalize(feats) if normalize else feats
+
+
+def encode_text_packed(model: CLIP, tokens: torch.Tensor, positions: torch.Tensor,
+                       seg_ids: torch.Tensor, eot_row: torch.Tensor, eot_col: torch.Tensor, *,
+                       normalize: bool = False, attention: str = "kernel") -> torch.Tensor:
+    """Rows packed by :mod:`latteclip_torch.data.packing` -> features
+    [N, embed_dim] (float32), as :func:`encode_text` gives on the padded rows."""
+    cfg = model.cfg
+    feats = text_forward_packed(model, tokens, positions, seg_ids, eot_row, eot_col,
+                                dtype=model.compute_dtype, quick_gelu=cfg.quick_gelu,
+                                attention=attention)
     return layers.l2_normalize(feats) if normalize else feats

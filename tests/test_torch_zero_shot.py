@@ -62,8 +62,14 @@ def test_template_classifier_matches_jax(shared):
                                          chunk_classes=2)
     assert ours.shape == ref.shape == (jcfg.embed_dim, len(CLASSNAMES))
     np.testing.assert_allclose(ours.numpy(), ref, atol=TOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        zs.build_zero_shot_classifier(model, get_tokenizer(), CLASSNAMES, TEMPLATES, packing=128)
+    # the packed text tower gives the same classifier as JAX's packed build
+    ref_packed = np.asarray(jax_zs.build_zero_shot_classifier(
+        params, jcfg, jax_get_tokenizer(), CLASSNAMES, TEMPLATES, chunk_classes=2, packing=128))
+    ours_packed = zs.build_zero_shot_classifier(model, get_tokenizer(), CLASSNAMES, TEMPLATES,
+                                                chunk_classes=2, packing=128)
+    np.testing.assert_allclose(ours_packed.numpy(), ref_packed, atol=TOL, rtol=0)
+    with pytest.raises(ValueError, match="packing"):
+        zs.build_zero_shot_classifier(model, get_tokenizer(), CLASSNAMES, TEMPLATES, packing=64)
 
 
 def test_prototype_classifier_and_eval_match_jax(shared):
