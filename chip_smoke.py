@@ -21,11 +21,17 @@ Phases, each raising on failure:
    (F.scaled_dot_product_attention, its forward or its backward alone, timed
    only) and the bound max(FLOP / 989e12, bytes / 3.35e12). Besides the
    serving and synthetic shapes, the cases take the train phase's own segment
-   ids (packed captions and templates) and batch shapes. Every backward case
+   ids (packed captions and templates) and batch shapes. Every K3/K4 case
    of at most 128 tokens also checks and times the tiled kernel pair that
    longer rows take (flash_bwd.cu built a second time with
    -DLATTECLIP_BWD_SHORT_ROW=0) beside the one-CTA-per-(row, head) kernel,
-   in the order row, tiled, tiled, row;
+   in the order row, tiled, tiled, row. The head-split forward and backward
+   (K5, K6) and the block-diagonal forward (K7) take the whole-row cases of
+   at most 197 (K7: 128) tokens; K6's case also times the copy that re-merges
+   its [3, B, L, H*D] gradient. The fused LayerNorm -> linear kernel (K8)
+   takes the padded train step's LN -> projection pairs and the classifier
+   build's, held as bf16 out is; its control zeroes one 16-output block of
+   W, and its yardstick is the port's unfused route, dense(layer_norm(x));
 4. slice: ViT-B/32 zero-shot classification at full width from seeded random
    weights: the 1000-class ImageNet template classifier, run_zero_shot_eval
    over four batches of 256 images and one of 255, and the prototype
@@ -35,7 +41,10 @@ Phases, each raising on failure:
    image features and classifier columns must agree with cosine >= 0.999 and
    prototype top-1 on >= 99% of rows. A torch.profiler trace of the
    classifier build and of the eval gives each one's device busy time and
-   idle share, and its device time by kind;
+   idle share, and its device time by kind. The classifier build then runs
+   on each other route, head-split attention with the fused LayerNorm ->
+   linear (K5, K8) and block-diagonal attention (K7), counted, and its
+   columns must agree with the plain build's at cosine >= 0.999;
 5. train: the LatteCLIP v2 train step at ViT-B/32 full width and depth,
    batch 512, 47 classes (DTD's count), AdamW with a constant schedule, the
    colour augment on: warm-up and 10 timed steps with the captions and
@@ -44,11 +53,16 @@ Phases, each raising on failure:
    launch counters are set to 0 just before each route's timed steps and read
    just after; each route must launch exactly the kernels of its attention
    sites, once a layer and step: packed K2 = K4 = 12 + 2 x 12 a step and no
-   K1/K3; padded K1 = K3 = 2 x 12 and K2 = K4 = 12 (vision pairs). Every loss
+   K1/K3; padded K1 = K3 = 2 x 12 and K2 = K4 = 12 (vision pairs). Two more
+   padded routes follow: padded_hs (attention="headsplit",
+   ln_linear="fused"), K5 = K6 = 2 x 12, K2 = K4 = 12, K8 = 2 x 36 and no
+   K1/K3/K7, and padded_bd (attention="blockdiag"), K7 = K3 = 2 x 12,
+   K2 = K4 = 12 and no K1/K5/K6/K8. Every loss
    must be finite, logit_scale in [0, ln 100] and the bank rows unit-norm.
    10 steps with the plain attention forced give its rate and must launch
    nothing. From one copied state and one batch with augment off, the kernel
-   and plain routes must agree: loss within 1e-2 relative, the flattened
+   and plain routes must agree, and each of padded_hs and padded_bd with the
+   padded route: loss within 1e-2 relative, the flattened
    gradient with cosine >= 0.99, the updated bank row by row with cosine >=
    0.999. A torch.profiler trace of one step of each route gives its device
    busy time, idle share and device time by kind, attention forward and
@@ -88,12 +102,20 @@ SOURCES = {
     "flash_fwd_seg": "latteclip_torch/kernels/csrc/flash_fwd.cu",
     "flash_bwd": "latteclip_torch/kernels/csrc/flash_bwd.cu",
     "flash_bwd_seg": "latteclip_torch/kernels/csrc/flash_bwd.cu",
+    "flash_fwd_hs": "latteclip_torch/kernels/csrc/flash_fwd.cu",
+    "flash_bwd_hs": "latteclip_torch/kernels/csrc/flash_bwd.cu",
+    "flash_fwd_bd": "latteclip_torch/kernels/csrc/flash_fwd.cu",
+    "ln_linear": "latteclip_torch/kernels/csrc/ln_linear.cu",
 }
 REPLACES = {
     "flash_fwd": "latteclip_tpu/kernels/attention.py:318",      # _fwd_kernel
     "flash_fwd_seg": "latteclip_tpu/kernels/attention.py:415",  # _fwd_kernel_seg
     "flash_bwd": "latteclip_tpu/kernels/attention.py:340",      # _bwd_kernel
     "flash_bwd_seg": "latteclip_tpu/kernels/attention.py:435",  # _bwd_kernel_seg
+    "flash_fwd_hs": "latteclip_tpu/kernels/attention.py:235",   # _fwd_kernel_hs
+    "flash_bwd_hs": "latteclip_tpu/kernels/attention.py:264",   # _bwd_kernel_hs
+    "flash_fwd_bd": "latteclip_tpu/kernels/attention.py:617",   # _fwd_kernel_bd
+    "ln_linear": "latteclip_tpu/kernels/fused_ln_linear.py:32",  # _kernel
 }
 LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
@@ -184,8 +206,13 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     qkv = draw_qkv(gen, B, L, H, D)
     seg = None if seg_np is None else torch.from_numpy(seg_np).cuda()
     if seg is None:
-        kernel = lambda: A.flash_attention_qkv(qkv, H, causal)  # noqa: E731
-        plain_of = lambda x: A.flash_fwd_plain(x, H, causal)  # noqa: E731
+        wrapper, plain_fn = {
+            "flash_fwd": (A.flash_attention_qkv, A.flash_fwd_plain),
+            "flash_fwd_hs": (A.flash_attention_qkv_hs, A.flash_fwd_hs_plain),
+            "flash_fwd_bd": (A.flash_attention_qkv_bd, A.flash_fwd_bd_plain),
+        }[name]
+        kernel = lambda: wrapper(qkv, H, causal)  # noqa: E731
+        plain_of = lambda x: plain_fn(x, H, causal)  # noqa: E731
     else:
         kernel = lambda: A.flash_attention_qkv_segmented(qkv, H, seg, causal)  # noqa: E731
         plain_of = lambda x: A.flash_fwd_seg_plain(x, seg, H, causal)  # noqa: E731
@@ -268,7 +295,13 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
     qkv = draw_qkv(gen, B, L, H, D)
     dout = torch.randn((B, L, H * D), generator=gen, device="cuda").to(torch.bfloat16)
     seg = None if seg_np is None else torch.from_numpy(seg_np).cuda()
-    if seg is None:
+    as_qkv = lambda d: d  # noqa: E731  (the gradient in the layout of qkv)
+    if name == "flash_bwd_hs":  # dqkv3 [3, B, L, H*D], re-merged for the checks
+        out, lse2 = A.flash_attention_qkv_hs(qkv, H, causal)
+        kernel = lambda: A.flash_attention_qkv_hs_bwd(qkv, out, dout, lse2, H, causal)  # noqa: E731
+        plain_of = lambda x: A.flash_bwd_hs_plain(x, out, dout, lse2, H, causal)  # noqa: E731
+        as_qkv = A.merge_dqkv
+    elif seg is None:
         out, lse2 = A.flash_attention_qkv(qkv, H, causal)
         kernel = lambda: A.flash_attention_qkv_bwd(qkv, out, dout, lse2, H, causal)  # noqa: E731
         plain_of = lambda x: A.flash_bwd_plain(x, out, dout, lse2, H, causal)  # noqa: E731
@@ -279,14 +312,15 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         plain_of = lambda x: A.flash_bwd_seg_plain(x, seg, out, dout, lse2, H, causal)  # noqa: E731
     pairs, mask = visibility(B, L, causal, seg)
     plain = lambda: plain_of(qkv)  # noqa: E731
-    ours, ref = kernel(), plain()
+    ours3, ref3 = kernel(), plain()
+    ours, ref = as_qkv(ours3), as_qkv(ref3)
     torch.cuda.synchronize()
     ok, errs = grad_check(ours, ref, H, D)
     ok = ok and bool(torch.isfinite(ours.float()).all())
     # control: the check must see the values of one 16-key block dropped
     dropped = qkv.clone()
     dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
-    control_ok, control_errs = grad_check(plain_of(dropped), ref, H, D)
+    control_ok, control_errs = grad_check(as_qkv(plain_of(dropped)), ref, H, D)
 
     # library yardstick: SDPA's backward alone, same mask, timed only
     q, k, v = (t.detach().clone().requires_grad_(True)
@@ -297,7 +331,9 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
     del o, q, k, v
     design = None
-    if L <= ROW_MAX:
+    # the head-split gradient's re-merge into the layout of qkv: a copy
+    merge_ms = timer(lambda: A.merge_dqkv(ours3)) if name == "flash_bwd_hs" else None
+    if L <= ROW_MAX and name in ("flash_bwd", "flash_bwd_seg"):
         tiled = lambda: tiled_bwd(tiled_lib, qkv, seg, out, dout, lse2, H, causal)  # noqa: E731
         tiled_ok, tiled_errs = grad_check(tiled(), ref, H, D)
         ok = ok and tiled_ok
@@ -311,6 +347,44 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         "name": name, "shape": [B, L, 3 * H * D], "heads": H, "head_dim": D, "causal": causal,
         "max_abs_err": float((ours.float() - ref.float()).abs().max()), "grad_err": errs, "ok": ok,
         "control_grad_err": control_errs, "control_rejected": not control_ok, "design": design,
+        "merge_ms": merge_ms,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+    }
+    rec["bound_share"] = rec["bound_ms"] / ms
+    log("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def ln_case(name, B, L, D, O, timer, gen):
+    """The fused LayerNorm -> linear kernel against its plain version on
+    x [B, L, D] ~ N(0, 1), W [O, D] ~ N(0, 1/D), LayerNorm scale ~ 1 +
+    N(0, 0.1^2), biases ~ N(0, 0.1^2); yardstick the unfused route."""
+    from latteclip_torch.kernels import fused_ln_linear as FL
+
+    x = torch.randn((B, L, D), generator=gen, device="cuda").to(torch.bfloat16)
+    ln_w = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    ln_b, wb = (0.1 * torch.randn(n, generator=gen, device="cuda") for n in (D, O))
+    w = torch.randn((O, D), generator=gen, device="cuda") * D ** -0.5
+    kernel = lambda: FL.fused_ln_linear(x, ln_w, ln_b, w, wb)  # noqa: E731
+    plain = lambda: FL.fused_ln_linear_plain(x, ln_w, ln_b, w, wb)  # noqa: E731
+    library = lambda: FL.dense(FL.layer_norm(x, ln_w, ln_b), w, wb, torch.bfloat16)  # noqa: E731
+    y, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, rel = out_check(y, ref)
+    ok = ok and bool(torch.isfinite(y.float()).all())
+    dropped = w.clone()  # control: one 16-output block of W zeroed
+    dropped[O // 2:O // 2 + 16] = 0
+    control_ok, rel_dropped = out_check(FL.fused_ln_linear_plain(x, ln_w, ln_b, dropped, wb), ref)
+    ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    M = B * L
+    flops = 2 * M * D * O
+    nbytes = M * D * 2 + O * D * 4 + M * O * 2 + (2 * D + O) * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    rec = {
+        "name": "ln_linear", "site": name, "shape": [B, L, D], "outputs": O,
+        "max_abs_err": float((y.float() - ref.float()).abs().max()), "out_rel_err": rel, "ok": ok,
+        "control_rel_err": rel_dropped, "control_rejected": not control_ok,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
     }
@@ -360,9 +434,34 @@ def phase_kernels(train, tiled_lib):
         ("flash_bwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_bwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
     ]
+    # the head-split and block-diagonal routes at K1/K3's whole-row cases
+    whole_rows = [
+        (1000, 77, 8, 64, True, None),                  # text classifier build
+        (2 * TRAIN_BATCH, 77, Ht, Dt, True, None),      # train captions, padded
+        (n_cls, 77, Ht, Dt, True, None),                # train templates, padded
+        (255, 50, 12, 64, False, None),                 # odd vision batch
+        (64, 197, 12, 64, False, None),                 # ViT-B/16 vision
+        (64, 197, 6, 128, False, None),                 # head_dim 128
+    ]
+    cases += [("flash_fwd_hs", *c) for c in whole_rows]
+    cases += [("flash_fwd_bd", *c) for c in whole_rows if c[1] <= ROW_MAX]
+    bwd_cases += [("flash_bwd_hs", *c) for c in [whole_rows[1], whole_rows[0], *whole_rows[2:]]]
+    # the padded train step's LN -> projection pairs, then the classifier build's
+    mlp_v, mlp_t = int(vision.width * vision.mlp_ratio), int(text.width * text.mlp_ratio)
+    ln_cases = [
+        ("vision in_proj", TRAIN_BATCH // 2, 100, vision.width, 3 * vision.width),
+        ("vision c_fc", TRAIN_BATCH // 2, 100, vision.width, mlp_v),
+        ("captions in_proj", 2 * TRAIN_BATCH, 77, text.width, 3 * text.width),
+        ("captions c_fc", 2 * TRAIN_BATCH, 77, text.width, mlp_t),
+        ("templates in_proj", n_cls, 77, text.width, 3 * text.width),
+        ("templates c_fc", n_cls, 77, text.width, mlp_t),
+        ("classifier in_proj", 1000, 77, text.width, 3 * text.width),
+        ("classifier c_fc", 1000, 77, text.width, mlp_t),
+    ]
     records = [kernel_case(n, B, L, H, D, c, s, timer, gen) for n, B, L, H, D, c, s in cases]
     records += [bwd_case(n, B, L, H, D, c, s, timer, gen, tiled_lib)
                 for n, B, L, H, D, c, s in bwd_cases]
+    records += [ln_case(n, B, L, D, O, timer, gen) for n, B, L, D, O in ln_cases]
     del timer
     torch.cuda.empty_cache()
     bad = [(r["name"], r["shape"], r["max_abs_err"], r.get("out_rel_err"), r.get("max_abs_err_lse2"),
@@ -373,7 +472,7 @@ def phase_kernels(train, tiled_lib):
     blind = [(r["name"], r["shape"], r.get("control_rel_err"), r.get("control_grad_err"))
              for r in records if not r["control_rejected"]]
     if blind:
-        raise RuntimeError(f"a check missed a dropped value block (name, shape, errors): {blind}")
+        raise RuntimeError(f"a check missed a dropped value or weight block (name, shape, errors): {blind}")
     return records
 
 
@@ -450,6 +549,7 @@ def device_profile(fn) -> dict:
         name = ev.name.lower()
         kind = ("attention fwd" if "flash_fwd" in name else
                 "attention bwd" if "flash_bwd" in name else
+                "ln_linear" if "ln_linear" in name else
                 "memcpy" if "memcpy" in name or "memset" in name else
                 "gemm" if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")) else "other")
         us = ev.time_range.elapsed_us()
@@ -475,7 +575,6 @@ def phase_slice(smi: str):
     from latteclip_torch.data import transforms as T
     from latteclip_torch.data.eval_dataset import get_templates, imagenet_classnames
     from latteclip_torch.eval import zero_shot as zs
-    from latteclip_torch.kernels import attention as A
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.models.tokenizer import get_tokenizer
 
@@ -500,19 +599,19 @@ def phase_slice(smi: str):
         run_requests(model, tok, classnames, templates, [batches[0], batches[-1]], bank, attention)
 
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
+    reset_counts()
     fast = run_requests(model, tok, classnames, templates, batches, bank, "kernel")
-    launches = dict(A.launch_counts)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"slice kernels: {json.dumps(launches)}")
     for name in ("flash_fwd", "flash_fwd_seg"):  # serving runs no backward
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched on the ViT-B/32 path")
 
-    A.reset_launch_counts()
+    reset_counts()
     slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
-    if any(A.launch_counts.values()):
-        raise RuntimeError(f"plain run launched kernels: {A.launch_counts}")
+    if any(read_counts().values()):
+        raise RuntimeError(f"plain run launched kernels: {read_counts()}")
 
     # where the time of each request goes, kernel route (not counted)
     for request, fn in (
@@ -562,6 +661,10 @@ def phase_slice(smi: str):
         raise RuntimeError("classifier columns are not unit-norm")
     clf_cos = float(F.cosine_similarity(clf, slow["classifier"], dim=0).min())
     proto_same = float((fast["proto_logits"].argmax(-1) == slow["proto_logits"].argmax(-1)).float().mean())
+    builds = route_builds(model, tok, classnames, templates, slow["classifier"], cfg.text.layers)
+    for build in builds.values():
+        for name, n in build["launches"].items():
+            launches[name] += n
     m = fast["metrics"]
     if m["n"] != sum(b[3] for b in batches) or not all(0.0 <= m[k] <= 1.0 for k in ("top1", "top5", "top10")):
         raise RuntimeError(f"bad eval metrics {m}")
@@ -575,14 +678,52 @@ def phase_slice(smi: str):
         "classifier_build_s": fast["classifier_build_s"],
         "classifier_build_s_plain": slow["classifier_build_s"],
         "eval_images_per_s": fast["images_per_s"], "eval_images_per_s_plain": slow["images_per_s"],
-        "max_memory_allocated": peak, "card": smi,
+        "route_builds": builds, "max_memory_allocated": peak, "card": smi,
     }
     log("slice " + json.dumps(report))
     if cos_min < 0.999 or clf_cos < 0.999:
         raise RuntimeError(f"features disagree: min cosine {cos_min} (images), {clf_cos} (classifier)")
+    bad = {k: b["classifier_cos_min"] for k, b in builds.items() if b["classifier_cos_min"] < 0.999}
+    if bad:
+        raise RuntimeError(f"route classifier builds disagree with the plain build: {bad}")
     if agree / rows < 0.99:
         raise RuntimeError(f"top-1 agrees on only {agree / rows:.4f} of rows")
     return launches
+
+
+# (route, attention, ln_linear, launches per text layer of one padded build)
+BUILD_ROUTES = (
+    ("headsplit_fused", "headsplit", "fused", {"flash_fwd_hs": 1, "ln_linear": 2}),
+    ("blockdiag", "blockdiag", "unfused", {"flash_fwd_bd": 1}),
+)
+
+
+def route_builds(model, tok, classnames, templates, plain_classifier, text_layers):
+    """The 1000-class classifier build on each other route: seconds,
+    launches (exactly the route's kernels, once a text layer) and the
+    minimum column cosine against the plain build."""
+    from latteclip_torch.eval import zero_shot as zs
+
+    builds = {}
+    for route, attention, ln_linear, per_layer in BUILD_ROUTES:
+        kwargs = {"chunk_classes": len(classnames), "attention": attention, "ln_linear": ln_linear}
+        zs.build_zero_shot_classifier(model, tok, classnames, templates, **kwargs)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = zs.build_zero_shot_classifier(model, tok, classnames, templates, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        want = {**dict.fromkeys(launches, 0), **{k: n * text_layers for k, n in per_layer.items()}}
+        if launches != want:
+            raise RuntimeError(f"{route} classifier build launched {launches}, expected {want}")
+        builds[route] = {
+            "attention": attention, "ln_linear": ln_linear, "classifier_build_s": seconds,
+            "launches": launches,
+            "classifier_cos_min": float(F.cosine_similarity(clf, plain_classifier, dim=0).min()),
+        }
+    return builds
 
 
 # -- phase 5: the ViT-B/32 train step ------------------------------------------
@@ -640,13 +781,13 @@ def check_state(state, losses, where):
                            f"bank row norms {float(norms.min())}..{float(norms.max())}")
 
 
-def route_gradients(model, hp, batch, images, state, table, packed, attention):
+def route_gradients(model, hp, batch, images, state, table, packed, attention, ln_linear="unfused"):
     """(loss, flattened gradient, updated bank) of one forward and backward."""
     from latteclip_torch.train import step as S
 
     model.zero_grad(set_to_none=True)
     loss, aux = S.latteclip_loss_fn(model, hp, batch, images, state.memory_bank, state.prototypes,
-                                    table, packed, attention=attention)
+                                    table, packed, attention=attention, ln_linear=ln_linear)
     loss.backward()
     grad = torch.cat([p.grad.flatten().float() for p in model.parameters()])
     bank = S.update_memory_bank(state.memory_bank, aux["preds"], aux["zs_preds"],
@@ -676,14 +817,25 @@ def train_inputs() -> dict:
             "tpl": pack_template_table(table, PACK_LEN), "batches": batches}
 
 
+def reset_counts() -> None:
+    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL
+
+    A.reset_launch_counts()
+    FL.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL
+
+    return {**A.launch_counts, **FL.launch_counts}
+
+
 def counted_steps(step_fn, state, batches, gen, n):
     """n timed steps with the launch counters set to 0 just before and read
     just after: (images/s, losses, launches)."""
-    from latteclip_torch.kernels import attention as A
-
-    A.reset_launch_counts()
+    reset_counts()
     ips, losses = timed_steps(step_fn, state, batches, gen, n)
-    return ips, losses, dict(A.launch_counts)
+    return ips, losses, read_counts()
 
 
 def phase_train(smi: str, train: dict):
@@ -696,13 +848,18 @@ def phase_train(smi: str, train: dict):
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = TRAIN_STEPS
-    # each attention site launches its forward and backward kernel once a layer
+    # each attention site launches its forward and backward kernel once a
+    # layer, and each of its two LN -> projection pairs its fused kernel
     text_sites, vision_sites = 2 * cfg.text.layers, cfg.vision.layers  # captions + templates
+    segmented = {"flash_fwd_seg": n * vision_sites, "flash_bwd_seg": n * vision_sites}
     expected = {
-        "packed": {"flash_fwd": 0, "flash_fwd_seg": n * (vision_sites + text_sites),
-                   "flash_bwd": 0, "flash_bwd_seg": n * (vision_sites + text_sites)},
-        "padded": {"flash_fwd": n * text_sites, "flash_fwd_seg": n * vision_sites,
-                   "flash_bwd": n * text_sites, "flash_bwd_seg": n * vision_sites},
+        "packed": {"flash_fwd_seg": n * (vision_sites + text_sites),
+                   "flash_bwd_seg": n * (vision_sites + text_sites)},
+        "padded": {"flash_fwd": n * text_sites, "flash_bwd": n * text_sites, **segmented},
+        "padded_hs": {"flash_fwd_hs": n * text_sites, "flash_bwd_hs": n * text_sites, **segmented,
+                      "ln_linear": 2 * n * (vision_sites + text_sites)},
+        "padded_bd": {"flash_fwd_bd": n * text_sites, "flash_bwd": n * text_sites, **segmented},
+        "plain": {},
     }
 
     bank = St.init_memory_bank(model, tok, classes, templates)
@@ -710,24 +867,31 @@ def phase_train(smi: str, train: dict):
         model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
     packed_step = S.make_train_step(model, S.LatteHParams(text_packing=True), table,
                                     T.AugConfig(), template_packed=tpl)
-    padded_step = S.make_train_step(model, S.LatteHParams(text_packing=False), table, T.AugConfig())
+    padded = S.LatteHParams(text_packing=False)
+    padded_step = S.make_train_step(model, padded, table, T.AugConfig())
+    padded_routes = {"padded": ("kernel", "unfused"), "padded_hs": ("headsplit", "fused"),
+                     "padded_bd": ("blockdiag", "unfused")}
+    hs_step = S.make_train_step(model, padded, table, T.AugConfig(), attention="headsplit",
+                                ln_linear="fused")
+    bd_step = S.make_train_step(model, padded, table, T.AugConfig(), attention="blockdiag")
     plain_step = S.make_train_step(model, S.LatteHParams(text_packing=True), table, T.AugConfig(),
                                    template_packed=tpl, attention="plain")
+    steps = (("packed", packed_step, 3), ("padded", padded_step, 1), ("padded_hs", hs_step, 1),
+             ("padded_bd", bd_step, 1), ("plain", plain_step, 1))
     routes = {}
-    for route, step_fn, warm in (("packed", packed_step, 3), ("padded", padded_step, 1),
-                                 ("plain", plain_step, 1)):
+    for route, step_fn, warm in steps:
         _, warm_losses = timed_steps(step_fn, state, batches, gen, warm)
         torch.cuda.reset_peak_memory_stats()
         ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
         routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
                          "max_memory_allocated": torch.cuda.max_memory_allocated()}
         log(f"train kernels {route}: {json.dumps(launches)}")
-        want = expected.get(route, dict.fromkeys(launches, 0))  # the plain route launches nothing
+        want = {**dict.fromkeys(launches, 0), **expected[route]}
         if launches != want:
             raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
         check_state(state, warm_losses + losses, f"{route} route")
 
-    for route, step_fn in (("packed", packed_step), ("padded", padded_step), ("plain", plain_step)):
+    for route, step_fn, _ in steps:
         profile = device_profile(lambda: step_fn(state, batches[0], gen))
         routes[route]["device_busy_ms_per_step"] = profile["device_busy_ms"]
         log(f"profile train_step_{route} " + json.dumps(profile))
@@ -749,26 +913,39 @@ def phase_train(smi: str, train: dict):
         "grad_norm_kernel": float(grad_k.norm()), "grad_norm_plain": float(grad_p.norm()),
         "bank_row_cos_min": float(F.cosine_similarity(bank_k, bank_p, dim=1).min()),
     }
+    # each other padded route against the padded route, same state and batch
+    hp_padded = S.LatteHParams(augment=False, text_packing=False)
+    padded_runs = {route: route_gradients(copy.deepcopy(model), hp_padded, batch, images, state,
+                                          table_t, None, attention, ln_linear)
+                   for route, (attention, ln_linear) in padded_routes.items()}
+    loss_r, grad_r, bank_r = padded_runs["padded"]
+    route_agreement = {
+        route: {"loss": loss, "loss_padded": loss_r, "loss_rel_diff": abs(loss - loss_r) / abs(loss_r),
+                "grad_cos": float(F.cosine_similarity(grad, grad_r, dim=0)),
+                "bank_row_cos_min": float(F.cosine_similarity(bank, bank_r, dim=1).min())}
+        for route, (loss, grad, bank) in padded_runs.items() if route != "padded"}
+    del padded_runs
     report = {
         "model": cfg.name, "batch": TRAIN_BATCH, "classes": len(classes), "steps_per_route": n,
         "caption_rows_per_batch": [int(b["cap_tokens"].shape[0]) for b in batches],
         "template_rows_packed": int(tpl.tokens.shape[0]),
         "routes": routes, "logit_scale": float(state.model.logit_scale.detach()),
-        "agreement": agreement, "card": smi,
+        "agreement": agreement, "route_agreement": route_agreement, "card": smi,
     }
     log("train " + json.dumps(report))
-    if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
-            or agreement["bank_row_cos_min"] < 0.999):
-        raise RuntimeError(f"kernel and plain routes disagree: {agreement}")
-    return {k: routes["packed"]["launches"][k] + routes["padded"]["launches"][k]
-            for k in routes["packed"]["launches"]}
+    for name, a in {"kernel and plain routes": agreement, **{
+            f"{route} and padded routes": a for route, a in route_agreement.items()}}.items():
+        if a["loss_rel_diff"] > 1e-2 or a["grad_cos"] < 0.99 or a["bank_row_cos_min"] < 0.999:
+            raise RuntimeError(f"{name} disagree: {a}")
+    return {k: sum(r["launches"][k] for r in routes.values()) for k in routes["packed"]["launches"]}
 
 
 def ptxas_usage(lines) -> dict:
     """{kernel<template args>: "N registers, S bytes spilled"} from -Xptxas -v."""
     usage, kernel = {}, None
     for line in lines:
-        m = re.search(r"Compiling entry function '\S*?\d(flash_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+)?", line)
+        m = re.search(r"Compiling entry function '\S*?\d((?:flash|ln)_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+)?",
+                      line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             kernel = m.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -819,7 +996,7 @@ def main() -> int:
     train_launches = phase_train(smi, train)
 
     kernels = []
-    for name in ("flash_fwd", "flash_fwd_seg", "flash_bwd", "flash_bwd_seg"):
+    for name in SOURCES:
         rec = next(r for r in records if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -47,10 +47,12 @@ def build_zero_shot_classifier(
     chunk_classes: int = 64,
     packing: int = 0,
     attention: str = "kernel",
+    ln_linear: str = "unfused",
 ) -> torch.Tensor:
     """Classifier weights ``[D, C]`` (template mean, L2-normalized), encoded
     ``chunk_classes`` classes at a time through the padded text tower or,
-    with ``packing`` (the pack length, e.g. 128), through the packed one."""
+    with ``packing`` (the pack length, e.g. 128), through the packed one.
+    ``attention`` and ``ln_linear`` select the towers' kernel routes."""
     num_templates = len(templates)
     table = tokenize_class_templates(tokenizer, classnames, templates)
     if packing and packing < table.shape[1]:
@@ -64,10 +66,10 @@ def build_zero_shot_classifier(
             pk = pack_token_rows(block, token_lengths(block), packing)
             feats = clip_mod.encode_text_packed(
                 model, *(torch.from_numpy(a).to(dev) for a in pk), normalize=True,
-                attention=attention)
+                attention=attention, ln_linear=ln_linear)
         else:
             feats = clip_mod.encode_text(model, torch.from_numpy(block).to(dev), normalize=True,
-                                         attention=attention)
+                                         attention=attention, ln_linear=ln_linear)
         feats = feats.reshape(-1, num_templates, feats.shape[-1]).mean(dim=1)
         outs.append(l2_normalize(feats))
     return torch.cat(outs).T
@@ -79,7 +81,7 @@ def prototype_classifier(memory_bank: torch.Tensor) -> torch.Tensor:
 
 
 def make_eval_step(model: clip_mod.CLIP, classifier: torch.Tensor, *,
-                   attention: str = "kernel"):
+                   attention: str = "kernel", ln_linear: str = "unfused"):
     """uint8 images [B, H, W, 3] (numpy or tensor) -> logits float32 [B, C]."""
     dev = _device(model)
     mean, std = T.model_mean_std(model.cfg)
@@ -88,7 +90,8 @@ def make_eval_step(model: clip_mod.CLIP, classifier: torch.Tensor, *,
     @torch.no_grad()
     def step(images_u8) -> torch.Tensor:
         images = T.normalize_images(torch.as_tensor(images_u8).to(dev), mean, std)
-        feats = clip_mod.encode_image(model, images, normalize=True, attention=attention)
+        feats = clip_mod.encode_image(model, images, normalize=True, attention=attention,
+                                      ln_linear=ln_linear)
         return 100.0 * feats @ classifier
     return step
 
@@ -100,10 +103,10 @@ def topk_counts(logits: np.ndarray, target: np.ndarray, ks=(1, 5, 10)) -> List[f
 
 
 def run_zero_shot_eval(model: clip_mod.CLIP, classifier: torch.Tensor, batches: Iterable, *,
-                       attention: str = "kernel") -> Dict[str, float]:
+                       attention: str = "kernel", ln_linear: str = "unfused") -> Dict[str, float]:
     """Top-1/5/10 over an iterator of ``(ids, uint8 images, labels, valid)``;
     only the first ``valid`` rows of a batch count."""
-    step = make_eval_step(model, classifier, attention=attention)
+    step = make_eval_step(model, classifier, attention=attention, ln_linear=ln_linear)
     top1 = top5 = top10 = n = 0.0
     for _ids, images, labels, valid in batches:
         logits = step(images)[:valid].cpu().numpy()

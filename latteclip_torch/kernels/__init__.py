@@ -8,20 +8,39 @@ runs the Hopper kernels, forward and, under autograd, backward (the
 the port runs the forward kernel's plain version and autograd differentiates
 it. A CPU tensor always runs the plain version. ``attention="plain"`` forces
 the plain version on the card too, for comparisons.
+
+The JAX package's attention switches are the other values of ``attention``.
+``"headsplit"`` (``LATTECLIP_ATTN_HEADSPLIT=1``) runs whole-row sites on the
+head-split kernels where JAX's ``_head_split`` applies (D in {64, 128},
+H divisible by 128 / D); ``"blockdiag"`` (``LATTECLIP_ATTN_BLOCKDIAG=1``)
+runs whole-row sites of at most 128 tokens and 1024 columns on the
+block-diagonal forward and the whole-row backward. Other whole-row sites of
+those routes run the whole-row kernels, as JAX does, and segmented sites
+always run the segment-masked kernels. JAX's two switches together break its
+backward (the block-diagonal forward's lse2 layout meets the head-split
+backward), a combination one ``attention`` value cannot express.
 """
 from __future__ import annotations
 
 import torch
 
 from latteclip_torch.kernels.attention import (
+    BLOCKDIAG_MAX_LEN,
+    BLOCKDIAG_MAX_WIDTH,
     KERNEL_HEAD_DIMS,
     FlashAttention,
+    FlashAttentionBlockDiag,
+    FlashAttentionHeadSplit,
     FlashAttentionSegmented,
+    flash_fwd_bd_plain,
     flash_fwd_plain,
     flash_fwd_seg_plain,
+    head_split,
 )
 
-ATTENTION_CHOICES = ("kernel", "plain")
+ATTENTION_CHOICES = ("kernel", "headsplit", "blockdiag", "plain")
+_WHOLE_ROW = {"kernel": FlashAttention, "headsplit": FlashAttentionHeadSplit,
+              "blockdiag": FlashAttentionBlockDiag}
 
 
 def kernel_route(qkv_width: int, num_heads: int, dtype: torch.dtype, device: torch.device,
@@ -29,16 +48,33 @@ def kernel_route(qkv_width: int, num_heads: int, dtype: torch.dtype, device: tor
     """True when attention at this width, dtype and device runs a CUDA kernel."""
     if attention not in ATTENTION_CHOICES:
         raise ValueError(f"attention must be one of {ATTENTION_CHOICES}, got {attention!r}")
-    return (attention == "kernel" and torch.device(device).type == "cuda"
+    return (attention != "plain" and torch.device(device).type == "cuda"
             and dtype == torch.bfloat16 and qkv_width // 3 // num_heads in KERNEL_HEAD_DIMS)
+
+
+def whole_row_route(attention: str, seq_len: int, num_heads: int, head_dim: int) -> str:
+    """The route a whole-row site of ``attention`` takes, by JAX's rule:
+    ``"headsplit"`` only where ``_head_split`` applies, ``"blockdiag"`` only
+    at L <= 128 and H*D <= 1024 (attention.py:713), else ``"kernel"``;
+    ``"plain"`` stays plain."""
+    if attention == "headsplit" and not head_split(num_heads, head_dim):
+        return "kernel"
+    if attention == "blockdiag" and (seq_len > BLOCKDIAG_MAX_LEN
+                                     or num_heads * head_dim > BLOCKDIAG_MAX_WIDTH):
+        return "kernel"
+    return attention
 
 
 def attention_core_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False,
                        attention: str = "kernel") -> torch.Tensor:
     """Attention on the packed projection ``qkv [B, L, 3*H*D]`` -> ``[B, L, H*D]``."""
-    if kernel_route(qkv.shape[-1], num_heads, qkv.dtype, qkv.device, attention):
-        return FlashAttention.apply(qkv.contiguous(), num_heads, causal)[0]
-    return flash_fwd_plain(qkv, num_heads, causal)[0]
+    _, L, HD3 = qkv.shape
+    on_kernel = kernel_route(HD3, num_heads, qkv.dtype, qkv.device, attention)
+    route = whole_row_route(attention, L, num_heads, HD3 // 3 // num_heads)
+    if on_kernel:
+        return _WHOLE_ROW[route].apply(qkv.contiguous(), num_heads, causal)[0]
+    plain = flash_fwd_bd_plain if route == "blockdiag" else flash_fwd_plain
+    return plain(qkv, num_heads, causal)[0]
 
 
 def attention_core_qkv_segmented(qkv: torch.Tensor, num_heads: int, seg_ids: torch.Tensor,

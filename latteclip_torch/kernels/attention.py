@@ -10,15 +10,30 @@ Port of ``latteclip_tpu/kernels/attention.py``:
 * ``flash_attention_qkv_bwd`` launches ``csrc/flash_bwd.cu::latteclip_flash_bwd``,
   which replaces ``_bwd_kernel`` (``_make_fa``'s backward);
 * ``flash_attention_qkv_segmented_bwd`` launches ``latteclip_flash_bwd_seg``,
-  which replaces ``_bwd_kernel_seg`` (``_make_fa_seg``'s backward).
+  which replaces ``_bwd_kernel_seg`` (``_make_fa_seg``'s backward);
+* ``flash_attention_qkv_hs`` launches ``latteclip_flash_fwd_hs``, which
+  replaces the head-split forward ``_fwd_kernel_hs``: K1's function with
+  lse2 laid out ``[H/HP, HP, B, L]`` (``HP = 128 / D`` heads per TPU program);
+* ``flash_attention_qkv_hs_bwd`` launches ``csrc/flash_bwd.cu::latteclip_flash_bwd_hs``,
+  which replaces ``_bwd_kernel_hs``: K3's gradient from that lse2 layout,
+  written as ``dqkv3 [3, B, L, H*D]``;
+* ``flash_attention_qkv_bd`` launches ``latteclip_flash_fwd_bd``, which
+  replaces the block-diagonal forward ``_fwd_kernel_bd`` (``_flash_fwd_bd``):
+  whole rows of at most 128 tokens, with that kernel's rounding (p stays f32,
+  is normalised by the f32 sum of the unrounded p, then rounded; no division
+  after the PV product).
 
 The forwards read q, k and v straight from ``qkv [B, L, 3*H*D]`` (laid out
 ``[q | k | v]``) and return ``(out [B, L, H*D], lse2 [B, H, L])``, the
 base-2 logsumexp; the backwards take those residuals and the cotangent of
 ``out`` and return ``dqkv`` in the layout of ``qkv``. ``FlashAttention`` and
 ``FlashAttentionSegmented`` pair them as ``torch.autograd.Function``s, with
-``(qkv, out, lse2)`` (and ``seg_ids``) saved, the JAX package's residuals.
-``flash_{fwd,bwd}{,_seg}_plain`` compute the same functions in plain PyTorch,
+``(qkv, out, lse2)`` (and ``seg_ids``) saved, the JAX package's residuals;
+``FlashAttentionHeadSplit`` pairs the head-split kernels and re-merges
+``dqkv3`` into the layout of ``qkv`` (JAX attention.py:842), and
+``FlashAttentionBlockDiag`` pairs the block-diagonal forward with the
+whole-row backward, as JAX does. ``flash_{fwd,bwd}{,_seg,_hs}_plain`` and
+``flash_fwd_bd_plain`` compute the same functions in plain PyTorch,
 repeating the TPU kernels' rounding step by step; the wrappers take them only
 for a tensor on the CPU, and a CUDA tensor either launches the kernel or
 raises.
@@ -34,9 +49,12 @@ import torch
 NEG_INF = -1e9
 LOG2E = math.log2(math.e)
 KERNEL_HEAD_DIMS = (64, 128)
+# the block-diagonal forward takes whole rows up to this length and width (JAX :713)
+BLOCKDIAG_MAX_LEN, BLOCKDIAG_MAX_WIDTH = 128, 1024
 
 # Launches of each kernel in this process (chip_smoke.py resets and reads them).
-launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_seg": 0}
+launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_seg": 0,
+                 "flash_fwd_hs": 0, "flash_bwd_hs": 0, "flash_fwd_bd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,11 +71,23 @@ def _split_heads(qkv: torch.Tensor, num_heads: int):
     return x[:, :, 0].transpose(1, 2), x[:, :, 1].transpose(1, 2), x[:, :, 2].transpose(1, 2), D
 
 
-def _attend_plain(qkv: torch.Tensor, num_heads: int, visible: Optional[torch.Tensor]):
+def head_split(num_heads: int, head_dim: int) -> int:
+    """Heads per TPU program of the head-split route, or 0 where that route
+    does not apply (JAX ``_head_split`` with its switch on)."""
+    if head_dim in KERNEL_HEAD_DIMS and num_heads % (128 // head_dim) == 0:
+        return 128 // head_dim
+    return 0
+
+
+def _attend_plain(qkv: torch.Tensor, num_heads: int, visible: Optional[torch.Tensor],
+                  normalize_first: bool = False):
     """The TPU kernel's arithmetic in the dtype of ``qkv``: bf16 rounding of
     the scaled q and of the probabilities, f32 scores, sums and PV. With a
     float32 ``qkv`` every step runs in float32. ``visible`` broadcasts to
-    [B, H, L, L] (True = key visible) or is None."""
+    [B, H, L, L] (True = key visible) or is None. By default p = exp2(s - m)
+    is rounded, l sums the rounded p and the PV product is divided by l
+    (``_fwd_kernel``); ``normalize_first`` keeps p in f32, sums the unrounded
+    p and rounds p / l before the product (``_fwd_kernel_bd``)."""
     dt = qkv.dtype
     B, L, _ = qkv.shape
     q, k, v, D = _split_heads(qkv, num_heads)
@@ -67,9 +97,14 @@ def _attend_plain(qkv: torch.Tensor, num_heads: int, visible: Optional[torch.Ten
     if visible is not None:
         s = s + torch.where(visible, 0.0, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m).to(dt).float()
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, v.to(dt).float()) / l
+    if normalize_first:
+        p = torch.exp2(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul((p / l).to(dt).float(), v.to(dt).float())
+    else:
+        p = torch.exp2(s - m).to(dt).float()
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p, v.to(dt).float()) / l
     out = o.to(dt).transpose(1, 2).reshape(B, L, num_heads * D)
     lse2 = (m + torch.log2(l))[..., 0]
     return out, lse2
@@ -146,6 +181,47 @@ def flash_bwd_seg_plain(qkv: torch.Tensor, seg_ids: torch.Tensor, out: torch.Ten
     return _backward_plain(qkv, out, dout, lse2, num_heads, _seg_visible(seg_ids, causal))
 
 
+def _hs_lse_shape(B: int, L: int, num_heads: int, head_dim: int) -> Tuple[int, int, int, int]:
+    """``[H/HP, HP, B, L]``, the head-split kernels' lse2 layout."""
+    hp = head_split(num_heads, head_dim)
+    if not hp:
+        raise ValueError(f"the head-split route needs head_dim in {KERNEL_HEAD_DIMS} and "
+                         f"num_heads divisible by 128 / head_dim, got {num_heads} x {head_dim}")
+    return num_heads // hp, hp, B, L
+
+
+def flash_fwd_hs_plain(qkv: torch.Tensor, num_heads: int, causal: bool):
+    """Plain version of ``_fwd_kernel_hs``: ``(out, lse2 [H/HP, HP, B, L])``."""
+    B, L, HD3 = qkv.shape
+    out, lse2 = flash_fwd_plain(qkv, num_heads, causal)
+    shape = _hs_lse_shape(B, L, num_heads, HD3 // 3 // num_heads)
+    return out, lse2.transpose(0, 1).reshape(shape)
+
+
+def flash_bwd_hs_plain(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+                       lse2: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
+    """Plain version of ``_bwd_kernel_hs``: lse2 in ``[H/HP, HP, B, L]``,
+    returns ``dqkv3 [3, B, L, H*D]``."""
+    B, L, HD3 = qkv.shape
+    lse = lse2.reshape(num_heads, B, L).transpose(0, 1)
+    dqkv = flash_bwd_plain(qkv, out, dout, lse, num_heads, causal)
+    return dqkv.reshape(B, L, 3, HD3 // 3).permute(2, 0, 1, 3).contiguous()
+
+
+def merge_dqkv(dqkv3: torch.Tensor) -> torch.Tensor:
+    """``[3, B, L, H*D] -> [B, L, 3*H*D]``, the layout of ``qkv``: JAX's
+    ``moveaxis(dqkv3, 0, 2)`` (attention.py:842), here one copy."""
+    _, B, L, HD = dqkv3.shape
+    return dqkv3.permute(1, 2, 0, 3).reshape(B, L, 3 * HD)
+
+
+def flash_fwd_bd_plain(qkv: torch.Tensor, num_heads: int, causal: bool):
+    """Plain version of ``_fwd_kernel_bd``: ``(out, lse2 [B, H, L])`` with
+    p / l rounded before the PV product."""
+    visible = _causal_visible(qkv.shape[1], qkv.device) if causal else None
+    return _attend_plain(qkv, num_heads, visible, normalize_first=True)
+
+
 def _check_cuda_qkv(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be [B, L, 3*H*D], got shape {tuple(qkv.shape)}")
@@ -186,6 +262,9 @@ _SIGNATURES = {
     "latteclip_flash_fwd_seg": "ppppiiiiifp",
     "latteclip_flash_bwd": "ppppppiiiiiffp",
     "latteclip_flash_bwd_seg": "pppppppiiiiiffp",
+    "latteclip_flash_fwd_hs": "pppiiiiifp",
+    "latteclip_flash_fwd_bd": "pppiiiiifp",
+    "latteclip_flash_bwd_hs": "ppppppiiiiiffp",
 }
 
 
@@ -202,15 +281,29 @@ def _kernel(name: str):
     return fn
 
 
-def _outputs(qkv: torch.Tensor, B: int, L: int, H: int, D: int):
-    out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
-    lse2 = torch.empty((B, H, L), dtype=torch.float32, device=qkv.device)
-    return out, lse2
-
-
 def _raise_on(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[torch.Tensor],
+                num_heads: int, causal: bool, lse_shape=None):
+    """Check ``qkv`` (and ``seg_ids``), launch the forward entry point
+    ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``."""
+    B, L, H, D = _check_cuda_qkv(qkv, num_heads)
+    if seg_ids is not None:
+        _check_seg(seg_ids, qkv, B, L)
+    kernel = _kernel(name)
+    out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
+    lse2 = torch.empty(lse_shape or (B, H, L), dtype=torch.float32, device=qkv.device)
+    tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, lse2]
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
+                     (D ** -0.5) * LOG2E, stream)
+    _raise_on(err, name)
+    launch_counts[counter] += 1
+    return out, lse2
 
 
 def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False):
@@ -220,17 +313,7 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False)
     raises on anything else; a CPU tensor takes :func:`flash_fwd_plain`."""
     if not qkv.is_cuda:
         return flash_fwd_plain(qkv, num_heads, causal)
-    B, L, H, D = _check_cuda_qkv(qkv, num_heads)
-    kernel = _kernel("latteclip_flash_fwd")
-    out, lse2 = _outputs(qkv, B, L, H, D)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
-        err = kernel(
-            qkv.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D,
-            int(causal), (D ** -0.5) * LOG2E, stream)
-    _raise_on(err, "latteclip_flash_fwd")
-    launch_counts["flash_fwd"] += 1
-    return out, lse2
+    return _launch_fwd("latteclip_flash_fwd", "flash_fwd", qkv, None, num_heads, causal)
 
 
 def flash_attention_qkv_segmented(
@@ -243,41 +326,57 @@ def flash_attention_qkv_segmented(
     take; a CPU tensor takes :func:`flash_fwd_seg_plain`."""
     if not qkv.is_cuda:
         return flash_fwd_seg_plain(qkv, seg_ids, num_heads, causal)
+    return _launch_fwd("latteclip_flash_fwd_seg", "flash_fwd_seg", qkv, seg_ids, num_heads, causal)
+
+
+def flash_attention_qkv_hs(qkv: torch.Tensor, num_heads: int, causal: bool = False):
+    """Head-split attention on ``qkv [B, L, 3*H*D]`` -> ``(out, lse2 [H/HP, HP, B, L])``.
+
+    A CUDA tensor launches the Hopper kernel and raises where the head-split
+    route does not apply; a CPU tensor takes :func:`flash_fwd_hs_plain`."""
+    if not qkv.is_cuda:
+        return flash_fwd_hs_plain(qkv, num_heads, causal)
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
-    _check_seg(seg_ids, qkv, B, L)
-    kernel = _kernel("latteclip_flash_fwd_seg")
-    out, lse2 = _outputs(qkv, B, L, H, D)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    with torch.cuda.device(qkv.device):
-        err = kernel(
-            qkv.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), lse2.data_ptr(),
-            B, L, H, D, int(causal), (D ** -0.5) * LOG2E, stream)
-    _raise_on(err, "latteclip_flash_fwd_seg")
-    launch_counts["flash_fwd_seg"] += 1
-    return out, lse2
+    return _launch_fwd("latteclip_flash_fwd_hs", "flash_fwd_hs", qkv, None, num_heads, causal,
+                       _hs_lse_shape(B, L, H, D))
 
 
-def _launch_bwd(qkv, seg_ids, out, dout, lse2, num_heads, causal) -> torch.Tensor:
-    """Check the residuals and launch ``latteclip_flash_bwd`` (``seg_ids``
-    None) or ``latteclip_flash_bwd_seg``; returns ``dqkv``."""
+def flash_attention_qkv_bd(qkv: torch.Tensor, num_heads: int, causal: bool = False):
+    """Whole-row attention with the block-diagonal kernel's rounding on
+    ``qkv [B, L, 3*H*D]`` (L <= 128, H*D <= 1024) -> ``(out, lse2 [B, H, L])``.
+
+    A CUDA tensor launches the Hopper kernel and raises on longer or wider
+    rows; a CPU tensor takes :func:`flash_fwd_bd_plain`."""
+    if not qkv.is_cuda:
+        return flash_fwd_bd_plain(qkv, num_heads, causal)
+    B, L, H, D = _check_cuda_qkv(qkv, num_heads)
+    if L > BLOCKDIAG_MAX_LEN or H * D > BLOCKDIAG_MAX_WIDTH:
+        raise ValueError(f"the block-diagonal kernel takes L <= {BLOCKDIAG_MAX_LEN} and H*D <= "
+                         f"{BLOCKDIAG_MAX_WIDTH}, got L={L}, H*D={H * D}")
+    return _launch_fwd("latteclip_flash_fwd_bd", "flash_fwd_bd", qkv, None, num_heads, causal)
+
+
+def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_heads, causal,
+                lse_shape=None, dqkv_shape=None) -> torch.Tensor:
+    """Check the residuals, launch the backward entry point ``name`` and
+    count it; ``lse_shape`` defaults to ``[B, H, L]`` and the gradient's
+    shape ``dqkv_shape`` to that of ``qkv``."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     _check_residual("out", out, qkv, (B, L, H * D), torch.bfloat16)
     _check_residual("dout", dout, qkv, (B, L, H * D), torch.bfloat16)
-    _check_residual("lse2", lse2, qkv, (B, H, L), torch.float32)
-    segmented = seg_ids is not None
-    if segmented:
+    _check_residual("lse2", lse2, qkv, lse_shape or (B, H, L), torch.float32)
+    if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
-    name = "latteclip_flash_bwd_seg" if segmented else "latteclip_flash_bwd"
     kernel = _kernel(name)
-    dqkv = torch.empty_like(qkv)
+    dqkv = torch.empty(dqkv_shape or qkv.shape, dtype=qkv.dtype, device=qkv.device)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=qkv.device)  # kernel scratch
-    tensors = [qkv, *([seg_ids] if segmented else []), out, dout, lse2, delta, dqkv]
+    tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, dout, lse2, delta, dqkv]
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
                      (D ** -0.5) * LOG2E, D ** -0.5, stream)
     _raise_on(err, name)
-    launch_counts["flash_bwd_seg" if segmented else "flash_bwd"] += 1
+    launch_counts[counter] += 1
     return dqkv
 
 
@@ -290,7 +389,8 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Te
     :func:`flash_bwd_plain`."""
     if not qkv.is_cuda:
         return flash_bwd_plain(qkv, out, dout, lse2, num_heads, causal)
-    return _launch_bwd(qkv, None, out, dout, lse2, num_heads, causal)
+    return _launch_bwd("latteclip_flash_bwd", "flash_bwd", qkv, None, out, dout, lse2, num_heads,
+                       causal)
 
 
 def flash_attention_qkv_segmented_bwd(
@@ -303,7 +403,22 @@ def flash_attention_qkv_segmented_bwd(
     :func:`flash_bwd_seg_plain`."""
     if not qkv.is_cuda:
         return flash_bwd_seg_plain(qkv, seg_ids, out, dout, lse2, num_heads, causal)
-    return _launch_bwd(qkv, seg_ids, out, dout, lse2, num_heads, causal)
+    return _launch_bwd("latteclip_flash_bwd_seg", "flash_bwd_seg", qkv, seg_ids, out, dout, lse2,
+                       num_heads, causal)
+
+
+def flash_attention_qkv_hs_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+                               lse2: torch.Tensor, num_heads: int, causal: bool = False) -> torch.Tensor:
+    """Gradient of :func:`flash_attention_qkv_hs`'s ``out`` from its lse2
+    ``[H/HP, HP, B, L]`` -> ``dqkv3 [3, B, L, H*D]`` (dq, dk, dv).
+
+    A CUDA tensor launches the Hopper kernel and raises on what it does not
+    take; a CPU tensor takes :func:`flash_bwd_hs_plain`."""
+    if not qkv.is_cuda:
+        return flash_bwd_hs_plain(qkv, out, dout, lse2, num_heads, causal)
+    B, L, H, D = _check_cuda_qkv(qkv, num_heads)
+    return _launch_bwd("latteclip_flash_bwd_hs", "flash_bwd_hs", qkv, None, out, dout, lse2,
+                       num_heads, causal, _hs_lse_shape(B, L, H, D), (3, B, L, H * D))
 
 
 def _kernel_ready(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -352,3 +467,46 @@ class FlashAttentionSegmented(torch.autograd.Function):
         dqkv = flash_attention_qkv_segmented_bwd(
             qkv, seg_ids, out, _kernel_ready(dout, qkv.dtype), lse2, ctx.num_heads, ctx.causal)
         return dqkv, None, None, None
+
+
+class FlashAttentionHeadSplit(torch.autograd.Function):
+    """``(out, lse2) = flash_attention_qkv_hs(qkv)`` with the head-split
+    backward kernel as its gradient (JAX ``_make_fa`` with the head-split
+    switch on): ``dqkv3 [3, B, L, H*D]`` re-merged by :func:`merge_dqkv`.
+    lse2 ``[H/HP, HP, B, L]`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
+        out, lse2 = flash_attention_qkv_hs(qkv, num_heads, causal)
+        ctx.save_for_backward(qkv, out, lse2)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        ctx.mark_non_differentiable(lse2)
+        return out, lse2
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor, _dlse2):
+        qkv, out, lse2 = ctx.saved_tensors
+        dqkv3 = flash_attention_qkv_hs_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
+                                           ctx.num_heads, ctx.causal)
+        return merge_dqkv(dqkv3), None, None
+
+
+class FlashAttentionBlockDiag(torch.autograd.Function):
+    """``(out, lse2) = flash_attention_qkv_bd(qkv)`` with the whole-row
+    backward kernel as its gradient, as JAX pairs ``_flash_fwd_bd`` with
+    ``_bwd_kernel``. lse2 takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
+        out, lse2 = flash_attention_qkv_bd(qkv, num_heads, causal)
+        ctx.save_for_backward(qkv, out, lse2)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        ctx.mark_non_differentiable(lse2)
+        return out, lse2
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor, _dlse2):
+        qkv, out, lse2 = ctx.saved_tensors
+        dqkv = flash_attention_qkv_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
+                                       ctx.num_heads, ctx.causal)
+        return dqkv, None, None

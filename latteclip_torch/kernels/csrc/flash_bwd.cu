@@ -1,13 +1,17 @@
 // Backward flash attention for the CLIP towers on Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of latteclip_tpu/kernels/attention.py:
+// Replaces three Pallas TPU kernels of latteclip_tpu/kernels/attention.py:
 //   latteclip_flash_bwd      <- _bwd_kernel      (whole-row, optional causal)
 //   latteclip_flash_bwd_seg  <- _bwd_kernel_seg  (segment-masked rows, optional causal)
-// Both take the forward's residuals, qkv [B, L, 3*H*D] (laid out [q | k | v],
-// bf16), out [B, L, H*D] bf16 and the base-2 logsumexp lse2 [B, H, L] f32,
-// with the cotangent dout [B, L, H*D] bf16, and write the gradient
-// dqkv [B, L, 3*H*D] bf16 in the layout of qkv, so the in-projection's
-// backward reads it as it is.
+//   latteclip_flash_bwd_hs   <- _bwd_kernel_hs   (head-split, whole-row)
+// All take the forward's residuals, qkv [B, L, 3*H*D] (laid out [q | k | v],
+// bf16), out [B, L, H*D] bf16 and the base-2 logsumexp lse2 f32, with the
+// cotangent dout [B, L, H*D] bf16. The first two read lse2 as [B, H, L] and
+// write the gradient dqkv [B, L, 3*H*D] bf16 in the layout of qkv, so the
+// in-projection's backward reads it as it is. The head-split kernel computes
+// the same gradient from the head-split forward's lse2 [H/HP, HP, B, L]
+// ([H, B, L] in memory) and writes it as dqkv3 [3, B, L, H*D] (dq, dk, dv),
+// as the TPU kernel does; the caller re-merges it into the layout of qkv.
 //
 // Numerics follow the TPU kernel step by step, per (row b, head h):
 //   s2 = bf16(q * D^-1/2 * log2 e) . k^T in f32, masked entries dropped;
@@ -108,7 +112,9 @@ struct Row {
   const float* lse;           // lse2[b, h, :]
   const float* delta;         // delta[b, h, :]
   const int* seg;             // seg[b, :] or nullptr
-  __nv_bfloat16* dqkv;        // like qkv
+  __nv_bfloat16* dqkv;        // dq of token 0 of row b, head h
+  long dqkv_tok;              // elements between two tokens' gradients
+  long dqkv_part;             // elements from dq to dk and from dk to dv
   int L, HD;
 };
 
@@ -301,13 +307,13 @@ __device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
 }
 
 // Round a warp's 16 accumulator rows (global rows r0..r0+15) to bf16 and
-// store those below L at column offset `ofs` of dqkv.
+// store those below L into part `part` of dqkv (0 dq, 1 dk, 2 dv).
 template <int D>
-__device__ void store_rows(const Row& row, long ofs, int r0, const float (&acc)[D / 8][4]) {
+__device__ void store_rows(const Row& row, int part, int r0, const float (&acc)[D / 8][4]) {
   const int lane = threadIdx.x % 32;
   const int ra = r0 + lane / 4, rb = ra + 8;
-  const long stride = 3L * row.HD;
-  __nv_bfloat16* base = row.dqkv + ofs;
+  const long stride = row.dqkv_tok;
+  __nv_bfloat16* base = row.dqkv + part * row.dqkv_part;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * (lane % 4);
@@ -318,18 +324,28 @@ __device__ void store_rows(const Row& row, long ofs, int r0, const float (&acc)[
   }
 }
 
+// Where lse2 comes from and the gradient goes: lse2 [B, H, L] and dqkv in
+// the layout of qkv, or with `split` (the head-split kernel) lse2 [H, B, L]
+// and dqkv3 [3, B, L, H*D].
+struct Layout {
+  int B;
+  bool split;
+};
+
 __device__ Row make_row(const __nv_bfloat16* qkv, const int* seg, const __nv_bfloat16* dout,
                         const float* lse, const float* delta, __nv_bfloat16* dqkv, int b, int h,
-                        int L, int H, int D) {
+                        int L, int H, int D, Layout layout) {
   const int HD = H * D;
   const long tok0 = (long)b * L;
   Row row;
   row.qkv = qkv + tok0 * 3 * HD + (long)h * D;
   row.dout = dout + tok0 * HD + (long)h * D;
-  row.lse = lse + ((long)b * H + h) * L;
+  row.lse = lse + (layout.split ? (long)h * layout.B + b : (long)b * H + h) * L;
   row.delta = delta + ((long)b * H + h) * L;
   row.seg = seg ? seg + tok0 : nullptr;
-  row.dqkv = dqkv + tok0 * 3 * HD + (long)h * D;
+  row.dqkv_tok = layout.split ? HD : 3L * HD;
+  row.dqkv_part = layout.split ? (long)layout.B * L * HD : HD;
+  row.dqkv = dqkv + tok0 * row.dqkv_tok + (long)h * D;
   row.L = L;
   row.HD = HD;
   return row;
@@ -370,12 +386,12 @@ __global__ void __launch_bounds__(ROW_MAX * 2)
     flash_bwd_row_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv,
-                         int L, int H, float qscale, float scale) {
+                         int L, int H, float qscale, float scale, Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = round16(L);
   const Tiles<D> t(smem, rows, rows);
   const int h = blockIdx.x % H, b = blockIdx.x / H;
-  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D);
+  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D, layout);
   load_queries<D, SEG>(t, row, 0, rows);
   load_keys<D, SEG>(t, row, 0, rows);
   cp_async_commit();
@@ -387,11 +403,11 @@ __global__ void __launch_bounds__(ROW_MAX * 2)
   zero<D>(acc_a);
   zero<D>(acc_b);
   warp_dkdv<D, SEG, CAUSAL>(t, r0, r0, CAUSAL ? r0 : 0, rows, 0, L, qscale, scale, acc_a, acc_b);
-  store_rows<D>(row, row.HD, r0, acc_a);       // dk
-  store_rows<D>(row, 2L * row.HD, r0, acc_b);  // dv
+  store_rows<D>(row, 1, r0, acc_a);  // dk
+  store_rows<D>(row, 2, r0, acc_b);  // dv
   zero<D>(acc_a);
   warp_dq<D, SEG, CAUSAL>(t, r0, r0, 0, CAUSAL ? r0 + 16 : rows, 0, L, qscale, scale, acc_a);
-  store_rows<D>(row, 0, r0, acc_a);            // dq
+  store_rows<D>(row, 0, r0, acc_a);  // dq
 }
 
 // Longer rows, phase 1: one CTA of 4 warps per (row, head, 64-key tile)
@@ -401,13 +417,13 @@ __global__ void __launch_bounds__(4 * 32)
     flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv,
-                          int L, int H, float qscale, float scale) {
+                          int L, int H, float qscale, float scale, Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles<D> t(smem, TILE, TILE);
   const int n_t = (L + TILE - 1) / TILE;
   const int kt = blockIdx.x % n_t;
   const int h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
-  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D);
+  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D, layout);
   const int key_base = kt * TILE;
   const int kr = (threadIdx.x / 32) * 16;
   const int k0 = key_base + kr;
@@ -428,8 +444,8 @@ __global__ void __launch_bounds__(4 * 32)
       warp_dkdv<D, SEG, CAUSAL>(t, kr, k0, CAUSAL && qt == kt ? kr : 0, q_rows, query_base, L,
                                 qscale, scale, dk, dv);
   }
-  store_rows<D>(row, row.HD, k0, dk);
-  store_rows<D>(row, 2L * row.HD, k0, dv);
+  store_rows<D>(row, 1, k0, dk);
+  store_rows<D>(row, 2, k0, dv);
 }
 
 // Longer rows, phase 2: one CTA of 4 warps per (row, head, 64-query tile)
@@ -439,13 +455,13 @@ __global__ void __launch_bounds__(4 * 32)
     flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv, int L,
-                        int H, float qscale, float scale) {
+                        int H, float qscale, float scale, Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles<D> t(smem, TILE, TILE);
   const int n_t = (L + TILE - 1) / TILE;
   const int qt = blockIdx.x % n_t;
   const int h = (blockIdx.x / n_t) % H, b = blockIdx.x / (n_t * H);
-  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D);
+  const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D, layout);
   const int qr = (threadIdx.x / 32) * 16;
   const int q0 = qt * TILE + qr;
   load_queries<D, SEG>(t, row, qt * TILE, TILE);
@@ -472,21 +488,23 @@ template <typename Kernel>
 int launch_kernel(Kernel kernel, bool (&allowed)[MAX_DEVICES], long blocks, int threads,
                   size_t smem, size_t smem_max, const void* qkv, const void* seg,
                   const void* dout, const void* lse, const void* delta, void* dqkv, int L, int H,
-                  float qscale, float scale, cudaStream_t stream) {
+                  float qscale, float scale, Layout layout, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, (int)smem_max, allowed);
   if (err != cudaSuccess) return (int)err;
   if (blocks <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(seg),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqkv), L, H, qscale, scale);
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqkv), L, H, qscale, scale,
+      layout);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool SEG, bool CAUSAL>
 int launch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
-           void* delta, void* dqkv, int B, int L, int H, float qscale, float scale,
+           void* delta, void* dqkv, int B, int L, int H, float qscale, float scale, bool split,
            cudaStream_t s) {
+  const Layout layout{B, split};
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const long n = (long)B * L * H;
   const long delta_blocks = (n + DELTA_THREADS - 1) / DELTA_THREADS;
@@ -502,29 +520,29 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
     const int rows = round16(L);
     return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL>, allowed, (long)B * H, 2 * rows,
                          Tiles<D>::bytes(rows, rows), Tiles<D>::bytes(ROW_MAX, ROW_MAX), qkv,
-                         seg, dout, lse, delta, dqkv, L, H, qscale, scale, s);
+                         seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
   }
   const long blocks = (long)B * H * ((L + TILE - 1) / TILE);
   const size_t bytes = Tiles<D>::bytes(TILE, TILE);
   static bool allowed_kv[MAX_DEVICES] = {}, allowed_q[MAX_DEVICES] = {};
   int e = launch_kernel(flash_bwd_dkdv_kernel<D, SEG, CAUSAL>, allowed_kv, blocks, 4 * 32, bytes,
-                        bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, s);
+                        bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
   if (e) return e;
   return launch_kernel(flash_bwd_dq_kernel<D, SEG, CAUSAL>, allowed_q, blocks, 4 * 32, bytes,
-                       bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, s);
+                       bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
 }
 
 template <bool SEG>
 int dispatch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
              void* delta, void* dqkv, int B, int L, int H, int D, int causal, float qscale,
-             float scale, void* stream) {
+             float scale, bool split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return causal ? launch<64, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, s)
-                  : launch<64, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, s);
+    return causal ? launch<64, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s)
+                  : launch<64, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s);
   if (D == 128)
-    return causal ? launch<128, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, s)
-                  : launch<128, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, s);
+    return causal ? launch<128, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s)
+                  : launch<128, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -534,7 +552,7 @@ extern "C" int latteclip_flash_bwd(const void* qkv, const void* out, const void*
                                    const void* lse, void* delta, void* dqkv, int B, int L, int H,
                                    int D, int causal, float qscale, float scale, void* stream) {
   return dispatch<false>(qkv, nullptr, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale,
-                         scale, stream);
+                         scale, false, stream);
 }
 
 extern "C" int latteclip_flash_bwd_seg(const void* qkv, const void* seg, const void* out,
@@ -542,5 +560,14 @@ extern "C" int latteclip_flash_bwd_seg(const void* qkv, const void* seg, const v
                                        int B, int L, int H, int D, int causal, float qscale,
                                        float scale, void* stream) {
   return dispatch<true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale, scale,
-                        stream);
+                        false, stream);
+}
+
+// lse2 [H/HP, HP, B, L] ([H, B, L] in memory), dqkv3 [3, B, L, H*D]
+extern "C" int latteclip_flash_bwd_hs(const void* qkv, const void* out, const void* dout,
+                                      const void* lse, void* delta, void* dqkv, int B, int L,
+                                      int H, int D, int causal, float qscale, float scale,
+                                      void* stream) {
+  return dispatch<false>(qkv, nullptr, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale,
+                         scale, true, stream);
 }

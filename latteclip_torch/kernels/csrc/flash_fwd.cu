@@ -1,12 +1,15 @@
 // Forward flash attention for the CLIP towers on Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of latteclip_tpu/kernels/attention.py:
+// Replaces four Pallas TPU kernels of latteclip_tpu/kernels/attention.py:
 //   latteclip_flash_fwd      <- _fwd_kernel      (whole-row, optional causal)
 //   latteclip_flash_fwd_seg  <- _fwd_kernel_seg  (segment-masked rows, optional causal)
-// Both compute, per (row b, head h), base-2 softmax attention straight from
+//   latteclip_flash_fwd_hs   <- _fwd_kernel_hs   (head-split: whole-row, lse2 per head group)
+//   latteclip_flash_fwd_bd   <- _fwd_kernel_bd   (block-diagonal: rows <= 128, own rounding)
+// All compute, per (row b, head h), base-2 softmax attention straight from
 // the packed in-projection output qkv [B, L, 3*H*D] (laid out [q | k | v],
-// bf16) and write out [B, L, H*D] bf16 plus the base-2 logsumexp
-// lse2 [B, H, L] f32 that the backward kernels will consume.
+// bf16) and write out [B, L, H*D] bf16 plus the base-2 logsumexp lse2 f32
+// that the backward kernels will consume: [B, H, L], or for the head-split
+// kernel [H/HP, HP, B, L], which is [H, B, L] in memory.
 //
 // Numerics follow the TPU kernel step by step: q is scaled by
 // D^-1/2 * log2(e) in f32 and rounded to bf16; scores accumulate in f32;
@@ -15,6 +18,22 @@
 // p is rounded against the maximum of the whole row, as on the TPU (an
 // online softmax would round it against a running maximum and move lse2 by
 // up to ~2e-3). Only the f32 summation order differs.
+//
+// The head-split kernel computes the same function. On the TPU its grid
+// also ranges over groups of HP = 128/D heads so that each program copies
+// only those heads' lanes, and it stores lse2 per head group; here every CTA
+// already reads one head's columns only, so the port keeps the
+// per-(row, head) CTAs and changes only where lse2 is stored.
+//
+// The block-diagonal kernel (rows of at most 128 tokens) rounds as the TPU's
+// _fwd_kernel_bd does: p = exp2(s - m) stays f32, l is the f32 sum of the
+// unrounded p, pb = bf16(p / l) feeds the PV product, and out is that
+// product rounded, with no division after it. The TPU kernel folds every
+// head into one product against block-diagonal K and V copies to hide its
+// matrix unit's latency; that is a device of the TPU, so the port computes
+// the same function on the one-CTA-per-(row, head) short-row design, where
+// a warp holds its rows' every score in registers and l is complete before
+// p is rounded.
 //
 // Bound. At the serving shapes both kernels are memory-bound: text at
 // B=1000, L=77, H=8, D=64 does 12.1 GFLOP (4*B*H*L^2*D) against about
@@ -84,11 +103,13 @@ constexpr size_t smem_bytes(int L) {
 // Registers are held to 128 a thread (two CTAs of MAX_THREADS, or four
 // 4-warp CTAs, in flight on an SM), except for the 64-key tiles at D=128,
 // which take about 210 without spilling.
-template <int D, int BLOCK_N, bool SEG, bool CAUSAL>
+// BD selects the block-diagonal kernel's rounding (one key tile only).
+// lse2[b, h, l] is stored at lse[b * lse_b + h * lse_h + l].
+template <int D, int BLOCK_N, bool SEG, bool CAUSAL, bool BD>
 __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ? 2 : 1)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int L, int H,
-                     float qscale) {
+                     float qscale, long lse_b, long lse_h) {
   constexpr int STRIDE = D + 8;   // padded shared row, in bf16 elements
   constexpr int CHUNKS = D / 8;   // 16-byte chunks per row of one head
   constexpr int KSTEPS = D / 16;  // mma k-steps over the head dimension
@@ -253,6 +274,7 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
 
   // Pass 2: p = bf16(exp2(s - m)), l = sum of those bf16 values, acc += P V,
   // walking the tiles from the last (already in registers) to the first.
+  // With BD (one tile): p = exp2(s - m) in f32, l = its sum, pb = bf16(p / l).
   float acc[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -268,18 +290,54 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
       scores(kt);
     }
     uint32_t pf[NT / 2][4];  // p packed straight into mma A fragments
+    if constexpr (BD) {
+      // 8-key tiles past the row's last block of 16 keys hold masked scores
+      // only: p is 0 there, with no exp2 and no division
+      const int n_rows = kv_rows(kt);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat162 pa =
-          __floats2bfloat162_rn(exp2f(s[n][0] - m_row[0]), exp2f(s[n][1] - m_row[0]));
-      const __nv_bfloat162 pb =
-          __floats2bfloat162_rn(exp2f(s[n][2] - m_row[1]), exp2f(s[n][3] - m_row[1]));
-      const float2 fa = __bfloat1622float2(pa);
-      const float2 fb = __bfloat1622float2(pb);
-      l_run[0] += fa.x + fa.y;
-      l_run[1] += fb.x + fb.y;
-      pf[n / 2][(n % 2) * 2 + 0] = as_u32(pa);
-      pf[n / 2][(n % 2) * 2 + 1] = as_u32(pb);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = n * 8 < n_rows ? exp2f(s[n][e] - m_row[e / 2]) : 0.f;
+          l_run[e / 2] += s[n][e];
+        }
+      float rcp[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+        rcp[r] = __frcp_rn(l_run[r]);
+      }
+      // p / l correctly rounded, as IEEE division gives it, from the row's
+      // correctly rounded reciprocal and one exact FMA residual (Markstein):
+      // three instructions an element in place of a division each
+      auto divide = [&](float p, int r) {
+        const float q = p * rcp[r];
+        return fmaf(fmaf(-q, l_run[r], p), rcp[r], q);
+      };
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n * 8 >= n_rows) {
+          pf[n / 2][(n % 2) * 2 + 0] = pf[n / 2][(n % 2) * 2 + 1] = 0u;
+          continue;
+        }
+        pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(divide(s[n][0], 0), divide(s[n][1], 0));
+        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(divide(s[n][2], 1), divide(s[n][3], 1));
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const __nv_bfloat162 pa =
+            __floats2bfloat162_rn(exp2f(s[n][0] - m_row[0]), exp2f(s[n][1] - m_row[0]));
+        const __nv_bfloat162 pb =
+            __floats2bfloat162_rn(exp2f(s[n][2] - m_row[1]), exp2f(s[n][3] - m_row[1]));
+        const float2 fa = __bfloat1622float2(pa);
+        const float2 fb = __bfloat1622float2(pb);
+        l_run[0] += fa.x + fa.y;
+        l_run[1] += fb.x + fb.y;
+        pf[n / 2][(n % 2) * 2 + 0] = as_u32(pa);
+        pf[n / 2][(n % 2) * 2 + 1] = as_u32(pb);
+      }
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -299,21 +357,24 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
     }
   }
 
+  if constexpr (!BD) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
   }
-  // out = acc / l in bf16, through this warp's own 16 rows of sQ, then
-  // stored 16 bytes a thread.
+  // out = acc / l (with BD, acc as it is) in bf16, through this warp's own
+  // 16 rows of sQ, then stored 16 bytes a thread.
   __nv_bfloat16* sO = sQ + warp * 16 * STRIDE;
+  auto finish = [&](float a, float l) { return BD ? a : a / l; };
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = d * 8 + 2 * t;
     *reinterpret_cast<__nv_bfloat162*>(&sO[g * STRIDE + col]) =
-        __floats2bfloat162_rn(acc[d][0] / l_run[0], acc[d][1] / l_run[0]);
+        __floats2bfloat162_rn(finish(acc[d][0], l_run[0]), finish(acc[d][1], l_run[0]));
     *reinterpret_cast<__nv_bfloat162*>(&sO[(g + 8) * STRIDE + col]) =
-        __floats2bfloat162_rn(acc[d][2] / l_run[1], acc[d][3] / l_run[1]);
+        __floats2bfloat162_rn(finish(acc[d][2], l_run[1]), finish(acc[d][3], l_run[1]));
   }
   __syncwarp();
   __nv_bfloat16* obase = out + (long)b * L * HD + (long)h * D;
@@ -326,16 +387,18 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
           *reinterpret_cast<const uint4*>(&sO[r * STRIDE + col]);
   }
   if (t == 0) {
-    float* lbase = lse + ((long)b * H + h) * L;
+    float* lbase = lse + b * lse_b + h * lse_h;
     if (row_a < L) lbase[row_a] = m_row[0] + log2f(l_run[0]);
     if (row_b < L) lbase[row_b] = m_row[1] + log2f(l_run[1]);
   }
 }
 
-template <int D, int BLOCK_N, bool SEG, bool CAUSAL>
+// lse_head_major stores lse2 as [H, B, L] (the head-split kernel's
+// [H/HP, HP, B, L]), otherwise as [B, H, L].
+template <int D, int BLOCK_N, bool SEG, bool CAUSAL, bool BD>
 int launch(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
-           float qscale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, BLOCK_N, SEG, CAUSAL>;
+           float qscale, bool lse_head_major, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<D, BLOCK_N, SEG, CAUSAL, BD>;
   // the most dynamic shared memory this instantiation can take
   static bool allowed[MAX_DEVICES] = {};
   cudaError_t err = allow_smem(
@@ -345,28 +408,33 @@ int launch(const void* qkv, const void* seg, void* out, void* lse, int B, int L,
   const int block_m = block_rows(BLOCK_N, L);
   const long blocks = (long)B * H * ((L + block_m - 1) / block_m);
   if (B <= 0 || L <= 0 || H <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
   kernel<<<(unsigned)blocks, 2 * block_m, smem_bytes<D, BLOCK_N>(L), stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, H, qscale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, H, qscale, lse_b, lse_h);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool BD>
 int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
-                int causal, float qscale, cudaStream_t s) {
+                int causal, float qscale, bool hm, cudaStream_t s) {
   if (L > LONG_BLOCK_N && L <= SHORT_ROW)
-    return causal ? launch<D, SHORT_ROW, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, s)
-                  : launch<D, SHORT_ROW, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, s);
-  return causal ? launch<D, LONG_BLOCK_N, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, s)
-                : launch<D, LONG_BLOCK_N, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, s);
+    return causal ? launch<D, SHORT_ROW, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
+                  : launch<D, SHORT_ROW, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
+  if (BD && L > SHORT_ROW) return (int)cudaErrorInvalidValue;  // BD takes one key tile
+  return causal ? launch<D, LONG_BLOCK_N, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
+                : launch<D, LONG_BLOCK_N, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
 }
 
-template <bool SEG>
+template <bool SEG, bool BD>
 int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H, int D,
-             int causal, float qscale, void* stream) {
+             int causal, float qscale, bool lse_head_major, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_rows<64, SEG>(qkv, seg, out, lse, B, L, H, causal, qscale, s);
-  if (D == 128) return launch_rows<128, SEG>(qkv, seg, out, lse, B, L, H, causal, qscale, s);
+  if (D == 64)
+    return launch_rows<64, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major, s);
+  if (D == 128)
+    return launch_rows<128, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -374,11 +442,23 @@ int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int 
 
 extern "C" int latteclip_flash_fwd(const void* qkv, void* out, void* lse, int B, int L, int H,
                                    int D, int causal, float qscale, void* stream) {
-  return dispatch<false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, stream);
+  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, stream);
 }
 
 extern "C" int latteclip_flash_fwd_seg(const void* qkv, const void* seg, void* out, void* lse,
                                        int B, int L, int H, int D, int causal, float qscale,
                                        void* stream) {
-  return dispatch<true>(qkv, seg, out, lse, B, L, H, D, causal, qscale, stream);
+  return dispatch<true, false>(qkv, seg, out, lse, B, L, H, D, causal, qscale, false, stream);
+}
+
+// lse2 as [H/HP, HP, B, L], which is [H, B, L] in memory
+extern "C" int latteclip_flash_fwd_hs(const void* qkv, void* out, void* lse, int B, int L, int H,
+                                      int D, int causal, float qscale, void* stream) {
+  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, true, stream);
+}
+
+// rows of at most 128 tokens; longer rows return cudaErrorInvalidValue
+extern "C" int latteclip_flash_fwd_bd(const void* qkv, void* out, void* lse, int B, int L, int H,
+                                      int D, int causal, float qscale, void* stream) {
+  return dispatch<false, true>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, stream);
 }

@@ -85,30 +85,35 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
 
 
 def encode_image(model: CLIP, images: torch.Tensor, *, normalize: bool = False,
-                 attention: str = "kernel", pack_pairs: Optional[bool] = None) -> torch.Tensor:
-    """Normalized images [B, H, W, 3] -> features [B, embed_dim] (float32)."""
+                 attention: str = "kernel", pack_pairs: Optional[bool] = None,
+                 ln_linear: str = "unfused") -> torch.Tensor:
+    """Normalized images [B, H, W, 3] -> features [B, embed_dim] (float32).
+    ``attention`` (``kernels.ATTENTION_CHOICES``) and ``ln_linear``
+    (``"unfused"`` or ``"fused"``) select the kernel routes."""
     cfg = model.cfg
     feats = vit_forward(model.visual, images, dtype=model.compute_dtype,
-                        quick_gelu=cfg.quick_gelu, attention=attention, pack_pairs=pack_pairs)
+                        quick_gelu=cfg.quick_gelu, attention=attention, pack_pairs=pack_pairs,
+                        ln_linear=ln_linear)
     return layers.l2_normalize(feats) if normalize else feats
 
 
 def encode_text(model: CLIP, tokens: torch.Tensor, *, normalize: bool = False,
-                attention: str = "kernel") -> torch.Tensor:
+                attention: str = "kernel", ln_linear: str = "unfused") -> torch.Tensor:
     """Token ids [B, ctx] -> features [B, embed_dim] (float32)."""
     cfg = model.cfg
     feats = text_forward(model, tokens, dtype=model.compute_dtype,
-                         quick_gelu=cfg.quick_gelu, attention=attention)
+                         quick_gelu=cfg.quick_gelu, attention=attention, ln_linear=ln_linear)
     return layers.l2_normalize(feats) if normalize else feats
 
 
 def encode_text_packed(model: CLIP, tokens: torch.Tensor, positions: torch.Tensor,
                        seg_ids: torch.Tensor, eot_row: torch.Tensor, eot_col: torch.Tensor, *,
-                       normalize: bool = False, attention: str = "kernel") -> torch.Tensor:
+                       normalize: bool = False, attention: str = "kernel",
+                       ln_linear: str = "unfused") -> torch.Tensor:
     """Rows packed by :mod:`latteclip_torch.data.packing` -> features
     [N, embed_dim] (float32), as :func:`encode_text` gives on the padded rows."""
     cfg = model.cfg
     feats = text_forward_packed(model, tokens, positions, seg_ids, eot_row, eot_col,
                                 dtype=model.compute_dtype, quick_gelu=cfg.quick_gelu,
-                                attention=attention)
+                                attention=attention, ln_linear=ln_linear)
     return layers.l2_normalize(feats) if normalize else feats

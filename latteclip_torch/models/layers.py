@@ -5,7 +5,9 @@ inputs and activations use the compute dtype, LayerNorm statistics are taken
 in float32. Modules carry OpenCLIP's parameter names
 (``resblocks.{i}.attn.in_proj_weight``, ``mlp.c_fc.weight``, ...), so an
 OpenCLIP state dict loads with ``strict=True``. Weights keep torch's
-``[out, in]`` orientation and go through ``F.linear``.
+``[out, in]`` orientation and go through ``F.linear``. ``layer_norm`` and
+``dense`` come from :mod:`latteclip_torch.kernels.fused_ln_linear`, whose
+``ln_linear`` runs the two LayerNorm -> projection pairs of each block.
 """
 from __future__ import annotations
 
@@ -16,15 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from latteclip_torch.kernels import attention_core_qkv, attention_core_qkv_segmented
-
-LN_EPS = 1e-5
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = LN_EPS) -> torch.Tensor:
-    """LayerNorm with float32 statistics, cast back to the input dtype."""
-    y = F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(), eps)
-    return y.to(x.dtype)
+from latteclip_torch.kernels import fused_ln_linear as fused
+from latteclip_torch.kernels.fused_ln_linear import LN_EPS, dense, layer_norm
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,16 +32,6 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def activation(quick: bool) -> Callable[[torch.Tensor], torch.Tensor]:
     return quick_gelu if quick else gelu
-
-
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-          dtype: torch.dtype) -> torch.Tensor:
-    """``x @ weight.T`` emitted in ``dtype``; the bias is added in ``dtype``
-    after the product, as the JAX package does."""
-    y = F.linear(x.to(dtype), weight.to(dtype))
-    if bias is not None:
-        y = y + bias.to(dtype)
-    return y
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -92,14 +77,19 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = Mlp(width, int(width * mlp_ratio))
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
-                seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel") -> torch.Tensor:
-        qkv = dense(self.ln_1(x), self.attn.in_proj_weight, self.attn.in_proj_bias, dtype)
+                seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
+                ln_linear: str = "unfused") -> torch.Tensor:
+        """``ln_linear`` routes the two LayerNorm -> projection pairs
+        (``fused.ln_linear``); ``attention`` the attention (``kernels``)."""
+        qkv = fused.ln_linear(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
+                              self.attn.in_proj_bias, dtype, self.ln_1.eps, ln_linear)
         if seg_ids is not None:
             a = attention_core_qkv_segmented(qkv, self.attn.heads, seg_ids, causal, attention)
         else:
             a = attention_core_qkv(qkv, self.attn.heads, causal, attention)
         x = x + dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias, dtype)
-        h = act(dense(self.ln_2(x), self.mlp.c_fc.weight, self.mlp.c_fc.bias, dtype))
+        h = act(fused.ln_linear(x, self.ln_2.weight, self.ln_2.bias, self.mlp.c_fc.weight,
+                                self.mlp.c_fc.bias, dtype, self.ln_2.eps, ln_linear))
         return x + dense(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dtype)
 
 
@@ -113,7 +103,9 @@ class Transformer(nn.Module):
             ResidualAttentionBlock(width, heads, mlp_ratio, ln_eps) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
-                seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel") -> torch.Tensor:
+                seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
+                ln_linear: str = "unfused") -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x, causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention)
+            x = block(x, causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
+                      ln_linear=ln_linear)
         return x

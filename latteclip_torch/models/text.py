@@ -24,6 +24,7 @@ def text_forward(
     dtype: torch.dtype = torch.bfloat16,
     quick_gelu: bool = False,
     attention: str = "kernel",
+    ln_linear: str = "unfused",
 ) -> torch.Tensor:
     """Token ids [B, ctx] -> pooled features [B, embed_dim] (float32).
 
@@ -33,7 +34,8 @@ def text_forward(
     ctx = tokens.shape[1]
     x = F.embedding(tokens, model.token_embedding.weight).to(dtype)
     x = x + model.positional_embedding[:ctx].to(dtype)
-    x = model.transformer(x, causal=True, act=act, dtype=dtype, attention=attention)
+    x = model.transformer(x, causal=True, act=act, dtype=dtype, attention=attention,
+                          ln_linear=ln_linear)
     x = model.ln_final(x)
     pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     return layers.dense(pooled, model.text_projection.t(), None, dtype).float()
@@ -50,6 +52,7 @@ def text_forward_packed(
     dtype: torch.dtype = torch.bfloat16,
     quick_gelu: bool = False,
     attention: str = "kernel",
+    ln_linear: str = "unfused",
 ) -> torch.Tensor:
     """Packed rows -> pooled features [N, embed_dim] (float32).
 
@@ -63,7 +66,7 @@ def text_forward_packed(
     x = F.embedding(tokens, model.token_embedding.weight).to(dtype)     # [R, P, D]
     x = x + F.embedding(positions, model.positional_embedding).to(dtype)
     x = model.transformer(x, causal=True, act=act, dtype=dtype, seg_ids=seg_ids,
-                          attention=attention)
+                          attention=attention, ln_linear=ln_linear)
     x = model.ln_final(x)
     pooled = x[eot_row, eot_col]                                        # [N, D]
     return layers.dense(pooled, model.text_projection.t(), None, dtype).float()

@@ -65,8 +65,11 @@ def vit_forward(
     quick_gelu: bool = False,
     attention: str = "kernel",
     pack_pairs: Optional[bool] = None,
+    ln_linear: str = "unfused",
 ) -> torch.Tensor:
-    """Images [B, H, W, 3] -> pooled features [B, embed_dim] (float32)."""
+    """Images [B, H, W, 3] -> pooled features [B, embed_dim] (float32).
+    ``attention`` and ``ln_linear`` select the routes of
+    :meth:`layers.ResidualAttentionBlock.forward`."""
     cfg = visual.cfg
     act = layers.activation(quick_gelu)
     B = images.shape[0]
@@ -87,10 +90,11 @@ def vit_forward(
         seg = torch.arange(1, 3, dtype=torch.int32, device=x.device).repeat_interleave(L)
         x = visual.transformer(
             x.reshape(B // 2, 2 * L, cfg.width), causal=False, act=act, dtype=dtype,
-            seg_ids=seg.expand(B // 2, 2 * L), attention=attention)
+            seg_ids=seg.expand(B // 2, 2 * L), attention=attention, ln_linear=ln_linear)
         x = x.reshape(B, L, cfg.width)
     else:
-        x = visual.transformer(x, causal=False, act=act, dtype=dtype, attention=attention)
+        x = visual.transformer(x, causal=False, act=act, dtype=dtype, attention=attention,
+                               ln_linear=ln_linear)
 
     x = visual.ln_post(x)
     pooled = x[:, 1:].mean(dim=1) if cfg.pool_type == "avg" else x[:, 0]

@@ -39,12 +39,13 @@ class TrainState:
 @torch.no_grad()
 def init_memory_bank(model: clip_mod.CLIP, tokenizer: ClipTokenizer, classnames: Sequence[str],
                      templates: Sequence[Callable[[str], str]], *,
-                     attention: str = "kernel") -> torch.Tensor:
+                     attention: str = "kernel", ln_linear: str = "unfused") -> torch.Tensor:
     """bank[c] = normalized encode_text(templates[0](classname)), the
     reference's ``init_memory_bank`` (model.py:489-499)."""
     dev = next(model.parameters()).device
     tokens = torch.from_numpy(build_template_table(tokenizer, classnames, templates)).to(dev)
-    return clip_mod.encode_text(model, tokens, normalize=True, attention=attention).float()
+    return clip_mod.encode_text(model, tokens, normalize=True, attention=attention,
+                                ln_linear=ln_linear).float()
 
 
 def build_template_table(tokenizer: ClipTokenizer, classnames: Sequence[str],

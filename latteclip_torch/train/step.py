@@ -102,14 +102,17 @@ def latteclip_loss_fn(
     template_packed: Optional[Tuple[torch.Tensor, ...]] = None,
     *,
     attention: str = "kernel",
+    ln_linear: str = "unfused",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The v2 objective -> ``(total loss, aux)``; ``aux`` holds the
     pseudo-labels and the detached anchored text features the bank update
     reads. ``template_packed`` is the packed template table (on the device)
-    for ``hp.text_packing``; without it the templates run padded."""
+    for ``hp.text_packing``; without it the templates run padded.
+    ``attention`` and ``ln_linear`` select the towers' kernel routes."""
     dev = images.device
     zs_preds = torch.as_tensor(batch["zs_preds"]).to(dev).long()
-    image_features = clip_mod.encode_image(model, images, normalize=True, attention=attention)
+    routes = {"attention": attention, "ln_linear": ln_linear}
+    image_features = clip_mod.encode_image(model, images, normalize=True, **routes)
     logit_scale = model.logit_scale.exp()
 
     # fine-tune pseudo-labels from the live prototype classifier (train.py:384-411)
@@ -119,17 +122,16 @@ def latteclip_loss_fn(
     # the C class templates run once and their rows are gathered per label
     if hp.text_packing and template_packed is not None:
         class_text_feats = clip_mod.encode_text_packed(model, *template_packed, normalize=True,
-                                                       attention=attention)
+                                                       **routes)
     else:
-        class_text_feats = clip_mod.encode_text(model, template_table, normalize=True,
-                                                attention=attention)
+        class_text_feats = clip_mod.encode_text(model, template_table, normalize=True, **routes)
     B = zs_preds.shape[0]
     if hp.text_packing:
         caption_feats = clip_mod.encode_text_packed(
-            model, *_to_device(batch, PACKED_KEYS, dev), normalize=True, attention=attention)
+            model, *_to_device(batch, PACKED_KEYS, dev), normalize=True, **routes)
     else:
         tokens = torch.cat(_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev))
-        caption_feats = clip_mod.encode_text(model, tokens, normalize=True, attention=attention)
+        caption_feats = clip_mod.encode_text(model, tokens, normalize=True, **routes)
     per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
     label_f = class_text_feats[preds]
     label_zs_f = class_text_feats[zs_preds]
@@ -190,6 +192,7 @@ def make_train_step(
     template_packed=None,
     *,
     attention: str = "kernel",
+    ln_linear: str = "unfused",
 ):
     """Build the step ``(state, batch, generator) -> metrics``, which
     updates ``state`` in place: augment, forward, backward, AdamW update,
@@ -202,8 +205,9 @@ def make_train_step(
     :func:`latteclip_torch.data.packing.pack_caption_batch`.
     ``template_packed``: the packed template table (a ``PackedText``) for
     ``hp.text_packing``. ``generator`` draws the augment (a
-    ``torch.Generator`` on the model's device). Metrics are 0-d tensors on
-    the device."""
+    ``torch.Generator`` on the model's device). ``attention`` and
+    ``ln_linear`` select the towers' kernel routes. Metrics are 0-d tensors
+    on the device."""
     aug = aug or T.AugConfig()
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -222,7 +226,8 @@ def make_train_step(
 
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = latteclip_loss_fn(state.model, hp, batch, images, state.memory_bank,
-                                      state.prototypes, table, packed, attention=attention)
+                                      state.prototypes, table, packed, attention=attention,
+                                      ln_linear=ln_linear)
         loss.backward()
         state.optimizer.step()
         with torch.no_grad():

@@ -104,7 +104,8 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert torch.equal(dqkv, A.flash_bwd_plain(x, out, out, lse2, 2, causal=False))
     assert torch.equal(A.flash_attention_qkv_segmented_bwd(x, seg, out, out, lse2, 2, causal=False),
                        dqkv)
-    assert A.launch_counts == {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_seg": 0}
+    assert A.launch_counts == {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_seg": 0,
+                               "flash_fwd_hs": 0, "flash_bwd_hs": 0, "flash_fwd_bd": 0}
 
 
 def test_kernel_route_follows_jax_dispatch_rule():

@@ -20,12 +20,22 @@ atol 1e-3. The backward kernels are held on dq, dk and dv separately:
 ||d - ref|| / ||ref|| <= 1e-2 and, elementwise, |d - ref| <= 2e-2 * max|ref|
 (each gradient is rounded to bf16 once, < 2^-8 relative, and a flip in the
 bf16 rounding of one p or ds moves a sum of L terms by far less).
+
+The head-split kernels run the whole-row kernels' arithmetic and differ only
+in where lse2 and the gradient are stored, so they are held to the
+whole-row kernels bit for bit as well as to their plain versions. The fused
+LayerNorm -> linear kernel is held as bf16 out is: elementwise
+atol = rtol = 2e-2 and ||y - ref|| / ||ref|| <= 1e-2 (both sides multiply
+the same bf16 operands in f32 and round once; they differ where the f32
+summation order flips one bf16 rounding of xn or y); its control zeroes one
+16-output block of W, which leaves those outputs at the bias alone.
 """
 import numpy as np
 import pytest
 import torch
 
 from latteclip_torch.kernels import attention as A
+from latteclip_torch.kernels import fused_ln_linear as FL
 
 torch.set_num_threads(1)
 
@@ -210,7 +220,17 @@ def test_cuda_wrappers_count_each_launch():
     A.flash_attention_qkv_segmented(x, 2, seg)
     A.flash_attention_qkv_bwd(x, out, out, lse2, 2)
     A.flash_attention_qkv_segmented_bwd(x, seg, out, out, lse2, 2)
-    assert A.launch_counts == {"flash_fwd": 1, "flash_fwd_seg": 2, "flash_bwd": 1, "flash_bwd_seg": 1}
+    out_hs, lse2_hs = A.flash_attention_qkv_hs(x, 2)
+    A.flash_attention_qkv_hs_bwd(x, out_hs, out_hs, lse2_hs, 2)
+    A.flash_attention_qkv_bd(x, 2)
+    A.flash_attention_qkv_bd(x, 2)
+    assert A.launch_counts == {"flash_fwd": 1, "flash_fwd_seg": 2, "flash_bwd": 1, "flash_bwd_seg": 1,
+                               "flash_fwd_hs": 1, "flash_bwd_hs": 1, "flash_fwd_bd": 2}
+    FL.reset_launch_counts()
+    w = torch.zeros(256, 128, device="cuda")
+    FL.fused_ln_linear(torch.zeros(2, 50, 128, device="cuda", dtype=torch.bfloat16),
+                       w[0], w[1], w, w[:, 0].contiguous())
+    assert FL.launch_counts == {"ln_linear": 1}
 
 
 @pytest.mark.gpu
@@ -233,3 +253,143 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
         A.flash_attention_qkv_bwd(x, out, out.float(), lse2, 2)
     with pytest.raises(ValueError, match="lse2"):
         A.flash_attention_qkv_bwd(x, out, out, lse2[:, :, :49], 2)
+    with pytest.raises(ValueError, match="lse2"):  # the head-split backward reads [H/HP, HP, B, L]
+        A.flash_attention_qkv_hs_bwd(x, out, out, lse2, 2)
+    with pytest.raises(ValueError, match="head-split"):  # 3 heads of 64 are no group of 2
+        A.flash_attention_qkv_hs(torch.zeros(2, 50, 3 * 3 * 64, device="cuda", dtype=torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="block-diagonal"):
+        A.flash_attention_qkv_bd(torch.zeros(2, 129, 384, device="cuda", dtype=torch.bfloat16), 2)
+    xs = torch.zeros(2, 50, 96, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(64, 96, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        FL.fused_ln_linear(xs, w[0], w[1], w, w[:, 0].contiguous())
+    w = torch.zeros(64, 128, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        FL.fused_ln_linear(torch.zeros(2, 50, 128, device="cuda"), w[0], w[1], w, w[:, 0].contiguous())
+    with pytest.raises(ValueError, match="wb"):
+        FL.fused_ln_linear(torch.zeros(2, 50, 128, device="cuda", dtype=torch.bfloat16), w[0], w[1],
+                           w, w[:2, 0].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 77, 100, 128, 129, 197])
+def test_cuda_head_split_kernels_match_plain_versions_and_whole_row_kernels(L, D):
+    _need_cuda()
+    rng = np.random.default_rng(L * 1000 + D + 11)
+    H, B = 256 // D, 3  # two head groups of 128 / D heads
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    for causal in (False, True):
+        out, lse2 = A.flash_attention_qkv_hs(x, H, causal)
+        ref_out, ref_lse2 = A.flash_fwd_hs_plain(x, H, causal)
+        torch.cuda.synchronize()
+        assert lse2.shape == (H // (128 // D), 128 // D, B, L)
+        _assert_out_close(out, ref_out)
+        torch.testing.assert_close(lse2, ref_lse2, atol=LSE_TOL, rtol=0)
+        out1, lse1 = A.flash_attention_qkv(x, H, causal)
+        assert torch.equal(out, out1)
+        assert torch.equal(lse2.reshape(H, B, L).transpose(0, 1), lse1)
+
+        dqkv3 = A.flash_attention_qkv_hs_bwd(x, out, dout, lse2, H, causal)
+        ref3 = A.flash_bwd_hs_plain(x, out, dout, lse2, H, causal)
+        torch.cuda.synchronize()
+        assert dqkv3.shape == (3, B, L, H * D)
+        check = _assert_single_token_grads if L == 1 else _assert_grads_close
+        check(A.merge_dqkv(dqkv3), A.merge_dqkv(ref3), H, D)
+        assert torch.equal(A.merge_dqkv(dqkv3), A.flash_attention_qkv_bwd(x, out, dout, lse1, H, causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 64, 65, 77, 100, 128])
+def test_cuda_block_diagonal_forward_matches_plain_version(L, D):
+    _need_cuda()
+    rng = np.random.default_rng(L * 1000 + D + 13)
+    H, B = 2, 3
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    for causal in (False, True):
+        out, lse2 = A.flash_attention_qkv_bd(x, H, causal)
+        ref_out, ref_lse2 = A.flash_fwd_bd_plain(x, H, causal)
+        torch.cuda.synchronize()
+        _assert_out_close(out, ref_out)
+        torch.testing.assert_close(lse2, ref_lse2, atol=LSE_TOL, rtol=0)
+        if L >= 32:  # control: the check sees one 16-key block of values dropped
+            dropped = x.clone()
+            dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
+            with pytest.raises(AssertionError):
+                _assert_out_close(A.flash_fwd_bd_plain(dropped, H, causal)[0], ref_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["headsplit", "blockdiag"])
+def test_cuda_route_functions_match_autograd_through_plain_forward(route):
+    """The head-split Function (K5, K6 and the re-merge) and the
+    block-diagonal one (K7, K3) against autograd through their plain
+    forwards, in bf16."""
+    _need_cuda()
+    rng = np.random.default_rng(6)
+    H, D, B, L = 4, 64, 4, 77
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    fn, plain = ((A.FlashAttentionHeadSplit, A.flash_fwd_hs_plain) if route == "headsplit"
+                 else (A.FlashAttentionBlockDiag, A.flash_fwd_bd_plain))
+    grads = []
+    for forward in (lambda xi: fn.apply(xi, H, True)[0], lambda xi: plain(xi, H, True)[0]):
+        xi = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(forward(xi), xi, dout)[0])
+    torch.cuda.synchronize()
+    for name, rel, _ in _grad_errors(grads[0], grads[1], H, D):
+        assert rel <= 2e-2, f"{name}: {rel:.4g}"
+
+
+def _ln_inputs(rng, B, L, D, O, device="cuda"):
+    x = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32) * 2 + 0.5)
+    ln_w = torch.from_numpy(1 + 0.1 * rng.standard_normal(D).astype(np.float32))
+    ln_b = torch.from_numpy(0.1 * rng.standard_normal(D).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((O, D)).astype(np.float32) * D ** -0.5)
+    wb = torch.from_numpy(0.1 * rng.standard_normal(O).astype(np.float32))
+    return x.to(device, torch.bfloat16), ln_w.to(device), ln_b.to(device), w.to(device), wb.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,D,O", [
+    (3, 77, 512, 1536), (2, 100, 768, 2304), (1, 50, 768, 3072), (5, 13, 64, 200),
+    (7, 1, 128, 64), (2, 40, 1024, 256),
+])
+def test_cuda_ln_linear_matches_plain_version(B, L, D, O):
+    _need_cuda()
+    rng = np.random.default_rng(B * L + D + O)
+    x, ln_w, ln_b, w, wb = _ln_inputs(rng, B, L, D, O)
+    y = FL.fused_ln_linear(x, ln_w, ln_b, w, wb)
+    ref = FL.fused_ln_linear_plain(x, ln_w, ln_b, w, wb)
+    torch.cuda.synchronize()
+    assert y.shape == (B, L, O) and y.dtype == torch.bfloat16
+    _assert_out_close(y, ref)
+    if O >= 64:  # control: one 16-output block of W zeroed
+        dropped = w.clone()
+        dropped[O // 2:O // 2 + 16] = 0
+        with pytest.raises(AssertionError):
+            _assert_out_close(FL.fused_ln_linear_plain(x, ln_w, ln_b, dropped, wb), ref)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_ln_linear_function_matches_autograd_through_unfused():
+    """FusedLnLinear's gradient is that of dense(layer_norm(x)): every input's
+    gradient against autograd through the unfused composition, in bf16
+    (the same products, taken by other calls: ||d - ref|| / ||ref|| <= 1e-2)."""
+    _need_cuda()
+    rng = np.random.default_rng(8)
+    inputs = _ln_inputs(rng, 4, 77, 512, 1536)
+    dy = torch.from_numpy(rng.standard_normal((4, 77, 1536)).astype(np.float32)).to("cuda", torch.bfloat16)
+    grads = []
+    for fused in (True, False):
+        args = [t.clone().requires_grad_(True) for t in inputs]
+        y = (FL.FusedLnLinear.apply(*args, FL.LN_EPS) if fused
+             else FL.dense(FL.layer_norm(*args[:3]), args[3], args[4], torch.bfloat16))
+        grads.append(torch.autograd.grad(y, args, dy))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("x", "ln_w", "ln_b", "w", "wb"), *grads):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        rel = float((a.float() - r.float()).norm() / r.float().norm())
+        assert rel <= 1e-2, f"d{name}: {rel:.4g}"
