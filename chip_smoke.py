@@ -32,7 +32,22 @@ Phases, each raising on failure:
    takes the padded train step's LN -> projection pairs and the classifier
    build's, held as bf16 out is; its control zeroes one 16-output block of
    W, and its yardstick is the port's unfused route, dense(layer_norm(x));
-4. slice: ViT-B/32 zero-shot classification at full width from seeded random
+4. lab: the attention lab's kernels (csrc/lab.cu) against their plain
+   versions at the lab tools' shapes ([512, 197, 12 x 64] for the lab
+   forward, packed and BHLD, and the lab backward; [1024, 77, 8 x 64] for
+   the head-summed Q K^T, natural and pret, and P V) and at one small shape
+   each. Attention: q, k ~ N(0, 0.3^2), v and the cotangent ~ N(0, 1), out
+   and the gradients held as above, lse (natural) atol 1e-3, control one
+   16-key block of v zeroed, yardstick SDPA (forward, or backward alone).
+   Products: N(0, 1) bf16, f32 out held by ||S - plain|| / ||plain|| and
+   max|S - plain| / max|plain| <= 1e-4, control one 16-column block of k or
+   v zeroed, yardstick torch.bmm on the same operands. Then both lab tools'
+   run at their default shapes (latteclip_torch.tools.attn_lab and
+   .r4_transpose_probe), printing their lines, with the launch counters set
+   to 0 just before and read just after: every lab kernel must have
+   launched, the packed and BHLD forwards must agree bit for bit, and so
+   must the natural and pret products;
+5. slice: ViT-B/32 zero-shot classification at full width from seeded random
    weights: the 1000-class ImageNet template classifier, run_zero_shot_eval
    over four batches of 256 images and one of 255, and the prototype
    classifier from a seeded bank; the launch counters are reset just before
@@ -45,7 +60,7 @@ Phases, each raising on failure:
    on each other route, head-split attention with the fused LayerNorm ->
    linear (K5, K8) and block-diagonal attention (K7), counted, and its
    columns must agree with the plain build's at cosine >= 0.999;
-5. train: the LatteCLIP v2 train step at ViT-B/32 full width and depth,
+6. train: the LatteCLIP v2 train step at ViT-B/32 full width and depth,
    batch 512, 47 classes (DTD's count), AdamW with a constant schedule, the
    colour augment on: warm-up and 10 timed steps with the captions and
    templates packed at 128 (K2/K4 at every attention site), then warm-up and
@@ -67,7 +82,7 @@ Phases, each raising on failure:
    0.999. A torch.profiler trace of one step of each route gives its device
    busy time, idle share and device time by kind, attention forward and
    backward apart;
-6. report: one JSON line of kernels, nvidia-smi's line, and the final line
+7. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -106,6 +121,10 @@ SOURCES = {
     "flash_bwd_hs": "latteclip_torch/kernels/csrc/flash_bwd.cu",
     "flash_fwd_bd": "latteclip_torch/kernels/csrc/flash_fwd.cu",
     "ln_linear": "latteclip_torch/kernels/csrc/ln_linear.cu",
+    "lab_fwd": "latteclip_torch/kernels/csrc/lab.cu",
+    "lab_bwd": "latteclip_torch/kernels/csrc/lab.cu",
+    "lab_qk": "latteclip_torch/kernels/csrc/lab.cu",
+    "lab_pv": "latteclip_torch/kernels/csrc/lab.cu",
 }
 REPLACES = {
     "flash_fwd": "latteclip_tpu/kernels/attention.py:318",      # _fwd_kernel
@@ -116,10 +135,21 @@ REPLACES = {
     "flash_bwd_hs": "latteclip_tpu/kernels/attention.py:264",   # _bwd_kernel_hs
     "flash_fwd_bd": "latteclip_tpu/kernels/attention.py:617",   # _fwd_kernel_bd
     "ln_linear": "latteclip_tpu/kernels/fused_ln_linear.py:32",  # _kernel
+    "lab_fwd": "tools/attn_lab.py:37",          # _fwd_kernel_v1 (and _fwd_kernel_v3 :76)
+    "lab_bwd": "tools/attn_lab.py:122",         # _bwd_kernel_v3
+    "lab_qk": "tools/r4_transpose_probe.py:44",  # _kern_natural (and _kern_pret :54)
+    "lab_pv": "tools/r4_transpose_probe.py:63",  # _kern_pv
 }
 LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
 TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
+# the lab tools' shapes (B, L, H, D) and one small shape of each
+LAB_ATTN, LAB_ATTN_SMALL = (512, 197, 12, 64), (4, 50, 2, 64)
+LAB_PRODUCTS, LAB_PRODUCTS_SMALL = (1024, 77, 8, 64), (4, 77, 2, 64)
+# head-summed products, f32 out: ||S - plain|| / ||plain|| and max|S - plain| /
+# max|plain|; both sides multiply the same bf16 operands exactly in f32 and
+# differ only in the order of the f32 sums (~1e-7)
+F32_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -134,27 +164,6 @@ def nvidia_smi_line() -> str:
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
-
-class Timer:
-    """Median CUDA-event time of one call, with L2 flushed before each call."""
-
-    def __init__(self, iters: int = 20):
-        self.iters = iters
-        self.flush = torch.empty(512 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(self.iters)]
-        for start, end in ev:
-            self.flush.zero_()
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in ev]))
-
 
 def random_segments(rng: np.random.Generator, rows: int, length: int) -> np.ndarray:
     """Packed-text seg ids: runs of 5..40 tokens numbered 1, 2, ..., then a
@@ -394,9 +403,11 @@ def ln_case(name, B, L, D, O, timer, gen):
 
 
 def phase_kernels(train, tiled_lib):
+    from latteclip_torch.tools.perf_lab import Timer
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = np.random.default_rng(1234)
-    timer = Timer()
+    timer = Timer("cuda")
     pair = np.repeat(np.array([1, 2], np.int32), 50)
     # the train step's own attention calls: its text and vision head counts,
     # the packed caption rows of its first batch and the packed templates
@@ -476,7 +487,192 @@ def phase_kernels(train, tiled_lib):
     return records
 
 
-# -- phase 4: the ViT-B/32 zero-shot slice -----------------------------------
+# -- phase 4: the attention lab's kernels and tools ----------------------------
+
+def lab_draw(gen, shape, std=1.0) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+
+def lab_record(name, entry, shape, ok, errs, control_rejected, control_errs, kernel, plain,
+               library, flops, nbytes, timer, max_abs_err):
+    ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    bound_ms, bound_by = bound(flops, nbytes)
+    rec = {
+        "name": name, "entry": entry, "shape": list(shape), "max_abs_err": max_abs_err,
+        "errors": errs, "ok": ok, "control_errors": control_errs,
+        "control_rejected": control_rejected,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+    }
+    rec["bound_share"] = bound_ms / ms
+    log("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def lab_fwd_case(entry, B, L, H, D, timer, gen):
+    """The lab forward (packed or BHLD) against its plain version; q, k ~
+    N(0, 0.3^2), v ~ N(0, 1); control: one 16-key block of v zeroed;
+    yardstick SDPA's forward on the same q, k, v."""
+    from latteclip_torch.kernels import lab
+
+    q, k = (lab_draw(gen, (B, L, H * D), QK_STD) for _ in range(2))
+    v = lab_draw(gen, (B, L, H * D))
+    if entry == "bhld":
+        q, k, v = (lab.to_bhld(x, H).contiguous() for x in (q, k, v))
+        kernel = lambda: lab.lab_fwd_bhld(q, k, v)  # noqa: E731
+        plain_of = lambda v_: lab.lab_fwd_bhld_plain(q, k, v_)  # noqa: E731
+        heads = lambda x: x  # noqa: E731
+    else:
+        kernel = lambda: lab.lab_fwd_packed(q, k, v, H)  # noqa: E731
+        plain_of = lambda v_: lab.lab_fwd_packed_plain(q, k, v_, H)  # noqa: E731
+        heads = lambda x: lab.to_bhld(x, H)  # noqa: E731
+    (o, lse), (ref_o, ref_lse) = kernel(), plain_of(v)
+    torch.cuda.synchronize()
+    ok, rel = out_check(o, ref_o)
+    err_lse = float((lse - ref_lse).abs().max())
+    ok = ok and err_lse <= LSE_TOL and bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
+    dropped = v.clone()
+    dropped[..., L // 2:L // 2 + 16, :] = 0
+    control_ok, rel_dropped = out_check(plain_of(dropped)[0], ref_o)
+    library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
+    return lab_record(
+        "lab_fwd", entry, (B, L, H, D), ok, {"out_rel": rel, "lse_max": err_lse}, not control_ok,
+        {"out_rel": rel_dropped}, kernel, lambda: plain_of(v), library,
+        4 * B * H * L * L * D, 4 * B * L * H * D * 2 + B * H * L * 4, timer,
+        float((o.float() - ref_o.float()).abs().max()))
+
+
+def lab_grad_check(ours, ref):
+    """(agrees, {dq|dk|dv: [||d - ref|| / ||ref||, max|d - ref| / max|ref|]})."""
+    errs, ok = {}, True
+    for part, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        a, r = a.float(), r.float()
+        rel = float((a - r).norm() / r.norm())
+        worst = float((a - r).abs().max() / r.abs().max())
+        errs[part] = [rel, worst]
+        ok = ok and rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL and bool(torch.isfinite(a).all())
+    return ok, errs
+
+
+def lab_bwd_case(B, L, H, D, timer, gen):
+    """The lab backward against its plain version from the lab forward's
+    lse and an N(0, 1) cotangent; control: one 16-key block of v zeroed;
+    yardstick SDPA's backward alone."""
+    from latteclip_torch.kernels import lab
+
+    q, k = (lab_draw(gen, (B, H, L, D), QK_STD) for _ in range(2))
+    v, do = (lab_draw(gen, (B, H, L, D)) for _ in range(2))
+    _, lse = lab.lab_fwd_bhld(q, k, v)
+    kernel = lambda: lab.lab_bwd_bhld(q, k, v, do, lse)  # noqa: E731
+    plain_of = lambda v_: lab.lab_bwd_bhld_plain(q, k, v_, do, lse)  # noqa: E731
+    ours, ref = kernel(), plain_of(v)
+    torch.cuda.synchronize()
+    ok, errs = lab_grad_check(ours, ref)
+    dropped = v.clone()
+    dropped[:, :, L // 2:L // 2 + 16] = 0
+    control_ok, control_errs = lab_grad_check(plain_of(dropped), ref)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves)
+    library = lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)  # noqa: E731
+    rec = lab_record(
+        "lab_bwd", "bhld", (B, L, H, D), ok, errs, not control_ok, control_errs, kernel,
+        lambda: plain_of(v), library, 10 * B * H * L * L * D, 7 * B * L * H * D * 2 + B * H * L * 4,
+        timer, max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref)))
+    del o, leaves
+    return rec
+
+
+def f32_check(out, ref):
+    """(agrees, [||out - ref|| / ||ref||, max|out - ref| / max|ref|]) of f32 products."""
+    d = out - ref
+    errs = [float(d.norm() / ref.norm()), float(d.abs().max() / ref.abs().max())]
+    return max(errs) <= F32_REL_TOL and bool(torch.isfinite(out).all()), errs
+
+
+def lab_product_case(entry, B, L, H, D, timer, gen):
+    """A head-summed product (natural or pret Q K^T, or P V) against its
+    plain version on N(0, 1) bf16 operands; control: one 16-column block of
+    k (Q K^T) or v (P V) zeroed; yardstick torch.bmm on the same operands."""
+    from latteclip_torch.kernels import lab
+
+    HD = H * D
+    a = lab_draw(gen, (B, L, HD) if entry != "pv" else (B, L, L))
+    b = lab_draw(gen, (B, L, HD))
+    if entry == "pret":
+        b = b.transpose(1, 2).contiguous()  # kT [B, HD, L], made outside the timed kernel
+        wrapper, plain_fn, library = lab.qk_heads_pret, lab.qk_heads_pret_plain, lambda: torch.bmm(a, b)
+    elif entry == "natural":
+        wrapper, plain_fn = lab.qk_heads_natural, lab.qk_heads_natural_plain
+        library = lambda: torch.bmm(a, b.transpose(1, 2))  # noqa: E731
+    else:
+        wrapper, plain_fn, library = lab.pv_heads, lab.pv_heads_plain, lambda: torch.bmm(a, b)
+    kernel = lambda: wrapper(a, b, H)  # noqa: E731
+    out, ref = kernel(), plain_fn(a, b, H)
+    torch.cuda.synchronize()
+    ok, errs = f32_check(out, ref)
+    dropped = b.clone()
+    if entry == "pret":
+        dropped[:, HD // 2:HD // 2 + 16] = 0
+    else:
+        dropped[:, :, HD // 2:HD // 2 + 16] = 0
+    control_ok, control_errs = f32_check(plain_fn(a, dropped, H), ref)
+    out_bytes = B * L * (L if entry != "pv" else D) * 4
+    return lab_record(
+        "lab_pv" if entry == "pv" else "lab_qk", entry, (B, L, H, D), ok, errs, not control_ok,
+        control_errs, kernel, lambda: plain_fn(a, b, H), library, 2 * B * H * L * L * D,
+        a.numel() * 2 + b.numel() * 2 + out_bytes, timer, float((out - ref).abs().max()))
+
+
+def phase_lab(smi: str):
+    """The lab kernels against their plain versions at the lab tools' shapes
+    and one small shape each, then both lab tools' main at their default
+    shapes with the launch counters set to 0 just before and read just after.
+    Returns (records, launches)."""
+    from latteclip_torch.kernels import lab
+    from latteclip_torch.tools import attn_lab, r4_transpose_probe
+    from latteclip_torch.tools.perf_lab import Timer
+
+    if torch.backends.cuda.matmul.allow_tf32:  # the plain versions' f32 products
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    timer = Timer("cuda")
+    records = []
+    for shape in (LAB_ATTN, LAB_ATTN_SMALL):
+        records += [lab_fwd_case(entry, *shape, timer, gen) for entry in ("packed", "bhld")]
+        records.append(lab_bwd_case(*shape, timer, gen))
+    for shape in (LAB_PRODUCTS, LAB_PRODUCTS_SMALL):
+        records += [lab_product_case(entry, *shape, timer, gen) for entry in ("natural", "pret", "pv")]
+    del timer
+    torch.cuda.empty_cache()
+    bad = [(r["name"], r["entry"], r["shape"], r["errors"]) for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"lab kernels disagree with their plain versions (name, entry, shape, errors): {bad}")
+    blind = [(r["name"], r["entry"], r["shape"], r["control_errors"]) for r in records
+             if not r["control_rejected"]]
+    if blind:
+        raise RuntimeError(f"a lab check missed a zeroed block (name, entry, shape, errors): {blind}")
+
+    reset_counts()
+    tools = {"attn_lab": attn_lab.run("cuda"), "r4_transpose_probe": r4_transpose_probe.run("cuda")}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    torch.cuda.empty_cache()
+    log(f"lab kernels: {json.dumps(launches)}")
+    log("lab " + json.dumps({**tools, "card": smi}))
+    missing = [name for name in lab.launch_counts if launches[name] <= 0]
+    if missing:
+        raise RuntimeError(f"lab kernels never launched by the lab tools: {missing}")
+    numbers = [x for t in tools.values() for x in t["ms"].values()] + \
+        [x for c in tools["attn_lab"]["checks"].values() for x in c.values()]
+    if not all(np.isfinite(numbers)) or tools["r4_transpose_probe"]["pret_vs_natural"] != 0.0:
+        raise RuntimeError(f"lab tools gave bad numbers: {tools}")
+    if max(tools["attn_lab"]["checks"]["v3_vs_v1"].values()) != 0.0:
+        raise RuntimeError("the lab forward's packed and BHLD entry points disagree: "
+                           f"{tools['attn_lab']['checks']['v3_vs_v1']}")
+    return records, launches
+
+
+# -- phase 5: the ViT-B/32 zero-shot slice -----------------------------------
 
 def exemplar_images(rng: np.random.Generator, n: int, image_size: int) -> np.ndarray:
     """One seeded uint8 image per class: an 8 x 8 grid of random colours.
@@ -726,7 +922,7 @@ def route_builds(model, tok, classnames, templates, plain_classifier, text_layer
     return builds
 
 
-# -- phase 5: the ViT-B/32 train step ------------------------------------------
+# -- phase 6: the ViT-B/32 train step ------------------------------------------
 
 def caption_lengths(rng: np.random.Generator, n: int, clip_max: int = 77) -> np.ndarray:
     """LLaVA-caption-like BPE lengths: lognormal, median ~30, long tail,
@@ -818,16 +1014,17 @@ def train_inputs() -> dict:
 
 
 def reset_counts() -> None:
-    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL
+    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL, lab
 
     A.reset_launch_counts()
     FL.reset_launch_counts()
+    lab.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL
+    from latteclip_torch.kernels import attention as A, fused_ln_linear as FL, lab
 
-    return {**A.launch_counts, **FL.launch_counts}
+    return {**A.launch_counts, **FL.launch_counts, **lab.launch_counts}
 
 
 def counted_steps(step_fn, state, batches, gen, n):
@@ -944,7 +1141,7 @@ def ptxas_usage(lines) -> dict:
     """{kernel<template args>: "N registers, S bytes spilled"} from -Xptxas -v."""
     usage, kernel = {}, None
     for line in lines:
-        m = re.search(r"Compiling entry function '\S*?\d((?:flash|ln)_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+)?",
+        m = re.search(r"Compiling entry function '\S*?\d((?:flash|ln|lab)_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+)?",
                       line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
@@ -992,6 +1189,8 @@ def main() -> int:
 
     train = train_inputs()
     records = phase_kernels(train, tiled_lib)
+    lab_records, lab_launches = phase_lab(smi)
+    records += lab_records
     slice_launches = phase_slice(smi)
     train_launches = phase_train(smi, train)
 
@@ -1000,7 +1199,7 @@ def main() -> int:
         rec = next(r for r in records if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": slice_launches.get(name, 0) + train_launches[name],
+            "launches": sum(w.get(name, 0) for w in (slice_launches, train_launches, lab_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

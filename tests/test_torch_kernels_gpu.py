@@ -36,6 +36,7 @@ import torch
 
 from latteclip_torch.kernels import attention as A
 from latteclip_torch.kernels import fused_ln_linear as FL
+from latteclip_torch.kernels import lab as LB
 
 torch.set_num_threads(1)
 
@@ -393,3 +394,226 @@ def test_cuda_fused_ln_linear_function_matches_autograd_through_unfused():
         assert a.dtype == r.dtype and a.shape == r.shape
         rel = float((a.float() - r.float()).norm() / r.float().norm())
         assert rel <= 1e-2, f"d{name}: {rel:.4g}"
+
+
+# -- the attention lab's kernels (csrc/lab.cu) --------------------------------
+# Forward o and the gradients are held as above; lse (natural log) atol 1e-3.
+# The head-summed products are f32: ||S - ref|| / ||ref|| <= 1e-4 and
+# max|S - ref| <= 1e-4 * max|ref| (both sides multiply the same bf16
+# operands exactly in f32 and differ only in the order of the f32 sums).
+
+F32_REL_TOL = 1e-4
+
+
+def _lab_qkv(rng, B, H, L, D, layout):
+    """q, k ~ N(0, 0.3^2), v ~ N(0, 1), bf16 on the card, [B, L, H*D] or [B, H, L, D]."""
+    shape = (B, L, H * D) if layout == "packed" else (B, H, L, D)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to("cuda", torch.bfloat16)
+            for std in (0.3, 0.3, 1.0)]
+
+
+def _assert_lab_grads_close(ours, ref):
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        a, r = a.float(), r.float()
+        rel = float((a - r).norm() / r.norm())
+        worst = float((a - r).abs().max() / r.abs().max())
+        assert rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL, f"{name}: {rel:.4g}, {worst:.4g}"
+
+
+def _assert_f32_close(out, ref):
+    d = out - ref
+    assert float(d.norm() / ref.norm()) <= F32_REL_TOL
+    assert float(d.abs().max() / ref.abs().max()) <= F32_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 77, 129, 197])
+def test_cuda_lab_forward_matches_plain_versions(L, D):
+    """Packed, BHLD and BHLD between permutes against their plain versions;
+    the packed and BHLD entry points run one kernel and agree bit for bit."""
+    _need_cuda()
+    rng = np.random.default_rng(L * 1000 + D + 17)
+    B, H = 3, 2
+    q, k, v = _lab_qkv(rng, B, H, L, D, "packed")
+    o, lse = LB.lab_fwd_packed(q, k, v, H)
+    ref_o, ref_lse = LB.lab_fwd_packed_plain(q, k, v, H)
+    o3, lse3 = LB.lab_fwd_v3_packed(q, k, v, H)
+    qb, kb, vb = (LB.to_bhld(x, H).contiguous() for x in (q, k, v))
+    ob, lseb = LB.lab_fwd_bhld(qb, kb, vb)
+    ref_ob, ref_lseb = LB.lab_fwd_bhld_plain(qb, kb, vb)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, L) and lseb.shape == (H, B, L)
+    _assert_out_close(o, ref_o)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+    _assert_out_close(ob, ref_ob)
+    torch.testing.assert_close(lseb, ref_lseb, atol=LSE_TOL, rtol=0)
+    assert torch.equal(o3, o) and torch.equal(lse3.transpose(0, 1), lse)
+    assert torch.equal(LB.from_bhld(ob), o)
+    if L >= 32:  # control: the check sees one 16-key block of values dropped
+        dropped = v.clone()
+        dropped[:, L // 2:L // 2 + 16] = 0
+        with pytest.raises(AssertionError):
+            _assert_out_close(LB.lab_fwd_packed_plain(q, k, dropped, H)[0], ref_o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [16, 50, 77, 129, 197])
+def test_cuda_lab_backward_matches_plain_version(L, D):
+    _need_cuda()
+    rng = np.random.default_rng(L * 1000 + D + 19)
+    B, H = 3, 2
+    qb, kb, vb = _lab_qkv(rng, B, H, L, D, "bhld")
+    dob = torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    _, lse = LB.lab_fwd_bhld(qb, kb, vb)
+    ours = LB.lab_bwd_bhld(qb, kb, vb, dob, lse)
+    ref = LB.lab_bwd_bhld_plain(qb, kb, vb, dob, lse)
+    torch.cuda.synchronize()
+    _assert_lab_grads_close(ours, ref)
+    if L >= 32:  # control: dq and dk see one 16-key block of values dropped
+        dropped = vb.clone()
+        dropped[:, :, L // 2:L // 2 + 16] = 0
+        with pytest.raises(AssertionError):
+            _assert_lab_grads_close(LB.lab_bwd_bhld_plain(qb, kb, dropped, dob, lse), ref)
+
+
+@pytest.mark.gpu
+def test_cuda_lab_function_matches_autograd_through_plain_forward():
+    """LabAttentionBHLD's gradient (both lab kernels) against autograd
+    through the plain lab forward, in bf16."""
+    _need_cuda()
+    rng = np.random.default_rng(21)
+    B, H, L, D = 4, 2, 77, 64
+    qb, kb, vb = _lab_qkv(rng, B, H, L, D, "bhld")
+    dob = torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    grads = []
+    for forward in (lambda *x: LB.LabAttentionBHLD.apply(*x)[0], lambda *x: LB.lab_fwd_bhld_plain(*x)[0]):
+        leaves = [x.clone().requires_grad_(True) for x in (qb, kb, vb)]
+        grads.append(torch.autograd.grad(forward(*leaves), leaves, dob))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        rel = float((a.float() - r.float()).norm() / r.float().norm())
+        assert rel <= 2e-2, f"{name}: {rel:.4g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,D", [(2, 64), (8, 64), (2, 128)])
+@pytest.mark.parametrize("L", [1, 16, 50, 77, 128])
+def test_cuda_lab_head_summed_products_match_plain_versions(L, H, D):
+    """Q K^T (natural and pret, which agree bit for bit) and P V against
+    their plain versions, N(0, 1) bf16 operands."""
+    _need_cuda()
+    rng = np.random.default_rng(L * 100 + H * 10 + D)
+    B, HD = 3, H * D
+    q, k, p, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", torch.bfloat16)
+                  for s in ((B, L, HD), (B, L, HD), (B, L, L), (B, L, HD)))
+    kt = k.transpose(1, 2).contiguous()
+    s = LB.qk_heads_natural(q, k, H)
+    s_pret = LB.qk_heads_pret(q, kt, H)
+    o = LB.pv_heads(p, v, H)
+    ref_s, ref_o = LB.qk_heads_natural_plain(q, k, H), LB.pv_heads_plain(p, v, H)
+    torch.cuda.synchronize()
+    assert s.shape == (B, L, L) and o.shape == (B, L, D) and s.dtype == o.dtype == torch.float32
+    _assert_f32_close(s, ref_s)
+    assert torch.equal(s_pret, s)
+    _assert_f32_close(o, ref_o)
+    torch.testing.assert_close(LB.qk_heads_pret_plain(q, kt, H), ref_s, atol=0, rtol=F32_REL_TOL)
+    if HD >= 32:  # controls: one 16-column block of k or of v zeroed
+        dk, dv = k.clone(), v.clone()
+        dk[:, :, HD // 2:HD // 2 + 16] = 0
+        dv[:, :, HD // 2:HD // 2 + 16] = 0
+        with pytest.raises(AssertionError):
+            _assert_f32_close(LB.qk_heads_natural_plain(q, dk, H), ref_s)
+        with pytest.raises(AssertionError):
+            _assert_f32_close(LB.pv_heads_plain(p, dv, H), ref_o)
+
+
+@pytest.mark.gpu
+def test_cuda_lab_wrappers_count_each_launch():
+    _need_cuda()
+    B, L, H, D = 2, 50, 2, 64
+    x = torch.zeros(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+    xb = torch.zeros(B, H, L, D, device="cuda", dtype=torch.bfloat16)
+    LB.reset_launch_counts()
+    LB.lab_fwd_packed(x, x, x, H)
+    _, lse = LB.lab_fwd_bhld(xb, xb, xb)
+    LB.lab_fwd_v3_packed(x, x, x, H)
+    LB.lab_bwd_bhld(xb, xb, xb, xb, lse)
+    LB.qk_heads_natural(x, x, H)
+    LB.qk_heads_pret(x, x.transpose(1, 2).contiguous(), H)
+    LB.pv_heads(torch.zeros(B, L, L, device="cuda", dtype=torch.bfloat16), x, H)
+    assert LB.launch_counts == {"lab_fwd": 3, "lab_bwd": 1, "lab_qk": 2, "lab_pv": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_lab_wrappers_raise_on_what_the_kernels_do_not_take():
+    _need_cuda()
+    x = torch.zeros(2, 50, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        LB.lab_fwd_packed(x, x, x, 4)                   # D = 32
+    with pytest.raises(ValueError, match="bfloat16"):
+        LB.lab_fwd_packed(x.float(), x.float(), x.float(), 2)
+    wide = torch.zeros(2, 50, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        LB.lab_fwd_packed(wide[:, :, :128], x, x, 2)
+    with pytest.raises(ValueError, match="shared memory"):  # a row too long for one CTA
+        xl = torch.zeros(1, 1024, 128, device="cuda", dtype=torch.bfloat16)
+        LB.lab_fwd_packed(xl, xl, xl, 2)
+    xb = torch.zeros(2, 2, 50, 64, device="cuda", dtype=torch.bfloat16)
+    _, lse = LB.lab_fwd_bhld(xb, xb, xb)
+    with pytest.raises(ValueError, match="lse"):  # [B, H, L] where [H, B, L] is taken
+        LB.lab_bwd_bhld(xb, xb, xb, xb, torch.zeros(2, 2, 49, device="cuda"))
+    long_row = torch.zeros(2, 129, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="L <= 128"):
+        LB.qk_heads_natural(long_row, long_row, 2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        LB.qk_heads_natural(torch.zeros(2, 50, 96, device="cuda", dtype=torch.bfloat16),
+                            torch.zeros(2, 50, 96, device="cuda", dtype=torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="kT|k must"):
+        LB.qk_heads_pret(x, x, 2)  # k given [B, L, HD] where [B, HD, L] is taken
+    with pytest.raises(ValueError, match="p must"):
+        LB.pv_heads(torch.zeros(2, 50, 49, device="cuda", dtype=torch.bfloat16), x, 2)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd", "qk", "pv"])
+def test_lab_checks_see_one_zeroed_block(kind):
+    """On the CPU: each lab check rejects its plain version with one 16-key
+    block of v (attention) or one 16-column block of k or v (products)
+    zeroed, by a wide margin, at the lab tools' row lengths."""
+    rng = np.random.default_rng(23)
+    B, H, D = 2, 2, 64
+    if kind in ("fwd", "bwd"):
+        L = 197
+        qb, kb, vb = (torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32) * s).to(torch.bfloat16)
+                      for s in (0.3, 0.3, 1.0))
+        dropped = vb.clone()
+        dropped[:, :, L // 2:L // 2 + 16] = 0
+        if kind == "fwd":
+            ref = LB.lab_fwd_bhld_plain(qb, kb, vb)[0]
+            _assert_out_close(ref, ref)
+            wrong = LB.lab_fwd_bhld_plain(qb, kb, dropped)[0]
+            with pytest.raises(AssertionError):
+                _assert_out_close(wrong, ref)
+            assert float((wrong.float() - ref.float()).norm() / ref.float().norm()) > 5 * OUT_REL_TOL
+        else:
+            lse = LB.lab_fwd_bhld_plain(qb, kb, vb)[1]
+            ref = LB.lab_bwd_bhld_plain(qb, kb, vb, vb, lse)
+            _assert_lab_grads_close(ref, ref)
+            wrong = LB.lab_bwd_bhld_plain(qb, kb, dropped, vb, lse)
+            with pytest.raises(AssertionError):
+                _assert_lab_grads_close(wrong, ref)
+            assert float((wrong[1].float() - ref[1].float()).norm() / ref[1].float().norm()) > 5 * GRAD_REL_TOL
+        return
+    L, HD = 77, H * D
+    a = torch.from_numpy(rng.standard_normal((B, L, HD if kind == "qk" else L)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((B, L, HD)).astype(np.float32)).to(torch.bfloat16)
+    plain = LB.qk_heads_natural_plain if kind == "qk" else LB.pv_heads_plain
+    ref = plain(a, b, H)
+    _assert_f32_close(ref, ref)
+    dropped = b.clone()
+    dropped[:, :, HD // 2:HD // 2 + 16] = 0
+    wrong = plain(a, dropped, H)
+    with pytest.raises(AssertionError):
+        _assert_f32_close(wrong, ref)
+    assert float((wrong - ref).norm() / ref.norm()) > 100 * F32_REL_TOL
