@@ -21,7 +21,10 @@ Phases, each raising on failure:
    (F.scaled_dot_product_attention, its forward or its backward alone, timed
    only) and the bound max(FLOP / 989e12, bytes / 3.35e12). Besides the
    serving and synthetic shapes, the cases take the train phase's own segment
-   ids (packed captions and templates) and batch shapes. Every K3/K4 case
+   ids (packed captions and templates) and batch shapes, and K1 and K5 the
+   ViT-B/16 eval's [256, 197, 12 x 3 x 64]; cases of more than 128 tokens
+   name the long-row kernel's form (resident or streamed), CTAs per (row,
+   head) and warps a CTA. Every K3/K4 case
    of at most 128 tokens also checks and times the tiled kernel pair that
    longer rows take (flash_bwd.cu built a second time with
    -DLATTECLIP_BWD_SHORT_ROW=0) beside the one-CTA-per-(row, head) kernel,
@@ -60,6 +63,17 @@ Phases, each raising on failure:
    on each other route, head-split attention with the fused LayerNorm ->
    linear (K5, K8) and block-diagonal attention (K7), counted, and its
    columns must agree with the plain build's at cosine >= 0.999;
+5b. slice_b16: ViT-B/16 zero-shot classification at full width and depth
+   (L=197, heads 64 wide), the same requests from seeded random weights; no
+   batch pair-packs at 197 tokens, so every vision layer runs K1 on the
+   long-row kernel. The counters are set to 0 just before the requests and
+   read just after (one flash_fwd launch a layer: the classifier build's text,
+   five eval batches, the prototype batch; nothing else), and again around
+   the eval alone (12 a batch). Features and classifier columns must agree
+   with the plain route at cosine >= 0.999, prototype top-1 on >= 99% of
+   rows; a torch.profiler trace of the eval gives its device busy ms, idle
+   share and device ms by kind, printed with images/s and peak memory on one
+   slice_b16 JSON line;
 6. train: the LatteCLIP v2 train step at ViT-B/32 full width and depth,
    batch 512, 47 classes (DTD's count), AdamW with a constant schedule, the
    colour augment on: warm-up and 10 timed steps with the captions and
@@ -143,6 +157,7 @@ REPLACES = {
 LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
 TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
+EVAL_BATCH = 256     # the serving phases' eval batch (four of 256 and one of 255)
 # the lab tools' shapes (B, L, H, D) and one small shape of each
 LAB_ATTN, LAB_ATTN_SMALL = (512, 197, 12, 64), (4, 50, 2, 64)
 LAB_PRODUCTS, LAB_PRODUCTS_SMALL = (1024, 77, 8, 64), (4, 77, 2, 64)
@@ -209,6 +224,20 @@ def bound(flops, nbytes):
     return max(t_flops, t_bytes), "operations" if t_flops > t_bytes else "bytes"
 
 
+def long_row_fields(B, L, H, D, segmented) -> dict:
+    """The form ("resident" or "streamed"), CTAs per (row, head) and warps a
+    CTA of a row of more than 128 tokens on this card, from the wrappers'
+    launch plan; nothing for shorter rows, or for a tree whose forward has
+    no long-row plan (so that this script also measures such a tree)."""
+    from latteclip_torch.kernels import attention as A
+
+    plan_of = getattr(A, "long_row_plan", None)
+    if L <= ROW_MAX or plan_of is None:
+        return {}
+    plan = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"form": plan.form, "ctas_per_bh": plan.splits, "warps": plan.warps}
+
+
 def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     from latteclip_torch.kernels import attention as A
 
@@ -255,6 +284,7 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
         "control_rel_err": rel_dropped, "control_rejected": control_rejected,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        **long_row_fields(B, L, H, D, seg is not None),
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -431,6 +461,7 @@ def phase_kernels(train, tiled_lib):
         ("flash_fwd", 64, 197, 12, 64, False, None),       # ViT-B/16 vision
         ("flash_fwd", 8, 577, 16, 64, False, None),        # 336 px vision
         ("flash_fwd", 64, 197, 6, 128, False, None),       # head_dim 128
+        ("flash_fwd", EVAL_BATCH, 197, 12, 64, False, None),  # the ViT-B/16 eval's batch
         ("flash_fwd_seg", 128, 100, 12, 64, False, np.tile(pair, (128, 1))),  # vision pairs
         ("flash_fwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_fwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
@@ -455,6 +486,8 @@ def phase_kernels(train, tiled_lib):
         (64, 197, 6, 128, False, None),                 # head_dim 128
     ]
     cases += [("flash_fwd_hs", *c) for c in whole_rows]
+    cases += [("flash_fwd_hs", 8, 577, 16, 64, False, None),          # 336 px vision
+              ("flash_fwd_hs", EVAL_BATCH, 197, 12, 64, False, None)]  # the ViT-B/16 eval's batch
     cases += [("flash_fwd_bd", *c) for c in whole_rows if c[1] <= ROW_MAX]
     bwd_cases += [("flash_bwd_hs", *c) for c in [whole_rows[1], whole_rows[0], *whole_rows[2:]]]
     # the padded train step's LN -> projection pairs, then the classifier build's
@@ -766,33 +799,46 @@ def device_profile(fn) -> dict:
     }
 
 
-def phase_slice(smi: str):
+def serving_inputs(name: str) -> dict:
+    """A serving phase's model (full width and depth, random weights from
+    seed 0), tokenizer, the ImageNet classes and templates, the seeded eval
+    batches (4 x 256 + 255 images) and memory bank, after a warm-up of both
+    routes (cuBLAS heuristics, allocator), neither timed nor counted."""
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
     from latteclip_torch.data.eval_dataset import get_templates, imagenet_classnames
-    from latteclip_torch.eval import zero_shot as zs
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.models.tokenizer import get_tokenizer
 
-    cfg = get_model_config("ViT-B-32")
+    cfg = get_model_config(name)
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     tok = get_tokenizer()
     classnames, templates = imagenet_classnames(), get_templates("imagenet")
     rng = np.random.default_rng(0)
     exemplars = exemplar_images(rng, len(classnames), cfg.vision.image_size)
-    batches = seeded_batches(rng, exemplars, (256, 256, 256, 256, 255))
+    batches = seeded_batches(rng, exemplars, (EVAL_BATCH,) * 4 + (EVAL_BATCH - 1,))
     mean, std = T.model_mean_std(cfg)
-    # the seeded memory bank [1000, 512]: class prototypes are the exemplars'
+    # the seeded memory bank [1000, embed]: class prototypes are the exemplars'
     # features (plain route), as LatteCLIP's bank holds image features per class
     with torch.no_grad():
         bank = torch.cat([
             clip_mod.encode_image(model, T.normalize_images(torch.from_numpy(e).cuda(), mean, std),
                                   attention="plain")
             for e in np.array_split(exemplars, 4)])
-
-    # warm-up of both routes (cuBLAS heuristics, allocator), neither timed nor counted
     for attention in ("kernel", "plain"):
         run_requests(model, tok, classnames, templates, [batches[0], batches[-1]], bank, attention)
+    return {"cfg": cfg, "model": model, "tok": tok, "classnames": classnames,
+            "templates": templates, "batches": batches, "mean": mean, "std": std, "bank": bank}
+
+
+def phase_slice(smi: str):
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod
+
+    inputs = serving_inputs("ViT-B-32")
+    cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
+    classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -920,6 +966,94 @@ def route_builds(model, tok, classnames, templates, plain_classifier, text_layer
             "classifier_cos_min": float(F.cosine_similarity(clf, plain_classifier, dim=0).min()),
         }
     return builds
+
+
+# -- phase 5b: ViT-B/16 zero-shot serving ---------------------------------------
+
+def phase_slice_b16(smi: str):
+    """ViT-B/16 serving at full width and depth (vision 12 x 768 at 224 px /
+    patch 16, L=197, heads 64 wide): the same requests as the ViT-B/32 slice.
+    No batch pair-packs at 197 tokens (that needs 2L <= 128), so every vision
+    layer runs K1 on the long-row kernel at [256, 197, 12 x 3 x 64]. The
+    counters are set to 0 just before the requests and read just after
+    (exactly one flash_fwd launch a layer: the classifier build's text tower
+    at L=77, then the vision tower on five eval batches and the prototype
+    request's batch), and again around the eval alone (12 a batch, all at
+    L=197, no flash_fwd_seg)."""
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod
+
+    inputs = serving_inputs("ViT-B-16")
+    cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
+    classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
+    if cfg.vision.seq_len != 197:
+        raise RuntimeError(f"ViT-B/16 vision rows of {cfg.vision.seq_len} tokens, expected 197")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fast = run_requests(model, tok, classnames, templates, batches, bank, "kernel")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    zs.run_zero_shot_eval(model, fast["classifier"], batches)
+    eval_launches = read_counts()
+    log(f"slice_b16 kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}")
+    vision_runs = len(batches) + 1  # the eval's batches, then the prototype request's
+    for window, got, n in (("requests", launches, cfg.text.layers + cfg.vision.layers * vision_runs),
+                           ("eval", eval_launches, cfg.vision.layers * len(batches))):
+        want = {**dict.fromkeys(got, 0), "flash_fwd": n}
+        if got != want:
+            raise RuntimeError(f"ViT-B/16 {window} launched {got}, expected {want}")
+
+    reset_counts()
+    slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
+    if any(read_counts().values()):
+        raise RuntimeError(f"plain run launched kernels: {read_counts()}")
+    profile = device_profile(lambda: zs.run_zero_shot_eval(model, fast["classifier"], batches))
+    log("profile eval_b16 " + json.dumps(profile))
+
+    # agreement of the kernel route with the plain one, as the ViT-B/32 slice holds it
+    proto = zs.prototype_classifier(bank)
+    cos_min, agree, rows = 1.0, 0, 0
+    with torch.no_grad():
+        for _ids, images, _labels, valid in batches:
+            x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
+            fk = clip_mod.encode_image(model, x, normalize=True, attention="kernel")[:valid]
+            fp = clip_mod.encode_image(model, x, normalize=True, attention="plain")[:valid]
+            if fk.shape != (valid, cfg.embed_dim) or not torch.isfinite(fk).all():
+                raise RuntimeError(f"bad image features {tuple(fk.shape)}")
+            cos_min = min(cos_min, float(F.cosine_similarity(fk, fp, dim=-1).min()))
+            agree += int(((fk @ proto).argmax(-1) == (fp @ proto).argmax(-1)).sum())
+            rows += valid
+    clf = fast["classifier"]
+    if clf.shape != (cfg.embed_dim, len(classnames)) or not torch.isfinite(clf).all():
+        raise RuntimeError(f"bad classifier {tuple(clf.shape)}")
+    clf_cos = float(F.cosine_similarity(clf, slow["classifier"], dim=0).min())
+    m = fast["metrics"]
+    if m["n"] != rows or not all(0.0 <= m[k] <= 1.0 for k in ("top1", "top5", "top10")):
+        raise RuntimeError(f"bad eval metrics {m}")
+    report = {
+        "model": cfg.name, "rows": rows, "feature_cos_min": cos_min, "classifier_cos_min": clf_cos,
+        "top1_agree_prototype": agree / rows,
+        "top1_agree_prototype_request": float(
+            (fast["proto_logits"].argmax(-1) == slow["proto_logits"].argmax(-1)).float().mean()),
+        "metrics": m, "metrics_plain": slow["metrics"],
+        "eval_images_per_s": fast["images_per_s"], "eval_images_per_s_plain": slow["images_per_s"],
+        "classifier_build_s": fast["classifier_build_s"],
+        "eval_device_busy_ms": profile["device_busy_ms"],
+        "eval_device_idle_share": profile["device_idle_share"],
+        "eval_device_ms_by_kind": profile["device_ms_by_kind"],
+        "launches": launches, "eval_launches": eval_launches,
+        "max_memory_allocated": peak, "card": smi,
+    }
+    log("slice_b16 " + json.dumps(report))
+    if cos_min < 0.999 or clf_cos < 0.999:
+        raise RuntimeError(f"ViT-B/16 features disagree: min cosine {cos_min} (images), "
+                           f"{clf_cos} (classifier)")
+    if agree / rows < 0.99:
+        raise RuntimeError(f"ViT-B/16 prototype top-1 agrees on only {agree / rows:.4f} of rows")
+    return launches
 
 
 # -- phase 6: the ViT-B/32 train step ------------------------------------------
@@ -1192,6 +1326,7 @@ def main() -> int:
     lab_records, lab_launches = phase_lab(smi)
     records += lab_records
     slice_launches = phase_slice(smi)
+    b16_launches = phase_slice_b16(smi)
     train_launches = phase_train(smi, train)
 
     kernels = []
@@ -1199,7 +1334,8 @@ def main() -> int:
         rec = next(r for r in records if r["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": sum(w.get(name, 0) for w in (slice_launches, train_launches, lab_launches)),
+            "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
+                                                     lab_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

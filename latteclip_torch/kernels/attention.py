@@ -23,6 +23,10 @@ Port of ``latteclip_tpu/kernels/attention.py``:
   is normalised by the f32 sum of the unrounded p, then rounded; no division
   after the PV product).
 
+Rows of more than 128 tokens take the forward's long-row kernel under the
+launch plan of :func:`long_row_plan` (form, warps a CTA, CTAs per (row,
+head)), computed here so that the CPU tests hold it.
+
 The forwards read q, k and v straight from ``qkv [B, L, 3*H*D]`` (laid out
 ``[q | k | v]``) and return ``(out [B, L, H*D], lse2 [B, H, L])``, the
 base-2 logsumexp; the backwards take those residuals and the cotangent of
@@ -41,6 +45,8 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -258,11 +264,11 @@ def _check_residual(name: str, x: torch.Tensor, qkv: torch.Tensor, shape, dtype)
 
 _SIGNATURES = {
     # name: argument kinds, "p" pointer, "i" int, "f" float; every one returns int
-    "latteclip_flash_fwd": "pppiiiiifp",
-    "latteclip_flash_fwd_seg": "ppppiiiiifp",
+    "latteclip_flash_fwd": "pppiiiiifiiip",
+    "latteclip_flash_fwd_seg": "ppppiiiiifiiip",
     "latteclip_flash_bwd": "ppppppiiiiiffp",
     "latteclip_flash_bwd_seg": "pppppppiiiiiffp",
-    "latteclip_flash_fwd_hs": "pppiiiiifp",
+    "latteclip_flash_fwd_hs": "pppiiiiifiiip",
     "latteclip_flash_fwd_bd": "pppiiiiifp",
     "latteclip_flash_bwd_hs": "ppppppiiiiiffp",
 }
@@ -286,10 +292,90 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+# The launch plan of rows longer than SHORT_ROW tokens (csrc/flash_fwd.cu,
+# flash_fwd_long_kernel); the constants are the kernel's.
+SHORT_ROW = 128           # longest row of the one-CTA-per-(row, head) short-row kernel
+LONG_TILE = 64            # keys per copy stage and per ring slot
+LONG_STREAM_SLOTS = 2     # ring slots of the streamed form
+LONG_MAX_WARPS = 16       # __launch_bounds__ of the long-row kernel
+LONG_MIN_WARPS = 4        # the fewest warps the resident form is given before it streams
+MAX_SMEM = 232448         # dynamic shared memory a CTA may use on an H100
+SM_SMEM = 233472          # shared memory of one SM
+CTA_RESERVED_SMEM = 1024  # shared memory the system keeps for each CTA
+MIN_SPLIT_BLOCKS = 4      # 16-row query blocks a split keeps at least
+
+
+@dataclasses.dataclass(frozen=True)
+class LongRowPlan:
+    """How ``flash_fwd_long_kernel`` takes a row of more than 128 tokens:
+    ``form`` "resident" (K and V of the row in shared memory) or "streamed"
+    (a ring of 64-key slots), ``warps`` a CTA, ``splits`` CTAs per (row,
+    head), and the CTA's dynamic shared memory."""
+    form: str
+    warps: int
+    splits: int
+    smem_bytes: int
+
+
+def long_row_smem_bytes(L: int, D: int, warps: int, segmented: bool, resident: bool) -> int:
+    """Shared memory of one long-row CTA (mirrors ``long_smem_bytes`` in
+    csrc/flash_fwd.cu): the seg ids and K and V of the whole row or of the
+    ring, 16 rows a warp for its Q block and output."""
+    kv_rows = -(-L // 16) * 16 if resident else LONG_STREAM_SLOTS * LONG_TILE
+    return (4 * kv_rows if segmented else 0) + (2 * kv_rows + 16 * warps) * (D + 8) * 2
+
+
+def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> LongRowPlan:
+    """The launch plan of a row of ``L > 128`` tokens on a card of ``sms`` SMs.
+
+    * splits: one CTA per (row, head) unless ``B * H`` would leave at least
+      half the SMs idle; then as many splits as fill the SMs once, each
+      keeping at least ``MIN_SPLIT_BLOCKS`` query blocks. Each split reads K
+      and V again, from L2, and a CTA of more warps over the whole row beats
+      that, even at [8, 577, 16 x 64] (128 pairs on 132 SMs);
+    * warps: the kernel's time falls with the warps an SM holds, which its
+      128 registers a thread cap at 16: 8 a CTA where two such CTAs fit an
+      SM's shared memory, else 16, never more than the split's blocks;
+    * form: resident if K and V of the row fit beside the warps' Q blocks,
+      with the warps cut down to ``LONG_MIN_WARPS`` if need be; streamed
+      otherwise.
+
+    ``python -m latteclip_torch.tools.long_row_plans`` times the other plans
+    on the card (PERF.md keeps its numbers).
+    """
+    if L <= SHORT_ROW or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the long-row plan takes L > {SHORT_ROW} and head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
+    nblk = -(-L // 16)
+    pairs = B * H
+    splits = 1
+    if 2 * pairs <= sms:
+        splits = max(1, min(sms // pairs, nblk // MIN_SPLIT_BLOCKS))
+    blocks = nblk // splits  # the fewest blocks of a split
+
+    def smem(warps, resident):
+        return long_row_smem_bytes(L, D, warps, segmented, resident)
+
+    cap = LONG_MAX_WARPS
+    if 2 * (smem(min(blocks, LONG_MAX_WARPS // 2), True) + CTA_RESERVED_SMEM) <= SM_SMEM:
+        cap = LONG_MAX_WARPS // 2
+    for warps in range(min(cap, blocks), LONG_MIN_WARPS - 1, -1):
+        if smem(warps, True) <= MAX_SMEM:
+            return LongRowPlan("resident", warps, splits, smem(warps, True))
+    warps = min(cap, blocks)
+    return LongRowPlan("streamed", warps, splits, smem(warps, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[torch.Tensor],
                 num_heads: int, causal: bool, lse_shape=None):
     """Check ``qkv`` (and ``seg_ids``), launch the forward entry point
-    ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``."""
+    ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``. Rows of
+    more than 128 tokens carry their :func:`long_row_plan`."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
@@ -297,10 +383,16 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
     lse2 = torch.empty(lse_shape or (B, H, L), dtype=torch.float32, device=qkv.device)
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, lse2]
+    plan_args = ()
+    if name != "latteclip_flash_fwd_bd":
+        plan_args = (0, 0, 0)
+        if L > SHORT_ROW:
+            plan = long_row_plan(B, L, H, D, seg_ids is not None, _sm_count(qkv.device.index))
+            plan_args = (plan.warps, plan.splits, int(plan.form == "resident"))
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
-                     (D ** -0.5) * LOG2E, stream)
+                     (D ** -0.5) * LOG2E, *plan_args, stream)
     _raise_on(err, name)
     launch_counts[counter] += 1
     return out, lse2

@@ -58,6 +58,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Lane offsets within a 16 x 16 block of a row-major shared tile for an
+// ldmatrix x4: the A pattern (rows M, columns K; with .trans also a B
+// operand stored [K][N]) and the B pattern (rows N, columns K, no .trans).
+__device__ __forceinline__ int a_row(int lane) { return (lane % 8) + 8 * ((lane / 8) % 2); }
+__device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
+__device__ __forceinline__ int b_row(int lane) { return (lane % 8) + 8 * (lane / 16); }
+__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane / 8) % 2); }
+
+// Maximum and sum over the four lanes that hold one fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -83,12 +102,20 @@ constexpr int MAX_DEVICES = 64;
 // Allow `bytes` of dynamic shared memory for `kernel` on the current device,
 // once: `allowed` is a static array owned by the caller's launch function,
 // one flag per device, since the setting belongs to the device's context.
+// With max_carveout, also ask for as much of the SM's memory as shared
+// memory as it offers, so that several CTAs with large tiles fit an SM.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool (&allowed)[MAX_DEVICES]) {
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&allowed)[MAX_DEVICES],
+                       bool max_carveout = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && allowed[dev]) return cudaSuccess;
+  if (max_carveout) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = true;
   return err;

@@ -157,15 +157,6 @@ __device__ void load_keys(const Tiles<D>& t, const Row& row, int r0, int n) {
       t.segk[i] = r0 + i < row.L ? row.seg[r0 + i] : -2;
 }
 
-// Each lane's row and column offset, within a 16 x 16 block of a
-// [rows][STRIDE] tile, for an ldmatrix x4: the A pattern (rows M, columns K;
-// with .trans it also loads a B operand stored [K][N]) and the B pattern
-// (rows N, columns K, no .trans; x4 gives two n-tiles of 8).
-__device__ __forceinline__ int a_row(int lane) { return (lane % 8) + 8 * ((lane / 8) % 2); }
-__device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
-__device__ __forceinline__ int b_row(int lane) { return (lane % 8) + 8 * (lane / 16); }
-__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane / 8) % 2); }
-
 // Phase 1, one warp: dk and dv of the 16 keys at local rows kr.. of the key
 // tile (global index k0 = key_base + kr), over the queries at local rows
 // [qr_lo, qr_hi) of the query tile (global index query_base + local).

@@ -35,26 +35,52 @@
 // a warp holds its rows' every score in registers and l is complete before
 // p is rounded.
 //
-// Bound. At the serving shapes both kernels are memory-bound: text at
+// Bound. Every case the towers give these kernels is memory-bound: text at
 // B=1000, L=77, H=8, D=64 does 12.1 GFLOP (4*B*H*L^2*D) against about
-// 318 MB read and written, 38 FLOP/byte, far below the ~295 FLOP/byte at
-// which an H100's bf16 tensor cores (989 TFLOP/s) rather than its memory
-// (3.35 TB/s) become the limit. So the design goal is to read qkv once with
-// 16-byte coalesced loads, to keep scores and probabilities on chip, and to
-// have the loads of a CTA in flight together:
+// 318 MB read and written, 38 FLOP/byte; ViT-B/16 vision at [64, 197, 12 x
+// 64] does 11.5 GFLOP with the scores computed twice against 77.5 MB, 148
+// FLOP/byte; both sit below the ~295 FLOP/byte at which an H100's bf16
+// tensor cores (989 TFLOP/s) rather than its memory (3.35 TB/s) become the
+// limit. So the design goal is to read q, k and v of each (row, head) once
+// from device memory, to keep scores and probabilities on chip, and to keep
+// copies in flight while the tensor cores work:
 //   * rows of at most 128 tokens (ViT-B/32 vision at 50, its image pairs at
 //     100, text at 77, packed text at 128) take one CTA per (row, head) with
 //     one warp per 16 query rows, and hold the whole row's K and V in shared
 //     memory: q, k and v are each read once, and the scores of a warp's 16
 //     rows against every key stay in registers, so the row maximum is exact
 //     in one pass;
-//   * longer rows (ViT-B/16 at 197, 336 px at 577) take one CTA of 4 warps
-//     per (row, head, 64-query tile) and stream K and V in 64-key tiles, in
-//     two passes: the first for the row maximum, the second for p, l and
-//     P V; it starts from the last tile, whose scores are still in
-//     registers, and the other tiles' K comes back from L2;
-//   * Q, K and V move with 16-byte cp.async copies, issued together at the
-//     start; the ragged edge (L is never a multiple of 16 here) is
+//   * longer rows (ViT-B/16 at 197, 336 px at 577) take flash_fwd_long_kernel.
+//     Its CTA holds K and V of the whole row in shared memory (the
+//     "resident" form: 59,904 B at D=64, L=197; 113,152 B at D=128, L=197;
+//     170,496 B at D=64, L=577) and its warps walk 16-row query blocks over
+//     them, so that K and V are read once per CTA, not once per 64-row query
+//     tile as in the first port (8x K's bytes and 4x V's at L=197, 20x and
+//     10x at L=577), and a ragged row costs 16-row granularity (208 rows of
+//     products at L=197, not 256). K is copied in 64-key stages, each its
+//     own cp.async group, so the first pass (the exact row maxima) starts on
+//     the first keys while the rest land; V is committed last and lands
+//     behind that pass. Where K and V do not fit (D=128 beyond 384 tokens,
+//     D=64 beyond about 800) the same kernel streams them through a ring of
+//     two 64-key slots (the "streamed" form): every warp of the CTA walks the
+//     key tiles in step, the copy of the next tile overlapping the products
+//     of this one, K once for the maxima and K with V again for p and P V;
+//   * the launch plan (attention.py::long_row_plan) picks the form, the warps
+//     of a CTA (warp w takes the 16-row blocks w, w + warps, ...) and the
+//     CTAs per (row, head). The time falls with the warps an SM holds, up to
+//     the 16 that 128 registers a thread allow: 8 a CTA where two CTAs fit an
+//     SM's shared memory (D=64, L=197), else up to 16. A (row, head) is split
+//     across CTAs only where B * H would leave half the SMs idle: each split
+//     reads K and V again from L2, and at [8, 577, 16] (128 pairs for 132
+//     SMs) one CTA of 16 warps a pair beat three of 12;
+//   * each warp takes 32 keys (D=64) or 64 keys (D=128) of its block at a
+//     time, so that several mma chains are in flight; at D=64 it keeps its Q
+//     fragments in registers, at D=128 it re-reads them from shared memory at
+//     every k-step (acc alone takes 64 registers there);
+//   * p = exp2(s - m) on the SFU (ex2.approx, ~2^-22 relative, well below
+//     p's bf16 rounding), and l by one more mma, P times a column of ones:
+//     the f32 sum of the bf16 p without unpacking them;
+//   * Q, K and V move with 16-byte cp.async copies; the ragged edge is
 //     zero-filled to a multiple of 16 keys and masked, so keys beyond L
 //     contribute exactly 0; blocks of 16 keys past the edge are skipped;
 //   * products run on the tensor cores with mma.sync m16n8k16 (bf16 in,
@@ -63,52 +89,54 @@
 //     through shared memory so that it too is stored 16 bytes a thread;
 //   * causal CTAs stop at the last key their rows can see; every causal or
 //     segment row keeps its own diagonal, so its maximum is finite.
-// wgmma, TMA and warp specialisation are left for later work.
+// What bounds the long-row kernel is not settled (no profiler runs on the
+// card): it reaches a third of its memory bound at ViT-B/16's rows and a
+// sixth at 577 tokens (PERF.md), and computes every score twice. Trial
+// builds that dropped the first pass or the exp2, prefetched the next (row,
+// head) into a second buffer, or gave each warp 32-row tiles (half the
+// ldmatrix reads) were not faster. wgmma, TMA multicast across a cluster
+// and warp specialisation are left for later work.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape or
+// plan it does not take.
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 using namespace latteclip;
+using bf16 = __nv_bfloat16;
 
-constexpr int SHORT_ROW = 128;  // rows up to this many tokens stay whole in shared memory
-constexpr int LONG_BLOCK_M = 64;  // query rows per CTA on longer rows
-constexpr int LONG_BLOCK_N = 64;  // keys per shared-memory tile on longer rows
-constexpr int MAX_THREADS = 2 * SHORT_ROW;  // one warp per 16 query rows
+constexpr int SHORT_ROW = 128;  // rows up to this many tokens stay whole in one key tile
+constexpr int SHORT_THREADS = 2 * SHORT_ROW;  // one warp per 16 query rows
+constexpr int TILE = 64;            // keys per copy stage and per ring slot, long rows
+constexpr int LONG_MAX_WARPS = 16;  // 128 registers a thread
+constexpr int STREAM_SLOTS = 2;     // ring slots of the streamed form
+constexpr int MAX_SMEM = 232448;    // dynamic shared memory a CTA may use on an H100
 constexpr float MASKED = -1e9f;
 
-// Query rows per CTA, and key rows per shared-memory tile, for a row of L tokens.
-__host__ __device__ constexpr int block_rows(int block_n, int L) {
-  return block_n >= L ? round16(L) : LONG_BLOCK_M;
-}
-__host__ __device__ constexpr int tile_rows(int block_n, int L) {
-  return block_n < round16(L) ? block_n : round16(L);
-}
+// ---- rows of at most 128 tokens ---------------------------------------------
 
-// Shared memory: seg ids of one key tile, then Q (later the output), K, V.
+// Shared memory of the short-row kernel: seg ids, then Q (later the output), K, V.
 template <int D, int BLOCK_N>
-constexpr size_t smem_bytes(int L) {
-  return BLOCK_N * sizeof(int) +
-         (size_t)(block_rows(BLOCK_N, L) + 2 * tile_rows(BLOCK_N, L)) * (D + 8) * 2;
+constexpr size_t short_smem_bytes(int L) {
+  return BLOCK_N * sizeof(int) + (size_t)3 * round16(L) * (D + 8) * 2;
 }
 
-// BLOCK_N is the key tile: SHORT_ROW for rows of 65..128 tokens (one tile),
-// LONG_BLOCK_N for shorter rows (one tile) and for longer ones (several).
-// Registers are held to 128 a thread (two CTAs of MAX_THREADS, or four
-// 4-warp CTAs, in flight on an SM), except for the 64-key tiles at D=128,
-// which take about 210 without spilling.
-// BD selects the block-diagonal kernel's rounding (one key tile only).
+// One CTA per (row, head), one warp per 16 query rows, one key tile of
+// BLOCK_N keys (64 for rows of up to 64 tokens, 128 up to 128). Registers
+// are held to 128 a thread (two CTAs in flight on an SM), except for 64-key
+// tiles at D=128. BD selects the block-diagonal kernel's rounding.
 // lse2[b, h, l] is stored at lse[b * lse_b + h * lse_h + l].
 template <int D, int BLOCK_N, bool SEG, bool CAUSAL, bool BD>
-__global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ? 2 : 1)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int L, int H,
+__global__ void __launch_bounds__(SHORT_THREADS, D == 64 || BLOCK_N == SHORT_ROW ? 2 : 1)
+    flash_fwd_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg,
+                     bf16* __restrict__ out, float* __restrict__ lse, int L, int H,
                      float qscale, long lse_b, long lse_h) {
   constexpr int STRIDE = D + 8;   // padded shared row, in bf16 elements
   constexpr int CHUNKS = D / 8;   // 16-byte chunks per row of one head
@@ -116,59 +144,37 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
   constexpr int NT = BLOCK_N / 8; // 8-key score tiles per key tile
   constexpr int DT = D / 8;       // 8-wide output tiles
 
-  const int block_m = blockDim.x / 2;  // 16 query rows per warp
-  const int rows = tile_rows(BLOCK_N, L);
+  const int rows = round16(L);    // query and key rows held, zero-filled past L
   extern __shared__ __align__(16) unsigned char smem[];
   int* sSeg = reinterpret_cast<int*>(smem);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + BLOCK_N * sizeof(int));
-  __nv_bfloat16* sK = sQ + block_m * STRIDE;
-  __nv_bfloat16* sV = sK + rows * STRIDE;
+  bf16* sQ = reinterpret_cast<bf16*>(smem + BLOCK_N * sizeof(int));
+  bf16* sK = sQ + rows * STRIDE;
+  bf16* sV = sK + rows * STRIDE;
 
-  const int n_qt = (L + block_m - 1) / block_m;
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % H;
-  const int b = blockIdx.x / (n_qt * H);
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
   const int HD = H * D;
   const long tok_stride = 3L * HD;  // elements between consecutive tokens
-  const __nv_bfloat16* qbase = qkv + (long)b * L * tok_stride + (long)h * D;
-  const int q0 = qt * block_m;
+  const bf16* qbase = qkv + (long)b * L * tok_stride + (long)h * D;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;  // fragment row within the warp's 16 rows
   const int t = lane % 4;  // fragment column pair
-  const int row_a = q0 + warp * 16 + g;
+  const int row_a = warp * 16 + g;
   const int row_b = row_a + 8;
 
-  const int kv_end = CAUSAL ? min(L, q0 + block_m) : L;
-  const int n_kt = (kv_end + BLOCK_N - 1) / BLOCK_N;
-  const int last = BLOCK_N == SHORT_ROW ? 0 : n_kt - 1;
-  // key rows of tile kt held in shared memory (a multiple of 16)
-  auto kv_rows = [&](int kt) { return min(rows, round16(kv_end - kt * BLOCK_N)); };
-
-  // Copy n token rows from r0 on (one head's columns at offset ofs) into
-  // dst, 16 bytes a thread at a time; rows beyond L are zero-filled.
-  auto copy_rows = [&](__nv_bfloat16* dst, int r0, int n, long ofs) {
+  // Copy n token rows (one head's columns at offset ofs) into dst, 16 bytes
+  // a thread at a time; rows beyond L are zero-filled.
+  auto copy_rows = [&](bf16* dst, int n, long ofs) {
     for (int c = tid; c < n * CHUNKS; c += blockDim.x) {
       const int r = c / CHUNKS;
       const int col = (c % CHUNKS) * 8;
-      const bool valid = r0 + r < L;
-      cp_async_16(&dst[r * STRIDE + col], qbase + (long)(valid ? r0 + r : 0) * tok_stride + ofs + col,
+      const bool valid = r < L;
+      cp_async_16(&dst[r * STRIDE + col], qbase + (long)(valid ? r : 0) * tok_stride + ofs + col,
                   valid);
     }
-  };
-  auto load_k = [&](int kt) {
-    copy_rows(sK, kt * BLOCK_N, kv_rows(kt), HD);
-    if (SEG)
-      for (int i = tid; i < BLOCK_N; i += blockDim.x) {
-        const int j = kt * BLOCK_N + i;
-        sSeg[i] = j < L ? seg[(long)b * L + j] : -2;
-      }
-  };
-  auto load_v = [&](int kt) {
-    copy_rows(sV, kt * BLOCK_N, kv_rows(kt), 2L * HD);
-    cp_async_commit();
   };
 
   int seg_a = 0, seg_b = 0;
@@ -177,196 +183,144 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
     seg_b = row_b < L ? seg[(long)b * L + row_b] : -1;
   }
 
-  // Q and the first K tile in one copy group; V of a one-tile row in another.
-  copy_rows(sQ, q0, block_m, 0);
-  load_k(0);
+  // Q and K in one copy group, V in another that lands behind the scores;
+  // the keys' seg ids are fetched once the copies are in flight.
+  copy_rows(sQ, rows, 0);
+  copy_rows(sK, rows, HD);
+  if (SEG)
+    for (int i = tid; i < BLOCK_N; i += blockDim.x) sSeg[i] = i < L ? seg[(long)b * L + i] : -2;
   cp_async_commit();
-  if (last == 0) {
-    load_v(0);
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
-  }
+  copy_rows(sV, rows, 2L * HD);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
   // Q fragments of this warp's 16 rows, scaled by qscale in f32 and rounded
   // to bf16, as the TPU kernel scales q.
   uint32_t qf[KSTEPS][4];
-  {
-    const int r = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
-    const int cofs = 8 * (lane / 16);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      ldmatrix_x4(qf[kk], &sQ[r * STRIDE + kk * 16 + cofs]);
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    ldmatrix_x4(qf[kk], &sQ[(warp * 16 + a_row(lane)) * STRIDE + kk * 16 + a_col(lane)]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(as_bf162(qf[kk][e]));
-        qf[kk][e] = as_u32(__floats2bfloat162_rn(f.x * qscale, f.y * qscale));
-      }
-    }
+    for (int e = 0; e < 4; ++e) qf[kk][e] = scale_bf16x2(qf[kk][e], qscale);
   }
 
-  // s = Qs K^T for this warp's 16 rows and the keys of tile kt, masked.
+  // s = Qs K^T for this warp's 16 rows and every key, masked.
   float s[NT][4];
-  auto scores = [&](int kt) {
-    const int k0 = kt * BLOCK_N;
-    const int n_rows = kv_rows(kt);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      if (n2 * 16 >= n_rows) break;
+  for (int n2 = 0; n2 < NT / 2; ++n2) {
+    if (n2 * 16 >= rows) break;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t kf[4];
-        const int key = n2 * 16 + (lane % 8) + 8 * (lane / 16);
-        const int d = kk * 16 + 8 * ((lane / 8) % 2);
-        ldmatrix_x4(kf, &sK[key * STRIDE + d]);
-        mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
-      }
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, &sK[(n2 * 16 + b_row(lane)) * STRIDE + kk * 16 + b_col(lane)]);
+      mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
     }
-    if (!CAUSAL && !SEG && k0 + BLOCK_N <= kv_end) return;  // every key visible
+  }
+  if (CAUSAL || SEG || L < BLOCK_N) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int jl = n * 8 + 2 * t + (e & 1);
-        const int j = k0 + jl;
-        bool visible = j < kv_end;
+        const int j = n * 8 + 2 * t + (e & 1);
+        bool visible = j < L;
         if (CAUSAL) visible = visible && j <= (e < 2 ? row_a : row_b);
-        if (SEG) visible = visible && sSeg[jl] == (e < 2 ? seg_a : seg_b);
+        if (SEG) visible = visible && sSeg[j] == (e < 2 ? seg_a : seg_b);
         if (!visible) s[n][e] = MASKED;
       }
     }
-  };
+  }
 
-  // Pass 1: the row maxima over every key tile, as the TPU kernel takes them
-  // over its whole row, so that p is rounded against the same maximum.
-  // The last tile's scores stay in registers and its V is fetched meanwhile.
+  // The row maxima over every key, as the TPU kernel takes them over its
+  // whole row, so that p is rounded against the same maximum.
   const float neg_inf = __int_as_float(0xff800000);
   float m_row[2] = {neg_inf, neg_inf};
-  for (int kt = 0; kt <= last; ++kt) {
-    if (kt > 0) {
-      __syncthreads();  // every warp is done with the previous K tile
-      load_k(kt);
-      cp_async_commit();
-      if (kt == last) {
-        load_v(kt);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-    }
-    scores(kt);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      m_row[0] = fmaxf(m_row[0], fmaxf(s[n][0], s[n][1]));
-      m_row[1] = fmaxf(m_row[1], fmaxf(s[n][2], s[n][3]));
-    }
+  for (int n = 0; n < NT; ++n) {
+    m_row[0] = fmaxf(m_row[0], fmaxf(s[n][0], s[n][1]));
+    m_row[1] = fmaxf(m_row[1], fmaxf(s[n][2], s[n][3]));
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
-    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
-  }
+  m_row[0] = quad_max(m_row[0]);
+  m_row[1] = quad_max(m_row[1]);
 
-  // Pass 2: p = bf16(exp2(s - m)), l = sum of those bf16 values, acc += P V,
-  // walking the tiles from the last (already in registers) to the first.
-  // With BD (one tile): p = exp2(s - m) in f32, l = its sum, pb = bf16(p / l).
+  // p = bf16(exp2(s - m)), l = sum of those bf16 values, acc = P V.
+  // With BD: p = exp2(s - m) in f32, l = its sum, pb = bf16(p / l).
   float acc[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  for (int kt = last; kt >= 0; --kt) {
-    if (kt != last) {
-      __syncthreads();  // every warp is done with the previous K and V tiles
-      load_k(kt);
-      cp_async_commit();
-      load_v(kt);
-      cp_async_wait<1>();  // K has landed; V may still be in flight
-      __syncthreads();
-      scores(kt);
-    }
-    uint32_t pf[NT / 2][4];  // p packed straight into mma A fragments
-    if constexpr (BD) {
-      // 8-key tiles past the row's last block of 16 keys hold masked scores
-      // only: p is 0 there, with no exp2 and no division
-      const int n_rows = kv_rows(kt);
+  uint32_t pf[NT / 2][4];  // p packed straight into mma A fragments
+  if constexpr (BD) {
+    // 8-key tiles past the row's last block of 16 keys hold masked scores
+    // only: p is 0 there, with no exp2 and no division
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = n * 8 < n_rows ? exp2f(s[n][e] - m_row[e / 2]) : 0.f;
-          l_run[e / 2] += s[n][e];
-        }
-      float rcp[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-        rcp[r] = __frcp_rn(l_run[r]);
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = n * 8 < rows ? exp2f(s[n][e] - m_row[e / 2]) : 0.f;
+        l_run[e / 2] += s[n][e];
       }
-      // p / l correctly rounded, as IEEE division gives it, from the row's
-      // correctly rounded reciprocal and one exact FMA residual (Markstein):
-      // three instructions an element in place of a division each
-      auto divide = [&](float p, int r) {
-        const float q = p * rcp[r];
-        return fmaf(fmaf(-q, l_run[r], p), rcp[r], q);
-      };
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n * 8 >= n_rows) {
-          pf[n / 2][(n % 2) * 2 + 0] = pf[n / 2][(n % 2) * 2 + 1] = 0u;
-          continue;
-        }
-        pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(divide(s[n][0], 0), divide(s[n][1], 0));
-        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(divide(s[n][2], 1), divide(s[n][3], 1));
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat162 pa =
-            __floats2bfloat162_rn(exp2f(s[n][0] - m_row[0]), exp2f(s[n][1] - m_row[0]));
-        const __nv_bfloat162 pb =
-            __floats2bfloat162_rn(exp2f(s[n][2] - m_row[1]), exp2f(s[n][3] - m_row[1]));
-        const float2 fa = __bfloat1622float2(pa);
-        const float2 fb = __bfloat1622float2(pb);
-        l_run[0] += fa.x + fa.y;
-        l_run[1] += fb.x + fb.y;
-        pf[n / 2][(n % 2) * 2 + 0] = as_u32(pa);
-        pf[n / 2][(n % 2) * 2 + 1] = as_u32(pb);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    const int n_rows = kv_rows(kt);
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      if (kk * 16 >= n_rows) break;  // p is exactly 0 there
-#pragma unroll
-      for (int d2 = 0; d2 < DT / 2; ++d2) {
-        uint32_t vf[4];
-        const int key = kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
-        const int d = d2 * 16 + 8 * (lane / 16);
-        ldmatrix_x4_trans(vf, &sV[key * STRIDE + d]);
-        mma_bf16(acc[2 * d2], pf[kk], vf[0], vf[1]);
-        mma_bf16(acc[2 * d2 + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-  }
-
-  if constexpr (!BD) {
+    float rcp[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      l_run[r] = quad_sum(l_run[r]);
+      rcp[r] = __frcp_rn(l_run[r]);
+    }
+    // p / l correctly rounded, as IEEE division gives it, from the row's
+    // correctly rounded reciprocal and one exact FMA residual (Markstein):
+    // three instructions an element in place of a division each
+    auto divide = [&](float p, int r) {
+      const float q = p * rcp[r];
+      return fmaf(fmaf(-q, l_run[r], p), rcp[r], q);
+    };
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n * 8 >= rows) {
+        pf[n / 2][(n % 2) * 2 + 0] = pf[n / 2][(n % 2) * 2 + 1] = 0u;
+        continue;
+      }
+      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(divide(s[n][0], 0), divide(s[n][1], 0));
+      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(divide(s[n][2], 1), divide(s[n][3], 1));
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const __nv_bfloat162 pa =
+          __floats2bfloat162_rn(exp2f(s[n][0] - m_row[0]), exp2f(s[n][1] - m_row[0]));
+      const __nv_bfloat162 pb =
+          __floats2bfloat162_rn(exp2f(s[n][2] - m_row[1]), exp2f(s[n][3] - m_row[1]));
+      const float2 fa = __bfloat1622float2(pa);
+      const float2 fb = __bfloat1622float2(pb);
+      l_run[0] += fa.x + fa.y;
+      l_run[1] += fb.x + fb.y;
+      pf[n / 2][(n % 2) * 2 + 0] = as_u32(pa);
+      pf[n / 2][(n % 2) * 2 + 1] = as_u32(pb);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (kk * 16 >= rows) break;  // p is exactly 0 there
+#pragma unroll
+    for (int d2 = 0; d2 < DT / 2; ++d2) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, &sV[(kk * 16 + a_row(lane)) * STRIDE + d2 * 16 + a_col(lane)]);
+      mma_bf16(acc[2 * d2], pf[kk], vf[0], vf[1]);
+      mma_bf16(acc[2 * d2 + 1], pf[kk], vf[2], vf[3]);
+    }
+  }
+  if constexpr (!BD) {
+    l_run[0] = quad_sum(l_run[0]);
+    l_run[1] = quad_sum(l_run[1]);
+  }
+
   // out = acc / l (with BD, acc as it is) in bf16, through this warp's own
   // 16 rows of sQ, then stored 16 bytes a thread.
-  __nv_bfloat16* sO = sQ + warp * 16 * STRIDE;
+  bf16* sO = sQ + warp * 16 * STRIDE;
   auto finish = [&](float a, float l) { return BD ? a : a / l; };
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
@@ -377,11 +331,11 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
         __floats2bfloat162_rn(finish(acc[d][2], l_run[1]), finish(acc[d][3], l_run[1]));
   }
   __syncwarp();
-  __nv_bfloat16* obase = out + (long)b * L * HD + (long)h * D;
+  bf16* obase = out + (long)b * L * HD + (long)h * D;
   for (int c = lane; c < 16 * CHUNKS; c += 32) {
     const int r = c / CHUNKS;
     const int col = (c % CHUNKS) * 8;
-    const int row = q0 + warp * 16 + r;
+    const int row = warp * 16 + r;
     if (row < L)
       *reinterpret_cast<uint4*>(obase + (long)row * HD + col) =
           *reinterpret_cast<const uint4*>(&sO[r * STRIDE + col]);
@@ -393,72 +347,465 @@ __global__ void __launch_bounds__(MAX_THREADS, D == 64 || BLOCK_N == SHORT_ROW ?
   }
 }
 
+// ---- rows of more than 128 tokens -------------------------------------------
+
+// cp.async.wait_group with a count known only at run time: wait until at
+// most n of this thread's copy groups are pending (at most 12: a larger n
+// waits for more than it must, which is still correct).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 11: cp_async_wait<11>(); break;
+    default: cp_async_wait<12>(); break;
+  }
+}
+
+constexpr uint32_t ONES_BF16X2 = 0x3f803f80u;  // two bf16 1.0
+
+// 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
+// flushed to 0), ahead of p's rounding to bf16.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of the long-row kernel: the seg ids (SEG) and K and V of the
+// whole row, or of STREAM_SLOTS tiles of TILE keys, then 16 rows a warp for
+// its Q block and its output. attention.py::long_row_smem_bytes mirrors it.
+template <int D>
+size_t long_smem_bytes(int L, int warps, bool seg, bool resident) {
+  const size_t kv_rows = resident ? round16(L) : (size_t)STREAM_SLOTS * TILE;
+  return (seg ? kv_rows * sizeof(int) : 0) + (2 * kv_rows + 16 * (size_t)warps) * (D + 8) * 2;
+}
+
+// CTA x of the grid is split x % splits of (row, head) x / splits; the
+// split takes 16-row query blocks [split * nblk / splits, (split + 1) *
+// nblk / splits), and warp w the blocks w, w + warps, ... of those. The
+// launch guarantees every warp a block in its first round.
+template <int D, bool SEG, bool CAUSAL, bool RESIDENT>
+__global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 1)
+    flash_fwd_long_kernel(const bf16* __restrict__ qkv, const int* __restrict__ seg,
+                          bf16* __restrict__ out, float* __restrict__ lse, int L, int H,
+                          float qscale, long lse_b, long lse_h, int splits) {
+  constexpr int S = D + 8;        // padded shared row, in bf16 elements
+  constexpr int CHUNKS = D / 8;   // 16-byte chunks per row of one head
+  constexpr int KSTEPS = D / 16;  // mma k-steps over the head dimension
+  constexpr int DT = D / 8;       // 8-wide output tiles
+  constexpr bool Q_IN_REGS = D == 64;
+  constexpr int STEP = D == 64 ? 2 : 4;  // chunks of 16 keys taken at once
+
+  const int rows = round16(L);
+  const int nblk = rows / 16;
+  const int nw = blockDim.x / 32;
+  const int split = blockIdx.x % splits;
+  const int bh = blockIdx.x / splits;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int qb_begin = (int)((long)split * nblk / splits);
+  const int qb_end = (int)((long)(split + 1) * nblk / splits);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // fragment row within a 16-row block
+  const int t = lane % 4;  // fragment column pair
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kv_rows = RESIDENT ? rows : STREAM_SLOTS * TILE;
+  int* sSeg = reinterpret_cast<int*>(smem);  // the seg ids of the keys in sK
+  bf16* sK = reinterpret_cast<bf16*>(smem + (SEG ? kv_rows * sizeof(int) : 0));
+  bf16* sV = sK + kv_rows * S;
+  bf16* sW = sV + kv_rows * S + warp * 16 * S;  // this warp's Q block, then its output
+
+  const int HD = H * D;
+  const long tok = 3L * HD;  // elements between consecutive tokens
+  const bf16* base = qkv + (long)b * L * tok + (long)h * D;
+
+  // Copy n token rows from r0 on (one head's columns at offset ofs) into dst,
+  // 16 bytes a thread, threads i0, i0 + step, ...; rows from L on are zero-filled.
+  auto copy_rows = [&](bf16* dst, int r0, int n, long ofs, int i0, int step) {
+    for (int c = i0; c < n * CHUNKS; c += step) {
+      const int r = c / CHUNKS;
+      const int col = (c % CHUNKS) * 8;
+      const bool valid = r0 + r < L;
+      cp_async_16(&dst[r * S + col], base + (long)(valid ? r0 + r : 0) * tok + ofs + col, valid);
+    }
+  };
+  auto copy_q = [&](int qb) { copy_rows(sW, qb * 16, 16, 0, lane, 32); };
+
+  // seg ids of the n keys from j0 into sSeg from slot0 on (-2 past L)
+  auto load_seg = [&](int slot0, int j0, int n) {
+    for (int i = tid; i < n; i += blockDim.x)
+      sSeg[slot0 + i] = j0 + i < L ? seg[(long)b * L + j0 + i] : -2;
+  };
+
+  // State of the warp's current 16-row query block.
+  int r0 = 0, n_chunks = 0, seg_a = 0, seg_b = 0;
+  const float neg_inf = __int_as_float(0xff800000);
+  float m_row[2], l_acc[4], acc[DT][4];
+  uint32_t qf[KSTEPS][4];
+  auto begin_block = [&](int qb) {
+    r0 = qb * 16;
+    n_chunks = CAUSAL ? (min(L, r0 + 16) + 15) / 16 : nblk;
+    if (SEG) {
+      seg_a = r0 + g < L ? seg[(long)b * L + r0 + g] : -1;
+      seg_b = r0 + g + 8 < L ? seg[(long)b * L + r0 + g + 8] : -1;
+    }
+    m_row[0] = m_row[1] = neg_inf;
+    l_acc[0] = l_acc[1] = l_acc[2] = l_acc[3] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  };
+  // Once the Q block has landed in sW: scale it in place by qscale in f32,
+  // rounded to bf16, as the TPU kernel scales q; at D=64 keep its fragments.
+  auto prepare_q = [&]() {
+    for (int c = lane; c < 16 * D / 2; c += 32) {
+      uint32_t* p = reinterpret_cast<uint32_t*>(&sW[(c / (D / 2)) * S + (c % (D / 2)) * 2]);
+      *p = scale_bf16x2(*p, qscale);
+    }
+    __syncwarp();
+    if constexpr (Q_IN_REGS) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldmatrix_x4(qf[kk], &sW[a_row(lane) * S + kk * 16 + a_col(lane)]);
+    }
+  };
+
+  // s = Qs K^T for the N chunks of 16 keys from key0, whose rows start at
+  // kp; masked. N chunks at once give 2N independent mma chains.
+  auto scores = [&](const bf16* kp, int key0, auto& s) {
+    constexpr int N = std::extent<std::remove_reference_t<decltype(s)>>::value;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+        a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2], a[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(a, &sW[a_row(lane) * S + kk * 16 + a_col(lane)]);
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, &kp[(i * 16 + b_row(lane)) * S + kk * 16 + b_col(lane)]);
+        mma_bf16(s[i][0], a, kf[0], kf[1]);
+        mma_bf16(s[i][1], a, kf[2], kf[3]);
+      }
+    }
+    if (!CAUSAL && !SEG && key0 + 16 * N <= L) return;  // every key visible
+    const int* segp = sSeg + (kp - sK) / S;  // the seg id of key key0 + x is segp[x]
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key0 + i * 16 + n * 8 + 2 * t + (e & 1);
+          const int row = r0 + g + (e < 2 ? 0 : 8);
+          bool visible = j < L;
+          if (CAUSAL) visible = visible && j <= row;
+          if (SEG) visible = visible && segp[j - key0] == (e < 2 ? seg_a : seg_b);
+          if (!visible) s[i][n][e] = MASKED;
+        }
+  };
+  // Pass 1, N chunks: the row maxima.
+  auto max_step = [&](auto n_chunks_tag, const bf16* kp, int key0) {
+    constexpr int N = decltype(n_chunks_tag)::value;
+    float s[N][2][4];
+    scores(kp, key0, s);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        m_row[0] = fmaxf(m_row[0], fmaxf(s[i][n][0], s[i][n][1]));
+        m_row[1] = fmaxf(m_row[1], fmaxf(s[i][n][2], s[i][n][3]));
+      }
+  };
+  auto end_max = [&]() {
+    m_row[0] = quad_max(m_row[0]);
+    m_row[1] = quad_max(m_row[1]);
+  };
+  // Pass 2, N chunks: p = bf16(exp2(s - m)), l += those bf16 values (one
+  // more mma, P times a column of ones), acc += P V.
+  auto pv_step = [&](auto n_chunks_tag, const bf16* kp, const bf16* vp, int key0) {
+    constexpr int N = decltype(n_chunks_tag)::value;
+    float s[N][2][4];
+    scores(kp, key0, s);
+    uint32_t pf[N][4];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        pf[i][2 * n] = pack_bf16(exp2_approx(s[i][n][0] - m_row[0]), exp2_approx(s[i][n][1] - m_row[0]));
+        pf[i][2 * n + 1] =
+            pack_bf16(exp2_approx(s[i][n][2] - m_row[1]), exp2_approx(s[i][n][3] - m_row[1]));
+      }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      mma_bf16(l_acc, pf[i], ONES_BF16X2, ONES_BF16X2);
+#pragma unroll
+      for (int d2 = 0; d2 < DT / 2; ++d2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, &vp[(i * 16 + a_row(lane)) * S + d2 * 16 + a_col(lane)]);
+        mma_bf16(acc[2 * d2], pf[i], vf[0], vf[1]);
+        mma_bf16(acc[2 * d2 + 1], pf[i], vf[2], vf[3]);
+      }
+    }
+  };
+  // fn(tag, c) over the chunks [c0, c1): STEP chunks at a time, then one at a time.
+  auto walk = [&](int c0, int c1, auto&& fn) {
+    int c = c0;
+    for (; c + STEP <= c1; c += STEP) fn(std::integral_constant<int, STEP>{}, c);
+    for (; c < c1; ++c) fn(std::integral_constant<int, 1>{}, c);
+  };
+  auto max_at = [&](auto tag, int c) { max_step(tag, sK + c * 16 * S, c * 16); };
+  auto pv_at = [&](auto tag, int c) { pv_step(tag, sK + c * 16 * S, sV + c * 16 * S, c * 16); };
+  // out = acc / l in bf16 through sW, stored 16 bytes a thread, and lse2.
+  auto finish_block = [&]() {
+    __syncwarp();  // every lane is done reading its Q block from sW
+    const float l_run[2] = {l_acc[0], l_acc[2]};  // every column of P times ones is l
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const int col = d * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(&sW[g * S + col]) =
+          __floats2bfloat162_rn(acc[d][0] / l_run[0], acc[d][1] / l_run[0]);
+      *reinterpret_cast<__nv_bfloat162*>(&sW[(g + 8) * S + col]) =
+          __floats2bfloat162_rn(acc[d][2] / l_run[1], acc[d][3] / l_run[1]);
+    }
+    __syncwarp();
+    bf16* obase = out + (long)b * L * HD + (long)h * D;
+    for (int c = lane; c < 16 * CHUNKS; c += 32) {
+      const int r = c / CHUNKS;
+      const int col = (c % CHUNKS) * 8;
+      if (r0 + r < L)
+        *reinterpret_cast<uint4*>(obase + (long)(r0 + r) * HD + col) =
+            *reinterpret_cast<const uint4*>(&sW[r * S + col]);
+    }
+    if (t == 0) {
+      float* lbase = lse + b * lse_b + h * lse_h;
+      if (r0 + g < L) lbase[r0 + g] = m_row[0] + log2f(l_run[0]);
+      if (r0 + g + 8 < L) lbase[r0 + g + 8] = m_row[1] + log2f(l_run[1]);
+    }
+    __syncwarp();  // sW is read; the next Q block may land there
+  };
+
+  if constexpr (RESIDENT) {
+    // Keys the CTA's rows can see, copied once: the warp's first Q block and
+    // K tile 0 in copy group 0, K tiles 1.. in groups 1.., V in the last.
+    const int kv_end = CAUSAL ? min(L, qb_end * 16) : L;
+    const int krows = round16(kv_end);
+    const int n_tiles = (krows + TILE - 1) / TILE;
+    int qb = qb_begin + warp;
+    copy_q(qb);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      copy_rows(sK + kt * TILE * S, kt * TILE, min(TILE, krows - kt * TILE), HD, tid, blockDim.x);
+      cp_async_commit();
+    }
+    copy_rows(sV, 0, krows, 2L * HD, tid, blockDim.x);
+    cp_async_commit();
+    if (SEG) load_seg(0, 0, rows);  // while the copies are in flight
+
+    // First round: the maxima tile by tile, as K lands, then p and P V once
+    // V has landed.
+    begin_block(qb);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      cp_async_wait_pending(n_tiles - kt);  // groups 0..kt have landed
+      __syncthreads();
+      if (kt == 0) prepare_q();
+      walk(kt * (TILE / 16), min((kt + 1) * (TILE / 16), n_chunks), max_at);
+    }
+    end_max();
+    cp_async_wait<0>();
+    __syncthreads();
+    walk(0, n_chunks, pv_at);
+    finish_block();
+
+    // Later rounds: K and V are resident, so each warp goes on alone.
+    for (qb += nw; qb < qb_end; qb += nw) {
+      copy_q(qb);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+      begin_block(qb);
+      prepare_q();
+      walk(0, n_chunks, max_at);
+      end_max();
+      walk(0, n_chunks, pv_at);
+      finish_block();
+    }
+  } else {
+    // Streamed: per round of one block a warp, the warps walk the key tiles
+    // in step through a ring of STREAM_SLOTS slots, K alone for the maxima
+    // (items 0..n_tiles-1), then K and V for p and P V (items n_tiles..);
+    // item i + 1 is copied while item i is used.
+    for (int first = qb_begin; first < qb_end; first += nw) {
+      const int qb = first + warp;
+      const bool has = qb < qb_end;
+      const int last_row = min(qb_end, first + nw) * 16;
+      const int kv_end = CAUSAL ? min(L, last_row) : L;
+      const int krows = round16(kv_end);
+      const int n_tiles = (krows + TILE - 1) / TILE;
+      const int n_items = 2 * n_tiles;
+      auto issue = [&](int i) {
+        const int kt = i % n_tiles, slot = i % STREAM_SLOTS;
+        const int n = min(TILE, krows - kt * TILE);
+        copy_rows(sK + slot * TILE * S, kt * TILE, n, HD, tid, blockDim.x);
+        if (i >= n_tiles) copy_rows(sV + slot * TILE * S, kt * TILE, n, 2L * HD, tid, blockDim.x);
+        if (SEG) load_seg(slot * TILE, kt * TILE, n);
+      };
+      __syncthreads();  // every warp is done with the ring
+      if (has) {
+        copy_q(qb);
+        begin_block(qb);
+      }
+      issue(0);
+      cp_async_commit();
+      for (int i = 0; i < n_items; ++i) {
+        cp_async_wait<0>();
+        __syncthreads();  // item i has landed; every warp is done with item i - 1
+        if (i + 1 < n_items) issue(i + 1);
+        cp_async_commit();
+        if (!has) continue;
+        if (i == 0) prepare_q();
+        const int kt = i % n_tiles, slot = i % STREAM_SLOTS;
+        const bf16* kp = sK + slot * TILE * S;
+        const bf16* vp = sV + slot * TILE * S;
+        walk(kt * (TILE / 16), min((kt + 1) * (TILE / 16), n_chunks), [&](auto tag, int c) {
+          const int local = (c - kt * (TILE / 16)) * 16 * S;
+          if (i < n_tiles)
+            max_step(tag, kp + local, c * 16);
+          else
+            pv_step(tag, kp + local, vp + local, c * 16);
+        });
+        if (i == n_tiles - 1) end_max();
+      }
+      if (has) finish_block();
+    }
+  }
+}
+
 // lse_head_major stores lse2 as [H, B, L] (the head-split kernel's
 // [H/HP, HP, B, L]), otherwise as [B, H, L].
 template <int D, int BLOCK_N, bool SEG, bool CAUSAL, bool BD>
-int launch(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
-           float qscale, bool lse_head_major, cudaStream_t stream) {
+int launch_short(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                 float qscale, bool lse_head_major, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D, BLOCK_N, SEG, CAUSAL, BD>;
   // the most dynamic shared memory this instantiation can take
   static bool allowed[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(
-      kernel, (int)smem_bytes<D, BLOCK_N>(BLOCK_N == SHORT_ROW ? SHORT_ROW : LONG_BLOCK_M),
-      allowed);
+  cudaError_t err = allow_smem(kernel, (int)short_smem_bytes<D, BLOCK_N>(BLOCK_N), allowed);
   if (err != cudaSuccess) return (int)err;
-  const int block_m = block_rows(BLOCK_N, L);
-  const long blocks = (long)B * H * ((L + block_m - 1) / block_m);
+  const long blocks = (long)B * H;
   if (B <= 0 || L <= 0 || H <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const long lse_b = lse_head_major ? L : (long)H * L;
   const long lse_h = lse_head_major ? (long)B * L : L;
-  kernel<<<(unsigned)blocks, 2 * block_m, smem_bytes<D, BLOCK_N>(L), stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, H, qscale, lse_b, lse_h);
+  kernel<<<(unsigned)blocks, 2 * round16(L), short_smem_bytes<D, BLOCK_N>(L), stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(seg), static_cast<bf16*>(out),
+      static_cast<float*>(lse), L, H, qscale, lse_b, lse_h);
   return (int)cudaGetLastError();
 }
 
+template <int D, bool SEG, bool CAUSAL, bool RESIDENT>
+int launch_long(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                float qscale, bool lse_head_major, int warps, int splits, cudaStream_t stream) {
+  auto kernel = flash_fwd_long_kernel<D, SEG, CAUSAL, RESIDENT>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = round16(L) / 16;
+  const size_t smem = long_smem_bytes<D>(L, warps, SEG, RESIDENT);
+  const long blocks = (long)B * H * splits;
+  if (B <= 0 || H <= 0 || warps < 1 || warps > LONG_MAX_WARPS || splits < 1 ||
+      warps > nblk / splits || smem > (size_t)MAX_SMEM || blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
+  kernel<<<(unsigned)blocks, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(seg), static_cast<bf16*>(out),
+      static_cast<float*>(lse), L, H, qscale, lse_b, lse_h, splits);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan (warps, splits, resident) applies to rows of more than
+// SHORT_ROW tokens only.
 template <int D, bool SEG, bool BD>
 int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
-                int causal, float qscale, bool hm, cudaStream_t s) {
-  if (L > LONG_BLOCK_N && L <= SHORT_ROW)
-    return causal ? launch<D, SHORT_ROW, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
-                  : launch<D, SHORT_ROW, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
-  if (BD && L > SHORT_ROW) return (int)cudaErrorInvalidValue;  // BD takes one key tile
-  return causal ? launch<D, LONG_BLOCK_N, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
-                : launch<D, LONG_BLOCK_N, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
+                int causal, float qscale, bool hm, int warps, int splits, int resident,
+                cudaStream_t s) {
+  if (L <= 0) return (int)cudaErrorInvalidValue;
+  if (L <= TILE)
+    return causal ? launch_short<D, TILE, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
+                  : launch_short<D, TILE, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
+  if (L <= SHORT_ROW)
+    return causal ? launch_short<D, SHORT_ROW, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
+                  : launch_short<D, SHORT_ROW, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
+  if constexpr (BD) {
+    return (int)cudaErrorInvalidValue;  // BD takes one key tile
+  } else {
+    if (resident)
+      return causal ? launch_long<D, SEG, true, true>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s)
+                    : launch_long<D, SEG, false, true>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s);
+    return causal ? launch_long<D, SEG, true, false>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s)
+                  : launch_long<D, SEG, false, false>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s);
+  }
 }
 
 template <bool SEG, bool BD>
 int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H, int D,
-             int causal, float qscale, bool lse_head_major, void* stream) {
+             int causal, float qscale, bool lse_head_major, int warps, int splits, int resident,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_rows<64, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major, s);
+    return launch_rows<64, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major,
+                                    warps, splits, resident, s);
   if (D == 128)
-    return launch_rows<128, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major, s);
+    return launch_rows<128, SEG, BD>(qkv, seg, out, lse, B, L, H, causal, qscale, lse_head_major,
+                                     warps, splits, resident, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// warps, splits and resident: the launch plan of rows longer than 128 tokens
+// (attention.py::long_row_plan); ignored for shorter rows.
 extern "C" int latteclip_flash_fwd(const void* qkv, void* out, void* lse, int B, int L, int H,
-                                   int D, int causal, float qscale, void* stream) {
-  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, stream);
+                                   int D, int causal, float qscale, int warps, int splits,
+                                   int resident, void* stream) {
+  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, warps,
+                                splits, resident, stream);
 }
 
 extern "C" int latteclip_flash_fwd_seg(const void* qkv, const void* seg, void* out, void* lse,
                                        int B, int L, int H, int D, int causal, float qscale,
-                                       void* stream) {
-  return dispatch<true, false>(qkv, seg, out, lse, B, L, H, D, causal, qscale, false, stream);
+                                       int warps, int splits, int resident, void* stream) {
+  return dispatch<true, false>(qkv, seg, out, lse, B, L, H, D, causal, qscale, false, warps,
+                               splits, resident, stream);
 }
 
 // lse2 as [H/HP, HP, B, L], which is [H, B, L] in memory
 extern "C" int latteclip_flash_fwd_hs(const void* qkv, void* out, void* lse, int B, int L, int H,
-                                      int D, int causal, float qscale, void* stream) {
-  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, true, stream);
+                                      int D, int causal, float qscale, int warps, int splits,
+                                      int resident, void* stream) {
+  return dispatch<false, false>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, true, warps,
+                                splits, resident, stream);
 }
 
 // rows of at most 128 tokens; longer rows return cudaErrorInvalidValue
 extern "C" int latteclip_flash_fwd_bd(const void* qkv, void* out, void* lse, int B, int L, int H,
                                       int D, int causal, float qscale, void* stream) {
-  return dispatch<false, true>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, stream);
+  return dispatch<false, true>(qkv, nullptr, out, lse, B, L, H, D, causal, qscale, false, 0, 0, 0,
+                               stream);
 }

@@ -88,14 +88,6 @@ int warps_for(int nblk, int max_warps) {
   return (nblk + rounds - 1) / rounds;
 }
 
-// Lane offsets within a 16 x 16 block of a row-major shared tile for an
-// ldmatrix x4: the A pattern (rows M, columns K; with .trans also a B
-// operand stored [K][N]) and the B pattern (rows N, columns K, no .trans).
-__device__ __forceinline__ int a_row(int lane) { return (lane % 8) + 8 * ((lane / 8) % 2); }
-__device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
-__device__ __forceinline__ int b_row(int lane) { return (lane % 8) + 8 * (lane / 16); }
-__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane / 8) % 2); }
-
 // Copy n rows of W columns (`stride` elements between rows of src) into dst
 // (rows W + 8 apart), 16 bytes a thread; rows from L on are zero-filled.
 template <int W>
@@ -121,16 +113,6 @@ __device__ void store_rows(bf16* base, long stride, int r0, const float (&acc)[D
     if (ra < L) *reinterpret_cast<uint32_t*>(&base[ra * stride + col]) = pack_bf16(acc[n][0], acc[n][1]);
     if (rb < L) *reinterpret_cast<uint32_t*>(&base[rb * stride + col]) = pack_bf16(acc[n][2], acc[n][3]);
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---- lab forward -----------------------------------------------------------

@@ -9,9 +9,9 @@ JAX-side conftest:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q -m gpu
 
 Lengths cover both sides of each dispatch edge of the kernels (one 64-key
-tile up to L=64, one 128-key tile up to L=128, 64 x 64 tiles beyond) and a
-ragged edge in each. q and k are drawn from N(0, 0.3^2), v and the
-cotangent from N(0, 1).
+tile up to L=64, one 128-key tile up to L=128, the long-row kernel beyond,
+in its resident and streamed forms) and a ragged edge in each. q and k are
+drawn from N(0, 0.3^2), v and the cotangent from N(0, 1).
 Tolerances as in tests/test_torch_attention.py: bf16 out elementwise
 atol = rtol = 2e-2 and, relative to the reference's own size,
 ||out - ref|| / ||ref|| <= 1e-2 (bf16 rounding of out gives < 2^-8; the
@@ -77,6 +77,25 @@ def _segments(rng, B, L):
     return seg
 
 
+def _long_segments(rng, B, L, shortest=6):
+    """Runs of ``shortest``..L/3 tokens numbered 1, 2, ..., then a seg-0
+    padding tail of at least L/8 tokens. Every row then sees at least
+    ``shortest`` keys with p near 1 (q, k ~ N(0, 0.3^2) keep the scores
+    flat), so l >= ~6 and the flip of one bf16 rounding of p (2^-8 of p,
+    which the f32 summation order of the scores can cause) moves lse2 by
+    under 2^-8 / (6 ln 2) = 9.4e-4, inside LSE_TOL; a run of 2 tokens could
+    move it by 2.8e-3, which over the 10^5 rows of the large grids happens."""
+    seg = np.zeros((B, L), np.int32)
+    end = L - L // 8
+    for r in range(B):
+        pos, sid = 0, 1
+        while pos + shortest <= end:
+            n = min(int(rng.integers(shortest, max(shortest + 1, L // 3 + 1))), end - pos)
+            seg[r, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("L", [1, 16, 50, 64, 65, 77, 100, 128, 129, 197])
@@ -95,6 +114,70 @@ def test_cuda_kernels_match_plain_versions(L, D):
             torch.cuda.synchronize()
             _assert_out_close(ours[0], ref[0])
             torch.testing.assert_close(ours[1], ref[1], atol=LSE_TOL, rtol=0)
+
+
+# Rows of more than 128 tokens take the long-row kernel: (B, L, H, D) on both
+# sides of its edges (16-row blocks, 64-key stages, the resident form's edge
+# at D=128 between 384 and 385 tokens, the streamed form beyond), with grids
+# from one (row, head) pair, split across CTAs, up to several waves.
+LONG_ROW_CASES = [
+    *[(2, L, 2, 64) for L in (129, 144, 197, 255, 256, 257, 577)],
+    *[(2, L, 1, 128) for L in (129, 144, 197, 255, 256, 257, 577)],
+    (1, 197, 1, 128), (1, 384, 1, 128), (1, 385, 1, 128), (1, 1024, 2, 64),
+    (8, 577, 16, 64), (64, 197, 12, 64), (64, 197, 6, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,D", LONG_ROW_CASES)
+def test_cuda_long_rows_match_plain_versions(B, L, H, D):
+    """K1, K2 (segments) and K5 on long rows against their plain versions,
+    causal and not, each in the form its plan gives; K5 bit for bit K1."""
+    _need_cuda()
+    rng = np.random.default_rng(B * 100000 + L * 1000 + H * 10 + D)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_long_segments(rng, B, L)).cuda()
+    for causal in (False, True):
+        out, lse2 = A.flash_attention_qkv(x, H, causal)
+        ref_out, ref_lse2 = A.flash_fwd_plain(x, H, causal)
+        torch.cuda.synchronize()
+        _assert_out_close(out, ref_out)
+        torch.testing.assert_close(lse2, ref_lse2, atol=LSE_TOL, rtol=0)
+        seg_out, seg_lse2 = A.flash_attention_qkv_segmented(x, H, seg, causal)
+        ref_out, ref_lse2 = A.flash_fwd_seg_plain(x, seg, H, causal)
+        torch.cuda.synchronize()
+        _assert_out_close(seg_out, ref_out)
+        torch.testing.assert_close(seg_lse2, ref_lse2, atol=LSE_TOL, rtol=0)
+        if A.head_split(H, D):
+            hs_out, hs_lse2 = A.flash_attention_qkv_hs(x, H, causal)
+            torch.cuda.synchronize()
+            assert torch.equal(hs_out, out)
+            assert torch.equal(hs_lse2.reshape(H, B, L).transpose(0, 1), lse2)
+    # control: the check sees one 16-key block of values dropped
+    dropped = x.clone()
+    dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
+    with pytest.raises(AssertionError):
+        _assert_out_close(A.flash_fwd_plain(dropped, H, False)[0], A.flash_fwd_plain(x, H, False)[0])
+
+
+@pytest.mark.gpu
+def test_cuda_long_row_kernel_refuses_a_plan_it_cannot_take():
+    """The entry point returns an error for a plan whose shared memory,
+    warps or splits it cannot take, and the wrapper raises on such an error:
+    no fallback."""
+    _need_cuda()
+    B, L, H, D = 1, 577, 1, 128
+    x = torch.zeros(B, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+    lse2 = torch.empty(B, H, L, device="cuda")
+    kernel = A._kernel("latteclip_flash_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    for warps, splits, resident in ((4, 1, 1), (17, 1, 0), (4, 37, 0), (0, 1, 0)):
+        err = kernel(x.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, 0,
+                     (D ** -0.5) * A.LOG2E, warps, splits, resident, stream)
+        assert err != 0, (warps, splits, resident)
+    A.flash_attention_qkv(x, H)  # the plan's own launch
+    torch.cuda.synchronize()
 
 
 def _grad_errors(ours, ref, H, D):
