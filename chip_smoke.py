@@ -22,19 +22,23 @@ Phases, each raising on failure:
    only) and the bound max(FLOP / 989e12, bytes / 3.35e12). Besides the
    serving and synthetic shapes, the cases take the train phase's own segment
    ids (packed captions and templates) and batch shapes, and K1 and K5 the
-   ViT-B/16 eval's [256, 197, 12 x 3 x 64]; cases of more than 128 tokens
-   name the long-row kernel's form (resident or streamed), CTAs per (row,
-   head) and warps a CTA. Every K3/K4 case
-   of at most 128 tokens also checks and times the tiled kernel pair that
-   longer rows take (flash_bwd.cu built a second time with
-   -DLATTECLIP_BWD_SHORT_ROW=0) beside the one-CTA-per-(row, head) kernel,
-   in the order row, tiled, tiled, row. The head-split forward and backward
-   (K5, K6) and the block-diagonal forward (K7) take the whole-row cases of
-   at most 197 (K7: 128) tokens; K6's case also times the copy that re-merges
-   its [3, B, L, H*D] gradient. The fused LayerNorm -> linear kernel (K8)
-   takes the padded train step's LN -> projection pairs and the classifier
-   build's, held as bf16 out is; its control zeroes one 16-output block of
-   W, and its yardstick is the port's unfused route, dense(layer_norm(x));
+   ViT-B/16 eval's [256, 197, 12 x 3 x 64] and K3 ViT-B/16 training's
+   [512, 197, 12 x 3 x 64]; forward cases of more than 128 tokens name the
+   long-row kernel's form (resident or streamed), CTAs per (row, head) and
+   warps a CTA, backward ones the backward plan's form (resident_pair,
+   resident or tiled) and warps. Every K3/K4 case also checks and times the tiled kernel pair
+   (flash_bwd.cu built a second time with -DLATTECLIP_BWD_SHORT_ROW=0, which
+   sends every row there) beside the kernel its plan runs, in the order
+   kernel, tiled, tiled, kernel (`design`). The head-split forward and
+   backward (K5, K6) and the block-diagonal forward (K7) take the whole-row
+   cases of at most 197 (K7: 128) tokens; K6 writes its gradient in the
+   layout of qkv (a tree whose K6 writes [3, B, L, H*D] gets the re-merge
+   copy timed as merge_ms). The fused LayerNorm -> linear kernel (K8) takes
+   the padded train step's LN -> projection pairs and the classifier
+   build's, held as bf16 out is, on the bf16 copy of W that its Function
+   makes once a forward (that copy's time is cast_ms); its control zeroes
+   one 16-output block of W, its yardstick is the port's unfused route,
+   dense(layer_norm(x)) on the f32 W, and it names its launch plan;
 4. lab: the attention lab's kernels (csrc/lab.cu) against their plain
    versions at the lab tools' shapes ([512, 197, 12 x 64] for the lab
    forward, packed and BHLD, and the lab backward; [1024, 77, 8 x 64] for
@@ -96,6 +100,17 @@ Phases, each raising on failure:
    0.999. A torch.profiler trace of one step of each route gives its device
    busy time, idle share and device time by kind, attention forward and
    backward apart;
+6b. train_b16: the same step at ViT-B/16 (L=197 vision, heads 64 wide),
+   batch TRAIN_BATCH_B16, captions and templates packed at 128: warm-up and
+   10 timed steps, counters set to 0 just before and read just after: no
+   vision pair packs at 197 tokens, so exactly 120 flash_fwd and 120
+   flash_bwd (K1/K3 at [batch, 197, 12 x 3 x 64], the backward's
+   resident_pair form) and 240 flash_fwd_seg and 240 flash_bwd_seg (text), nothing
+   else; losses finite, logit_scale in [0, ln 100], bank rows unit-norm; a
+   profiled step; kernel and plain routes from one copied state on one
+   64-image batch with augment off: loss within 1e-2 relative, gradient
+   cosine >= 0.99, bank rows cosine >= 0.999; a train_b16 JSON line with
+   images/s, device busy ms per step and by kind, and peak memory;
 7. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
@@ -157,6 +172,7 @@ REPLACES = {
 LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
 TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
+TRAIN_BATCH_B16, AGREE_BATCH_B16 = 512, 64  # ViT-B/16 train batch; its agreement batch
 EVAL_BATCH = 256     # the serving phases' eval batch (four of 256 and one of 255)
 # the lab tools' shapes (B, L, H, D) and one small shape of each
 LAB_ATTN, LAB_ATTN_SMALL = (512, 197, 12, 64), (4, 50, 2, 64)
@@ -238,6 +254,19 @@ def long_row_fields(B, L, H, D, segmented) -> dict:
     return {"form": plan.form, "ctas_per_bh": plan.splits, "warps": plan.warps}
 
 
+def bwd_plan_fields(B, L, H, D, segmented) -> dict:
+    """The backward plan's form ("resident_pair", "resident" or "tiled") and
+    warps a CTA of a row of more than 128 tokens on this card; nothing for
+    shorter rows, or for a tree whose backward has no plan."""
+    from latteclip_torch.kernels import attention as A
+
+    plan_of = getattr(A, "bwd_long_row_plan", None)
+    if L <= ROW_MAX or plan_of is None:
+        return {}
+    plan = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"form": plan.form, "warps": plan.warps}
+
+
 def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     from latteclip_torch.kernels import attention as A
 
@@ -306,7 +335,8 @@ def grad_check(ours, ref, H, D):
 
 def tiled_bwd(lib, qkv, seg, out, dout, lse2, H, causal):
     """dqkv from the tiled-only build of flash_bwd.cu, called as the wrapper
-    calls the kernel. Not counted: it is no part of any path."""
+    calls the kernel (with an empty plan where the entry point takes one:
+    that build ignores it). Not counted: it is no part of any path."""
     from latteclip_torch.kernels import attention as A
 
     B, L, _ = qkv.shape
@@ -318,8 +348,9 @@ def tiled_bwd(lib, qkv, seg, out, dout, lse2, H, causal):
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
     tensors = [qkv, *([] if seg is None else [seg]), out, dout, lse2, delta, dqkv]
+    plan = (0, 0) if A._SIGNATURES[name].endswith("iip") else ()
     err = fn(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal), (D ** -0.5) * A.LOG2E,
-             D ** -0.5, torch.cuda.current_stream().cuda_stream)
+             D ** -0.5, *plan, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"tiled {name} launch failed with CUDA error {err}")
     return dqkv
@@ -327,19 +358,20 @@ def tiled_bwd(lib, qkv, seg, out, dout, lse2, H, causal):
 
 def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
     """A backward kernel against its plain version, from the forward
-    kernel's residuals and an N(0, 1) cotangent; at rows of at most ROW_MAX
-    tokens, also the tiled pair against the same plain result."""
+    kernel's residuals and an N(0, 1) cotangent; for K3 and K4 also the
+    tiled pair against the same plain result, timed beside the kernel."""
     from latteclip_torch.kernels import attention as A
 
     qkv = draw_qkv(gen, B, L, H, D)
     dout = torch.randn((B, L, H * D), generator=gen, device="cuda").to(torch.bfloat16)
     seg = None if seg_np is None else torch.from_numpy(seg_np).cuda()
-    as_qkv = lambda d: d  # noqa: E731  (the gradient in the layout of qkv)
-    if name == "flash_bwd_hs":  # dqkv3 [3, B, L, H*D], re-merged for the checks
+    # the gradient in the layout of qkv: a tree whose K6 (and its plain
+    # version) give dqkv3 [3, B, L, H*D] gets it re-merged for the checks
+    as_qkv = lambda d: d if d.shape == qkv.shape else A.merge_dqkv(d)  # noqa: E731
+    if name == "flash_bwd_hs":
         out, lse2 = A.flash_attention_qkv_hs(qkv, H, causal)
         kernel = lambda: A.flash_attention_qkv_hs_bwd(qkv, out, dout, lse2, H, causal)  # noqa: E731
         plain_of = lambda x: A.flash_bwd_hs_plain(x, out, dout, lse2, H, causal)  # noqa: E731
-        as_qkv = A.merge_dqkv
     elif seg is None:
         out, lse2 = A.flash_attention_qkv(qkv, H, causal)
         kernel = lambda: A.flash_attention_qkv_bwd(qkv, out, dout, lse2, H, causal)  # noqa: E731
@@ -370,14 +402,14 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
     del o, q, k, v
     design = None
-    # the head-split gradient's re-merge into the layout of qkv: a copy
-    merge_ms = timer(lambda: A.merge_dqkv(ours3)) if name == "flash_bwd_hs" else None
-    if L <= ROW_MAX and name in ("flash_bwd", "flash_bwd_seg"):
+    # a head-split gradient given as dqkv3 needs a re-merge copy into the layout of qkv
+    merge_ms = timer(lambda: A.merge_dqkv(ours3)) if ours3.shape != qkv.shape else None
+    if name in ("flash_bwd", "flash_bwd_seg"):
         tiled = lambda: tiled_bwd(tiled_lib, qkv, seg, out, dout, lse2, H, causal)  # noqa: E731
         tiled_ok, tiled_errs = grad_check(tiled(), ref, H, D)
         ok = ok and tiled_ok
         tiled_ms = [timer(tiled), timer(tiled)]
-        design = {"row_ms": [ms, timer(kernel)], "tiled_ms": tiled_ms,
+        design = {"kernel_ms": [ms, timer(kernel)], "tiled_ms": tiled_ms,
                   "tiled_grad_err": tiled_errs, "tiled_ok": tiled_ok}
     flops = 10 * D * H * pairs
     nbytes = 2 * B * L * 8 * H * D + 4 * B * H * L + (0 if seg is None else 4 * B * L)
@@ -389,6 +421,7 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         "merge_ms": merge_ms,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        **bwd_plan_fields(B, L, H, D, seg is not None),
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -398,14 +431,18 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
 def ln_case(name, B, L, D, O, timer, gen):
     """The fused LayerNorm -> linear kernel against its plain version on
     x [B, L, D] ~ N(0, 1), W [O, D] ~ N(0, 1/D), LayerNorm scale ~ 1 +
-    N(0, 0.1^2), biases ~ N(0, 0.1^2); yardstick the unfused route."""
+    N(0, 0.1^2), biases ~ N(0, 0.1^2); yardstick the unfused route. The
+    kernel reads the bf16 copy of W that FusedLnLinear makes once a forward
+    (a tree whose kernel reads the f32 W takes that)."""
     from latteclip_torch.kernels import fused_ln_linear as FL
 
     x = torch.randn((B, L, D), generator=gen, device="cuda").to(torch.bfloat16)
     ln_w = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
     ln_b, wb = (0.1 * torch.randn(n, generator=gen, device="cuda") for n in (D, O))
     w = torch.randn((O, D), generator=gen, device="cuda") * D ** -0.5
-    kernel = lambda: FL.fused_ln_linear(x, ln_w, ln_b, w, wb)  # noqa: E731
+    plan_of = getattr(FL, "ln_linear_plan", None)
+    w_in = w if plan_of is None else w.to(torch.bfloat16)
+    kernel = lambda: FL.fused_ln_linear(x, ln_w, ln_b, w_in, wb)  # noqa: E731
     plain = lambda: FL.fused_ln_linear_plain(x, ln_w, ln_b, w, wb)  # noqa: E731
     library = lambda: FL.dense(FL.layer_norm(x, ln_w, ln_b), w, wb, torch.bfloat16)  # noqa: E731
     y, ref = kernel(), plain()
@@ -416,12 +453,17 @@ def ln_case(name, B, L, D, O, timer, gen):
     dropped[O // 2:O // 2 + 16] = 0
     control_ok, rel_dropped = out_check(FL.fused_ln_linear_plain(x, ln_w, ln_b, dropped, wb), ref)
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    cast_ms = None if w_in is w else timer(lambda: w.to(torch.bfloat16))
     M = B * L
     flops = 2 * M * D * O
-    nbytes = M * D * 2 + O * D * 4 + M * O * 2 + (2 * D + O) * 4
+    nbytes = M * D * 2 + O * D * w_in.element_size() + M * O * 2 + (2 * D + O) * 4
     bound_ms, bound_by = bound(flops, nbytes)
+    plan = {}
+    if plan_of is not None:
+        p = plan_of(M, D, O, torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = {"plan": {"bm": p.bm, "bn": p.bn, "n_splits": p.n_splits, "stages": p.stages}}
     rec = {
-        "name": "ln_linear", "site": name, "shape": [B, L, D], "outputs": O,
+        "name": "ln_linear", "site": name, "shape": [B, L, D], "outputs": O, "cast_ms": cast_ms, **plan,
         "max_abs_err": float((y.float() - ref.float()).abs().max()), "out_rel_err": rel, "ok": ok,
         "control_rel_err": rel_dropped, "control_rejected": not control_ok,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -472,6 +514,7 @@ def phase_kernels(train, tiled_lib):
         ("flash_bwd", 64, 197, 12, 64, False, None),       # ViT-B/16 vision
         ("flash_bwd", 8, 577, 16, 64, False, None),        # 336 px vision
         ("flash_bwd", 64, 197, 6, 128, False, None),       # head_dim 128
+        ("flash_bwd", TRAIN_BATCH_B16, 197, 12, 64, False, None),  # ViT-B/16 training's batch
     ] + [("flash_bwd" + n[len("flash_fwd"):], *rest) for n, *rest in train_cases] + [
         ("flash_bwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_bwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
@@ -1271,6 +1314,90 @@ def phase_train(smi: str, train: dict):
     return {k: sum(r["launches"][k] for r in routes.values()) for k in routes["packed"]["launches"]}
 
 
+# -- phase 6b: the ViT-B/16 train step -----------------------------------------
+
+def phase_train_b16(smi: str, train: dict):
+    """The LatteCLIP v2 step at ViT-B/16 (vision 12 x 768 at 224 px / patch
+    16, L=197), packed text at 128: no vision pair packs at 197 tokens, so
+    every vision layer runs K1 and K3 on whole rows of 197 tokens, the
+    backward in its resident_pair long-row form. The counters are set to 0 just
+    before the 10 timed steps and read just after; exactly one flash_fwd and
+    one flash_bwd a vision layer and step, one flash_fwd_seg and one
+    flash_bwd_seg a text layer, stream (captions, templates) and step."""
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.data.packing import PackRowBucketer
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St, step as S
+
+    cfg = get_model_config("ViT-B-16")
+    if cfg.vision.seq_len != 197:
+        raise RuntimeError(f"ViT-B/16 vision rows of {cfg.vision.seq_len} tokens, expected 197")
+    tok, classes, templates = train["tok"], train["classes"], train["templates"]
+    table, tpl = train["table"], train["tpl"]
+    rng = np.random.default_rng(16)
+    bucket = PackRowBucketer(multiple=8)
+    batches = [train_batch(rng, TRAIN_BATCH_B16, cfg.vision.image_size, len(classes),
+                           tok.eot_token_id, bucket, PACK_LEN) for _ in range(2)]
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bank = St.init_memory_bank(model, tok, classes, templates)
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
+    step_fn = S.make_train_step(model, S.LatteHParams(text_packing=True), table, T.AugConfig(),
+                                template_packed=tpl)
+    n, vision_sites, text_sites = TRAIN_STEPS, cfg.vision.layers, 2 * cfg.text.layers
+    _, warm_losses = timed_steps(step_fn, state, batches, gen, 1)
+    torch.cuda.reset_peak_memory_stats()
+    ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train kernels packed_b16: {json.dumps(launches)}")
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": n * vision_sites, "flash_bwd": n * vision_sites,
+            "flash_fwd_seg": n * text_sites, "flash_bwd_seg": n * text_sites}
+    if launches != want:
+        raise RuntimeError(f"packed_b16 steps launched {launches}, expected {want}")
+    check_state(state, warm_losses + losses, "packed_b16 route")
+    profile = device_profile(lambda: step_fn(state, batches[0], gen))
+    log("profile train_step_packed_b16 " + json.dumps(profile))
+
+    # kernel route against plain route from one copied state, augment off
+    del batches
+    hp = S.LatteHParams(augment=False, text_packing=True)
+    batch = train_batch(rng, AGREE_BATCH_B16, cfg.vision.image_size, len(classes), tok.eot_token_id,
+                        bucket, PACK_LEN)
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    tpl_t = tuple(torch.from_numpy(a).cuda() for a in tpl)
+    loss_k, grad_k, bank_k = route_gradients(copy.deepcopy(model), hp, batch, images, state,
+                                             table_t, tpl_t, "kernel")
+    loss_p, grad_p, bank_p = route_gradients(copy.deepcopy(model), hp, batch, images, state,
+                                             table_t, tpl_t, "plain")
+    agreement = {
+        "batch": AGREE_BATCH_B16, "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+        "grad_cos": float(F.cosine_similarity(grad_k, grad_p, dim=0)),
+        "bank_row_cos_min": float(F.cosine_similarity(bank_k, bank_p, dim=1).min()),
+    }
+    report = {
+        "model": cfg.name, "batch": TRAIN_BATCH_B16, "classes": len(classes), "steps": n,
+        "images_per_s": ips, "losses": losses, "launches": launches,
+        "max_memory_allocated": peak, "device_busy_ms_per_step": profile["device_busy_ms"],
+        "device_idle_share": profile["device_idle_share"],
+        "device_ms_by_kind": profile["device_ms_by_kind"],
+        "logit_scale": float(state.model.logit_scale.detach()), "agreement": agreement, "card": smi,
+    }
+    log("train_b16 " + json.dumps(report))
+    if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
+            or agreement["bank_row_cos_min"] < 0.999):
+        raise RuntimeError(f"ViT-B/16 kernel and plain routes disagree: {agreement}")
+    return launches
+
+
+def ptxas_warnings(lines) -> list:
+    """ptxas's warnings and advisories (a wgmma serialised, a setmaxnreg ignored)."""
+    return [ln for ln in lines if "warning" in ln.lower() or "advisory" in ln.lower()]
+
+
 def ptxas_usage(lines) -> dict:
     """{kernel<template args>: "N registers, S bytes spilled"} from -Xptxas -v."""
     usage, kernel = {}, None
@@ -1320,6 +1447,8 @@ def main() -> int:
         log(f"  {name}.cu: nvcc {rec['seconds']:.1f} s")
         for kernel, usage in ptxas_usage(rec["ptxas"]).items():
             log(f"    {kernel}: {usage}")
+        for line in ptxas_warnings(rec["ptxas"]):
+            log(f"    ptxas: {line}")
 
     train = train_inputs()
     records = phase_kernels(train, tiled_lib)
@@ -1328,6 +1457,8 @@ def main() -> int:
     slice_launches = phase_slice(smi)
     b16_launches = phase_slice_b16(smi)
     train_launches = phase_train(smi, train)
+    torch.cuda.empty_cache()
+    b16_train_launches = phase_train_b16(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -1335,7 +1466,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
-                                                     lab_launches)),
+                                                     b16_train_launches, lab_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,5 +1,8 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the card's SM
+count that the kernels' launch plans read."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,3 +18,9 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -15,8 +15,10 @@ Port of ``latteclip_tpu/kernels/attention.py``:
   replaces the head-split forward ``_fwd_kernel_hs``: K1's function with
   lse2 laid out ``[H/HP, HP, B, L]`` (``HP = 128 / D`` heads per TPU program);
 * ``flash_attention_qkv_hs_bwd`` launches ``csrc/flash_bwd.cu::latteclip_flash_bwd_hs``,
-  which replaces ``_bwd_kernel_hs``: K3's gradient from that lse2 layout,
-  written as ``dqkv3 [3, B, L, H*D]``;
+  which replaces ``_bwd_kernel_hs``: K3's gradient from that lse2 layout.
+  The TPU kernel writes ``dqkv3 [3, B, L, H*D]`` and JAX moves the axis
+  (attention.py:842); the Hopper kernel stores straight into the layout of
+  ``qkv``, so the wrapper returns that layout and no copy follows;
 * ``flash_attention_qkv_bd`` launches ``latteclip_flash_fwd_bd``, which
   replaces the block-diagonal forward ``_fwd_kernel_bd`` (``_flash_fwd_bd``):
   whole rows of at most 128 tokens, with that kernel's rounding (p stays f32,
@@ -25,7 +27,9 @@ Port of ``latteclip_tpu/kernels/attention.py``:
 
 Rows of more than 128 tokens take the forward's long-row kernel under the
 launch plan of :func:`long_row_plan` (form, warps a CTA, CTAs per (row,
-head)), computed here so that the CPU tests hold it.
+head)), and the backward's row kernel or its tiled pair under
+:func:`bwd_long_row_plan` (form, warps a CTA), both computed here so that the
+CPU tests hold them.
 
 The forwards read q, k and v straight from ``qkv [B, L, 3*H*D]`` (laid out
 ``[q | k | v]``) and return ``(out [B, L, H*D], lse2 [B, H, L])``, the
@@ -33,8 +37,7 @@ base-2 logsumexp; the backwards take those residuals and the cotangent of
 ``out`` and return ``dqkv`` in the layout of ``qkv``. ``FlashAttention`` and
 ``FlashAttentionSegmented`` pair them as ``torch.autograd.Function``s, with
 ``(qkv, out, lse2)`` (and ``seg_ids``) saved, the JAX package's residuals;
-``FlashAttentionHeadSplit`` pairs the head-split kernels and re-merges
-``dqkv3`` into the layout of ``qkv`` (JAX attention.py:842), and
+``FlashAttentionHeadSplit`` pairs the head-split kernels, and
 ``FlashAttentionBlockDiag`` pairs the block-diagonal forward with the
 whole-row backward, as JAX does. ``flash_{fwd,bwd}{,_seg,_hs}_plain`` and
 ``flash_fwd_bd_plain`` compute the same functions in plain PyTorch,
@@ -46,11 +49,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+
+from latteclip_torch.device import sm_count
 
 NEG_INF = -1e9
 LOG2E = math.log2(math.e)
@@ -216,7 +220,8 @@ def flash_bwd_hs_plain(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
 
 def merge_dqkv(dqkv3: torch.Tensor) -> torch.Tensor:
     """``[3, B, L, H*D] -> [B, L, 3*H*D]``, the layout of ``qkv``: JAX's
-    ``moveaxis(dqkv3, 0, 2)`` (attention.py:842), here one copy."""
+    ``moveaxis(dqkv3, 0, 2)`` (attention.py:842), here one copy. The CUDA
+    kernel stores that layout itself; the plain route and the tests merge."""
     _, B, L, HD = dqkv3.shape
     return dqkv3.permute(1, 2, 0, 3).reshape(B, L, 3 * HD)
 
@@ -266,11 +271,11 @@ _SIGNATURES = {
     # name: argument kinds, "p" pointer, "i" int, "f" float; every one returns int
     "latteclip_flash_fwd": "pppiiiiifiiip",
     "latteclip_flash_fwd_seg": "ppppiiiiifiiip",
-    "latteclip_flash_bwd": "ppppppiiiiiffp",
-    "latteclip_flash_bwd_seg": "pppppppiiiiiffp",
+    "latteclip_flash_bwd": "ppppppiiiiiffiip",
+    "latteclip_flash_bwd_seg": "pppppppiiiiiffiip",
     "latteclip_flash_fwd_hs": "pppiiiiifiiip",
     "latteclip_flash_fwd_bd": "pppiiiiifp",
-    "latteclip_flash_bwd_hs": "ppppppiiiiiffp",
+    "latteclip_flash_bwd_hs": "ppppppiiiiiffiip",
 }
 
 
@@ -366,9 +371,65 @@ def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> 
     return LongRowPlan("streamed", warps, splits, smem(warps, False))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+# The launch plan of the backward's rows longer than SHORT_ROW tokens
+# (csrc/flash_bwd.cu); the constants are the kernel's.
+BWD_ROW_WARPS = 8  # the row kernel's launch bounds: at D=128 dk and dv take 128 registers
+BWD_PAIR_SMEM = SM_SMEM // 2 - CTA_RESERVED_SMEM  # the most each of two CTAs of an SM can take
+BWD_FORMS = {"tiled": 0, "resident": 1, "resident_pair": 2}  # the entry points' `resident`
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLongRowPlan:
+    """How the backward takes a row of more than 128 tokens: ``form``
+    "resident_pair" (the row kernel with Q, K, V and dO of the row in
+    unpadded swizzled shared rows, one CTA per (row, head), two CTAs of
+    ``warps`` warps an SM), "resident" (the same in padded rows, one CTA an
+    SM) or "tiled" (the pair of 64-token tile kernels, 4 warps a CTA),
+    and the CTA's dynamic shared memory."""
+    form: str
+    warps: int
+    smem_bytes: int
+
+
+def bwd_row_smem_bytes(L: int, D: int, segmented: bool, padded: bool = True) -> int:
+    """Shared memory of one row-kernel CTA (mirrors ``Tiles<D, SWZ>::bytes``
+    in csrc/flash_bwd.cu): Q, dO, K and V of the row in rows of D + 8
+    values (``padded``) or D values (swizzled), lse2 and delta, and the
+    segment ids of queries and keys when segmented."""
+    rows = -(-L // 16) * 16
+    return 4 * rows * (D + (8 if padded else 0)) * 2 + 8 * rows + (8 * rows if segmented else 0)
+
+
+def bwd_tiled_smem_bytes(D: int, segmented: bool) -> int:
+    """Shared memory of one CTA of the tiled pair: the same for 64-token tiles."""
+    return bwd_row_smem_bytes(LONG_TILE, D, segmented)
+
+
+def bwd_long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> BwdLongRowPlan:
+    """The backward's launch plan for a row of ``L > 128`` tokens.
+
+    * D=64: resident_pair where the row fits half an SM's shared memory
+      unpadded (up to 208 tokens: ViT-B/16's 197), 8 warps a CTA;
+    * D=128: resident where the padded row fits a CTA (up to 208 tokens),
+      one warp per 16-token block up to 8; warp w walks the blocks w, w +
+      warps, ...;
+    * tiled beyond (336 px at 577 tokens).
+    Each form beat the others at the shapes it takes:
+    ``python -m latteclip_torch.tools.long_row_plans`` times them all on the
+    card (PERF.md keeps its numbers). ``B``, ``H`` and ``sms`` do not change
+    the plan: every long-row case of the towers has at least one (row, head)
+    pair an SM.
+    """
+    if L <= SHORT_ROW or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the backward long-row plan takes L > {SHORT_ROW} and head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
+    pair = bwd_row_smem_bytes(L, D, segmented, padded=False)
+    if D == 64 and pair <= BWD_PAIR_SMEM:
+        return BwdLongRowPlan("resident_pair", BWD_ROW_WARPS, pair)
+    smem = bwd_row_smem_bytes(L, D, segmented)
+    if D == 128 and smem <= MAX_SMEM:
+        return BwdLongRowPlan("resident", min(-(-L // 16), BWD_ROW_WARPS), smem)
+    return BwdLongRowPlan("tiled", 4, bwd_tiled_smem_bytes(D, segmented))
 
 
 def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[torch.Tensor],
@@ -387,7 +448,7 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     if name != "latteclip_flash_fwd_bd":
         plan_args = (0, 0, 0)
         if L > SHORT_ROW:
-            plan = long_row_plan(B, L, H, D, seg_ids is not None, _sm_count(qkv.device.index))
+            plan = long_row_plan(B, L, H, D, seg_ids is not None, sm_count(qkv.device.index))
             plan_args = (plan.warps, plan.splits, int(plan.form == "resident"))
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
@@ -449,10 +510,11 @@ def flash_attention_qkv_bd(qkv: torch.Tensor, num_heads: int, causal: bool = Fal
 
 
 def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_heads, causal,
-                lse_shape=None, dqkv_shape=None) -> torch.Tensor:
+                lse_shape=None) -> torch.Tensor:
     """Check the residuals, launch the backward entry point ``name`` and
-    count it; ``lse_shape`` defaults to ``[B, H, L]`` and the gradient's
-    shape ``dqkv_shape`` to that of ``qkv``."""
+    count it; ``lse_shape`` defaults to ``[B, H, L]``. The gradient comes in
+    the layout of ``qkv``; rows of more than 128 tokens carry their
+    :func:`bwd_long_row_plan`."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     _check_residual("out", out, qkv, (B, L, H * D), torch.bfloat16)
     _check_residual("dout", dout, qkv, (B, L, H * D), torch.bfloat16)
@@ -460,13 +522,17 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
     if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
     kernel = _kernel(name)
-    dqkv = torch.empty(dqkv_shape or qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=qkv.device)  # kernel scratch
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, dout, lse2, delta, dqkv]
+    plan_args = (0, 0)
+    if L > SHORT_ROW:
+        plan = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sm_count(qkv.device.index))
+        plan_args = (plan.warps, BWD_FORMS[plan.form])
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
-                     (D ** -0.5) * LOG2E, D ** -0.5, stream)
+                     (D ** -0.5) * LOG2E, D ** -0.5, *plan_args, stream)
     _raise_on(err, name)
     launch_counts[counter] += 1
     return dqkv
@@ -502,15 +568,16 @@ def flash_attention_qkv_segmented_bwd(
 def flash_attention_qkv_hs_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
                                lse2: torch.Tensor, num_heads: int, causal: bool = False) -> torch.Tensor:
     """Gradient of :func:`flash_attention_qkv_hs`'s ``out`` from its lse2
-    ``[H/HP, HP, B, L]`` -> ``dqkv3 [3, B, L, H*D]`` (dq, dk, dv).
+    ``[H/HP, HP, B, L]`` -> ``dqkv [B, L, 3*H*D]``, the layout of ``qkv``.
 
-    A CUDA tensor launches the Hopper kernel and raises on what it does not
-    take; a CPU tensor takes :func:`flash_bwd_hs_plain`."""
+    A CUDA tensor launches the Hopper kernel, which stores that layout, and
+    raises on what it does not take; a CPU tensor takes
+    :func:`flash_bwd_hs_plain` (the TPU kernel's ``dqkv3``) and merges it."""
     if not qkv.is_cuda:
-        return flash_bwd_hs_plain(qkv, out, dout, lse2, num_heads, causal)
+        return merge_dqkv(flash_bwd_hs_plain(qkv, out, dout, lse2, num_heads, causal))
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     return _launch_bwd("latteclip_flash_bwd_hs", "flash_bwd_hs", qkv, None, out, dout, lse2,
-                       num_heads, causal, _hs_lse_shape(B, L, H, D), (3, B, L, H * D))
+                       num_heads, causal, _hs_lse_shape(B, L, H, D))
 
 
 def _kernel_ready(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -564,8 +631,8 @@ class FlashAttentionSegmented(torch.autograd.Function):
 class FlashAttentionHeadSplit(torch.autograd.Function):
     """``(out, lse2) = flash_attention_qkv_hs(qkv)`` with the head-split
     backward kernel as its gradient (JAX ``_make_fa`` with the head-split
-    switch on): ``dqkv3 [3, B, L, H*D]`` re-merged by :func:`merge_dqkv`.
-    lse2 ``[H/HP, HP, B, L]`` takes no gradient."""
+    switch on), which comes in the layout of ``qkv``. lse2
+    ``[H/HP, HP, B, L]`` takes no gradient."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
@@ -578,9 +645,9 @@ class FlashAttentionHeadSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout: torch.Tensor, _dlse2):
         qkv, out, lse2 = ctx.saved_tensors
-        dqkv3 = flash_attention_qkv_hs_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
-                                           ctx.num_heads, ctx.causal)
-        return merge_dqkv(dqkv3), None, None
+        dqkv = flash_attention_qkv_hs_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
+                                          ctx.num_heads, ctx.causal)
+        return dqkv, None, None
 
 
 class FlashAttentionBlockDiag(torch.autograd.Function):

@@ -6,12 +6,13 @@
 //   latteclip_flash_bwd_hs   <- _bwd_kernel_hs   (head-split, whole-row)
 // All take the forward's residuals, qkv [B, L, 3*H*D] (laid out [q | k | v],
 // bf16), out [B, L, H*D] bf16 and the base-2 logsumexp lse2 f32, with the
-// cotangent dout [B, L, H*D] bf16. The first two read lse2 as [B, H, L] and
-// write the gradient dqkv [B, L, 3*H*D] bf16 in the layout of qkv, so the
-// in-projection's backward reads it as it is. The head-split kernel computes
-// the same gradient from the head-split forward's lse2 [H/HP, HP, B, L]
-// ([H, B, L] in memory) and writes it as dqkv3 [3, B, L, H*D] (dq, dk, dv),
-// as the TPU kernel does; the caller re-merges it into the layout of qkv.
+// cotangent dout [B, L, H*D] bf16, and write the gradient dqkv [B, L, 3*H*D]
+// bf16 in the layout of qkv, so the in-projection's backward reads it as it
+// is. The first two read lse2 as [B, H, L]; the head-split kernel reads the
+// head-split forward's lse2 [H/HP, HP, B, L] ([H, B, L] in memory). The TPU
+// kernel writes dqkv3 [3, B, L, H*D] and JAX moves the axis afterwards
+// (attention.py:842); here the store's strides put each gradient row where
+// that move would, so no copy follows and no rounding moves.
 //
 // Numerics follow the TPU kernel step by step, per (row b, head h):
 //   s2 = bf16(q * D^-1/2 * log2 e) . k^T in f32, masked entries dropped;
@@ -28,18 +29,36 @@
 // against the H100's ~295. So the design reads each input once where it
 // can and keeps p and ds on chip:
 //   * a pre-pass writes delta [B, H, L] f32 (read once from out and dout);
-//   * rows of at most 128 tokens (every row of the ViT-B/32 train step: vision
-//     pairs at 100, text at 77, packed text at 128) take one CTA per
-//     (row, head) with one warp per 16 tokens. The CTA copies the whole row's
-//     Q, K, V and dO into shared memory once. Each warp then owns 16 keys and
-//     accumulates their dk and dv over every query, from the transposed
-//     scores K . Qs^T and V . dO^T, and then owns 16 queries and accumulates
-//     their dq over every key. Each gradient row has one owner, so there are
-//     no atomics and the result does not depend on scheduling;
-//   * longer rows (ViT-B/16 at 197, 336 px at 577) split the same two phases
-//     over two kernels: one CTA of 4 warps per (row, head, 64-key tile)
-//     streams 64-query tiles for dk and dv, and one per (row, head, 64-query
-//     tile) streams 64-key tiles for dq;
+//   * the row kernel takes one CTA per (row, head) and copies the whole
+//     row's Q, K, V and dO into shared memory once (rows padded by 16 bytes
+//     for conflict-free ldmatrix). Warp w owns the 16-token blocks w, w +
+//     warps, ...: for each it accumulates the block's dk and dv over every
+//     query, from the transposed scores K . Qs^T and V . dO^T, and then, for
+//     each again, the block's dq over every key. Each gradient row has one
+//     owner, so there are no atomics and the result does not depend on
+//     scheduling. Causal work per key block falls with its index and per
+//     query block rises, so every warp's sum is the same. Rows of at most
+//     128 tokens (every row of the ViT-B/32 train step) take one warp a block
+//     (at most 8). Longer rows take it under the launch plan
+//     (attention.py::bwd_long_row_plan) where the row fits a CTA's shared
+//     memory. The kernel's time falls with the warps an SM holds (its
+//     blocks are chains of ldmatrix, mma and exp2 that one warp cannot
+//     overlap): at ViT-B/16's 197 tokens (208 rows) padded rows take 4 x 208
+//     x 72 x 2 = 119,808 B plus lse2 and delta, one CTA of 13 warps an SM;
+//     unpadded rows with the 16-byte chunks of each row permuted by row % 8
+//     (conflict-free ldmatrix all the same) take 106,496 B, so two CTAs of 8
+//     warps (128 registers a thread) share an SM and one's copy-in overlaps
+//     the other's products, which beat one padded CTA of 13 warps
+//     (tools/long_row_plans.py times the forms). D = 64 takes that pair form
+//     up to 208 tokens; D = 128 takes padded rows up to
+//     208 tokens, one CTA of at most 8 warps an SM, so that dk and dv (128
+//     f32 accumulators) stay in registers (229,632 B at 197 with segment
+//     ids). No row kernel CTA has more than 8 warps;
+//   * longer rows (336 px at 577) split the same two phases over
+//     two kernels: one CTA of 4 warps per (row, head, 64-key tile) streams
+//     64-query tiles for dk and dv, and one per (row, head, 64-query tile)
+//     streams 64-key tiles for dq (Q, K, V and dO re-read from L2 by every
+//     tile CTA, the scores computed in both);
 //   * scores, p and ds live in mma accumulators, 16 x 16 at a time, and are
 //     repacked in registers as the A operand of the next product, so neither
 //     p nor ds touches shared memory; every q, k, v and do fragment is
@@ -56,7 +75,8 @@
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing (the caller passes
-// the delta scratch [B, H, L] f32), and returns cudaGetLastError().
+// the delta scratch [B, H, L] f32), and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a launch plan it cannot run.
 
 #include <climits>
 
@@ -66,24 +86,39 @@ namespace {
 
 using namespace latteclip;
 
-constexpr int ROW_MAX = 128;  // the most tokens the one-CTA-per-(row, head) kernel holds
-// Rows of at most SHORT_ROW tokens take that kernel, longer ones the tiled
-// pair. Building with -DLATTECLIP_BWD_SHORT_ROW=0 sends every row to the
-// tiled pair, which chip_smoke.py times beside the row kernel.
+// Rows of at most SHORT_ROW tokens take the row kernel with no plan, longer
+// ones follow their plan. Building with -DLATTECLIP_BWD_SHORT_ROW=0 sends
+// every row, short or long, to the tiled pair whatever the plan says, which
+// chip_smoke.py times beside the row kernel.
 #ifndef LATTECLIP_BWD_SHORT_ROW
-#define LATTECLIP_BWD_SHORT_ROW ROW_MAX
+#define LATTECLIP_BWD_SHORT_ROW 128
 #endif
 constexpr int SHORT_ROW = LATTECLIP_BWD_SHORT_ROW;
-static_assert(SHORT_ROW >= 0 && SHORT_ROW <= ROW_MAX, "SHORT_ROW must lie in [0, ROW_MAX]");
-constexpr int TILE = 64;  // query or key rows per tile on longer rows
+static_assert(SHORT_ROW == 0 || SHORT_ROW == 128, "SHORT_ROW is 128, or 0 for the tiled pair alone");
+constexpr bool TILED_ONLY = SHORT_ROW == 0;
+constexpr int TILE = 64;  // query or key rows per tile of the tiled pair
 constexpr int DELTA_THREADS = 256;
+constexpr int SMEM_MAX = 232448;  // shared memory a CTA can take on an H100
+constexpr int PAIR_SMEM_MAX = 233472 / 2 - 1024;  // the most two CTAs of one SM can each take
 
-// Shared-memory tiles of one CTA: Q and dO (q_rows), K and V (k_rows), each
-// row padded by 16 bytes so that ldmatrix reads are free of bank conflicts,
-// then lse2, delta and segment ids of the query rows, segment ids of the keys.
-template <int D>
+constexpr int ROW_WARPS = 8;  // the most warps of a row kernel CTA: at D = 128 dk and dv
+                              // take 128 f32 registers alone
+
+// Shared-memory tiles of one CTA: Q and dO (q_rows), K and V (k_rows), then
+// lse2 and delta of the query rows and, when segmented, the segment ids of
+// the query rows and of the keys. ldmatrix reads 8 rows of 16 bytes at one
+// column: rows padded by 16 bytes keep those in 8 bank groups; with SWZ the
+// rows are unpadded and the 16-byte chunks of row r are permuted by r % 8
+// (chunk c at c ^ (r % 8)), which does the same in less memory.
+template <int D, bool SWZ = false>
 struct Tiles {
-  static constexpr int STRIDE = D + 8;  // padded shared row, in bf16 elements
+  static constexpr int STRIDE = SWZ ? D : D + 8;  // shared row, in bf16 elements
+
+  // element offset of (row, col), col a multiple of 8
+  static __device__ __forceinline__ int off(int row, int col) {
+    return SWZ ? row * STRIDE + ((((col >> 3) ^ (row & 7))) << 3) : row * STRIDE + col;
+  }
+
   __nv_bfloat16 *q, *dout, *k, *v;
   float *lse, *delta;
   int *segq, *segk;
@@ -99,9 +134,9 @@ struct Tiles {
     segk = segq + q_rows;
   }
 
-  static constexpr size_t bytes(int q_rows, int k_rows) {
-    return (size_t)(2 * q_rows + 2 * k_rows) * STRIDE * 2 + (size_t)q_rows * 12 +
-           (size_t)k_rows * 4;
+  static constexpr size_t bytes(int q_rows, int k_rows, bool seg) {
+    return (size_t)(2 * q_rows + 2 * k_rows) * STRIDE * 2 + (size_t)q_rows * 8 +
+           (seg ? (size_t)(q_rows + k_rows) * 4 : 0);
   }
 };
 
@@ -112,15 +147,13 @@ struct Row {
   const float* lse;           // lse2[b, h, :]
   const float* delta;         // delta[b, h, :]
   const int* seg;             // seg[b, :] or nullptr
-  __nv_bfloat16* dqkv;        // dq of token 0 of row b, head h
-  long dqkv_tok;              // elements between two tokens' gradients
-  long dqkv_part;             // elements from dq to dk and from dk to dv
+  __nv_bfloat16* dqkv;        // dq of token 0 of row b, head h, in the layout of qkv
   int L, HD;
 };
 
 // Copy n token rows from r0 on (one head's D columns, `stride` elements
 // between tokens) into dst, 16 bytes a thread; rows beyond L are zero-filled.
-template <int D>
+template <int D, bool SWZ>
 __device__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long stride, int r0,
                           int n, int L) {
   constexpr int CHUNKS = D / 8;
@@ -128,16 +161,16 @@ __device__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long str
     const int r = c / CHUNKS;
     const int col = (c % CHUNKS) * 8;
     const bool valid = r0 + r < L;
-    cp_async_16(&dst[r * Tiles<D>::STRIDE + col], src + (long)(valid ? r0 + r : 0) * stride + col,
+    cp_async_16(&dst[Tiles<D, SWZ>::off(r, col)], src + (long)(valid ? r0 + r : 0) * stride + col,
                 valid);
   }
 }
 
 // Q, dO and the per-query scalars of query rows [r0, r0 + n).
-template <int D, bool SEG>
-__device__ void load_queries(const Tiles<D>& t, const Row& row, int r0, int n) {
-  copy_rows<D>(t.q, row.qkv, 3L * row.HD, r0, n, row.L);
-  copy_rows<D>(t.dout, row.dout, row.HD, r0, n, row.L);
+template <int D, bool SEG, bool SWZ>
+__device__ void load_queries(const Tiles<D, SWZ>& t, const Row& row, int r0, int n) {
+  copy_rows<D, SWZ>(t.q, row.qkv, 3L * row.HD, r0, n, row.L);
+  copy_rows<D, SWZ>(t.dout, row.dout, row.HD, r0, n, row.L);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int j = r0 + i;
     const bool valid = j < row.L;
@@ -148,10 +181,10 @@ __device__ void load_queries(const Tiles<D>& t, const Row& row, int r0, int n) {
 }
 
 // K, V and the segment ids of key rows [r0, r0 + n).
-template <int D, bool SEG>
-__device__ void load_keys(const Tiles<D>& t, const Row& row, int r0, int n) {
-  copy_rows<D>(t.k, row.qkv + row.HD, 3L * row.HD, r0, n, row.L);
-  copy_rows<D>(t.v, row.qkv + 2L * row.HD, 3L * row.HD, r0, n, row.L);
+template <int D, bool SEG, bool SWZ>
+__device__ void load_keys(const Tiles<D, SWZ>& t, const Row& row, int r0, int n) {
+  copy_rows<D, SWZ>(t.k, row.qkv + row.HD, 3L * row.HD, r0, n, row.L);
+  copy_rows<D, SWZ>(t.v, row.qkv + 2L * row.HD, 3L * row.HD, r0, n, row.L);
   if (SEG)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       t.segk[i] = r0 + i < row.L ? row.seg[r0 + i] : -2;
@@ -163,11 +196,11 @@ __device__ void load_keys(const Tiles<D>& t, const Row& row, int r0, int n) {
 // Scores are formed transposed, sT = K . Qs^T and dpT = V . dO^T, so each
 // thread's accumulator rows are its keys and p and ds repack straight into
 // A fragments for dv += pT . dO and dk += dsT . Q.
-template <int D, bool SEG, bool CAUSAL>
-__device__ void warp_dkdv(const Tiles<D>& t, int kr, int k0, int qr_lo, int qr_hi, int query_base,
-                          int L, float qscale, float scale, float (&dk)[D / 8][4],
+template <int D, bool SEG, bool CAUSAL, bool SWZ>
+__device__ void warp_dkdv(const Tiles<D, SWZ>& t, int kr, int k0, int qr_lo, int qr_hi,
+                          int query_base, int L, float qscale, float scale, float (&dk)[D / 8][4],
                           float (&dv)[D / 8][4]) {
-  constexpr int S = Tiles<D>::STRIDE;
+  using T = Tiles<D, SWZ>;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int key[2] = {k0 + g, k0 + g + 8};
@@ -181,8 +214,8 @@ __device__ void warp_dkdv(const Tiles<D>& t, int kr, int k0, int qr_lo, int qr_h
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t ka[4], va[4], qb[4], ob[4];
-      const int ar = (kr + a_row(lane)) * S + kk * 16 + a_col(lane);
-      const int br = (qr + b_row(lane)) * S + kk * 16 + b_col(lane);
+      const int ar = T::off(kr + a_row(lane), kk * 16 + a_col(lane));
+      const int br = T::off(qr + b_row(lane), kk * 16 + b_col(lane));
       ldmatrix_x4(ka, &t.k[ar]);
       ldmatrix_x4(va, &t.v[ar]);
       ldmatrix_x4(qb, &t.q[br]);
@@ -217,7 +250,7 @@ __device__ void warp_dkdv(const Tiles<D>& t, int kr, int k0, int qr_lo, int qr_h
 #pragma unroll
     for (int d2 = 0; d2 < D / 16; ++d2) {
       uint32_t ob[4], qb[4];
-      const int r = (qr + a_row(lane)) * S + d2 * 16 + a_col(lane);
+      const int r = T::off(qr + a_row(lane), d2 * 16 + a_col(lane));
       ldmatrix_x4_trans(ob, &t.dout[r]);
       ldmatrix_x4_trans(qb, &t.q[r]);
       mma_bf16(dv[2 * d2], pa, ob[0], ob[1]);
@@ -232,10 +265,10 @@ __device__ void warp_dkdv(const Tiles<D>& t, int kr, int k0, int qr_lo, int qr_h
 // tile (global index q0), over the keys at local rows [kr_lo, kr_hi) of the
 // key tile (global index key_base + local): s = Qs . K^T, dp = dO . V^T,
 // then dq += ds . K.
-template <int D, bool SEG, bool CAUSAL>
-__device__ void warp_dq(const Tiles<D>& t, int qr, int q0, int kr_lo, int kr_hi, int key_base,
+template <int D, bool SEG, bool CAUSAL, bool SWZ>
+__device__ void warp_dq(const Tiles<D, SWZ>& t, int qr, int q0, int kr_lo, int kr_hi, int key_base,
                         int L, float qscale, float scale, float (&dq)[D / 8][4]) {
-  constexpr int S = Tiles<D>::STRIDE;
+  using T = Tiles<D, SWZ>;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int query[2] = {q0 + g, q0 + g + 8};
@@ -251,8 +284,8 @@ __device__ void warp_dq(const Tiles<D>& t, int qr, int q0, int kr_lo, int kr_hi,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t qa[4], oa[4], kb[4], vb[4];
-      const int ar = (qr + a_row(lane)) * S + kk * 16 + a_col(lane);
-      const int br = (kr + b_row(lane)) * S + kk * 16 + b_col(lane);
+      const int ar = T::off(qr + a_row(lane), kk * 16 + a_col(lane));
+      const int br = T::off(kr + b_row(lane), kk * 16 + b_col(lane));
       ldmatrix_x4(qa, &t.q[ar]);
       ldmatrix_x4(oa, &t.dout[ar]);
       ldmatrix_x4(kb, &t.k[br]);
@@ -284,7 +317,7 @@ __device__ void warp_dq(const Tiles<D>& t, int qr, int q0, int kr_lo, int kr_hi,
 #pragma unroll
     for (int d2 = 0; d2 < D / 16; ++d2) {
       uint32_t kb[4];
-      ldmatrix_x4_trans(kb, &t.k[(kr + a_row(lane)) * S + d2 * 16 + a_col(lane)]);
+      ldmatrix_x4_trans(kb, &t.k[T::off(kr + a_row(lane), d2 * 16 + a_col(lane))]);
       mma_bf16(dq[2 * d2], da, kb[0], kb[1]);
       mma_bf16(dq[2 * d2 + 1], da, kb[2], kb[3]);
     }
@@ -303,8 +336,8 @@ template <int D>
 __device__ void store_rows(const Row& row, int part, int r0, const float (&acc)[D / 8][4]) {
   const int lane = threadIdx.x % 32;
   const int ra = r0 + lane / 4, rb = ra + 8;
-  const long stride = row.dqkv_tok;
-  __nv_bfloat16* base = row.dqkv + part * row.dqkv_part;
+  const long stride = 3L * row.HD;
+  __nv_bfloat16* base = row.dqkv + (long)part * row.HD;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * (lane % 4);
@@ -315,9 +348,8 @@ __device__ void store_rows(const Row& row, int part, int r0, const float (&acc)[
   }
 }
 
-// Where lse2 comes from and the gradient goes: lse2 [B, H, L] and dqkv in
-// the layout of qkv, or with `split` (the head-split kernel) lse2 [H, B, L]
-// and dqkv3 [3, B, L, H*D].
+// Where lse2 comes from: [B, H, L], or with `split` (the head-split kernel)
+// [H, B, L].
 struct Layout {
   int B;
   bool split;
@@ -334,9 +366,7 @@ __device__ Row make_row(const __nv_bfloat16* qkv, const int* seg, const __nv_bfl
   row.lse = lse + (layout.split ? (long)h * layout.B + b : (long)b * H + h) * L;
   row.delta = delta + ((long)b * H + h) * L;
   row.seg = seg ? seg + tok0 : nullptr;
-  row.dqkv_tok = layout.split ? HD : 3L * HD;
-  row.dqkv_part = layout.split ? (long)layout.B * L * HD : HD;
-  row.dqkv = dqkv + tok0 * row.dqkv_tok + (long)h * D;
+  row.dqkv = dqkv + tok0 * 3 * HD + (long)h * D;
   row.L = L;
   row.HD = HD;
   return row;
@@ -370,17 +400,21 @@ __global__ void flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ out,
   delta[(b * H + h) * L + l] = acc;
 }
 
-// Rows of at most ROW_MAX tokens: one CTA per (row, head), one warp per 16
-// tokens; the whole row stays in shared memory for both phases.
-template <int D, bool SEG, bool CAUSAL>
-__global__ void __launch_bounds__(ROW_MAX * 2)
+// One CTA per (row, head), the whole row in shared memory for both phases;
+// warp w owns the 16-token blocks w, w + warps, ... in each. With SWZ the
+// rows are unpadded (Tiles) so that two CTAs share an SM. At D = 64 two CTAs
+// of 8 warps must fit an SM's registers (128 a thread): without that bound
+// ptxas gives the short-row kernel 145-158 and one CTA an SM, which made K4
+// at [256, 100, 12 x 64] 1.4x slower.
+template <int D, bool SEG, bool CAUSAL, bool SWZ>
+__global__ void __launch_bounds__(ROW_WARPS * 32, D == 64 ? 2 : 1)
     flash_bwd_row_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv,
                          int L, int H, float qscale, float scale, Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = round16(L);
-  const Tiles<D> t(smem, rows, rows);
+  const Tiles<D, SWZ> t(smem, rows, rows);
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D, layout);
   load_queries<D, SEG>(t, row, 0, rows);
@@ -389,16 +423,22 @@ __global__ void __launch_bounds__(ROW_MAX * 2)
   cp_async_wait<0>();
   __syncthreads();
 
-  const int r0 = (threadIdx.x / 32) * 16;  // this warp's 16 keys, then its 16 queries
+  const int first = threadIdx.x / 32, warps = blockDim.x / 32, nblk = rows / 16;
   float acc_a[D / 8][4], acc_b[D / 8][4];
-  zero<D>(acc_a);
-  zero<D>(acc_b);
-  warp_dkdv<D, SEG, CAUSAL>(t, r0, r0, CAUSAL ? r0 : 0, rows, 0, L, qscale, scale, acc_a, acc_b);
-  store_rows<D>(row, 1, r0, acc_a);  // dk
-  store_rows<D>(row, 2, r0, acc_b);  // dv
-  zero<D>(acc_a);
-  warp_dq<D, SEG, CAUSAL>(t, r0, r0, 0, CAUSAL ? r0 + 16 : rows, 0, L, qscale, scale, acc_a);
-  store_rows<D>(row, 0, r0, acc_a);  // dq
+  for (int blk = first; blk < nblk; blk += warps) {  // the block's 16 keys: dk, dv
+    const int r0 = blk * 16;
+    zero<D>(acc_a);
+    zero<D>(acc_b);
+    warp_dkdv<D, SEG, CAUSAL>(t, r0, r0, CAUSAL ? r0 : 0, rows, 0, L, qscale, scale, acc_a, acc_b);
+    store_rows<D>(row, 1, r0, acc_a);  // dk
+    store_rows<D>(row, 2, r0, acc_b);  // dv
+  }
+  for (int blk = first; blk < nblk; blk += warps) {  // the block's 16 queries: dq
+    const int r0 = blk * 16;
+    zero<D>(acc_a);
+    warp_dq<D, SEG, CAUSAL>(t, r0, r0, 0, CAUSAL ? r0 + 16 : rows, 0, L, qscale, scale, acc_a);
+    store_rows<D>(row, 0, r0, acc_a);  // dq
+  }
 }
 
 // Longer rows, phase 1: one CTA of 4 warps per (row, head, 64-key tile)
@@ -494,27 +534,47 @@ int launch_kernel(Kernel kernel, bool (&allowed)[MAX_DEVICES], long blocks, int 
 template <int D, bool SEG, bool CAUSAL>
 int launch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
            void* delta, void* dqkv, int B, int L, int H, float qscale, float scale, bool split,
-           cudaStream_t s) {
+           int warps, int resident, cudaStream_t s) {
   const Layout layout{B, split};
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const long n = (long)B * L * H;
   const long delta_blocks = (n + DELTA_THREADS - 1) / DELTA_THREADS;
   if (delta_blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int rows = round16(L);
+  // resident 1: padded rows, one CTA an SM; 2: unpadded swizzled rows at D =
+  // 64, two CTAs of at most 8 warps an SM
+  const bool pair = resident == 2;
+  const size_t row_smem = pair ? Tiles<D, true>::bytes(rows, rows, SEG) : Tiles<D>::bytes(rows, rows, SEG);
+  const bool long_resident = !TILED_ONLY && L > SHORT_ROW && resident;
+  if (long_resident &&
+      (resident > 2 || warps < 1 || warps > ROW_WARPS || warps > rows / 16 ||
+       row_smem > (size_t)(pair ? PAIR_SMEM_MAX : SMEM_MAX) || (pair && D != 64)))
+    return (int)cudaErrorInvalidValue;  // refused before anything is launched
   flash_bwd_delta_kernel<<<(unsigned)delta_blocks, DELTA_THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
       static_cast<float*>(delta), n, L, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  if (L <= SHORT_ROW) {
-    static bool allowed[MAX_DEVICES] = {};
-    const int rows = round16(L);
-    return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL>, allowed, (long)B * H, 2 * rows,
-                         Tiles<D>::bytes(rows, rows), Tiles<D>::bytes(ROW_MAX, ROW_MAX), qkv,
-                         seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
+  if (!TILED_ONLY && (L <= SHORT_ROW || long_resident)) {
+    static bool allowed[MAX_DEVICES] = {}, allowed_pair[MAX_DEVICES] = {};
+    const int threads = 32 * (L <= SHORT_ROW ? rows / 16 : warps);
+    if constexpr (D == 64) {
+      if (long_resident && pair) {
+        cudaError_t e = allow_smem(flash_bwd_row_kernel<D, SEG, CAUSAL, true>, PAIR_SMEM_MAX,
+                                   allowed_pair, true);
+        if (e != cudaSuccess) return (int)e;
+        return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL, true>, allowed_pair,
+                             (long)B * H, threads, row_smem, PAIR_SMEM_MAX, qkv, seg, dout, lse,
+                             delta, dqkv, L, H, qscale, scale, layout, s);
+      }
+    }
+    return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL, false>, allowed, (long)B * H,
+                         threads, row_smem, SMEM_MAX, qkv, seg, dout, lse, delta, dqkv, L, H,
+                         qscale, scale, layout, s);
   }
   const long blocks = (long)B * H * ((L + TILE - 1) / TILE);
-  const size_t bytes = Tiles<D>::bytes(TILE, TILE);
+  const size_t bytes = Tiles<D>::bytes(TILE, TILE, SEG);
   static bool allowed_kv[MAX_DEVICES] = {}, allowed_q[MAX_DEVICES] = {};
   int e = launch_kernel(flash_bwd_dkdv_kernel<D, SEG, CAUSAL>, allowed_kv, blocks, 4 * 32, bytes,
                         bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
@@ -523,17 +583,21 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
                        bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
 }
 
+// warps and resident: the launch plan of rows longer than SHORT_ROW tokens
+// (attention.py::bwd_long_row_plan): resident = 1 runs the row kernel with
+// `warps` warps in padded rows, 2 in unpadded swizzled rows (D = 64, two CTAs
+// an SM), 0 the tiled pair. Ignored for shorter rows.
 template <bool SEG>
 int dispatch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
              void* delta, void* dqkv, int B, int L, int H, int D, int causal, float qscale,
-             float scale, bool split, void* stream) {
+             float scale, bool split, int warps, int resident, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return causal ? launch<64, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s)
-                  : launch<64, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s);
+    return causal ? launch<64, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, warps, resident, s)
+                  : launch<64, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, warps, resident, s);
   if (D == 128)
-    return causal ? launch<128, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s)
-                  : launch<128, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, s);
+    return causal ? launch<128, SEG, true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, warps, resident, s)
+                  : launch<128, SEG, false>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale, scale, split, warps, resident, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -541,24 +605,25 @@ int dispatch(const void* qkv, const void* seg, const void* out, const void* dout
 
 extern "C" int latteclip_flash_bwd(const void* qkv, const void* out, const void* dout,
                                    const void* lse, void* delta, void* dqkv, int B, int L, int H,
-                                   int D, int causal, float qscale, float scale, void* stream) {
+                                   int D, int causal, float qscale, float scale, int warps,
+                                   int resident, void* stream) {
   return dispatch<false>(qkv, nullptr, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale,
-                         scale, false, stream);
+                         scale, false, warps, resident, stream);
 }
 
 extern "C" int latteclip_flash_bwd_seg(const void* qkv, const void* seg, const void* out,
                                        const void* dout, const void* lse, void* delta, void* dqkv,
                                        int B, int L, int H, int D, int causal, float qscale,
-                                       float scale, void* stream) {
+                                       float scale, int warps, int resident, void* stream) {
   return dispatch<true>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale, scale,
-                        false, stream);
+                        false, warps, resident, stream);
 }
 
-// lse2 [H/HP, HP, B, L] ([H, B, L] in memory), dqkv3 [3, B, L, H*D]
+// lse2 [H/HP, HP, B, L] ([H, B, L] in memory); dqkv in the layout of qkv
 extern "C" int latteclip_flash_bwd_hs(const void* qkv, const void* out, const void* dout,
                                       const void* lse, void* delta, void* dqkv, int B, int L,
                                       int H, int D, int causal, float qscale, float scale,
-                                      void* stream) {
+                                      int warps, int resident, void* stream) {
   return dispatch<false>(qkv, nullptr, out, dout, lse, delta, dqkv, B, L, H, D, causal, qscale,
-                         scale, true, stream);
+                         scale, true, warps, resident, stream);
 }

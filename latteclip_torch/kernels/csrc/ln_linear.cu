@@ -3,45 +3,67 @@
 // Replaces the Pallas TPU kernel latteclip_tpu/kernels/fused_ln_linear.py::_kernel:
 //   latteclip_ln_linear  <- _kernel (via _fwd_pallas)
 // For x [M, D] bf16 (M = B * L tokens), the LayerNorm's scale and bias
-// [D] f32, the weight W [O, D] f32 (torch's orientation: row o holds the
-// D inputs of output o) and the bias wb [O] f32, it writes
+// [D] f32, the weight W [O, D] in bf16 (torch's orientation: row o holds the
+// D inputs of output o; the caller rounds the f32 parameter once per
+// forward, the rounding the TPU kernel applies as it reads W) and the bias
+// wb [O] f32, it writes
 //   xn = bf16((x - mean) / sqrt(var + eps) * scale + bias)   (f32 statistics,
 //        population variance, two passes over the row, as jnp.var)
-//   y  = bf16(xn . bf16(W)^T + wb)                           [M, O]
+//   y  = bf16(xn . W^T + wb)                                 [M, O]
 // with the product accumulated in f32 and the bias added to the f32
 // accumulator before the one rounding, as the TPU kernel does (the unfused
 // route rounds the product first and adds the bias in bf16).
 //
 // Bound. The product dominates: at the train step's pairs, vision
-// 25600 x 768 -> 2304 does 90.6 GFLOP against 162 MB of x, W and y, 560
-// FLOP/byte, above the H100's ~295 at which the bf16 tensor cores (989
-// TFLOP/s) rather than HBM (3.35 TB/s) become the limit. So the design
-// keeps the normalised rows on chip and feeds the tensor cores from shared
-// memory:
-//   * one CTA owns BM = 128 rows (64 where the row does not fit): it copies
-//     them into shared memory with 16-byte cp.async copies, one warp per row
-//     takes the mean and the variance in f32 and writes the normalised bf16
-//     row back in place (128 x 768 x 2 B = 194 KB with its padding), so xn
-//     never touches device memory;
-//   * the CTA then sweeps its share of W in 64 x 64 tiles: each thread loads
-//     16-byte pieces of the f32 tiles into a ring of registers three tiles
-//     ahead (48 KB in flight on the SM, enough to cover L2's latency under
-//     load; with one tile ahead the SM waited on L2 most of the time), rounds
-//     them to bf16 and stores them into one of two shared buffers, so the
-//     per-call bf16 copy of W that the unfused route makes never exists;
-//   * each warp owns 16 rows x 64 columns and multiplies with mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate), fragments loaded with ldmatrix
-//     from rows padded by 16 bytes (no bank conflicts);
-//   * each CTA re-reads W once (in f32, from L2), so W's traffic is
-//     M / BM times its size; the row tiles are split over the output columns
-//     where there are too few of them to fill the card (the short template
-//     stream), each split recomputing the cheap LayerNorm.
-// No cuBLAS. wgmma, TMA and a bf16 W kept resident are left for later work.
+// 25600 x 768 -> 3072 does 121 GFLOP against 62 MB of x, W and y, ~2000
+// FLOP/byte, far above the H100's ~295 at which the bf16 tensor cores (989
+// TFLOP/s) rather than HBM (3.35 TB/s) become the limit. So the design feeds
+// wgmma from shared memory and keeps the normalised rows on chip:
+//   * one CTA owns BM rows (128, or 64 where the row does not fit): a
+//     producer warp copies them in with TMA, as D / 64 panels of [BM rows x
+//     64 inputs] in the 128-byte swizzle that wgmma reads (rows beyond M
+//     arrive as zeros), and two consumer warpgroups (one at BM = 64) take
+//     the mean and the variance of each row in f32, one warp two rows at a
+//     time, and write the normalised bf16 row back in place, so xn never
+//     touches device memory;
+//   * the producer warp then keeps TMA copies of W tiles [BN outputs x 64
+//     inputs] in flight through a ring of `stages` shared buffers, each
+//     guarded by a `full` mbarrier (the copy's bytes have landed) and an
+//     `empty` one (the warpgroups' products on it have retired). A stage is
+//     reloaded only when the products on it retire, so the ring must cover
+//     the latency of a copy from L2: at D = 512 three stages or more beat
+//     two (tools/ln_linear_plans.py times the plans). At D = 768 only two
+//     fit; tiles of 64 outputs with four stages were no faster there, nor
+//     were two CTAs sharing each W tile by TMA multicast in a cluster (half
+//     W's L2 traffic, but every stage then waits on two SMs' copies);
+//   * each consumer warpgroup owns 64 rows and issues wgmma m64nBNk16, A (xn)
+//     and B (the W tile) both read from shared memory through descriptors,
+//     accumulating in f32 registers; it retires one stage behind the stage
+//     it issues, so one W tile is in flight while the other is multiplied;
+//   * after the last of the D / 64 panels it adds the f32 bias to the
+//     accumulator, rounds once, and stores straight from registers, 16 bytes
+//     a lane after a transpose within each quad of lanes (4-byte stores, a
+//     warp's covering half of each 32-byte sector, took more of the kernel's
+//     time than its products).
+// Budget, per CTA (232,448 B of shared memory at most): xn takes BM * D * 2
+// bytes, each stage BN * 128, plus 1 KB to align the swizzled buffers to
+// 1024 B and 8 B per mbarrier. At D = 768, BM = 128, BN = 128: 196,608 +
+// 2 x 16,384 + 1,024 + 40 = 230,440 B, two stages; at D = 512: 131,072 + 6
+// stages; past D = 768 BM drops to 64 (six stages of 128 outputs up to D =
+// 1024, two of 64 outputs up to D = 1664). One CTA fits an SM.
+// The CTA walks the output tiles [nt_begin, nt_end) of its row tile: the
+// launch plan (fused_ln_linear.py::ln_linear_plan) splits a row tile's
+// columns over n_splits CTAs where that fills the 132 SMs in fewer waves,
+// each split recomputing the cheap LayerNorm. W is read M / BM times from L2.
+// No cuBLAS and no CUTLASS GEMM: TMA, mbarrier and wgmma in PTX.
 //
 // Plain C interface (loaded with ctypes): launches on the given stream, does
 // not synchronise, allocates nothing, and returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a shape it does not take (D a
-// multiple of 64 and small enough for a 64-row tile, O a multiple of 8).
+// success), or cudaErrorInvalidValue for a shape or a plan it does not take
+// (D a multiple of 64, O a multiple of 8, 16-byte aligned x and W; a plan
+// whose tile, stages, splits or shared memory the kernel cannot run).
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 
 #include <climits>
 
@@ -51,15 +73,109 @@ namespace {
 
 using namespace latteclip;
 
-constexpr int BN = 64;           // output columns per W tile
-constexpr int BK = 64;           // inputs per W tile
-constexpr int W_STRIDE = BK + 8; // padded shared row of a W tile, in bf16 elements
-constexpr int DEPTH = 4;         // register sets of W tiles: DEPTH - 1 in flight ahead
-constexpr int SMEM_MAX = 232448; // shared memory a CTA can take on an H100
+constexpr int PANEL = 64;           // inputs per panel and per W tile (128 bytes of bf16)
+constexpr int PANEL_BYTES_ROW = 128;
+constexpr int ALIGN = 1024;         // the 128-byte swizzle repeats every 8 rows of 128 B
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_CHUNKS = 7;       // 16-byte chunks of one row a lane holds: D <= 7 * 256
+constexpr int SMEM_MAX = 232448;    // shared memory a CTA can take on an H100
 
-template <int BM>
-constexpr size_t smem_bytes(int D) {
-  return (size_t)BM * (D + 8) * 2 + 2 * (size_t)BN * W_STRIDE * 2;
+size_t smem_bytes(int bm, int bn, int D, int stages) {
+  return ALIGN + (size_t)bm * D * 2 + (size_t)stages * bn * PANEL_BYTES_ROW + 8 * (2 * stages + 1);
+}
+
+// -- PTX: mbarriers, TMA, wgmma ------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier has completed the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2D TMA copy of the box at (c0 inner, c1 outer) into dst, reported to bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128 B,
+// 8-row groups 1024 B apart (SBO), the leading offset unused (1), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// acc[32] += A[64 x 16] . B[64 x 16]^T, both K-major SW128 in shared memory;
+// scale_d = 0 overwrites acc instead of adding to it.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// acc[64] += A[64 x 16] . B[128 x 16]^T, both K-major SW128 in shared memory;
+// scale_d = 0 overwrites acc instead of adding to it.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -68,183 +184,324 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp per 16 rows. The CTA's output tiles are tiles [nt_begin, nt_end)
-// of 64 columns, for row tile blockIdx.x / n_splits.
+// Within each quad of lanes (4q .. 4q + 3), v[j] of lane 4q + k becomes v[k]
+// of lane 4q + j: a 4 x 4 transpose in three shuffles. In round r lane s
+// sends its v[(s + r) % 4] and lane t takes it from lane (t - r) % 4.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int lane) {
+  const int t = lane % 4;
+  uint32_t w[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = (t + r) % 4, k = (t - r + 4) % 4;
+    const uint32_t send = i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+    const uint32_t got = r == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (r == 0) w[e] = k == e ? got : 0u;
+      else w[e] = k == e ? got : w[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = w[e];
+}
+
+// -- the kernel ----------------------------------------------------------------
+
+// Byte offset of the 16-byte chunk `chunk` (8 inputs) of row r in the xn
+// panels: panel chunk / 8, then the 128-byte swizzle of the chunk within its row.
 template <int BM>
-__global__ void __launch_bounds__(BM * 2, 1)
-    ln_linear_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_w,
-                     const float* __restrict__ ln_b, const float* __restrict__ w,
-                     const float* __restrict__ wb, __nv_bfloat16* __restrict__ y, int M, int D,
-                     int O, float eps, int n_splits) {
-  constexpr int THREADS = BM * 2;
-  constexpr int WARPS = THREADS / 32;
-  constexpr int PIECES = BN * BK / 4 / THREADS;  // float4 pieces of a W tile per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int SA = D + 8;
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sW = sA + BM * SA;  // two [BN][W_STRIDE] buffers
+__device__ __forceinline__ uint32_t xn_offset(int r, int chunk) {
+  return (uint32_t)(chunk / 8) * BM * PANEL_BYTES_ROW + r * PANEL_BYTES_ROW +
+         (((chunk % 8) ^ (r % 8)) << 4);
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int split = blockIdx.x % n_splits;
-  const long row0 = (long)(blockIdx.x / n_splits) * BM;
-  const int n_tiles = (O + BN - 1) / BN;
-  const int nt_begin = (int)((long)split * n_tiles / n_splits);
-  const int nt_end = (int)((long)(split + 1) * n_tiles / n_splits);
-  const int k_tiles = D / BK;
-  const int steps = (nt_end - nt_begin) * k_tiles;
-
-  // 1. the CTA's rows of x, zero-filled beyond M
+// LayerNorm of rows r0 and r1 of the swizzled panels, in place, by one warp
+// (two rows for twice the independent work and one load of the scale and
+// bias): mean, then the mean square of x - mean, both in f32, then the
+// affine map and one rounding to bf16.
+template <int BM>
+__device__ void layer_norm_rows(unsigned char* xn, int r0, int r1, int D,
+                                const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                                float eps) {
+  const int lane = threadIdx.x % 32;
   const int chunks = D / 8;
-  for (int c = tid; c < BM * chunks; c += THREADS) {
-    const int r = c / chunks, col = (c % chunks) * 8;
-    const bool valid = row0 + r < M;
-    cp_async_16(&sA[r * SA + col], x + (valid ? row0 + r : 0) * D + col, valid);
-  }
-  cp_async_commit();
-
-  // W tile of step i (output tile nt_begin + i / k_tiles, input tile
-  // i % k_tiles) into a register set, and from a set into buffer buf as bf16
-  float4 wr[DEPTH][PIECES];
-  auto fetch = [&](int i, float4 (&r)[PIECES]) {
-    const int n0 = (nt_begin + i / k_tiles) * BN, k0 = (i % k_tiles) * BK;
+  const int rows[2] = {r0, r1};
+  uint4 v[2][MAX_CHUNKS];
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f}, mean[2], rstd[2];
 #pragma unroll
-    for (int j = 0; j < PIECES; ++j) {
-      const int c = tid + j * THREADS;
-      const int n = n0 + c / (BK / 4);
-      r[j] = n < O ? __ldg(reinterpret_cast<const float4*>(w + (long)n * D + k0) + c % (BK / 4))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto stash = [&](int buf, const float4 (&r)[PIECES]) {
-    __nv_bfloat16* dst = sW + buf * BN * W_STRIDE;
+  for (int j = 0; j < MAX_CHUNKS; ++j) {
+    const int c = lane + 32 * j;
+    if (c < chunks) {
 #pragma unroll
-    for (int j = 0; j < PIECES; ++j) {
-      const int c = tid + j * THREADS;
-      uint2 v;
-      v.x = pack_bf16(r[j].x, r[j].y);
-      v.y = pack_bf16(r[j].z, r[j].w);
-      *reinterpret_cast<uint2*>(&dst[(c / (BK / 4)) * W_STRIDE + (c % (BK / 4)) * 4]) = v;
-    }
-  };
+      for (int q = 0; q < 2; ++q) {
+        v[q][j] = *reinterpret_cast<const uint4*>(xn + xn_offset<BM>(rows[q], c));
+        const uint32_t w[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
 #pragma unroll
-  for (int j = 0; j < DEPTH - 1; ++j)
-    if (j < steps) fetch(j, wr[j]);  // in flight during the LayerNorm
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // 2. LayerNorm in place, one warp per row: mean, then the mean square of
-  //    x - mean, both in f32, then the affine map and one rounding
-  for (int r = warp; r < BM; r += WARPS) {
-    __nv_bfloat16* row = sA + r * SA;
-    float sum = 0.f;
-    for (int c = 2 * lane; c < D; c += 64) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&row[c]));
-      sum += f.x + f.y;
-    }
-    const float mean = warp_sum(sum) / D;
-    float sq = 0.f;
-    for (int c = 2 * lane; c < D; c += 64) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&row[c]));
-      sq += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(sq) / D + eps);
-    for (int c = 2 * lane; c < D; c += 64) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&row[c]));
-      const float2 g = *reinterpret_cast<const float2*>(&ln_w[c]);
-      const float2 b = *reinterpret_cast<const float2*>(&ln_b[c]);
-      *reinterpret_cast<uint32_t*>(&row[c]) =
-          pack_bf16((f.x - mean) * rstd * g.x + b.x, (f.y - mean) * rstd * g.y + b.y);
-    }
-  }
-  if (steps > 0) stash(0, wr[0]);
-  __syncthreads();
-
-  // 3. y = xn . W^T + wb, one 64-column output tile after another
-  const int g = lane / 4, t = lane % 4;
-  const int a_row = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2), a_col = 8 * (lane / 16);
-  const int b_row = (lane % 8) + 8 * (lane / 16), b_col = 8 * ((lane / 8) % 2);
-  float acc[BN / 8][4];
-  // unrolled by DEPTH so that every register set has a compile-time index:
-  // step i multiplies tile i, fetches tile i + DEPTH - 1 into the set tile
-  // i - 1 left, and stashes tile i + 1, fetched DEPTH - 2 steps earlier
-  for (int i0 = 0; i0 < steps; i0 += DEPTH)
-#pragma unroll
-  for (int u = 0; u < DEPTH; ++u) {
-    const int i = i0 + u;
-    if (i >= steps) break;
-    const int kt = i % k_tiles;
-    if (kt == 0) {
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    }
-    if (i + DEPTH - 1 < steps) fetch(i + DEPTH - 1, wr[(u + DEPTH - 1) % DEPTH]);
-    const __nv_bfloat16* tW = sW + (i % 2) * BN * W_STRIDE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, &sA[a_row * SA + kt * BK + kk * 16 + a_col]);
-#pragma unroll
-      for (int n2 = 0; n2 < BN / 16; ++n2) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, &tW[(n2 * 16 + b_row) * W_STRIDE + kk * 16 + b_col]);
-        mma_bf16(acc[2 * n2], af, bf[0], bf[1]);
-        mma_bf16(acc[2 * n2 + 1], af, bf[2], bf[3]);
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(as_bf162(w[e]));
+          sum[q] += f.x + f.y;
+        }
       }
     }
-    // the other buffer was last read in step i - 1, before that step's barrier
-    if (i + 1 < steps) stash((i + 1) % 2, wr[(u + 1) % DEPTH]);
-    if (kt == k_tiles - 1) {
-      const int n0 = (nt_begin + i / k_tiles) * BN;
-      const long ra = row0 + warp * 16 + g, rb = ra + 8;
+  }
 #pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        const int col = n0 + n * 8 + 2 * t;
-        if (col >= O) continue;
-        const float b0 = wb[col], b1 = wb[col + 1];
-        if (ra < M)
-          *reinterpret_cast<uint32_t*>(&y[ra * O + col]) = pack_bf16(acc[n][0] + b0, acc[n][1] + b1);
-        if (rb < M)
-          *reinterpret_cast<uint32_t*>(&y[rb * O + col]) = pack_bf16(acc[n][2] + b0, acc[n][3] + b1);
+  for (int q = 0; q < 2; ++q) mean[q] = warp_sum(sum[q]) / D;
+#pragma unroll
+  for (int j = 0; j < MAX_CHUNKS; ++j) {
+    if (lane + 32 * j < chunks) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t w[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(as_bf162(w[e]));
+          sq[q] += (f.x - mean[q]) * (f.x - mean[q]) + (f.y - mean[q]) * (f.y - mean[q]);
+        }
       }
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) rstd[q] = 1.f / sqrtf(warp_sum(sq[q]) / D + eps);
+#pragma unroll
+  for (int j = 0; j < MAX_CHUNKS; ++j) {
+    const int c = lane + 32 * j;
+    if (c < chunks) {
+      const float4* g4 = reinterpret_cast<const float4*>(ln_w + c * 8);
+      const float4* b4 = reinterpret_cast<const float4*>(ln_b + c * 8);
+      const float4 g[2] = {__ldg(g4), __ldg(g4 + 1)}, b[2] = {__ldg(b4), __ldg(b4 + 1)};
+      const float gs[8] = {g[0].x, g[0].y, g[0].z, g[0].w, g[1].x, g[1].y, g[1].z, g[1].w};
+      const float bs[8] = {b[0].x, b[0].y, b[0].z, b[0].w, b[1].x, b[1].y, b[1].z, b[1].w};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t w[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(as_bf162(w[e]));
+          w[e] = pack_bf16((f.x - mean[q]) * rstd[q] * gs[2 * e] + bs[2 * e],
+                           (f.y - mean[q]) * rstd[q] * gs[2 * e + 1] + bs[2 * e + 1]);
+        }
+        *reinterpret_cast<uint4*>(xn + xn_offset<BM>(rows[q], c)) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
   }
 }
 
-template <int BM>
-int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* wb,
-           void* y, int M, int D, int O, float eps, cudaStream_t stream) {
-  auto kernel = ln_linear_kernel<BM>;
+// The consumer warpgroups: LayerNorm of the CTA's rows, then the products
+// and the epilogue of output tiles [nt_begin, nt_end).
+template <int BM, int BN>
+__device__ __forceinline__ void consume(unsigned char* xn, unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, uint64_t* xbar,
+                                        const float* __restrict__ ln_w,
+                                        const float* __restrict__ ln_b,
+                                        const float* __restrict__ wb, __nv_bfloat16* __restrict__ y,
+                                        int M, int D, int O, float eps, int row0, int nt_begin,
+                                        int nt_end, int k_tiles, int stages) {
+  constexpr int CONSUMERS = BM * 2;
+  constexpr int STAGE_BYTES = BN * PANEL_BYTES_ROW;
+  const int tid = threadIdx.x;
+
+  // 1. LayerNorm of the CTA's rows, in place: warp w takes rows w and w +
+  //    warps, then w + 2 warps and w + 3 warps, ... (BM / warps = 16 rows)
+  constexpr int NW = CONSUMERS / 32;
+  const int warp = tid / 32, lane = tid % 32;
+  mbar_wait(xbar, 0);
+  for (int r = warp; r < BM; r += 2 * NW) layer_norm_rows<BM>(xn, r, r + NW, D, ln_w, ln_b, eps);
+  // the generic-proxy stores of xn, before wgmma reads them through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+  // 2. y = xn . W^T + wb, one BN-column output tile after another
+  const int wg = tid / 128;
+  const uint32_t a_base = smem_addr(xn) + wg * 64 * PANEL_BYTES_ROW;
+  const uint32_t ring_base = smem_addr(ring);
+  const bool signals = tid % 128 == 0;  // one arrival a warpgroup on `empty`
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  const long ra = row0 + wg * 64 + (warp % 4) * 16 + lane / 4, rb = ra + 8;
+  int i = 0;
+  for (int nt = nt_begin; nt < nt_end; ++nt) {
+    for (int kt = 0; kt < k_tiles; ++kt, ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      wgmma_fence();
+      const uint64_t da = sw128_desc(a_base + kt * BM * PANEL_BYTES_ROW);
+      const uint64_t db = sw128_desc(ring_base + s * STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < PANEL / 16; ++kk) {  // 16 inputs = 32 bytes = 2 descriptor units
+        if constexpr (BN == 128)
+          wgmma_n128(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        else
+          wgmma_n64(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (kt > 0) {  // the previous stage's products have retired: release it
+        wgmma_wait<1>();
+        if (signals) mbar_arrive(&empty[(i - 1) % stages]);
+      }
+    }
+    wgmma_wait<0>();
+    if (signals) mbar_arrive(&empty[(i - 1) % stages]);
+    // accumulator 4 jb + e: 8-column block jb, row ra (e < 2) or rb, columns
+    // 2 (lane % 4) + e % 2. The bias joins the f32 sum before the one
+    // rounding; then each quad of lanes (one row) transposes its bf16 pairs
+    // so that lane t of the quad holds the 8 outputs of block 4 g + t and
+    // stores them as 16 bytes: a warp writes 8 rows x 64 contiguous bytes.
+    const int t = lane % 4;
+#pragma unroll
+    for (int g = 0; g < BN / 32; ++g) {
+      uint32_t va[4], vb[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jb = 4 * g + j, col = nt * BN + jb * 8 + 2 * t;
+        const float2 b = col < O ? *reinterpret_cast<const float2*>(&wb[col]) : make_float2(0.f, 0.f);
+        va[j] = pack_bf16(acc[4 * jb] + b.x, acc[4 * jb + 1] + b.y);
+        vb[j] = pack_bf16(acc[4 * jb + 2] + b.x, acc[4 * jb + 3] + b.y);
+      }
+      quad_transpose(va, lane);
+      quad_transpose(vb, lane);
+      const int col = nt * BN + (4 * g + t) * 8;
+      if (col >= O) continue;
+      if (ra < M) *reinterpret_cast<uint4*>(&y[ra * O + col]) = make_uint4(va[0], va[1], va[2], va[3]);
+      if (rb < M) *reinterpret_cast<uint4*>(&y[rb * O + col]) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+    }
+  }
+}
+
+// BM / 64 consumer warpgroups, then one producer warp. Block b takes row
+// tile b / n_splits and its output tiles [nt_begin, nt_end) of split b % n_splits.
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * 2 + 32, 1)
+    ln_linear_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap w_map, const float* __restrict__ ln_w,
+                     const float* __restrict__ ln_b, const float* __restrict__ wb,
+                     __nv_bfloat16* __restrict__ y, int M, int D, int O, float eps, int n_splits,
+                     int stages) {
+  constexpr int CONSUMERS = BM * 2;  // threads of the consumer warpgroups
+  constexpr int STAGE_BYTES = BN * PANEL_BYTES_ROW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* xn = smem_raw + (((raw + ALIGN - 1) & ~(uint32_t)(ALIGN - 1)) - raw);
+  const int k_tiles = D / PANEL;
+  unsigned char* ring = xn + (size_t)k_tiles * BM * PANEL_BYTES_ROW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* xbar = empty + stages;
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x % n_splits;
+  const int row0 = (blockIdx.x / n_splits) * BM;
+  const int n_tiles = (O + BN - 1) / BN;
+  const int nt_begin = (int)((long)split * n_tiles / n_splits);
+  const int nt_end = (int)((long)(split + 1) * n_tiles / n_splits);
+  const int steps = (nt_end - nt_begin) * k_tiles;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], BM / 64);
+    }
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane issues every copy
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(xbar, (uint32_t)BM * D * 2);
+      for (int kt = 0; kt < k_tiles; ++kt)
+        tma_load(xn + (size_t)kt * BM * PANEL_BYTES_ROW, &x_map, xbar, kt * PANEL, row0);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], (i / stages - 1) & 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load(ring + (size_t)s * STAGE_BYTES, &w_map, &full[s], (i % k_tiles) * PANEL,
+                 (nt_begin + i / k_tiles) * BN);
+      }
+    }
+  } else {
+    consume<BM, BN>(xn, ring, full, empty, xbar, ln_w, ln_b, wb, y, M, D, O, eps, row0,
+                    nt_begin, nt_end, k_tiles, stages);
+  }
+}
+
+// -- host side -----------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// that the library links against libcudart alone.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn) return fn;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err =
+      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  return fn;
+}
+
+// A 2D bf16 map of a row-major [outer, inner] tensor, boxes of [box_outer,
+// 64] in the 128-byte swizzle; out-of-range rows read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {PANEL, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* wb, void* y,
+           int M, int D, int O, float eps, int n_splits, int stages, cudaStream_t stream) {
+  auto kernel = ln_linear_kernel<BM, BN>;
   static bool allowed[MAX_DEVICES] = {};
   cudaError_t err = allow_smem(kernel, SMEM_MAX, allowed);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  // one CTA fits an SM: split the columns until there are about four waves
-  const long row_tiles = (M + BM - 1) / BM;
-  const int n_tiles = (O + BN - 1) / BN;
-  const long want = (4L * sms + row_tiles - 1) / row_tiles;
-  const int n_splits = (int)(want < n_tiles ? want : n_tiles);
-  const long blocks = row_tiles * n_splits;
+  const long blocks = (long)((M + BM - 1) / BM) * n_splits;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, BM * 2, smem_bytes<BM>(D), stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const float*>(w),
-      static_cast<const float*>(wb), static_cast<__nv_bfloat16*>(y), M, D, O, eps, n_splits);
+  CUtensorMap x_map, w_map;
+  if (!tensor_map(&x_map, x, D, M, BM) || !tensor_map(&w_map, w, D, O, BN))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, BM * 2 + 32, smem_bytes(BM, BN, D, stages), stream>>>(
+      x_map, w_map, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+      static_cast<const float*>(wb), static_cast<__nv_bfloat16*>(y), M, D, O, eps, n_splits, stages);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The plan (bm, bn, n_splits, stages) is fused_ln_linear.py::ln_linear_plan:
+// tiles (128, 128), (64, 128) or (64, 64), 2..8 stages, 1..ceil(O / bn)
+// splits, within a CTA's shared memory.
 extern "C" int latteclip_ln_linear(const void* x, const void* ln_w, const void* ln_b,
                                    const void* w, const void* wb, void* y, int M, int D, int O,
-                                   float eps, void* stream) {
+                                   float eps, int bm, int bn, int n_splits, int stages,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || D <= 0 || O <= 0 || D % BK || O % 8) return (int)cudaErrorInvalidValue;
-  if (smem_bytes<128>(D) <= SMEM_MAX)
-    return launch<128>(x, ln_w, ln_b, w, wb, y, M, D, O, eps, s);
-  if (smem_bytes<64>(D) <= SMEM_MAX) return launch<64>(x, ln_w, ln_b, w, wb, y, M, D, O, eps, s);
+  if (M <= 0 || D <= 0 || O <= 0 || D % PANEL || O % 8 || D > MAX_CHUNKS * 256 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  if ((bm != 128 && bm != 64) || (bn != 128 && bn != 64) || stages < 2 || stages > MAX_STAGES ||
+      n_splits < 1 || n_splits > (O + bn - 1) / bn || smem_bytes(bm, bn, D, stages) > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (bm == 128 && bn == 128)
+    return launch<128, 128>(x, ln_w, ln_b, w, wb, y, M, D, O, eps, n_splits, stages, s);
+  if (bm == 64 && bn == 128)
+    return launch<64, 128>(x, ln_w, ln_b, w, wb, y, M, D, O, eps, n_splits, stages, s);
+  if (bm == 64 && bn == 64)
+    return launch<64, 64>(x, ln_w, ln_b, w, wb, y, M, D, O, eps, n_splits, stages, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,11 @@ the autograd Function and the dispatch (port of
 replaces the TPU kernel ``_kernel`` (``_fwd_pallas``): LayerNorm with float32
 statistics (population variance, eps 1e-5), the affine map, one rounding to
 bf16, then ``xn . bf16(W)^T`` accumulated in float32 with the bias added to
-the accumulator before the one rounding of the output. The unfused route,
-``dense(layer_norm(x))``, rounds the product first and adds the bias in the
+the accumulator before the one rounding of the output. The kernel takes W
+already rounded to bf16 (the rounding the TPU kernel applies as it reads W),
+made once per forward, and runs under the launch plan of
+:func:`ln_linear_plan`, computed here so that the CPU tests hold it. The
+unfused route, ``dense(layer_norm(x))``, rounds the product first and adds the bias in the
 compute dtype, so the two routes round differently and :func:`ln_linear`
 follows the JAX package's rule for which one a pair takes. ``FusedLnLinear``'s
 gradient is that of the unfused composition, as JAX's ``_bwd`` is.
@@ -18,10 +21,14 @@ gradient is that of the unfused composition, as JAX's ``_bwd`` is.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from latteclip_torch.device import sm_count
+from latteclip_torch.kernels.attention import MAX_SMEM
 
 LN_EPS = 1e-5
 LN_LINEAR_CHOICES = ("unfused", "fused")
@@ -77,6 +84,66 @@ def fused_ln_linear_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tenso
     return y.to(x.dtype)
 
 
+# The launch plan of csrc/ln_linear.cu; the constants are the kernel's.
+LN_PANEL = 64                 # inputs per shared panel and per W tile (128 bytes)
+LN_TILES = ((128, 128), (64, 128), (64, 64))  # (rows, outputs) a CTA, first that fits
+LN_MIN_STAGES, LN_MAX_STAGES = 2, 8
+LN_ALIGN = 1024               # slack to align the swizzled buffers to 1024 bytes
+LN_COST = 1.5                 # a row tile's LayerNorm, in units of one output tile's products
+
+
+@dataclasses.dataclass(frozen=True)
+class LnLinearPlan:
+    """How ``ln_linear_kernel`` runs ``x [M, D] -> [M, O]``: ``bm`` rows and
+    ``bn`` outputs a tile, ``n_splits`` CTAs over the output tiles of one
+    row tile, ``stages`` W tiles in the shared ring, and the CTA's dynamic
+    shared memory."""
+    bm: int
+    bn: int
+    n_splits: int
+    stages: int
+    smem_bytes: int
+
+
+def ln_linear_smem_bytes(bm: int, bn: int, D: int, stages: int) -> int:
+    """Shared memory of one CTA (mirrors ``smem_bytes`` in csrc/ln_linear.cu):
+    alignment slack, xn [bm, D] bf16, ``stages`` W tiles [bn, 64] bf16 and
+    2 * stages + 1 mbarriers."""
+    return LN_ALIGN + bm * D * 2 + stages * bn * LN_PANEL * 2 + 8 * (2 * stages + 1)
+
+
+def ln_linear_plan(M: int, D: int, O: int, sms: int) -> LnLinearPlan:
+    """The launch plan of ``x [M, D] -> [M, O]`` on a card of ``sms`` SMs.
+
+    * tile: the first of (128, 128), (64, 128), (64, 64) rows x outputs whose
+      normalised rows and two W stages fit a CTA, with as many more stages
+      as fit, up to 8 (one CTA an SM): at D = 512 three stages or more beat
+      two; at D = 768 only two fit;
+    * splits: a row tile's output tiles are split over ``n_splits`` CTAs,
+      each recomputing the LayerNorm, to the count that minimises the waves
+      times the work of a CTA, ``ceil(row_tiles * n / sms) * (LN_COST +
+      ceil(n_tiles / n))``, the fewest splits on a tie: at the template
+      site (3619 rows, 29 row tiles of 128) that fills the SMs, at the
+      vision site (25600 rows, 200 row tiles) it trims the last wave.
+    ``python -m latteclip_torch.tools.ln_linear_plans`` times other plans on
+    the card (PERF.md keeps its numbers).
+    """
+    if M <= 0 or D <= 0 or O <= 0 or D % LN_PANEL or O % 8:
+        raise ValueError(f"the fused LayerNorm -> linear kernel takes D a multiple of "
+                         f"{LN_PANEL} and O a multiple of 8, got M={M}, D={D}, O={O}")
+    for bm, bn in LN_TILES:
+        fixed = ln_linear_smem_bytes(bm, bn, D, 0)
+        stages = min(LN_MAX_STAGES, (MAX_SMEM - fixed) // (bn * LN_PANEL * 2 + 16))
+        if stages >= LN_MIN_STAGES:
+            break
+    else:
+        raise ValueError(f"the fused LayerNorm -> linear kernel takes D up to 1664, got D={D}")
+    row_tiles, n_tiles = -(-M // bm), -(-O // bn)
+    n_splits = min(range(1, n_tiles + 1),
+                   key=lambda n: (-(-row_tiles * n // sms) * (LN_COST + -(-n_tiles // n)), n))
+    return LnLinearPlan(bm, bn, n_splits, stages, ln_linear_smem_bytes(bm, bn, D, stages))
+
+
 def _check_cuda(x, ln_w, ln_b, w, wb):
     if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"the CUDA kernel takes a contiguous 16-byte aligned bfloat16 x "
@@ -85,11 +152,12 @@ def _check_cuda(x, ln_w, ln_b, w, wb):
     if D % 64 or O % 8:
         raise ValueError(f"the CUDA kernel takes D a multiple of 64 and O a multiple of 8, "
                          f"got D={D}, O={O}")
-    for name, t, shape in (("ln_w", ln_w, (D,)), ("ln_b", ln_b, (D,)), ("w", w, (O, D)),
-                           ("wb", wb, (O,))):
-        if (t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape
+    for name, t, shape, dtype in (("ln_w", ln_w, (D,), torch.float32),
+                                  ("ln_b", ln_b, (D,), torch.float32),
+                                  ("w", w, (O, D), torch.bfloat16), ("wb", wb, (O,), torch.float32)):
+        if (t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous 16-byte aligned float32 {shape} "
+            raise ValueError(f"{name} must be a contiguous 16-byte aligned {dtype} {shape} "
                              f"tensor on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -98,7 +166,8 @@ def _kernel():
 
     fn = build.load("ln_linear").latteclip_ln_linear
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,20 +176,24 @@ def fused_ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: 
                     wb: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     """``bf16(LN(x) . bf16(w)^T + wb)`` for ``x [B, L, D]``, ``w [O, D]``.
 
-    A CUDA tensor launches the Hopper kernel (bf16 x, float32 parameters,
-    D a multiple of 64, O of 8) and raises on anything else; a CPU tensor
-    takes :func:`fused_ln_linear_plain`."""
+    A CUDA tensor launches the Hopper kernel (bf16 x, float32 LayerNorm
+    parameters and bias, D a multiple of 64, O of 8) on ``bf16(w)``, made
+    here unless ``w`` is bf16 already, under :func:`ln_linear_plan`, and
+    raises on anything else; a CPU tensor takes :func:`fused_ln_linear_plain`."""
     if not x.is_cuda:
         return fused_ln_linear_plain(x, ln_w, ln_b, w, wb, eps)
-    _check_cuda(x, ln_w, ln_b, w, wb)
+    w16 = w.to(torch.bfloat16)
+    _check_cuda(x, ln_w, ln_b, w16, wb)
     B, L, D = x.shape
-    O = w.shape[0]
+    O = w16.shape[0]
+    plan = ln_linear_plan(B * L, D, O, sm_count(x.device.index))
     y = torch.empty((B, L, O), dtype=x.dtype, device=x.device)
     kernel = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = kernel(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(), wb.data_ptr(),
-                     y.data_ptr(), B * L, D, O, eps, stream)
+        err = kernel(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w16.data_ptr(), wb.data_ptr(),
+                     y.data_ptr(), B * L, D, O, eps, plan.bm, plan.bn, plan.n_splits, plan.stages,
+                     stream)
     if err:
         raise RuntimeError(f"latteclip_ln_linear launch failed with CUDA error {err}")
     launch_counts["ln_linear"] += 1
@@ -128,29 +201,32 @@ def fused_ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: 
 
 
 class FusedLnLinear(torch.autograd.Function):
-    """``y = fused_ln_linear(x, ln_w, ln_b, w, wb)``; the gradient is that of
-    ``dense(layer_norm(x, ln_w, ln_b), w, wb, x.dtype)`` (JAX ``_bwd``): the
-    LayerNorm is recomputed under autograd, and the linear layer's gradient
-    is taken as autograd takes it for ``dense``, with no second forward
-    product. Saves the inputs only."""
+    """``y = fused_ln_linear(x, ln_w, ln_b, bf16(w), wb)``; the gradient is
+    that of ``dense(layer_norm(x, ln_w, ln_b), w, wb, x.dtype)`` (JAX
+    ``_bwd``): the LayerNorm is recomputed under autograd, and the linear
+    layer's gradient is taken as autograd takes it for ``dense``, with no
+    second forward product. ``bf16(w)`` is made once: the kernel reads it,
+    and in bf16 it is also ``w.to(x.dtype)``, which the backward's
+    ``dy . w`` takes, so it is saved beside the inputs."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w, wb, eps: float):
-        ctx.save_for_backward(x, ln_w, ln_b, w, wb)
-        ctx.eps = eps
-        return fused_ln_linear(x, ln_w, ln_b, w, wb, eps)
+        w16 = w.to(torch.bfloat16)
+        ctx.save_for_backward(x, ln_w, ln_b, w16 if x.dtype == torch.bfloat16 else w.to(x.dtype), wb)
+        ctx.eps, ctx.w_dtype = eps, w.dtype
+        return fused_ln_linear(x, ln_w, ln_b, w16, wb, eps)
 
     @staticmethod
     def backward(ctx, dy):
-        x, ln_w, ln_b, w, wb = ctx.saved_tensors
+        x, ln_w, ln_b, w_dt, wb = ctx.saved_tensors
         dt = x.dtype
         with torch.enable_grad():
             inputs = tuple(t.detach().requires_grad_(True) for t in (x, ln_w, ln_b))
             xn = layer_norm(*inputs, ctx.eps)
         dy = dy.to(dt)
-        O, D = w.shape
-        dxn = torch.matmul(dy, w.to(dt))
-        dw = torch.matmul(dy.reshape(-1, O).t(), xn.detach().reshape(-1, D)).to(w.dtype)
+        O, D = w_dt.shape
+        dxn = torch.matmul(dy, w_dt)
+        dw = torch.matmul(dy.reshape(-1, O).t(), xn.detach().reshape(-1, D)).to(ctx.w_dtype)
         dwb = dy.reshape(-1, O).sum(dim=0).to(wb.dtype)
         dx, dln_w, dln_b = torch.autograd.grad(xn, inputs, dxn)
         return dx, dln_w, dln_b, dw, dwb, None

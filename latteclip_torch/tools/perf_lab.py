@@ -6,15 +6,34 @@ device's own clock does that: CUDA events around each call give its device
 time, and the median of ``iters`` calls, each after a 512 MB write that
 flushes the 50 MB L2 cache, is the time of one call with its inputs in
 device memory, as the real caller finds them.
+
+Between the flush and the start event the stream waits on the device
+(``torch.cuda._sleep``) for at least twice the host's time to dispatch one
+call, so every launch of the call is queued before the start event runs:
+host gaps inside a call of several launches (SDPA's backward through
+autograd, for one) would otherwise count as device time.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
 import torch
 
 FLUSH_BYTES = 512 * 1024 * 1024
+WAIT_FACTOR = 2.0      # the device-side wait outlasts this many dispatches of a call
+MIN_WAIT_MS = 0.05     # and never lasts less than this
+
+
+def wait_cycles(host_ms: float, cycles_per_ms: float, factor: float = WAIT_FACTOR,
+                floor_ms: float = MIN_WAIT_MS) -> int:
+    """Cycles of ``torch.cuda._sleep`` that last at least ``factor`` times
+    ``host_ms``, the host's time to dispatch one call, and at least
+    ``floor_ms``, at ``cycles_per_ms`` device cycles a millisecond."""
+    if host_ms < 0 or cycles_per_ms <= 0:
+        raise ValueError(f"host_ms must be >= 0 and cycles_per_ms > 0, got {host_ms}, {cycles_per_ms}")
+    return int(math.ceil(max(factor * host_ms, floor_ms) * cycles_per_ms))
 
 
 class Timer:
@@ -27,6 +46,32 @@ class Timer:
         self.iters = iters
         self.flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=self.device)
                       if self.device.type == "cuda" else None)
+        self._cycles_per_ms = None
+
+    def cycles_per_ms(self) -> float:
+        """Device cycles of ``torch.cuda._sleep`` a millisecond, measured once."""
+        if self._cycles_per_ms is None:
+            cycles = 10_000_000
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles // 10)  # warm-up
+            start.record()
+            torch.cuda._sleep(cycles)
+            end.record()
+            torch.cuda.synchronize(self.device)
+            self._cycles_per_ms = cycles / start.elapsed_time(end)
+        return self._cycles_per_ms
+
+    def host_ms(self, fn, calls: int = 3) -> float:
+        """The longest host time of ``calls`` dispatches of ``fn``, each
+        started on an idle stream."""
+        worst = 0.0
+        for _ in range(calls):
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            fn()
+            worst = max(worst, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize(self.device)
+        return worst
 
     def __call__(self, fn) -> float:
         fn()  # warm-up
@@ -37,11 +82,12 @@ class Timer:
                 fn()
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
-        torch.cuda.synchronize(self.device)
+        cycles = wait_cycles(self.host_ms(fn), self.cycles_per_ms())
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(self.iters)]
         for start, end in ev:
             self.flush.zero_()
+            torch.cuda._sleep(cycles)  # every launch of fn is queued before start runs
             start.record()
             fn()
             end.record()

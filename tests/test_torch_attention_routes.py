@@ -130,6 +130,37 @@ def test_head_split_backward_plain_matches_pallas_vjp(B, L, H, D, causal, monkey
         assert rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL, f"{part}: {rel:.3g}, {worst:.3g}"
 
 
+@pytest.mark.parametrize("B,L,H,D,causal", [(3, 77, 4, 64, True), (2, 197, 2, 64, False),
+                                             (5, 50, 2, 128, False)])
+def test_head_split_backward_route_gives_the_qkv_layout(B, L, H, D, causal, monkeypatch):
+    """The head-split backward wrapper and the Function's gradient come in
+    the layout of qkv (the CUDA kernel stores it so): equal bit for bit to
+    ``merge_dqkv(flash_bwd_hs_plain(...))``, and to ``jax.vjp`` of
+    ``_make_fa``, whose ``_bwd_kernel_hs`` output JAX moves with
+    ``moveaxis(dqkv3, 0, 2)``, within the whole-row backward tolerances."""
+    monkeypatch.setenv(SWITCHES["headsplit"], "1")
+    x = jnp.asarray(_qkv(B, L, H, D, seed=L + D + 1), jnp.bfloat16)
+    dout = jnp.asarray(np.random.default_rng(D + 1).standard_normal((B, L, H * D)), jnp.bfloat16)
+    (out, lse2), vjp = jax.vjp(lambda q: JA._make_fa(H)(q, causal, 0), x)
+    (ref,) = vjp((dout, jnp.zeros_like(lse2)))
+    t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    xt, outt, doutt, lse2t = t(x), t(out), t(dout), torch.from_numpy(np.array(lse2))
+    dqkv = A.flash_attention_qkv_hs_bwd(xt, outt, doutt, lse2t, H, causal)
+    assert dqkv.shape == xt.shape
+    assert torch.equal(dqkv, A.merge_dqkv(A.flash_bwd_hs_plain(xt, outt, doutt, lse2t, H, causal)))
+    xi = xt.clone().requires_grad_(True)
+    fwd_out, _ = A.FlashAttentionHeadSplit.apply(xi, H, causal)
+    (grad,) = torch.autograd.grad(fwd_out, xi, doutt)
+    fwd_lse2 = A.flash_fwd_hs_plain(xt, H, causal)[1]
+    assert torch.equal(grad, A.flash_attention_qkv_hs_bwd(xt, fwd_out.detach(), doutt, fwd_lse2, H, causal))
+    ours, ref = dqkv.float().numpy(), _f32(ref)
+    for i, part in enumerate(("dq", "dk", "dv")):
+        a, r = ours[..., i * H * D:(i + 1) * H * D], ref[..., i * H * D:(i + 1) * H * D]
+        rel = np.linalg.norm(a - r) / np.linalg.norm(r)
+        worst = np.abs(a - r).max() / np.abs(r).max()
+        assert rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL, f"{part}: {rel:.3g}, {worst:.3g}"
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_block_diagonal_plain_matches_pallas(causal):
     B, L, H, D = 9, 77, 8, 64  # B=9 exercises the TPU kernel's row padding to G=8

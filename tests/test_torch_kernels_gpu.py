@@ -22,8 +22,11 @@ atol 1e-3. The backward kernels are held on dq, dk and dv separately:
 bf16 rounding of one p or ds moves a sum of L terms by far less).
 
 The head-split kernels run the whole-row kernels' arithmetic and differ only
-in where lse2 and the gradient are stored, so they are held to the
-whole-row kernels bit for bit as well as to their plain versions. The fused
+in where lse2 is stored (the gradient comes in the layout of qkv from both),
+so they are held to the whole-row kernels bit for bit as well as to their
+plain versions. Segment runs of 2 tokens let one flip of the bf16 rounding of
+p (2^-8 at most, p <= 1) move lse2 by up to 2^-8 / ln 2 = 5.6e-3, since
+l >= 1: where such runs occur lse2 is held to that bound. The fused
 LayerNorm -> linear kernel is held as bf16 out is: elementwise
 atol = rtol = 2e-2 and ||y - ref|| / ||ref|| <= 1e-2 (both sides multiply
 the same bf16 operands in f32 and round once; they differ where the f32
@@ -177,6 +180,125 @@ def test_cuda_long_row_kernel_refuses_a_plan_it_cannot_take():
                      (D ** -0.5) * A.LOG2E, warps, splits, resident, stream)
         assert err != 0, (warps, splits, resident)
     A.flash_attention_qkv(x, H)  # the plan's own launch
+    torch.cuda.synchronize()
+
+
+ONE_P_FLIP_LSE = 2 ** -8 / np.log(2)  # lse2 moved by one flip of a bf16 p, l >= 1
+
+
+def _pair_segments(rng, B, L):
+    """Runs of 2 tokens and of 2..L/3 tokens, alternating, numbered 1, 2,
+    ..., then a seg-0 padding tail of at least L/8 tokens."""
+    seg = np.zeros((B, L), np.int32)
+    end = L - L // 8
+    for r in range(B):
+        pos, sid = 0, 1
+        while pos + 2 <= end:
+            n = 2 if sid % 2 else int(rng.integers(2, max(3, L // 3 + 1)))
+            n = min(n, end - pos)
+            seg[r, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg
+
+
+# The backward's rows of more than 128 tokens: the row kernel where the row
+# fits (D=64 up to 208 tokens in unpadded rows, two CTAs an SM; D=128 up to
+# 208 in padded rows) and the tiled pair beyond.
+BWD_LONG_ROW_CASES = [
+    *[(2, L, 2, D) for L in (129, 197, 256, 577) for D in (64, 128)],
+    (1, 208, 1, 128), (1, 209, 1, 128), (1, 208, 1, 64), (1, 209, 1, 64),
+    (64, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,D", BWD_LONG_ROW_CASES)
+def test_cuda_long_row_backward_matches_plain_versions(B, L, H, D):
+    """K3, K4 (segments, with runs of 2 tokens) and K6 on long rows against
+    their plain versions, causal and not, in the form their plan gives; K6
+    bit for bit K3; the segmented forward's lse2 within one flip of p."""
+    _need_cuda()
+    rng = np.random.default_rng(B * 100000 + L * 1000 + H * 10 + D + 3)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_pair_segments(rng, B, L)).cuda()
+    for causal in (False, True):
+        out, lse2 = A.flash_attention_qkv(x, H, causal)
+        ours = A.flash_attention_qkv_bwd(x, out, dout, lse2, H, causal)
+        ref = A.flash_bwd_plain(x, out, dout, lse2, H, causal)
+        torch.cuda.synchronize()
+        _assert_grads_close(ours, ref, H, D)
+        seg_out, seg_lse2 = A.flash_attention_qkv_segmented(x, H, seg, causal)
+        ref_out, ref_lse2 = A.flash_fwd_seg_plain(x, seg, H, causal)
+        seg_ours = A.flash_attention_qkv_segmented_bwd(x, seg, seg_out, dout, seg_lse2, H, causal)
+        seg_ref = A.flash_bwd_seg_plain(x, seg, seg_out, dout, seg_lse2, H, causal)
+        torch.cuda.synchronize()
+        _assert_out_close(seg_out, ref_out)
+        torch.testing.assert_close(seg_lse2, ref_lse2, atol=ONE_P_FLIP_LSE, rtol=0)
+        _assert_grads_close(seg_ours, seg_ref, H, D)
+        if A.head_split(H, D):
+            hs_out, hs_lse2 = A.flash_attention_qkv_hs(x, H, causal)
+            dqkv = A.flash_attention_qkv_hs_bwd(x, hs_out, dout, hs_lse2, H, causal)
+            torch.cuda.synchronize()
+            _assert_grads_close(dqkv, A.merge_dqkv(A.flash_bwd_hs_plain(x, hs_out, dout, hs_lse2, H, causal)), H, D)
+            assert torch.equal(dqkv, ours)
+
+
+def _bwd_entry(x, seg, out, dout, lse2, H, causal, warps, resident):
+    """The backward entry point called with an explicit plan: (error, dqkv)."""
+    B, L, _ = x.shape
+    D = x.shape[-1] // (3 * H)
+    name = "latteclip_flash_bwd" if seg is None else "latteclip_flash_bwd_seg"
+    dqkv = torch.empty_like(x)
+    delta = torch.empty(B, H, L, device="cuda")
+    tensors = [x, *([] if seg is None else [seg]), out, dout, lse2, delta, dqkv]
+    err = A._kernel(name)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
+                          (D ** -0.5) * A.LOG2E, D ** -0.5, warps, resident,
+                          torch.cuda.current_stream().cuda_stream)
+    return err, dqkv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,D", [(2, 197, 2, 64), (2, 197, 1, 128), (3, 256, 2, 64)])
+def test_cuda_backward_forms_agree(B, L, H, D):
+    """Where the row fits, the row kernel at several warp counts, in padded
+    rows and (D=64, up to 208 tokens) in unpadded swizzled rows, and the
+    tiled pair each match the plain version: the plan picks between forms
+    that compute the same gradient (padded rows at D=64 are no plan's form,
+    but the entry point runs them)."""
+    _need_cuda()
+    rng = np.random.default_rng(L + D + 29)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    for causal in (False, True):
+        out, lse2 = A.flash_attention_qkv(x, H, causal)
+        ref = A.flash_bwd_plain(x, out, dout, lse2, H, causal)
+        most = min(A.BWD_ROW_WARPS, -(-L // 16))
+        forms = [(most, 1), (4, 1), (1, 1), (0, 0)]
+        if D == 64 and L <= 208:  # unpadded swizzled rows, two CTAs an SM
+            forms += [(8, 2), (3, 2)]
+        for warps, resident in forms:
+            err, dqkv = _bwd_entry(x, None, out, dout, lse2, H, causal, warps, resident)
+            torch.cuda.synchronize()
+            assert err == 0, (warps, resident)
+            _assert_grads_close(dqkv, ref, H, D)
+
+
+@pytest.mark.gpu
+def test_cuda_long_row_backward_refuses_a_plan_it_cannot_take():
+    """The backward entry point returns an error for a resident plan whose
+    shared memory or warps it cannot take, and launches nothing for it."""
+    _need_cuda()
+    for L, D, warps, resident in ((577, 64, 8, 1), (385, 64, 8, 1), (209, 128, 8, 1),
+                                  (197, 128, 9, 1), (197, 64, 9, 1), (197, 64, 0, 1),
+                                  (129, 64, 10, 1), (197, 64, 9, 2), (209, 64, 8, 2),
+                                  (197, 128, 8, 2), (197, 64, 8, 3)):
+        H = 1
+        x = torch.zeros(1, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
+        out = torch.zeros(1, L, H * D, device="cuda", dtype=torch.bfloat16)
+        err, _ = _bwd_entry(x, None, out, out, torch.zeros(1, H, L, device="cuda"), H, False,
+                            warps, resident)
+        assert err != 0, (L, D, warps, resident)
     torch.cuda.synchronize()
 
 
@@ -375,13 +497,13 @@ def test_cuda_head_split_kernels_match_plain_versions_and_whole_row_kernels(L, D
         assert torch.equal(out, out1)
         assert torch.equal(lse2.reshape(H, B, L).transpose(0, 1), lse1)
 
-        dqkv3 = A.flash_attention_qkv_hs_bwd(x, out, dout, lse2, H, causal)
+        dqkv = A.flash_attention_qkv_hs_bwd(x, out, dout, lse2, H, causal)
         ref3 = A.flash_bwd_hs_plain(x, out, dout, lse2, H, causal)
         torch.cuda.synchronize()
-        assert dqkv3.shape == (3, B, L, H * D)
+        assert dqkv.shape == x.shape  # stored in the layout of qkv: no re-merge
         check = _assert_single_token_grads if L == 1 else _assert_grads_close
-        check(A.merge_dqkv(dqkv3), A.merge_dqkv(ref3), H, D)
-        assert torch.equal(A.merge_dqkv(dqkv3), A.flash_attention_qkv_bwd(x, out, dout, lse1, H, causal))
+        check(dqkv, A.merge_dqkv(ref3), H, D)
+        assert torch.equal(dqkv, A.flash_attention_qkv_bwd(x, out, dout, lse1, H, causal))
 
 
 @pytest.mark.gpu
@@ -436,10 +558,18 @@ def _ln_inputs(rng, B, L, D, O, device="cuda"):
     return x.to(device, torch.bfloat16), ln_w.to(device), ln_b.to(device), w.to(device), wb.to(device)
 
 
+# The eight LN -> projection sites of chip_smoke.py (vision 768 -> 2304 and
+# 3072; text 512 -> 1536 and 2048 for captions, templates and the classifier
+# build) at ragged row counts (not a multiple of 128, under 64), the template
+# site's own 3619 rows (split over the outputs), the vision site's 25600, and
+# each tile of the plan: (128, 128) up to D=768, (64, 128) past it, (64, 64)
+# at D=1664.
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L,D,O", [
     (3, 77, 512, 1536), (2, 100, 768, 2304), (1, 50, 768, 3072), (5, 13, 64, 200),
     (7, 1, 128, 64), (2, 40, 1024, 256),
+    (2, 77, 512, 2048), (47, 77, 512, 1536), (47, 77, 512, 2048), (256, 100, 768, 3072),
+    (1, 63, 768, 2304), (3, 50, 768, 3072), (1, 100, 1664, 64), (1, 30, 1664, 72),
 ])
 def test_cuda_ln_linear_matches_plain_version(B, L, D, O):
     _need_cuda()
@@ -455,6 +585,57 @@ def test_cuda_ln_linear_matches_plain_version(B, L, D, O):
         dropped[O // 2:O // 2 + 16] = 0
         with pytest.raises(AssertionError):
             _assert_out_close(FL.fused_ln_linear_plain(x, ln_w, ln_b, dropped, wb), ref)
+
+
+@pytest.mark.gpu
+def test_cuda_ln_linear_refuses_a_plan_it_cannot_take():
+    """The entry point returns an error for a plan whose tile, stages,
+    splits or shared memory it cannot take; the wrapper raises on one."""
+    _need_cuda()
+    x, ln_w, ln_b, w, wb = _ln_inputs(np.random.default_rng(3), 1, 100, 1664, 128)
+    w16 = w.to(torch.bfloat16)
+    y = torch.empty(1, 100, 128, device="cuda", dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bm, bn, n_splits, stages in ((128, 128, 1, 2), (128, 64, 1, 2), (64, 64, 1, 1),
+                                     (64, 64, 1, 9), (32, 64, 1, 2), (64, 32, 1, 2),
+                                     (64, 64, 3, 2), (64, 64, 0, 2)):
+        err = FL._kernel()(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w16.data_ptr(),
+                           wb.data_ptr(), y.data_ptr(), 100, 1664, 128, FL.LN_EPS, bm, bn,
+                           n_splits, stages, stream)
+        assert err != 0, (bm, bn, n_splits, stages)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_every_plan_form_counts_its_launch():
+    """Each form of each launch plan, run through its wrapper, adds one to
+    its kernel's count and matches the plain version: the backward's short
+    rows and its three long-row forms; K8's three tiles."""
+    _need_cuda()
+    rng = np.random.default_rng(31)
+    for (B, L, H, D), form in (((2, 77, 2, 64), None), ((2, 197, 2, 64), "resident_pair"),
+                               ((2, 197, 1, 128), "resident"), ((2, 256, 2, 64), "tiled"),
+                               ((1, 257, 1, 128), "tiled")):
+        if form:
+            assert A.bwd_long_row_plan(B, L, H, D, False, 132).form == form
+        x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+        dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        out, lse2 = A.flash_attention_qkv(x, H)
+        A.reset_launch_counts()
+        ours = A.flash_attention_qkv_bwd(x, out, dout, lse2, H)
+        assert A.launch_counts["flash_bwd"] == 1 and sum(A.launch_counts.values()) == 1
+        torch.cuda.synchronize()
+        _assert_grads_close(ours, A.flash_bwd_plain(x, out, dout, lse2, H, False), H, D)
+    for (B, L, D, O), tile in (((2, 77, 512, 1536), (128, 128)), ((1, 50, 768, 3072), (128, 128)),
+                               ((2, 40, 1024, 256), (64, 128)), ((1, 100, 1664, 64), (64, 64))):
+        plan = FL.ln_linear_plan(B * L, D, O, 132)
+        assert (plan.bm, plan.bn) == tile
+        x, ln_w, ln_b, w, wb = _ln_inputs(rng, B, L, D, O)
+        FL.reset_launch_counts()
+        y = FL.fused_ln_linear(x, ln_w, ln_b, w, wb)
+        assert FL.launch_counts == {"ln_linear": 1}
+        torch.cuda.synchronize()
+        _assert_out_close(y, FL.fused_ln_linear_plain(x, ln_w, ln_b, w, wb))
 
 
 @pytest.mark.gpu

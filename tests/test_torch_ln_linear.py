@@ -117,6 +117,55 @@ def test_plain_version_matches_pallas_values_and_vjp(B, L, D, O, jax_fused):
     assert np.linalg.norm(dwb - exact) <= BIAS_GRAD_EXACT_TOL * np.linalg.norm(exact)
 
 
+class _F32WeightFunction(torch.autograd.Function):
+    """FusedLnLinear as it was before the bf16 copy of W: the kernel's plain
+    version on the f32 W, the backward rounding ``w.to(x.dtype)`` itself."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w, wb, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w, wb)
+        ctx.eps = eps
+        return FL.fused_ln_linear_plain(x, ln_w, ln_b, w, wb, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ln_w, ln_b, w, wb = ctx.saved_tensors
+        dt = x.dtype
+        with torch.enable_grad():
+            inputs = tuple(t.detach().requires_grad_(True) for t in (x, ln_w, ln_b))
+            xn = FL.layer_norm(*inputs, ctx.eps)
+        dy = dy.to(dt)
+        O, D = w.shape
+        dxn = torch.matmul(dy, w.to(dt))
+        dw = torch.matmul(dy.reshape(-1, O).t(), xn.detach().reshape(-1, D)).to(w.dtype)
+        dwb = dy.reshape(-1, O).sum(dim=0).to(wb.dtype)
+        dx, dln_w, dln_b = torch.autograd.grad(xn, inputs, dxn)
+        return dx, dln_w, dln_b, dw, dwb, None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,L,D,O", [(3, 77, 64, 192), (2, 50, 128, 512)])
+def test_function_with_bf16_weight_copy_equals_f32_weight_path(B, L, D, O, dtype):
+    """FusedLnLinear makes bf16(W) once a forward, reads it in the product
+    and, in bf16, in the backward's dy . W: its output and all five
+    gradients equal the f32-W path bit for bit (the product rounded W to
+    bf16 already, and so did the backward's w.to(bf16)); so does the plain
+    version given bf16(W) for W."""
+    x, s, b, w, wb = _inputs(B, L, D, O, seed=B + L)
+    args = _port(x, s, b, w, wb, dtype=dtype)
+    dy = torch.from_numpy(np.random.default_rng(O).standard_normal((B, L, O)).astype(np.float32)).to(dtype)
+    results = []
+    for fn in (FL.FusedLnLinear, _F32WeightFunction):
+        a = [t.clone().requires_grad_(True) for t in args]
+        y = fn.apply(*a, FL.LN_EPS)
+        results.append((y, *torch.autograd.grad(y, a, dy)))
+    for name, ours, ref in zip(("y", "x", "ln_w", "ln_b", "w", "wb"), *results):
+        assert ours.dtype == ref.dtype and torch.equal(ours, ref), name
+    w16 = args[3].to(torch.bfloat16)
+    assert torch.equal(FL.fused_ln_linear_plain(*args[:3], w16, args[4]),
+                       FL.fused_ln_linear_plain(*args))
+
+
 def test_fused_route_is_jax_group_size_rule():
     for b, l, d, o in itertools.product((1, 2, 3, 8, 256, 512), (1, 13, 50, 77, 100, 128, 197, 577),
                                         (64, 512, 768, 1024), (192, 1536, 2304, 3072, 4096)):

@@ -1,8 +1,10 @@
-"""The launch plan of the long-row forward kernel (rows of more than 128
-tokens, csrc/flash_fwd.cu::flash_fwd_long_kernel), on the CPU: the form
-(K and V resident in shared memory, or streamed through a ring), the warps of
-a CTA and the CTAs per (row, head), at the shapes the towers and the GPU
-tests give it, on a card of 132 SMs (an H100 SXM). The kernel itself runs only on the card
+"""The launch plans of rows of more than 128 tokens, on the CPU: the
+forward's long-row kernel (csrc/flash_fwd.cu::flash_fwd_long_kernel: K and V
+resident in shared memory or streamed through a ring, the warps of a CTA and
+the CTAs per (row, head)) and the backward's (csrc/flash_bwd.cu: the row
+resident in shared memory or the tiled pair, the warps of a CTA), at the
+shapes the towers and the GPU tests give them, on a card of 132 SMs (an H100
+SXM). The kernels themselves run only on the card
 (tests/test_torch_kernels_gpu.py)."""
 import pytest
 
@@ -82,8 +84,9 @@ def test_long_row_plan_refuses_what_the_long_kernel_does_not_take(L, D):
 
 
 def test_plan_sweep_tool_checks_every_plan_and_needs_the_card():
-    """tools/long_row_plans.py holds each plan's output to the plain version
-    with chip_smoke.py's bounds, and refuses to time anything without CUDA."""
+    """tools/long_row_plans.py holds each plan's output (the forward's out
+    and lse2, the backward's dq, dk and dv) to the plain version with
+    chip_smoke.py's bounds, and refuses to time anything without CUDA."""
     import torch
 
     from latteclip_torch.tools import long_row_plans as T
@@ -95,6 +98,79 @@ def test_plan_sweep_tool_checks_every_plan_and_needs_the_card():
     dropped = ref_out.clone()
     dropped[:, 90:106] = 0
     assert not T.agrees(dropped, ref_lse2, ref_out, ref_lse2)
+    ref_grad = torch.randn(2, 197, 3 * 128)
+    assert T.grads_agree(ref_grad, ref_grad, 2, 64)
+    wrong = ref_grad.clone()
+    wrong[:, :, 128:144] = 0  # 16 columns of dk
+    assert not T.grads_agree(wrong, ref_grad, 2, 64)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             T.run()
+
+
+# (B, L, H, D): ViT-B/16 vision at its GPU-test, train and eval batches, the
+# 336 px row, head_dim 128, and the GPU tests' edges of the resident form
+BWD_SHAPES = [
+    (64, 197, 12, 64), (512, 197, 12, 64), (256, 197, 12, 64), (8, 577, 16, 64),
+    (64, 197, 6, 128), (2, 129, 2, 64), (2, 256, 2, 128), (1, 208, 1, 128), (1, 209, 1, 128),
+    (1, 208, 1, 64), (1, 209, 1, 64), (1, 384, 1, 64), (1, 385, 1, 64), (1, 1024, 2, 64),
+]
+
+
+@pytest.mark.parametrize("B,L,H,D", BWD_SHAPES)
+@pytest.mark.parametrize("segmented", [False, True])
+def test_bwd_long_row_plan_is_one_the_kernel_takes(B, L, H, D, segmented):
+    """At D=64 the row takes the pair form (two CTAs an SM) exactly where its
+    unpadded rows fit half an SM; at D=128 it stays resident in padded rows
+    exactly where Q, K, V and dO of the whole row (with lse2, delta and
+    segment ids) fit a CTA's shared memory, one warp per 16-token block up
+    to 8; the tiled pair takes the rest, in 64-token tiles that always fit."""
+    plan = A.bwd_long_row_plan(B, L, H, D, segmented, SMS)
+    rows = -(-L // 16) * 16
+    pair = D == 64 and A.bwd_row_smem_bytes(L, D, segmented, padded=False) <= A.BWD_PAIR_SMEM
+    fits = D == 128 and A.bwd_row_smem_bytes(L, D, segmented) <= A.MAX_SMEM
+    assert plan.smem_bytes <= A.MAX_SMEM
+    assert plan.form == ("resident_pair" if pair else "resident" if fits else "tiled")
+    if pair:
+        assert plan.warps == A.BWD_ROW_WARPS and 2 * (plan.smem_bytes + 1024) <= A.SM_SMEM
+        assert plan.smem_bytes == A.bwd_row_smem_bytes(L, D, segmented, padded=False)
+    elif fits:
+        assert plan.warps == min(rows // 16, A.BWD_ROW_WARPS)
+        assert plan.smem_bytes == A.bwd_row_smem_bytes(L, D, segmented)
+    else:
+        assert plan.smem_bytes == A.bwd_tiled_smem_bytes(D, segmented)
+
+
+@pytest.mark.parametrize("B,L,H,D,form,warps", [
+    (64, 197, 12, 64, "resident_pair", 8),   # ViT-B/16 vision: two CTAs of 8 warps an SM
+    (512, 197, 12, 64, "resident_pair", 8),  # its train batch
+    (2, 256, 2, 64, "tiled", 4),             # past 208 tokens the D=64 row takes the tiled pair
+    (64, 197, 6, 128, "resident", 8),     # head_dim 128: 8 warps walk 13 blocks
+    (8, 577, 16, 64, "tiled", 4),         # 336 px: the row does not fit a CTA
+    (1, 208, 1, 64, "resident_pair", 8),  # the forms' edges
+    (1, 209, 1, 64, "tiled", 4),
+    (1, 208, 1, 128, "resident", 8),
+    (1, 209, 1, 128, "tiled", 4),
+])
+def test_bwd_long_row_plan_at_the_main_shapes(B, L, H, D, form, warps):
+    plan = A.bwd_long_row_plan(B, L, H, D, True, SMS)
+    assert (plan.form, plan.warps) == (form, warps)
+
+
+def test_bwd_row_smem_holds_the_row():
+    """Q, dO, K and V of 208 padded rows of D + 8 values, lse2 and delta, and
+    the segment ids when segmented: 119,808 + 1,664 (+ 1,664) B at D=64;
+    226,304 + 1,664 + 1,664 = 229,632 B at D=128, the most that fits."""
+    assert A.bwd_row_smem_bytes(197, 64, False) == 4 * 208 * 72 * 2 + 208 * 8
+    assert A.bwd_row_smem_bytes(197, 64, True) == 4 * 208 * 72 * 2 + 208 * 16
+    assert A.bwd_row_smem_bytes(197, 128, True) == 229632
+    assert A.bwd_tiled_smem_bytes(64, False) == 4 * 64 * 72 * 2 + 64 * 8
+    assert A.bwd_row_smem_bytes(197, 64, True, padded=False) == 4 * 208 * 64 * 2 + 208 * 16
+    assert 2 * (A.bwd_row_smem_bytes(208, 64, True, padded=False) + 1024) <= A.SM_SMEM
+    assert 2 * (A.bwd_row_smem_bytes(209, 64, False, padded=False) + 1024) > A.SM_SMEM
+
+
+@pytest.mark.parametrize("L,D", [(128, 64), (77, 64), (197, 32)])
+def test_bwd_long_row_plan_refuses_what_the_long_rows_do_not_take(L, D):
+    with pytest.raises(ValueError, match="backward long-row plan"):
+        A.bwd_long_row_plan(8, L, 2, D, False, SMS)
