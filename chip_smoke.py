@@ -26,7 +26,13 @@ Phases, each raising on failure:
    [512, 197, 12 x 3 x 64]; forward cases of more than 128 tokens name the
    long-row kernel's form (resident or streamed), CTAs per (row, head) and
    warps a CTA, backward ones the backward plan's form (resident_pair,
-   resident or tiled) and warps. Every K3/K4 case also checks and times the tiled kernel pair
+   resident or tiled) and warps; cases of at most 128 tokens name the
+   short-row plan's form (ring or cta) and, for the ring, its warpgroups a
+   CTA, CTAs an SM, stages and grid. Then the short-row plan sweep
+   (latteclip_torch.tools.short_row_plans: every form of the short-row
+   forward and backward at the train, serving and classifier-build shapes,
+   each checked against its plain version, with SDPA) prints one
+   short_row_plan line a shape and direction. Every K3/K4 case also checks and times the tiled kernel pair
    (flash_bwd.cu built a second time with -DLATTECLIP_BWD_SHORT_ROW=0, which
    sends every row there) beside the kernel its plan runs, in the order
    kernel, tiled, tiled, kernel (`design`). The head-split forward and
@@ -121,6 +127,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import re
 import subprocess
@@ -254,6 +261,24 @@ def long_row_fields(B, L, H, D, segmented) -> dict:
     return {"form": plan.form, "ctas_per_bh": plan.splits, "warps": plan.warps}
 
 
+def short_row_fields(B, L, H, D, segmented, bwd=False, blockdiag=False) -> dict:
+    """The short-row plan of a row of at most 128 tokens on this card: its
+    form ("ring" or "cta"), and for the ring its consumer warpgroups a CTA,
+    CTAs an SM, stages and grid (the block-diagonal forward always takes
+    "cta"); nothing for longer rows, or for a tree without short-row plans
+    (so that this script also measures such a tree)."""
+    from latteclip_torch.kernels import attention as A
+
+    plan_of = getattr(A, "bwd_short_row_plan" if bwd else "short_row_plan", None)
+    if L > ROW_MAX or plan_of is None:
+        return {}
+    if blockdiag:
+        return {"form": "cta"}
+    p = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"form": p.form, **({"warpgroups": p.warpgroups, "ctas_per_sm": p.ctas_per_sm,
+                               "stages": p.stages, "grid": p.grid} if p.form == "ring" else {})}
+
+
 def bwd_plan_fields(B, L, H, D, segmented) -> dict:
     """The backward plan's form ("resident_pair", "resident" or "tiled") and
     warps a CTA of a row of more than 128 tokens on this card; nothing for
@@ -314,6 +339,7 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         **long_row_fields(B, L, H, D, seg is not None),
+        **short_row_fields(B, L, H, D, seg is not None, blockdiag=name == "flash_fwd_bd"),
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -422,6 +448,7 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         **bwd_plan_fields(B, L, H, D, seg is not None),
+        **short_row_fields(B, L, H, D, seg is not None, bwd=True),
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -560,6 +587,12 @@ def phase_kernels(train, tiled_lib):
              for r in records if not r["control_rejected"]]
     if blind:
         raise RuntimeError(f"a check missed a dropped value or weight block (name, shape, errors): {blind}")
+    if importlib.util.find_spec("latteclip_torch.tools.short_row_plans") is not None:
+        from latteclip_torch.tools import short_row_plans
+
+        for rec in short_row_plans.run():  # raises where a form disagrees with the plain version
+            log("short_row_plan " + json.dumps(rec))
+        torch.cuda.empty_cache()
     return records
 
 
@@ -1394,8 +1427,10 @@ def phase_train_b16(smi: str, train: dict):
 
 
 def ptxas_warnings(lines) -> list:
-    """ptxas's warnings and advisories (a wgmma serialised, a setmaxnreg ignored)."""
-    return [ln for ln in lines if "warning" in ln.lower() or "advisory" in ln.lower()]
+    """ptxas's warnings and advisories (a setmaxnreg ignored) and its
+    performance notes (a wgmma serialised, which it reports as info)."""
+    return [ln for ln in lines
+            if any(w in ln.lower() for w in ("warning", "advisory", "performance loss"))]
 
 
 def ptxas_usage(lines) -> dict:

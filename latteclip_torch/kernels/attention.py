@@ -25,11 +25,14 @@ Port of ``latteclip_tpu/kernels/attention.py``:
   is normalised by the f32 sum of the unrounded p, then rounded; no division
   after the PV product).
 
-Rows of more than 128 tokens take the forward's long-row kernel under the
-launch plan of :func:`long_row_plan` (form, warps a CTA, CTAs per (row,
-head)), and the backward's row kernel or its tiled pair under
-:func:`bwd_long_row_plan` (form, warps a CTA), both computed here so that the
-CPU tests hold them.
+Rows of at most 128 tokens take the forward's and the backward's ring
+kernels (persistent CTAs fed by a TMA ring) under :func:`short_row_plan` and
+:func:`bwd_short_row_plan` (form, consumer warpgroups, CTAs an SM, ring
+stages, grid). Rows of more than 128 tokens take the forward's long-row
+kernel under the launch plan of :func:`long_row_plan` (form, warps a CTA,
+CTAs per (row, head)), and the backward's row kernel or its tiled pair under
+:func:`bwd_long_row_plan` (form, warps a CTA). All are computed here so that
+the CPU tests hold them.
 
 The forwards read q, k and v straight from ``qkv [B, L, 3*H*D]`` (laid out
 ``[q | k | v]``) and return ``(out [B, L, H*D], lse2 [B, H, L])``, the
@@ -297,9 +300,134 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+# The launch plans of rows of at most SHORT_ROW tokens (csrc/flash_fwd.cu,
+# flash_fwd_ring_kernel; csrc/flash_bwd.cu, flash_bwd_ring_kernel); the
+# constants are the kernels'.
+SHORT_ROW = 128           # longest row of the short-row kernels
+RING_MAX_STAGES = 4       # ring slots a ring kernel takes at most
+SW128_ALIGN = 1024        # the ring's alignment of its swizzled tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class ShortRowPlan:
+    """How a row of at most 128 tokens is taken: ``form`` "ring" (``grid``
+    persistent CTAs, ``ctas_per_sm`` of them an SM, each with ``warpgroups``
+    consumer warpgroups of 64 query rows and one producer warp keeping
+    ``stages`` (row, head) items in flight by TMA) or "cta" (one CTA per (row,
+    head), the first port's design; the backward's with its delta pre-pass),
+    and the ring CTA's dynamic shared memory (0 for "cta")."""
+    form: str
+    warpgroups: int
+    ctas_per_sm: int
+    stages: int
+    grid: int
+    smem_bytes: int
+
+    def c_args(self) -> Tuple[int, int]:
+        """The entry points' plan integers for a short row: (grid, stages)
+        of the ring, or (0, 0) for one CTA per (row, head)."""
+        return (self.grid, self.stages) if self.form == "ring" else (0, 0)
+
+
+def ring_warpgroups(L: int) -> int:
+    """Consumer warpgroups of a ring CTA: one per 64 query rows."""
+    return 1 if L <= 64 else 2
+
+
+def short_row_smem_bytes(L: int, D: int, stages: int, segmented: bool) -> int:
+    """Shared memory of one forward ring CTA (mirrors ``ring_smem_bytes`` in
+    csrc/flash_fwd.cu): per stage Q, K and V of one (row, head) in boxes of
+    64 token rows a warpgroup, and the seg ids; the mbarriers; 1 KB to align."""
+    box = 64 * ring_warpgroups(L)
+    return SW128_ALIGN + stages * (3 * D * box * 2 + (4 * box if segmented else 0)) + 16 * stages
+
+
+def bwd_short_row_smem_bytes(L: int, D: int, stages: int, segmented: bool) -> int:
+    """Shared memory of one backward ring CTA (mirrors ``ring_smem_bytes`` in
+    csrc/flash_bwd.cu): per stage Q, K, V, dO and out of one (row, head),
+    lse2, delta and the seg ids; the mbarriers; 1 KB to align."""
+    box = 64 * ring_warpgroups(L)
+    return SW128_ALIGN + stages * (5 * D * box * 2 + (12 if segmented else 8) * box) + 16 * stages
+
+
+# Rows of CTA_FORM_MIN..CTA_FORM_MAX tokens (BWD_CTA_FORM_MAX in the
+# backward) keep the one-CTA-per-(row, head) form: their second warpgroup's
+# 64 rows hold at most 32 (16) tokens, so most of its products, masks and
+# exp2 are spent on padding (77-token text ran at 1.3x the one-CTA form's
+# time on the forward ring; the backward ring tied it at 80 tokens and was
+# 22% faster at 96; PERF.md).
+CTA_FORM_MIN, CTA_FORM_MAX, BWD_CTA_FORM_MAX = 65, 96, 80
+
+
+def _ring_plan(B: int, L: int, H: int, D: int, sms: int, ctas: int, stages_cap: int,
+               smem_of) -> ShortRowPlan:
+    wg = ring_warpgroups(L)
+    budget = min(MAX_SMEM, SM_SMEM // ctas - CTA_RESERVED_SMEM)
+    stages = max(s for s in range(1, stages_cap + 1) if s == 1 or smem_of(s) <= budget)
+    return ShortRowPlan("ring", wg, ctas, stages, min(B * H, sms * ctas), smem_of(stages))
+
+
+def _check_short(L: int, D: int) -> None:
+    if L > SHORT_ROW or L < 1 or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the short-row plans take 1 <= L <= {SHORT_ROW} and head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
+
+
+CTA_PLAN = ShortRowPlan("cta", 0, 0, 0, 0, 0)
+
+
+def short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> ShortRowPlan:
+    """The forward's launch plan for a row of ``L <= 128`` tokens on a card
+    of ``sms`` SMs:
+
+    * "cta" for ``CTA_FORM_MIN <= L <= CTA_FORM_MAX``; otherwise
+    * the ring, one consumer warpgroup a CTA up to 64 tokens and two beyond;
+      as many CTAs an SM as the kernel's registers allow (``ring_min_ctas``
+      in csrc/flash_fwd.cu: four with one warpgroup at D=64, two with one
+      at D=128 or with two at D=64, else one), since its time falls with the
+      warpgroups an SM holds; one stage where several CTAs share an SM (each
+      one's copy-in overlaps the others' products, and one stage was faster
+      than two or more there), else as many as fit (at most
+      ``RING_MAX_STAGES``); a grid of ``min(B * H, sms * ctas_per_sm)``
+      CTAs, each walking the (row, head) items ``x, x + grid, ...``.
+
+    ``python -m latteclip_torch.tools.short_row_plans`` times the forms on
+    the card (PERF.md keeps its numbers)."""
+    _check_short(L, D)
+    if CTA_FORM_MIN <= L <= CTA_FORM_MAX:
+        return CTA_PLAN
+    one = ring_warpgroups(L) == 1
+    ctas = (4 if D == 64 else 2) if one else (2 if D == 64 else 1)
+    return _ring_plan(B, L, H, D, sms, ctas, 1 if ctas > 1 else RING_MAX_STAGES,
+                      lambda s: short_row_smem_bytes(L, D, s, segmented))
+
+
+def bwd_short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> ShortRowPlan:
+    """The backward's launch plan for a row of ``L <= 128`` tokens:
+
+    * "cta" (with the delta pre-pass) for ``CTA_FORM_MIN <= L <=
+      BWD_CTA_FORM_MAX``; where ``B * H`` items leave each SM at most one (the
+      ring then overlaps nothing; packed templates, [8, 128, 8 x 64]); and
+      at D=64 beyond 64 tokens where they leave it at most four, since the
+      ring's two passes over the queries there cost more than its few items
+      a CTA save ([64, 128, 8 x 64] ran 5% slower on the ring);
+    * otherwise the ring, with warpgroups and grid as in
+      :func:`short_row_plan`, two CTAs an SM at D=64 or with one warpgroup,
+      else one (``ring_min_ctas`` in csrc/flash_bwd.cu), and as many stages
+      of its five tiles as fit.
+    """
+    _check_short(L, D)
+    two_passes = D == 64 and L > 64
+    if (CTA_FORM_MIN <= L <= BWD_CTA_FORM_MAX or B * H <= sms
+            or (two_passes and B * H <= 4 * sms)):
+        return CTA_PLAN
+    ctas = 2 if D == 64 or ring_warpgroups(L) == 1 else 1
+    return _ring_plan(B, L, H, D, sms, ctas, RING_MAX_STAGES,
+                      lambda s: bwd_short_row_smem_bytes(L, D, s, segmented))
+
+
 # The launch plan of rows longer than SHORT_ROW tokens (csrc/flash_fwd.cu,
 # flash_fwd_long_kernel); the constants are the kernel's.
-SHORT_ROW = 128           # longest row of the one-CTA-per-(row, head) short-row kernel
 LONG_TILE = 64            # keys per copy stage and per ring slot
 LONG_STREAM_SLOTS = 2     # ring slots of the streamed form
 LONG_MAX_WARPS = 16       # __launch_bounds__ of the long-row kernel
@@ -436,7 +564,9 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
                 num_heads: int, causal: bool, lse_shape=None):
     """Check ``qkv`` (and ``seg_ids``), launch the forward entry point
     ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``. Rows of
-    more than 128 tokens carry their :func:`long_row_plan`."""
+    at most 128 tokens carry their :func:`short_row_plan` (the block-diagonal
+    forward none: it takes one CTA per (row, head), which beat its ring by
+    4-27% at head width 64, PERF.md), longer ones their :func:`long_row_plan`."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
@@ -444,12 +574,14 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
     lse2 = torch.empty(lse_shape or (B, H, L), dtype=torch.float32, device=qkv.device)
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, lse2]
-    plan_args = ()
-    if name != "latteclip_flash_fwd_bd":
-        plan_args = (0, 0, 0)
-        if L > SHORT_ROW:
-            plan = long_row_plan(B, L, H, D, seg_ids is not None, sm_count(qkv.device.index))
-            plan_args = (plan.warps, plan.splits, int(plan.form == "resident"))
+    sms = sm_count(qkv.device.index)
+    if name == "latteclip_flash_fwd_bd":  # one CTA per (row, head): its ring was slower
+        plan_args = ()
+    elif L <= SHORT_ROW:
+        plan_args = (*short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args(), 0)
+    else:
+        plan = long_row_plan(B, L, H, D, seg_ids is not None, sms)
+        plan_args = (plan.warps, plan.splits, int(plan.form == "resident"))
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
@@ -513,8 +645,8 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
                 lse_shape=None) -> torch.Tensor:
     """Check the residuals, launch the backward entry point ``name`` and
     count it; ``lse_shape`` defaults to ``[B, H, L]``. The gradient comes in
-    the layout of ``qkv``; rows of more than 128 tokens carry their
-    :func:`bwd_long_row_plan`."""
+    the layout of ``qkv``; rows of at most 128 tokens carry their
+    :func:`bwd_short_row_plan`, longer ones their :func:`bwd_long_row_plan`."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     _check_residual("out", out, qkv, (B, L, H * D), torch.bfloat16)
     _check_residual("dout", dout, qkv, (B, L, H * D), torch.bfloat16)
@@ -525,9 +657,11 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=qkv.device)  # kernel scratch
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, dout, lse2, delta, dqkv]
-    plan_args = (0, 0)
-    if L > SHORT_ROW:
-        plan = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sm_count(qkv.device.index))
+    sms = sm_count(qkv.device.index)
+    if L <= SHORT_ROW:
+        plan_args = bwd_short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args()
+    else:
+        plan = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sms)
         plan_args = (plan.warps, BWD_FORMS[plan.form])
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):

@@ -97,6 +97,14 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
   return pack_bf16(f.x * s, f.y * s);
 }
 
+// 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
+// flushed to 0), ahead of p's rounding to bf16.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 constexpr int MAX_DEVICES = 64;
 
 // Allow `bytes` of dynamic shared memory for `kernel` on the current device,

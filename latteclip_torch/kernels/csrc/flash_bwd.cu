@@ -20,7 +20,8 @@
 //   dv = pb^T . do;  dp = do . v^T;  delta = rowsum(f32(do) * f32(out));
 //   ds = bf16(p * (dp - delta) * D^-1/2);  dq = ds . k;  dk = ds^T . q
 // with every product accumulated in f32 and rounded to bf16 once. Only the
-// f32 summation order differs.
+// f32 summation order differs (and the ring kernel's exp2, ex2.approx at
+// ~2^-22 relative, well below the bf16 rounding of p and ds).
 //
 // Bound. Like the forward, the backward is memory-bound at the train shapes:
 // packed captions at R=300, P=128, H=8, D=64 (about four 32-token captions
@@ -28,7 +29,25 @@
 // bytes (qkv, out, dout read, dqkv written), about 315 MB: 10 FLOP/byte
 // against the H100's ~295. So the design reads each input once where it
 // can and keeps p and ds on chip:
-//   * a pre-pass writes delta [B, H, L] f32 (read once from out and dout);
+//   * rows of at most 128 tokens take flash_bwd_ring_kernel (the launch
+//     plan attention.py::bwd_short_row_plan): persistent CTAs, each walking
+//     (row, head) items with one producer warp that keeps the items' Q, K,
+//     V, dO and out in flight by TMA through a ring of full/empty mbarrier
+//     slots, and one consumer warpgroup per 64 rows. Per item the consumers
+//     take delta = rowsum(f32(dO) f32(out)) from the slot, so no pre-pass
+//     launches and dO is read once, and overwrite out with Qs = bf16(q *
+//     qscale), the shared-memory B operand of the transposed scores; then
+//     each warpgroup takes dk and dv of its 64 keys (K Qs^T, V dO^T, then
+//     pT dO and dsT Q by wgmma, p and ds repacked in registers as A) and dq
+//     of its 64 queries (Qs K^T, dO V^T, then ds K). At D = 128, or with two
+//     warpgroups at D = 64 (two CTAs an SM, 112 registers a thread), dk and
+//     dv take separate passes that each compute the scores. Rows of 65..80
+//     tokens (text at 77), and cases whose (row, head) items are no more
+//     than the SMs (or than four an SM where the two passes run), keep the
+//     delta pre-pass and the row kernel below, which were faster there
+//     (PERF.md);
+//   * otherwise a pre-pass writes delta [B, H, L] f32 (read once from out
+//     and dout);
 //   * the row kernel takes one CTA per (row, head) and copies the whole
 //     row's Q, K, V and dO into shared memory once (rows padded by 16 bytes
 //     for conflict-free ldmatrix). Warp w owns the 16-token blocks w, w +
@@ -38,8 +57,8 @@
 //     owner, so there are no atomics and the result does not depend on
 //     scheduling. Causal work per key block falls with its index and per
 //     query block rises, so every warp's sum is the same. Rows of at most
-//     128 tokens (every row of the ViT-B/32 train step) take one warp a block
-//     (at most 8). Longer rows take it under the launch plan
+//     128 tokens take one warp a block (at most 8). Longer rows take it
+//     under the launch plan
 //     (attention.py::bwd_long_row_plan) where the row fits a CTA's shared
 //     memory. The kernel's time falls with the warps an SM holds (its
 //     blocks are chains of ldmatrix, mma and exp2 that one warp cannot
@@ -59,11 +78,12 @@
 //     64-query tiles for dk and dv, and one per (row, head, 64-query tile)
 //     streams 64-key tiles for dq (Q, K, V and dO re-read from L2 by every
 //     tile CTA, the scores computed in both);
-//   * scores, p and ds live in mma accumulators, 16 x 16 at a time, and are
-//     repacked in registers as the A operand of the next product, so neither
-//     p nor ds touches shared memory; every q, k, v and do fragment is
-//     reloaded with ldmatrix for each block rather than held, which keeps
-//     D = 128 within registers beside its 128 accumulators;
+//   * in the row and tile kernels, scores, p and ds live in mma
+//     accumulators, 16 x 16 at a time, and are repacked in registers as the
+//     A operand of the next product, so neither p nor ds touches shared
+//     memory; every q, k, v and do fragment is reloaded with ldmatrix for
+//     each block rather than held, which keeps D = 128 within registers
+//     beside its 128 accumulators;
 //   * the ragged edge is zero-filled to a multiple of 16 and masked, so
 //     tokens beyond L contribute exactly 0; causal warps skip the 16 x 16
 //     blocks above the diagonal;
@@ -71,23 +91,24 @@
 //     cotangent is zero on the train path and their rows stay finite, since
 //     every row keeps its diagonal.
 // The phases recompute the scores once each (compute is cheap here); wgmma,
-// TMA and software pipelining are left for later work.
+// TMA and software pipelining of the long rows are left for later work.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing (the caller passes
-// the delta scratch [B, H, L] f32), and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a launch plan it cannot run.
+// the delta scratch [B, H, L] f32, which the ring leaves unused), and
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a launch plan it
+// cannot run.
 
 #include <climits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace latteclip;
 
-// Rows of at most SHORT_ROW tokens take the row kernel with no plan, longer
-// ones follow their plan. Building with -DLATTECLIP_BWD_SHORT_ROW=0 sends
+// Rows of at most SHORT_ROW tokens take the ring or the row kernel under
+// their plan, longer ones follow theirs. Building with -DLATTECLIP_BWD_SHORT_ROW=0 sends
 // every row, short or long, to the tiled pair whatever the plan says, which
 // chip_smoke.py times beside the row kernel.
 #ifndef LATTECLIP_BWD_SHORT_ROW
@@ -515,6 +536,350 @@ __global__ void __launch_bounds__(4 * 32)
   store_rows<D>(row, 0, q0, dq);
 }
 
+// ---- rows of at most 128 tokens: persistent CTAs fed by a TMA ring ----------
+
+constexpr int RING_MAX_STAGES = 4;
+
+// Shared memory of the ring kernel (attention.py::bwd_short_row_smem_bytes
+// mirrors it): 1 KB to align the swizzled tiles, then per stage Q, K, V, dO
+// and out of one (row, head), D / 64 panels of `box` token rows x 128 B each,
+// then per stage lse2, delta and (SEG) the seg ids of the box's tokens, then
+// the full and empty mbarriers.
+template <int D>
+constexpr size_t ring_smem_bytes(int box, int stages, bool seg) {
+  return SW128_ALIGN + (size_t)stages * (5 * D * box * 2 + (seg ? 12 : 8) * box) + 16 * (size_t)stages;
+}
+
+// Round the 16 accumulator rows of a warp (rows r_a = lane / 4 and r_b =
+// r_a + 8 of the (row, head)) to bf16 and store those below L into part
+// `part` of dqkv (0 dq, 1 dk, 2 dv; `base` is dq of token 0, `tok` the
+// elements between tokens).
+template <int D>
+__device__ __forceinline__ void store_part(const float (&acc)[D / 2], __nv_bfloat16* base, int part,
+                                           int HD, long tok, int r_a, int r_b, int L, int lane) {
+  uint32_t a[D / 8], b[D / 8];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    a[j] = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    b[j] = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __nv_bfloat16* p = base + (long)part * HD;
+  store_rows_bf16<D / 8>(a, b, r_a < L ? p + r_a * tok : nullptr, r_b < L ? p + r_b * tok : nullptr,
+                         lane);
+}
+
+// dst (+)= A . B with A a 64 x 16 fragment in registers and B the MN-major
+// D-wide rows of a tile at `addr` (16 rows of the reduction), N = D.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t addr,
+                                           uint32_t panel) {
+  const uint64_t db = sw128_mn_desc(addr, panel);
+  if constexpr (D == 64)
+    wgmma_rs64<1>(d, a, db, 1);
+  else
+    wgmma_rs128<1>(d, a, db, 1);
+}
+
+// wgmma_ss with N = C (32 or 64), B K-major.
+template <int C, int K>
+__device__ __forceinline__ void wgmma_ss_c(float (&d)[K], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(C == 32 || C == 64, "chunks of 32 or 64");
+  if constexpr (C == 32)
+    wgmma_ss32<0>(d, da, db, scale_d);
+  else
+    wgmma_ss64<0>(d, da, db, scale_d);
+}
+
+// Phase 1 of the ring kernel for one warpgroup, owning keys 64 wg ..
+// 64 wg + 63 (accumulator rows r_a, r_b): over 32-query chunks, sT = K Qs^T
+// (and, for dk, dpT = V dO^T) by wgmma from shared memory, then p (and ds)
+// of each (key, query) in registers, then dv += pT dO (DV) and dk += dsT Q
+// (DK) with pT and dsT as register A operands and dO and Q read MN-major.
+// The tiles are the stage's Q (qb), K, V, dO and Qs at those addresses; sl,
+// sd and ss its lse2, delta and seg ids.
+template <int D, int C, bool SEG, bool CAUSAL, bool DK, bool DV>
+__device__ __forceinline__ void dkdv_pass(float (&dk)[D / 2], float (&dv)[D / 2], uint32_t kb,
+                                          uint32_t vb, uint32_t dob, uint32_t qb, uint32_t qsb,
+                                          const float* sl, const float* sd, const int* ss, int wg,
+                                          int r_a, int r_b, int L, int rows, float scale) {
+  constexpr int PANEL_ROWS = 64 * SW128_ROW;  // a warpgroup's 64 rows of a panel
+  const int panel = (rows > 64 ? 128 : 64) * SW128_ROW;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    if (DK) dk[i] = 0.f;
+    if (DV) dv[i] = 0.f;
+  }
+  int segk[2] = {0, 0};
+  if (SEG) {
+    segk[0] = ss[r_a];
+    segk[1] = ss[r_b];
+  }
+  // every wgmma has a fixed shape and runs unconditionally (see the forward's
+  // ring kernel); queries past L are zeros and masked
+  for (int qc = CAUSAL ? wg * 64 : 0; qc < rows; qc += C) {
+    float st[C / 2], dpt[C / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t pan = (kk / 4) * panel, k2 = 2 * (kk % 4);
+      wgmma_ss_c<C>(st, sw128_desc(kb + pan + wg * PANEL_ROWS) + k2,
+                    sw128_desc(qsb + pan + qc * SW128_ROW) + k2, kk > 0);
+      if constexpr (DK)
+        wgmma_ss_c<C>(dpt, sw128_desc(vb + pan + wg * PANEL_ROWS) + k2,
+                      sw128_desc(dob + pan + qc * SW128_ROW) + k2, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    // pT and dsT: rows are keys, columns queries
+    uint32_t pa[C / 16][4], da[C / 16][4];
+#pragma unroll
+    for (int jb = 0; jb < C / 8; ++jb) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = qc + jb * 8 + 2 * t + (e & 1);
+        const int k = e < 2 ? r_a : r_b;
+        bool visible = q < L && k < L;
+        if (CAUSAL) visible = visible && k <= q;
+        if (SEG) visible = visible && ss[q] == segk[e / 2];
+        p[e] = visible ? exp2_approx(st[4 * jb + e] - sl[q]) : 0.f;
+        ds[e] = p[e] * (dpt[4 * jb + e] - sd[q]) * scale;
+      }
+      pa[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      da[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      da[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < C / 16; ++c) {
+      const uint32_t row = (qc + 16 * c) * SW128_ROW;
+      if constexpr (DV) wgmma_rs_d<D>(dv, pa[c], dob + row, panel);
+      if constexpr (DK) wgmma_rs_d<D>(dk, da[c], qb + row, panel);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+}
+
+// CTAs an SM that the ring kernel's registers must allow (its time falls
+// with the warpgroups an SM holds): two at D = 64, 112 registers a thread
+// with two warpgroups a CTA, where dk and dv then take separate passes;
+// with one warpgroup, or at D = 128, where one CTA holds the SM
+// (two passes, 168 registers).
+__host__ __device__ constexpr int ring_min_ctas(int D, int NWG) { return D == 64 || NWG == 1 ? 2 : 1; }
+
+// dk and dv in two passes over the queries (one D-wide accumulator live at a
+// time) where the registers of ring_min_ctas CTAs an SM do not hold both.
+__host__ __device__ constexpr bool ring_two_passes(int D, int NWG) { return D == 128 || NWG == 2; }
+
+// NWG consumer warpgroups (one for rows of at most 64 tokens, two up to 128),
+// then one producer warp. CTA x takes the (row, head) items x, x + gridDim.x,
+// ...; the producer keeps them in flight through `stages` ring slots, each
+// holding Q, K, V, dO and out of one item as TMA boxes of 64 * NWG token rows
+// (zeros past L) in the 128-byte swizzle, with lse2 and the seg ids loaded by
+// its lanes. Per item the consumers first take delta = rowsum(f32(dO) *
+// f32(out)), two threads a row, and overwrite out in place with Qs = bf16(q
+// * qscale), the B operand of the transposed scores; then warpgroup w
+//   1. owns keys 64w..64w+63 (dkdv_pass): over 32-query chunks, sT = K Qs^T
+//      and dpT = V dO^T by wgmma from shared memory, p and ds in registers,
+//      then dv += pT dO and dk += dsT Q with pT and dsT as register A
+//      operands and dO and Q read MN-major; it stores dk and dv;
+//   2. owns queries 64w..64w+63: over C-key chunks, s = Qs K^T and
+//      dp = dO V^T, ds, then dq += ds K; it releases the slot and stores dq.
+// Each gradient row has one owner: no atomics, and the result does not
+// depend on scheduling.
+template <int D, int NWG, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(NWG * 128 + 32, ring_min_ctas(D, NWG))
+    flash_bwd_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                          const __grid_constant__ CUtensorMap out_map,
+                          const __grid_constant__ CUtensorMap dout_map, const int* __restrict__ seg,
+                          const float* __restrict__ lse, __nv_bfloat16* __restrict__ dqkv, int B,
+                          int L, int H, float qscale, float scale, Layout layout, int stages) {
+  constexpr int BOX = 64 * NWG;           // token rows of a box
+  constexpr int P = D / 64;               // 64-value panels of one head
+  constexpr int PANEL = BOX * SW128_ROW;  // bytes of one panel
+  constexpr int TILE_BYTES = P * PANEL;   // one tile of one item
+  constexpr int STAGE = 5 * TILE_BYTES;   // Q, K, V, dO, out (then Qs)
+  constexpr int CONSUMERS = NWG * 128;
+  constexpr int KSTEPS = D / 16;
+  constexpr int C1 = 32;                               // queries a product chunk of phase 1
+  constexpr int C = ring_two_passes(D, NWG) ? 32 : 64;  // keys a product chunk of phase 2
+  constexpr int WG_ROWS = 64 * SW128_ROW;  // bytes of a warpgroup's 64 rows of a panel
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  float* slse = reinterpret_cast<float*>(ring + (size_t)stages * STAGE);
+  float* sdelta = slse + stages * BOX;
+  int* sseg = reinterpret_cast<int*>(sdelta + stages * BOX);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sseg + (SEG ? stages * BOX : 0));
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int items = B * H;
+  const int HD = H * D;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp
+    const int lane = tid % 32;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int s = n % stages;
+      if (n >= stages) mbar_wait(&empty[s], (n / stages - 1) & 1);
+      const int b = item / H, h = item % H;
+      const float* lrow = lse + (layout.split ? (long)h * layout.B + b : (long)b * H + h) * L;
+      for (int i = lane; i < BOX; i += 32) {
+        slse[s * BOX + i] = i < L ? lrow[i] : 0.f;
+        if (SEG) sseg[s * BOX + i] = i < L ? seg[(long)b * L + i] : -2;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* dst = ring + (size_t)s * STAGE;
+        for (int p = 0; p < P; ++p) {
+          const int col = h * D + p * 64;
+          for (int part = 0; part < 3; ++part)  // q, k, v
+            tma_load_3d(dst + part * TILE_BYTES + p * PANEL, &qkv_map, &full[s], part * HD + col, 0, b);
+          tma_load_3d(dst + 3 * TILE_BYTES + p * PANEL, &dout_map, &full[s], col, 0, b);
+          tma_load_3d(dst + 4 * TILE_BYTES + p * PANEL, &out_map, &full[s], col, 0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = wg * 64 + (warp % 4) * 16 + g, r_b = r_a + 8;  // this thread's accumulator rows
+  const int rows = round16(L);
+  const uint32_t ring_base = smem_addr(ring);
+  const long tok = 3L * HD;  // elements between tokens of dqkv
+
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int s = n % stages;
+    const int b = item / H, h = item % H;
+    const uint32_t qb = ring_base + s * STAGE, kb = qb + TILE_BYTES, vb = kb + TILE_BYTES,
+                   dob = vb + TILE_BYTES, qsb = dob + TILE_BYTES;
+    unsigned char* const stage = ring + (size_t)s * STAGE;
+    const float* sl = slse + s * BOX;
+    float* sd = sdelta + s * BOX;
+    const int* ss = sseg + s * BOX;
+    mbar_wait(&full[s], (n / stages) & 1);
+
+    // delta of row r from threads 2r and 2r + 1, each half the row's 16-byte
+    // chunks in order; each overwrites its chunks of out with Qs.
+    {
+      const int r = tid / 2, half = tid % 2;
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+        const int chunk = half * (D / 16) + i;
+        const uint32_t off = (chunk / 8) * PANEL + sw128_offset(r, chunk % 8);
+        const uint4 o4 = *reinterpret_cast<const uint4*>(stage + 4 * TILE_BYTES + off);
+        const uint4 g4 = *reinterpret_cast<const uint4*>(stage + 3 * TILE_BYTES + off);
+        const uint4 q4 = *reinterpret_cast<const uint4*>(stage + off);
+        const uint32_t o[4] = {o4.x, o4.y, o4.z, o4.w}, gr[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fo = __bfloat1622float2(as_bf162(o[e]));
+          const float2 fg = __bfloat1622float2(as_bf162(gr[e]));
+          acc += fg.x * fo.x;
+          acc += fg.y * fo.y;
+        }
+        *reinterpret_cast<uint4*>(stage + 4 * TILE_BYTES + off) =
+            make_uint4(scale_bf16x2(q4.x, qscale), scale_bf16x2(q4.y, qscale),
+                       scale_bf16x2(q4.z, qscale), scale_bf16x2(q4.w, qscale));
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) sd[r] = acc;
+    }
+    fence_proxy_async();  // Qs, written by the threads, is read by wgmma
+    named_barrier(1, CONSUMERS);
+
+    __nv_bfloat16* base = dqkv + (long)b * L * tok + (long)h * D;
+
+    // 1. dk and dv of keys r_a, r_b, over the queries that can see them: in
+    //    one pass, or dv and then dk, each pass taking the scores again
+    if constexpr (!ring_two_passes(D, NWG)) {
+      float dk[D / 2], dv[D / 2];
+      dkdv_pass<D, C1, SEG, CAUSAL, true, true>(dk, dv, kb, vb, dob, qb, qsb, sl, sd, ss, wg, r_a, r_b, L,
+                                            rows, scale);
+      store_part<D>(dk, base, 1, HD, tok, r_a, r_b, L, lane);
+      store_part<D>(dv, base, 2, HD, tok, r_a, r_b, L, lane);
+    } else {
+      float acc[D / 2];
+      dkdv_pass<D, C1, SEG, CAUSAL, false, true>(acc, acc, kb, vb, dob, qb, qsb, sl, sd, ss, wg, r_a, r_b,
+                                             L, rows, scale);
+      store_part<D>(acc, base, 2, HD, tok, r_a, r_b, L, lane);
+      dkdv_pass<D, C1, SEG, CAUSAL, true, false>(acc, acc, kb, vb, dob, qb, qsb, sl, sd, ss, wg, r_a, r_b,
+                                             L, rows, scale);
+      store_part<D>(acc, base, 1, HD, tok, r_a, r_b, L, lane);
+    }
+
+    // 2. dq of queries r_a, r_b, over the keys they can see
+    {
+      const float lse_q[2] = {sl[r_a], sl[r_b]}, delta_q[2] = {sd[r_a], sd[r_b]};
+      int segq[2] = {0, 0};
+      if (SEG) {
+        segq[0] = ss[r_a];
+        segq[1] = ss[r_b];
+      }
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      const int k_end = CAUSAL ? min(rows, (wg + 1) * 64) : rows;
+      for (int kc = 0; kc < k_end; kc += C) {  // keys past L are zeros and masked
+        float sc[C / 2], dp[C / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const uint32_t pan = (kk / 4) * PANEL, k2 = 2 * (kk % 4);
+          wgmma_ss_c<C>(sc, sw128_desc(qsb + pan + wg * WG_ROWS) + k2,
+                        sw128_desc(kb + pan + kc * SW128_ROW) + k2, kk > 0);
+          wgmma_ss_c<C>(dp, sw128_desc(dob + pan + wg * WG_ROWS) + k2,
+                        sw128_desc(vb + pan + kc * SW128_ROW) + k2, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        uint32_t da[C / 16][4];
+#pragma unroll
+        for (int jb = 0; jb < C / 8; ++jb) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = kc + jb * 8 + 2 * t + (e & 1);
+            const int q = e < 2 ? r_a : r_b;
+            bool visible = q < L && k < L;
+            if (CAUSAL) visible = visible && k <= q;
+            if (SEG) visible = visible && ss[k] == segq[e / 2];
+            const float p = visible ? exp2_approx(sc[4 * jb + e] - lse_q[e / 2]) : 0.f;
+            ds[e] = p * (dp[4 * jb + e] - delta_q[e / 2]) * scale;
+          }
+          da[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+          da[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < C / 16; ++c) wgmma_rs_d<D>(dq, da[c], kb + (kc + 16 * c) * SW128_ROW, PANEL);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      if (tid % 128 == 0) mbar_arrive(&empty[s]);  // this warpgroup is done with the slot
+      store_part<D>(dq, base, 0, HD, tok, r_a, r_b, L, lane);
+    }
+  }
+}
+
 template <typename Kernel>
 int launch_kernel(Kernel kernel, bool (&allowed)[MAX_DEVICES], long blocks, int threads,
                   size_t smem, size_t smem_max, const void* qkv, const void* seg,
@@ -531,12 +896,46 @@ int launch_kernel(Kernel kernel, bool (&allowed)[MAX_DEVICES], long blocks, int 
   return (int)cudaGetLastError();
 }
 
+// The ring kernel on `grid` persistent CTAs with `stages` ring slots.
+template <int D, int NWG, bool SEG, bool CAUSAL>
+int launch_ring(const void* qkv, const void* seg, const void* out, const void* dout,
+                const void* lse, void* dqkv, int B, int L, int H, float qscale, float scale,
+                Layout layout, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_bwd_ring_kernel<D, NWG, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, SMEM_MAX, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = ring_smem_bytes<D>(64 * NWG, stages, SEG);
+  if ((long)B * H > INT_MAX || grid < 1 || stages < 1 || stages > RING_MAX_STAGES ||
+      smem > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  // qkv as [B][L][3 * H * D], out and dout as [B][L][H * D]: box rows past L read as zeros
+  CUtensorMap qkv_map, out_map, dout_map;
+  const uint64_t qkv_dims[3] = {(uint64_t)3 * H * D, (uint64_t)L, (uint64_t)B};
+  const uint64_t o_dims[3] = {(uint64_t)H * D, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&qkv_map, qkv, 3, qkv_dims, 64 * NWG) ||
+      !tensor_map_bf16(&out_map, out, 3, o_dims, 64 * NWG) ||
+      !tensor_map_bf16(&dout_map, dout, 3, o_dims, 64 * NWG))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
+      qkv_map, out_map, dout_map, static_cast<const int*>(seg), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dqkv), B, L, H, qscale, scale, layout, stages);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool SEG, bool CAUSAL>
 int launch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
            void* delta, void* dqkv, int B, int L, int H, float qscale, float scale, bool split,
            int warps, int resident, cudaStream_t s) {
   const Layout layout{B, split};
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (!TILED_ONLY && L <= SHORT_ROW && warps > 0) {  // the ring: grid `warps`, stages `resident`
+    if (L <= 64)
+      return launch_ring<D, 1, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale,
+                                            layout, warps, resident, s);
+    return launch_ring<D, 2, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale,
+                                          layout, warps, resident, s);
+  }
   const long n = (long)B * L * H;
   const long delta_blocks = (n + DELTA_THREADS - 1) / DELTA_THREADS;
   if (delta_blocks > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -583,10 +982,13 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
                        bytes, qkv, seg, dout, lse, delta, dqkv, L, H, qscale, scale, layout, s);
 }
 
-// warps and resident: the launch plan of rows longer than SHORT_ROW tokens
+// warps and resident: the launch plan. For rows longer than SHORT_ROW tokens
 // (attention.py::bwd_long_row_plan): resident = 1 runs the row kernel with
 // `warps` warps in padded rows, 2 in unpadded swizzled rows (D = 64, two CTAs
-// an SM), 0 the tiled pair. Ignored for shorter rows.
+// an SM), 0 the tiled pair. For shorter rows (attention.py::bwd_short_row_plan):
+// `warps` is the ring's grid of persistent CTAs and `resident` its stages;
+// a grid of 0 runs the delta pre-pass and the one-CTA-per-(row, head) row
+// kernel.
 template <bool SEG>
 int dispatch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
              void* delta, void* dqkv, int B, int L, int H, int D, int causal, float qscale,

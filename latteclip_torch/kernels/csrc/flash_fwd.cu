@@ -17,7 +17,8 @@
 // denominator is the f32 sum of those bf16 values; out = (P V in f32) / l.
 // p is rounded against the maximum of the whole row, as on the TPU (an
 // online softmax would round it against a running maximum and move lse2 by
-// up to ~2e-3). Only the f32 summation order differs.
+// up to ~2e-3). Only the f32 summation order differs (and, on the long
+// rows, exp2 is ex2.approx, ~2^-22 relative, well below p's bf16 rounding).
 //
 // The head-split kernel computes the same function. On the TPU its grid
 // also ranges over groups of HP = 128/D heads so that each program copies
@@ -33,7 +34,8 @@
 // matrix unit's latency; that is a device of the TPU, so the port computes
 // the same function on the one-CTA-per-(row, head) short-row design, where
 // a warp holds its rows' every score in registers and l is complete before
-// p is rounded.
+// p is rounded (the short-row ring below was 4-27% slower with this
+// rounding at head width 64, PERF.md).
 //
 // Bound. Every case the towers give these kernels is memory-bound: text at
 // B=1000, L=77, H=8, D=64 does 12.1 GFLOP (4*B*H*L^2*D) against about
@@ -45,11 +47,25 @@
 // from device memory, to keep scores and probabilities on chip, and to keep
 // copies in flight while the tensor cores work:
 //   * rows of at most 128 tokens (ViT-B/32 vision at 50, its image pairs at
-//     100, text at 77, packed text at 128) take one CTA per (row, head) with
-//     one warp per 16 query rows, and hold the whole row's K and V in shared
-//     memory: q, k and v are each read once, and the scores of a warp's 16
-//     rows against every key stay in registers, so the row maximum is exact
-//     in one pass;
+//     100, packed text at 128) take flash_fwd_ring_kernel: persistent CTAs,
+//     each walking (row, head) items with one producer warp that keeps the
+//     items' Q, K and V in flight by TMA (boxes of 64 or 128 token rows, zeros
+//     past L, in the 128-byte swizzle) through a ring of full/empty mbarrier
+//     slots, and one consumer warpgroup per 64 query rows that takes S = Qs
+//     K^T and P V with wgmma, Qs and p in registers, K and V (MN-major) in
+//     shared memory. Every score of a row stays in registers, so the row
+//     maximum is exact in one pass; the slot is released when P V retires,
+//     so the next item's copy overlaps the epilogue. An item's time is one
+//     chain of products, masks and exp2 per warpgroup, so the time falls
+//     with the warpgroups an SM holds: the launch plan
+//     (attention.py::short_row_plan) runs as many CTAs an SM as the
+//     registers allow (four of one warpgroup at D=64, two of two), with one
+//     stage each, and every wgmma has a fixed shape (a wgmma behind a branch
+//     made ptxas serialise them all). Rows of 65..96 tokens (text at 77),
+//     and the block-diagonal kernel's rows, keep flash_fwd_kernel, one CTA
+//     per (row, head) with one warp per 16 query rows and K and V of the
+//     row in shared memory: at 65..96 tokens the ring's second warpgroup
+//     would spend most of its work on padding;
 //   * longer rows (ViT-B/16 at 197, 336 px at 577) take flash_fwd_long_kernel.
 //     Its CTA holds K and V of the whole row in shared memory (the
 //     "resident" form: 59,904 B at D=64, L=197; 113,152 B at D=128, L=197;
@@ -83,10 +99,12 @@
 //   * Q, K and V move with 16-byte cp.async copies; the ragged edge is
 //     zero-filled to a multiple of 16 keys and masked, so keys beyond L
 //     contribute exactly 0; blocks of 16 keys past the edge are skipped;
-//   * products run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate); shared-memory rows are padded by 16 bytes so that the
-//     ldmatrix reads are free of bank conflicts; the output goes back
-//     through shared memory so that it too is stored 16 bytes a thread;
+//   * the long-row and one-CTA kernels run their products on the tensor
+//     cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); shared-memory
+//     rows are padded by 16 bytes so that the ldmatrix reads are free of
+//     bank conflicts; the output goes back through shared memory so that it
+//     too is stored 16 bytes a thread (the ring stores 16 bytes a lane after
+//     a transpose within each quad of lanes);
 //   * causal CTAs stop at the last key their rows can see; every causal or
 //     segment row keeps its own diagonal, so its maximum is finite.
 // What bounds the long-row kernel is not settled (no profiler runs on the
@@ -95,7 +113,7 @@
 // builds that dropped the first pass or the exp2, prefetched the next (row,
 // head) into a second buffer, or gave each warp 32-row tiles (half the
 // ldmatrix reads) were not faster. wgmma, TMA multicast across a cluster
-// and warp specialisation are left for later work.
+// and warp specialisation are left for later work on the long rows.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -105,7 +123,7 @@
 #include <climits>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -347,6 +365,238 @@ __global__ void __launch_bounds__(SHORT_THREADS, D == 64 || BLOCK_N == SHORT_ROW
   }
 }
 
+// ---- rows of at most 128 tokens: persistent CTAs fed by a TMA ring ----------
+
+constexpr int RING_MAX_STAGES = 4;
+
+// Shared memory of the ring kernel (attention.py::short_row_smem_bytes
+// mirrors it): 1 KB to align the swizzled tiles, then per stage Q, K and V of
+// one (row, head), D / 64 panels of `box` token rows x 128 B each, then the
+// stages' seg ids (SEG) and the full and empty mbarriers.
+template <int D>
+constexpr size_t ring_smem_bytes(int box, int stages, bool seg) {
+  return SW128_ALIGN + (size_t)stages * (3 * D * box * 2 + (seg ? box * 4 : 0)) + 16 * (size_t)stages;
+}
+
+// CTAs an SM that the ring kernel's registers must allow: the time of a
+// ring falls with the warpgroups an SM holds (each item's products, masks
+// and exp2 are one dependent chain per warpgroup), so at D = 64 one
+// warpgroup's CTAs take at most 102 registers a thread (four an SM) and two
+// warpgroups' at most 112 (two an SM, though ptxas then serialises the
+// wgmma for want of registers: still faster than one CTA); at D = 128 one
+// warpgroup's take two an SM and two warpgroups' one.
+__host__ __device__ constexpr int ring_min_ctas(int D, int NWG) {
+  return NWG == 1 ? (D == 64 ? 4 : 2) : (D == 64 ? 2 : 1);
+}
+
+// NWG consumer warpgroups (one for rows of at most 64 tokens, two up to 128),
+// each owning 64 query rows, then one producer warp. CTA x takes the (row,
+// head) items x, x + gridDim.x, ...; the producer keeps them in flight
+// through `stages` ring slots, each holding Q, K and V of one item as TMA
+// boxes of 64 * NWG token rows (zeros past L) in the 128-byte swizzle. Per
+// item a warpgroup loads its Q fragments (scaled by qscale in f32, rounded
+// to bf16), takes S = Qs K^T with wgmma (Qs in registers, K from shared
+// memory, every key of the box), masks S, takes the exact row maxima in
+// registers, forms p (exp2 only on the 16-key chunks its rows can see), and
+// takes P V with a second wgmma (p repacked in registers as A, V read
+// MN-major). It releases the slot as
+// soon as P V has retired, then stores out and lse2 from registers, so the
+// producer refills the slot while the epilogue runs. lse2[b, h, l] is
+// stored at lse[b * lse_b + h * lse_h + l].
+template <int D, int NWG, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(NWG * 128 + 32, ring_min_ctas(D, NWG))
+    flash_fwd_ring_kernel(const __grid_constant__ CUtensorMap qkv_map, const int* __restrict__ seg,
+                          bf16* __restrict__ out, float* __restrict__ lse, int B, int L, int H,
+                          float qscale, long lse_b, long lse_h, int stages) {
+  constexpr int BOX = 64 * NWG;           // token rows of a box
+  constexpr int P = D / 64;               // 64-value panels of one head
+  constexpr int PANEL = BOX * SW128_ROW;  // bytes of one panel
+  constexpr int TILE_BYTES = P * PANEL;   // Q, K or V of one item
+  constexpr int STAGE = 3 * TILE_BYTES;
+  constexpr int CONSUMERS = NWG * 128;
+  constexpr int KSTEPS = D / 16;
+  constexpr int CHUNKS = BOX / 16;        // 16-key chunks of a box
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  int* sseg = reinterpret_cast<int*>(ring + (size_t)stages * STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sseg + (SEG ? stages * BOX : 0));
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int items = B * H;
+  const int HD = H * D;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp
+    const int lane = tid % 32;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int s = n % stages;
+      if (n >= stages) mbar_wait(&empty[s], (n / stages - 1) & 1);
+      const int b = item / H, h = item % H;
+      if (SEG) {  // the item's seg ids, -2 past L, by the warp's lanes
+        for (int i = lane; i < BOX; i += 32) sseg[s * BOX + i] = i < L ? seg[(long)b * L + i] : -2;
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* dst = ring + (size_t)s * STAGE;
+        for (int part = 0; part < 3; ++part)  // q, k, v
+          for (int p = 0; p < P; ++p)
+            tma_load_3d(dst + part * TILE_BYTES + p * PANEL, &qkv_map, &full[s], part * HD + h * D + p * 64,
+                        0, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = wg * 64 + (warp % 4) * 16 + g, row_b = row_a + 8;
+  const int rows = round16(L);
+  // the 16-key chunks this warpgroup's rows can see; causal rows stop at the diagonal
+  const int nch = (CAUSAL ? min(rows, (wg + 1) * 64) : rows) / 16;
+  const int qr = wg * 64 + (warp % 4) * 16 + a_row(lane);  // this lane's ldmatrix row of Q
+  const uint32_t ring_base = smem_addr(ring);
+  const float neg_inf = __int_as_float(0xff800000);
+
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int s = n % stages;
+    const int b = item / H, h = item % H;
+    const uint32_t qbase = ring_base + s * STAGE, kbase = qbase + TILE_BYTES, vbase = kbase + TILE_BYTES;
+    const int* ss = sseg + s * BOX;
+    mbar_wait(&full[s], (n / stages) & 1);
+
+    // Q fragments of this warp's 16 rows, scaled by qscale in f32 and rounded
+    // to bf16, as the TPU kernel scales q.
+    uint32_t qf[KSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      ldmatrix_x4_at(qf[kk], qbase + (kk / 4) * PANEL + sw128_offset(qr, (kk % 4) * 2 + lane / 16));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qf[kk][e] = scale_bf16x2(qf[kk][e], qscale);
+    }
+
+    // S = Qs K^T over the box's keys, 64 keys (one accumulator half) at a
+    // time. Every wgmma of the item has a fixed shape and runs unconditionally:
+    // a wgmma behind a branch or of a shape chosen at run time makes ptxas
+    // serialise the pipeline. Keys past the visible ones are zeros or masked.
+    float sc[NWG][32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t kp = kbase + (kk / 4) * PANEL;
+#pragma unroll
+      for (int hk = 0; hk < NWG; ++hk)
+        wgmma_rs64<0>(sc[hk], qf[kk], sw128_desc(kp + hk * 64 * SW128_ROW) + 2 * (kk % 4), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // Masks and the exact row maxima over every key.
+    int seg_a = 0, seg_b = 0;
+    if (SEG) {
+      seg_a = row_a < L ? ss[row_a] : -1;
+      seg_b = row_b < L ? ss[row_b] : -1;
+    }
+    float m_row[2] = {neg_inf, neg_inf};
+#pragma unroll
+    for (int hk = 0; hk < NWG; ++hk)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int j0 = hk * 64 + jb * 8 + 2 * t;  // this lane's two keys of the block
+        int2 sk = make_int2(0, 0);
+        if (SEG) sk = *reinterpret_cast<const int2*>(&ss[j0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + (e & 1);
+          bool visible = j < L;
+          if (CAUSAL) visible = visible && j <= (e < 2 ? row_a : row_b);
+          if (SEG) visible = visible && (e & 1 ? sk.y : sk.x) == (e < 2 ? seg_a : seg_b);
+          if (!visible) sc[hk][4 * jb + e] = MASKED;
+          m_row[e / 2] = fmaxf(m_row[e / 2], sc[hk][4 * jb + e]);
+        }
+      }
+    m_row[0] = quad_max(m_row[0]);
+    m_row[1] = quad_max(m_row[1]);
+
+    // p = bf16(exp2(s - m)), l = the f32 sum of those bf16 values. Chunks
+    // past the visible ones hold masked scores only: p is 0 there.
+    float l_run[2] = {0.f, 0.f};
+    uint32_t pf[CHUNKS][4];
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = (c % 4) * 8 + half * 4;
+        __nv_bfloat162 pa = __floats2bfloat162_rn(0.f, 0.f), pb = pa;
+        if (c < nch) {
+          pa = __floats2bfloat162_rn(exp2f(sc[c / 4][i] - m_row[0]), exp2f(sc[c / 4][i + 1] - m_row[0]));
+          pb = __floats2bfloat162_rn(exp2f(sc[c / 4][i + 2] - m_row[1]), exp2f(sc[c / 4][i + 3] - m_row[1]));
+        }
+        const float2 fa = __bfloat1622float2(pa), fb = __bfloat1622float2(pb);
+        l_run[0] += fa.x + fa.y;
+        l_run[1] += fb.x + fb.y;
+        pf[c][half * 2 + 0] = as_u32(pa);
+        pf[c][half * 2 + 1] = as_u32(pb);
+      }
+
+    // acc = P V over the box's keys (p is 0 past the visible ones): V is the
+    // MN-major B, 16 key rows a k-step.
+    float acc[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const uint64_t db = sw128_mn_desc(vbase + c * 16 * SW128_ROW, PANEL);
+      if constexpr (D == 64)
+        wgmma_rs64<1>(acc, pf[c], db, c > 0);
+      else
+        wgmma_rs128<1>(acc, pf[c], db, c > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (tid % 128 == 0) mbar_arrive(&empty[s]);  // the slot is free: the epilogue reads registers only
+
+    // out = acc / l in bf16, 16 bytes a lane; the quotient correctly
+    // rounded, as IEEE division gives it, from the row's correctly rounded
+    // reciprocal and one exact FMA residual
+    float rcp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = quad_sum(l_run[r]);
+      rcp[r] = __frcp_rn(l_run[r]);
+    }
+    auto finish = [&](float a, int r) {
+      const float q = a * rcp[r];
+      return fmaf(fmaf(-q, l_run[r], a), rcp[r], q);
+    };
+    uint32_t oa[D / 8], ob[D / 8];
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      oa[jb] = pack_bf16(finish(acc[4 * jb], 0), finish(acc[4 * jb + 1], 0));
+      ob[jb] = pack_bf16(finish(acc[4 * jb + 2], 1), finish(acc[4 * jb + 3], 1));
+    }
+    bf16* obase = out + (long)b * L * HD + (long)h * D;
+    store_rows_bf16<D / 8>(oa, ob, row_a < L ? obase + (long)row_a * HD : nullptr,
+                           row_b < L ? obase + (long)row_b * HD : nullptr, lane);
+    if (t == 0) {
+      float* lbase = lse + b * lse_b + h * lse_h;
+      if (row_a < L) lbase[row_a] = m_row[0] + log2f(l_run[0]);
+      if (row_b < L) lbase[row_b] = m_row[1] + log2f(l_run[1]);
+    }
+  }
+}
+
 // ---- rows of more than 128 tokens -------------------------------------------
 
 // cp.async.wait_group with a count known only at run time: wait until at
@@ -372,13 +622,6 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
 
 constexpr uint32_t ONES_BF16X2 = 0x3f803f80u;  // two bf16 1.0
 
-// 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
-// flushed to 0), ahead of p's rounding to bf16.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Shared memory of the long-row kernel: the seg ids (SEG) and K and V of the
 // whole row, or of STREAM_SLOTS tiles of TILE keys, then 16 rows a warp for
@@ -718,6 +961,29 @@ int launch_short(const void* qkv, const void* seg, void* out, void* lse, int B, 
   return (int)cudaGetLastError();
 }
 
+// The ring kernel on `grid` persistent CTAs with `stages` ring slots.
+template <int D, int NWG, bool SEG, bool CAUSAL>
+int launch_ring(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                float qscale, bool lse_head_major, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_fwd_ring_kernel<D, NWG, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = ring_smem_bytes<D>(64 * NWG, stages, SEG);
+  if (B <= 0 || H <= 0 || (long)B * H > INT_MAX || grid < 1 || stages < 1 ||
+      stages > RING_MAX_STAGES || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;  // qkv as [B][L][3 * H * D]: box rows past L read as zeros
+  const uint64_t dims[3] = {(uint64_t)3 * H * D, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&map, qkv, 3, dims, 64 * NWG)) return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
+  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
+      map, static_cast<const int*>(seg), static_cast<bf16*>(out), static_cast<float*>(lse), B, L, H,
+      qscale, lse_b, lse_h, stages);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool SEG, bool CAUSAL, bool RESIDENT>
 int launch_long(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
                 float qscale, bool lse_head_major, int warps, int splits, cudaStream_t stream) {
@@ -739,13 +1005,24 @@ int launch_long(const void* qkv, const void* seg, void* out, void* lse, int B, i
   return (int)cudaGetLastError();
 }
 
-// The launch plan (warps, splits, resident) applies to rows of more than
-// SHORT_ROW tokens only.
+// The launch plan: for rows of more than SHORT_ROW tokens (warps, splits,
+// resident) of the long-row kernel; for shorter rows `warps` carries the
+// ring's grid of persistent CTAs and `splits` its stages, and a grid of 0
+// selects the one-CTA-per-(row, head) kernel, which the block-diagonal
+// forward always takes.
 template <int D, bool SEG, bool BD>
 int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
                 int causal, float qscale, bool hm, int warps, int splits, int resident,
                 cudaStream_t s) {
   if (L <= 0) return (int)cudaErrorInvalidValue;
+  if (!BD && L <= SHORT_ROW && warps > 0) {
+    const int grid = warps, stages = splits;
+    if (L <= 64)
+      return causal ? launch_ring<D, 1, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s)
+                    : launch_ring<D, 1, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+    return causal ? launch_ring<D, 2, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s)
+                  : launch_ring<D, 2, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+  }
   if (L <= TILE)
     return causal ? launch_short<D, TILE, SEG, true, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s)
                   : launch_short<D, TILE, SEG, false, BD>(qkv, seg, out, lse, B, L, H, qscale, hm, s);
@@ -779,8 +1056,10 @@ int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int 
 
 }  // namespace
 
-// warps, splits and resident: the launch plan of rows longer than 128 tokens
-// (attention.py::long_row_plan); ignored for shorter rows.
+// warps, splits and resident: the launch plan, attention.py::long_row_plan
+// for rows longer than 128 tokens; for shorter rows attention.py::short_row_plan
+// gives (grid, stages, 0) of the ring kernel, or (0, 0, 0) for the
+// one-CTA-per-(row, head) kernel.
 extern "C" int latteclip_flash_fwd(const void* qkv, void* out, void* lse, int B, int L, int H,
                                    int D, int causal, float qscale, int warps, int splits,
                                    int resident, void* stream) {

@@ -63,145 +63,23 @@
 // (D a multiple of 64, O a multiple of 8, 16-byte aligned x and W; a plan
 // whose tile, stages, splits or shared memory the kernel cannot run).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
 #include <climits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace latteclip;
 
 constexpr int PANEL = 64;           // inputs per panel and per W tile (128 bytes of bf16)
-constexpr int PANEL_BYTES_ROW = 128;
-constexpr int ALIGN = 1024;         // the 128-byte swizzle repeats every 8 rows of 128 B
+constexpr int PANEL_BYTES_ROW = SW128_ROW;
+constexpr int ALIGN = SW128_ALIGN;
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_CHUNKS = 7;       // 16-byte chunks of one row a lane holds: D <= 7 * 256
 constexpr int SMEM_MAX = 232448;    // shared memory a CTA can take on an H100
 
 size_t smem_bytes(int bm, int bn, int D, int stages) {
   return ALIGN + (size_t)bm * D * 2 + (size_t)stages * bn * PANEL_BYTES_ROW + 8 * (2 * stages + 1);
-}
-
-// -- PTX: mbarriers, TMA, wgmma ------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the barrier has completed the phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2D TMA copy of the box at (c0 inner, c1 outer) into dst, reported to bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128 B,
-// 8-row groups 1024 B apart (SBO), the leading offset unused (1), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// acc[32] += A[64 x 16] . B[64 x 16]^T, both K-major SW128 in shared memory;
-// scale_d = 0 overwrites acc instead of adding to it.
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// acc[64] += A[64 x 16] . B[128 x 16]^T, both K-major SW128 in shared memory;
-// scale_d = 0 overwrites acc instead of adding to it.
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
-      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Within each quad of lanes (4q .. 4q + 3), v[j] of lane 4q + k becomes v[k]
-// of lane 4q + j: a 4 x 4 transpose in three shuffles. In round r lane s
-// sends its v[(s + r) % 4] and lane t takes it from lane (t - r) % 4.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int lane) {
-  const int t = lane % 4;
-  uint32_t w[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = (t + r) % 4, k = (t - r + 4) % 4;
-    const uint32_t send = i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-    const uint32_t got = r == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | k);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (r == 0) w[e] = k == e ? got : 0u;
-      else w[e] = k == e ? got : w[e];
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = w[e];
 }
 
 // -- the kernel ----------------------------------------------------------------
@@ -306,8 +184,8 @@ __device__ __forceinline__ void consume(unsigned char* xn, unsigned char* ring, 
   mbar_wait(xbar, 0);
   for (int r = warp; r < BM; r += 2 * NW) layer_norm_rows<BM>(xn, r, r + NW, D, ln_w, ln_b, eps);
   // the generic-proxy stores of xn, before wgmma reads them through the async proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  fence_proxy_async();
+  named_barrier(1, CONSUMERS);
 
   // 2. y = xn . W^T + wb, one BN-column output tile after another
   const int wg = tid / 128;
@@ -329,9 +207,9 @@ __device__ __forceinline__ void consume(unsigned char* xn, unsigned char* ring, 
 #pragma unroll
       for (int kk = 0; kk < PANEL / 16; ++kk) {  // 16 inputs = 32 bytes = 2 descriptor units
         if constexpr (BN == 128)
-          wgmma_n128(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+          wgmma_ss128<0>(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
         else
-          wgmma_n64(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+          wgmma_ss64<0>(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
       }
       wgmma_commit();
       if (kt > 0) {  // the previous stage's products have retired: release it
@@ -401,7 +279,7 @@ __global__ void __launch_bounds__(BM * 2 + 32, 1)
       mbar_init(&empty[s], BM / 64);
     }
     mbar_init(xbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -426,43 +304,6 @@ __global__ void __launch_bounds__(BM * 2 + 32, 1)
 
 // -- host side -----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
-// that the library links against libcudart alone.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err =
-      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
-// A 2D bf16 map of a row-major [outer, inner] tensor, boxes of [box_outer,
-// 64] in the 128-byte swizzle; out-of-range rows read as zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
-  EncodeTiled encode = encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {PANEL, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM, int BN>
 int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* wb, void* y,
            int M, int D, int O, float eps, int n_splits, int stages, cudaStream_t stream) {
@@ -473,7 +314,8 @@ int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, con
   const long blocks = (long)((M + BM - 1) / BM) * n_splits;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, w_map;
-  if (!tensor_map(&x_map, x, D, M, BM) || !tensor_map(&w_map, w, D, O, BN))
+  const uint64_t x_dims[2] = {(uint64_t)D, (uint64_t)M}, w_dims[2] = {(uint64_t)D, (uint64_t)O};
+  if (!tensor_map_bf16(&x_map, x, 2, x_dims, BM) || !tensor_map_bf16(&w_map, w, 2, w_dims, BN))
     return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, BM * 2 + 32, smem_bytes(BM, BN, D, stages), stream>>>(
       x_map, w_map, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),

@@ -8,9 +8,13 @@ JAX-side conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Lengths cover both sides of each dispatch edge of the kernels (one 64-key
-tile up to L=64, one 128-key tile up to L=128, the long-row kernel beyond,
-in its resident and streamed forms) and a ragged edge in each. q and k are
+Lengths cover both sides of each dispatch edge of the kernels (rows of at
+most 128 tokens on the short-row ring, one warpgroup up to L=64 and two up
+to 128, or in the one-CTA-per-(row, head) form, with one 64-key tile up to
+L=64 and one 128-key tile up to 128; the long-row kernel beyond, in its
+resident and streamed forms) and a ragged edge in each; the ring also runs
+on explicit grids that it wraps many times, that do not divide the items,
+and that have one CTA per item. q and k are
 drawn from N(0, 0.3^2), v and the cotangent from N(0, 1).
 Tolerances as in tests/test_torch_attention.py: bf16 out elementwise
 atol = rtol = 2e-2 and, relative to the reference's own size,
@@ -300,6 +304,147 @@ def test_cuda_long_row_backward_refuses_a_plan_it_cannot_take():
                             warps, resident)
         assert err != 0, (L, D, warps, resident)
     torch.cuda.synchronize()
+
+
+def _ring_fwd(name, x, seg, H, causal, grid, stages, lse_shape=None):
+    """A forward entry point called with an explicit short-row ring plan:
+    (error, out, lse2)."""
+    B, L, _ = x.shape
+    D = x.shape[-1] // (3 * H)
+    out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+    lse2 = torch.empty(lse_shape or (B, H, L), device="cuda")
+    tensors = [x, *([] if seg is None else [seg]), out, lse2]
+    err = A._kernel(name)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
+                          (D ** -0.5) * A.LOG2E, grid, stages, 0, torch.cuda.current_stream().cuda_stream)
+    return err, out, lse2
+
+
+def _ring_bwd(name, x, seg, out, dout, lse2, H, causal, grid, stages):
+    """A backward entry point called with an explicit short-row ring plan:
+    (error, dqkv)."""
+    B, L, _ = x.shape
+    D = x.shape[-1] // (3 * H)
+    dqkv = torch.empty_like(x)
+    delta = torch.empty(B, H, L, device="cuda")
+    tensors = [x, *([] if seg is None else [seg]), out, dout, lse2, delta, dqkv]
+    err = A._kernel(name)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
+                          (D ** -0.5) * A.LOG2E, D ** -0.5, grid, stages,
+                          torch.cuda.current_stream().cuda_stream)
+    return err, dqkv
+
+
+# The short-row ring on explicit grids: (B, grid) with H = 256 / D heads (two
+# head-split groups), so that B * H items wrap the ring many times, are no
+# multiple of the grid, or are fewer than the SMs (the grid then has one CTA
+# per item).
+RING_GRIDS = {"wraps": (15, 4), "ragged": (7, 5), "fewer_than_sms": (2, None)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(RING_GRIDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [16, 50, 77, 100, 128])
+def test_cuda_short_row_ring_matches_plain_versions(L, D, grids):
+    """The ring forward and backward (whatever the plan picks at this length)
+    against their plain versions, causal and segmented; the head-split
+    forward and backward on the same ring equal K1 and K3 bit for bit.
+    Causal rows near their row's or segment's start see few keys (from 1),
+    and one flip of a bf16 p, which the f32 summation order of the scores
+    can cause, moves their lse2 by up to 2^-8 / (l ln 2): causal lse2 is
+    held to ONE_P_FLIP_LSE (l >= 1), the rest to LSE_TOL."""
+    _need_cuda()
+    B, grid = RING_GRIDS[grids]
+    H = 256 // D
+    grid = grid or B * H
+    rng = np.random.default_rng(L * 1000 + D + 41 + B)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_long_segments(rng, B, L, shortest=min(6, L))).cuda()
+    fwd_stages = 2  # the ring's parity flips on every other wrap
+    bwd_stages = 2 if A.bwd_short_row_smem_bytes(L, D, 2, True) <= A.MAX_SMEM else 1
+    for causal in (False, True):
+        for sg in (None, seg):
+            suffix = "" if sg is None else "_seg"
+            err, out, lse2 = _ring_fwd("latteclip_flash_fwd" + suffix, x, sg, H, causal, grid, fwd_stages)
+            ref_out, ref_lse2 = (A.flash_fwd_plain(x, H, causal) if sg is None
+                                 else A.flash_fwd_seg_plain(x, sg, H, causal))
+            torch.cuda.synchronize()
+            assert err == 0
+            _assert_out_close(out, ref_out)
+            torch.testing.assert_close(lse2, ref_lse2, atol=ONE_P_FLIP_LSE if causal else LSE_TOL, rtol=0)
+            err, dqkv = _ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal,
+                                  grid, bwd_stages)
+            ref = (A.flash_bwd_plain(x, out, dout, lse2, H, causal) if sg is None
+                   else A.flash_bwd_seg_plain(x, sg, out, dout, lse2, H, causal))
+            torch.cuda.synchronize()
+            assert err == 0
+            _assert_grads_close(dqkv, ref, H, D)
+        hp = 128 // D
+        err, out_hs, lse_hs = _ring_fwd("latteclip_flash_fwd_hs", x, None, H, causal, grid, fwd_stages,
+                                        (H // hp, hp, B, L))
+        err1, out1, lse1 = _ring_fwd("latteclip_flash_fwd", x, None, H, causal, grid, fwd_stages)
+        torch.cuda.synchronize()
+        assert err == 0 and err1 == 0
+        assert torch.equal(out_hs, out1)
+        assert torch.equal(lse_hs.reshape(H, B, L).transpose(0, 1), lse1)
+        err, d_hs = _ring_bwd("latteclip_flash_bwd_hs", x, None, out1, dout, lse_hs, H, causal, grid,
+                              bwd_stages)
+        err1, d1 = _ring_bwd("latteclip_flash_bwd", x, None, out1, dout, lse1, H, causal, grid, bwd_stages)
+        torch.cuda.synchronize()
+        assert err == 0 and err1 == 0
+        assert torch.equal(d_hs, d1)
+
+
+@pytest.mark.gpu
+def test_cuda_short_row_ring_refuses_a_plan_it_cannot_take():
+    """The short-row entry points return an error for ring stages they
+    cannot hold (none, more than RING_MAX_STAGES, or past a CTA's shared
+    memory), and launch nothing for them; a grid of 0 is the one-CTA form."""
+    _need_cuda()
+    H = 1
+    for L, D, bwd, stages in ((100, 64, False, 0), (100, 64, False, 5), (100, 128, False, 3),
+                              (100, 64, True, 0), (100, 64, True, 3), (100, 128, True, 2),
+                              (50, 64, True, 5)):
+        x = torch.zeros(1, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
+        if bwd:
+            out = torch.zeros(1, L, H * D, device="cuda", dtype=torch.bfloat16)
+            err, _ = _ring_bwd("latteclip_flash_bwd", x, None, out, out, torch.zeros(1, H, L, device="cuda"),
+                               H, False, 1, stages)
+        else:
+            err, _, _ = _ring_fwd("latteclip_flash_fwd", x, None, H, False, 1, stages)
+        assert err != 0, (L, D, bwd, stages)
+    err, out, lse2 = _ring_fwd("latteclip_flash_fwd", torch.zeros(1, 50, 3 * 64, device="cuda",
+                                                                  dtype=torch.bfloat16), None, 1, False, 0, 0)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.isfinite(lse2).all()
+
+
+@pytest.mark.gpu
+def test_cuda_short_row_plan_forms_count_their_launch():
+    """Each form of the short-row plans (the ring; the one-CTA form at 65..96
+    tokens, 65..80 in the backward, and there where the items are few an SM),
+    run through the wrappers, adds one to its kernel's count and matches the
+    plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(43)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (B, L, H, D), forms in (((160, 100, 4, 64), ("ring", "ring")), ((64, 77, 4, 64), ("cta", "cta")),
+                                ((2, 100, 2, 64), ("ring", "cta")), ((128, 50, 2, 128), ("ring", "ring"))):
+        assert (A.short_row_plan(B, L, H, D, False, sms).form,
+                A.bwd_short_row_plan(B, L, H, D, False, sms).form) == forms
+        x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+        dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+        A.reset_launch_counts()
+        out, lse2 = A.flash_attention_qkv(x, H, True)
+        ours = A.flash_attention_qkv_bwd(x, out, dout, lse2, H, True)
+        assert A.launch_counts["flash_fwd"] == 1 and A.launch_counts["flash_bwd"] == 1
+        assert sum(A.launch_counts.values()) == 2
+        ref_out, ref_lse2 = A.flash_fwd_plain(x, H, True)
+        torch.cuda.synchronize()
+        _assert_out_close(out, ref_out)
+        # causal rows near the start see few keys: one flipped bf16 p moves lse2 by <= ONE_P_FLIP_LSE
+        torch.testing.assert_close(lse2, ref_lse2, atol=ONE_P_FLIP_LSE, rtol=0)
+        _assert_grads_close(ours, A.flash_bwd_plain(x, out, dout, lse2, H, True), H, D)
 
 
 def _grad_errors(ours, ref, H, D):
