@@ -59,7 +59,12 @@ Phases, each raising on failure:
    .r4_transpose_probe), printing their lines, with the launch counters set
    to 0 just before and read just after: every lab kernel must have
    launched, the packed and BHLD forwards must agree bit for bit, and so
-   must the natural and pret products;
+   must the natural and pret products. The lab forward and Q K^T cases name
+   their launch plan (form "ring", persistent CTAs fed by a TMA ring, with
+   its warpgroups a CTA, CTAs an SM, stages and grid; or "cta", one CTA per
+   (b, h) or batch row); where the plan takes the ring, the one-CTA form
+   is checked against the same plain result and timed beside it, in the
+   order kernel, cta, cta, kernel (`design`);
 5. slice: ViT-B/32 zero-shot classification at full width from seeded random
    weights: the 1000-class ImageNet template classifier, run_zero_shot_eval
    over four batches of 256 images and one of 255, and the prototype
@@ -603,19 +608,71 @@ def lab_draw(gen, shape, std=1.0) -> torch.Tensor:
 
 
 def lab_record(name, entry, shape, ok, errs, control_rejected, control_errs, kernel, plain,
-               library, flops, nbytes, timer, max_abs_err):
+               library, flops, nbytes, timer, max_abs_err, cta=None):
+    """Time the kernel, its plain version and the library yardstick, and log
+    one kernel_case line. ``cta`` = (call, agrees, errors) of the one-CTA form
+    of a kernel whose plan picks the ring: it is checked and timed beside the
+    kernel, in the order kernel, cta, cta, kernel (``design``)."""
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
     bound_ms, bound_by = bound(flops, nbytes)
+    design = None
+    if cta is not None:
+        cta_call, cta_ok, cta_errs = cta
+        cta_ms = [timer(cta_call), timer(cta_call)]
+        design = {"kernel_ms": [ms, timer(kernel)], "cta_ms": cta_ms, "cta_errors": cta_errs,
+                  "cta_ok": cta_ok}
+        ok = ok and cta_ok
     rec = {
         "name": name, "entry": entry, "shape": list(shape), "max_abs_err": max_abs_err,
         "errors": errs, "ok": ok, "control_errors": control_errs,
         "control_rejected": control_rejected,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        **lab_plan_fields(name, shape), "design": design,
     }
     rec["bound_share"] = bound_ms / ms
     log("kernel_case " + json.dumps(rec))
     return rec
+
+
+def lab_plan_of(name, shape):
+    """The launch plan of a lab_fwd or lab_qk case on this card, or None for
+    the other lab kernels and for a tree whose lab kernels have no plans (so
+    that this script also measures such a tree)."""
+    from latteclip_torch.kernels import lab
+
+    B, L, H, D = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "lab_fwd" and hasattr(lab, "lab_fwd_plan"):
+        return lab.lab_fwd_plan(B, L, H, D, sms)
+    if name == "lab_qk" and hasattr(lab, "lab_qk_plan"):
+        return lab.lab_qk_plan(B, L, H * D, sms)
+    return None
+
+
+def lab_plan_fields(name, shape) -> dict:
+    """The plan's form ("ring" or "cta") and, for the ring, its consumer
+    warpgroups a CTA, CTAs an SM, stages and grid."""
+    p = lab_plan_of(name, shape)
+    if p is None:
+        return {}
+    return {"plan": {"form": p.form, **({"warpgroups": p.warpgroups, "ctas_per_sm": p.ctas_per_sm,
+                                         "stages": p.stages, "grid": p.grid} if p.form == "ring" else {})}}
+
+
+def lab_cta_call(name, entry, tensors, out_shapes, ints, scale=None):
+    """A call of the lab entry point ``entry`` with the plan of the one-CTA
+    form (grid 0), through the C entry point: it is no part of any path, so
+    it is not counted. Returns the outputs."""
+    from latteclip_torch.kernels import lab
+
+    outs = [torch.empty(shape, dtype=dt, device="cuda") for shape, dt in out_shapes]
+    fn = lab._kernel(f"latteclip_lab_{name}_{entry}")
+    err = fn(*(t.data_ptr() for t in (*tensors, *outs)), *ints, *([] if scale is None else [scale]), 0, 0,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the one-CTA form of latteclip_lab_{name}_{entry} failed with CUDA error {err}")
+    return outs
 
 
 def lab_fwd_case(entry, B, L, H, D, timer, gen):
@@ -644,11 +701,21 @@ def lab_fwd_case(entry, B, L, H, D, timer, gen):
     dropped[..., L // 2:L // 2 + 16, :] = 0
     control_ok, rel_dropped = out_check(plain_of(dropped)[0], ref_o)
     library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
+    cta = None
+    plan = lab_plan_of("lab_fwd", (B, L, H, D))
+    if plan is not None and plan.form == "ring":
+        cta_call = lambda: lab_cta_call(  # noqa: E731
+            "fwd", entry, (q, k, v), [(o.shape, o.dtype), (lse.shape, lse.dtype)], (B, L, H, D), D ** -0.5)
+        co, cl = cta_call()
+        torch.cuda.synchronize()
+        cta_ok, cta_rel = out_check(co, ref_o)
+        cta_lse = float((cl - ref_lse).abs().max())
+        cta = (cta_call, cta_ok and cta_lse <= LSE_TOL, {"out_rel": cta_rel, "lse_max": cta_lse})
     return lab_record(
         "lab_fwd", entry, (B, L, H, D), ok, {"out_rel": rel, "lse_max": err_lse}, not control_ok,
         {"out_rel": rel_dropped}, kernel, lambda: plain_of(v), library,
         4 * B * H * L * L * D, 4 * B * L * H * D * 2 + B * H * L * 4, timer,
-        float((o.float() - ref_o.float()).abs().max()))
+        float((o.float() - ref_o.float()).abs().max()), cta)
 
 
 def lab_grad_check(ours, ref):
@@ -726,10 +793,19 @@ def lab_product_case(entry, B, L, H, D, timer, gen):
         dropped[:, :, HD // 2:HD // 2 + 16] = 0
     control_ok, control_errs = f32_check(plain_fn(a, dropped, H), ref)
     out_bytes = B * L * (L if entry != "pv" else D) * 4
+    name = "lab_pv" if entry == "pv" else "lab_qk"
+    cta = None
+    plan = lab_plan_of(name, (B, L, H, D))
+    if plan is not None and plan.form == "ring":
+        cta_call = lambda: lab_cta_call(  # noqa: E731
+            "qk", entry, (a, b), [((B, L, L), torch.float32)], (B, L, HD))[0]
+        cta_out = cta_call()
+        torch.cuda.synchronize()
+        cta = (cta_call, *f32_check(cta_out, ref))
     return lab_record(
-        "lab_pv" if entry == "pv" else "lab_qk", entry, (B, L, H, D), ok, errs, not control_ok,
+        name, entry, (B, L, H, D), ok, errs, not control_ok,
         control_errs, kernel, lambda: plain_fn(a, b, H), library, 2 * B * H * L * L * D,
-        a.numel() * 2 + b.numel() * 2 + out_bytes, timer, float((out - ref).abs().max()))
+        a.numel() * 2 + b.numel() * 2 + out_bytes, timer, float((out - ref).abs().max()), cta)
 
 
 def phase_lab(smi: str):
@@ -753,9 +829,10 @@ def phase_lab(smi: str):
         records += [lab_product_case(entry, *shape, timer, gen) for entry in ("natural", "pret", "pv")]
     del timer
     torch.cuda.empty_cache()
-    bad = [(r["name"], r["entry"], r["shape"], r["errors"]) for r in records if not r["ok"]]
+    bad = [(r["name"], r["entry"], r["shape"], r["errors"], r["design"]) for r in records if not r["ok"]]
     if bad:
-        raise RuntimeError(f"lab kernels disagree with their plain versions (name, entry, shape, errors): {bad}")
+        raise RuntimeError("lab kernels disagree with their plain versions (name, entry, shape, errors, "
+                           f"design): {bad}")
     blind = [(r["name"], r["entry"], r["shape"], r["control_errors"]) for r in records
              if not r["control_rejected"]]
     if blind:

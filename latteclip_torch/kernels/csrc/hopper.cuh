@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA,
-// mbarriers and wgmma: ln_linear.cu (K8) and the short-row attention rings of
-// flash_fwd.cu and flash_bwd.cu.
+// mbarriers and wgmma: ln_linear.cu (K8), the short-row attention rings of
+// flash_fwd.cu and flash_bwd.cu, and the lab rings of lab.cu.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count, and
 //     a parity wait;
+//   * 1-D bulk copies of contiguous bytes into shared memory (no tensor map:
+//     for rows whose stride is not a multiple of 16 bytes);
 //   * TMA copies of 2-D and 3-D boxes into shared memory, reported to an
-//     mbarrier, and the host-side encoder of their tensor maps
+//     mbarrier, 3-D TMA stores from shared memory, and the host-side encoder
+//     of their tensor maps
 //     (cuTensorMapEncodeTiled, fetched through the runtime so that a library
 //     links against libcudart alone), bf16 boxes 64 values (128 bytes) wide
 //     in the 128-byte swizzle;
@@ -99,6 +102,34 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One 1-D bulk copy (TMA without a tensor map) of `bytes` contiguous bytes
+// from src into dst, reported to bar: src, dst and bytes multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One 3-D TMA store of the box at (c0 inner, c1, c2 outer) from src, in
+// the issuing thread's bulk group; elements outside the tensor are not
+// written. bulk_commit closes the group; bulk_wait_read<N> waits until at
+// most N of the thread's groups still read shared memory.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // ldmatrix x4 at a shared-memory address (for swizzled tiles whose lane

@@ -17,6 +17,14 @@ Port of the Pallas bodies of the two lab tools, ``tools/attn_lab.py`` and
 * ``pv_heads`` launches ``latteclip_lab_pv``, which replaces ``_kern_pv``:
   ``O = sum_h p . v_h [B, L, D]`` f32 with one p ``[B, L, L]`` for every head.
 
+The lab forward and Q K^T take a launch plan (:func:`lab_fwd_plan`,
+:func:`lab_qk_plan`), read from the shape alone so that both entry points of
+a kernel launch alike: "ring" (persistent CTAs fed by a TMA ring and
+multiplying with wgmma; the forward up to ``FWD_RING_MAX_LEN`` tokens) or
+"cta" (one CTA per (b, h) or batch row, the first port's kernels, for the
+forward's longer rows). The C entry points take the plan's ``(grid,
+stages)``, grid 0 for the one-CTA form, and refuse one they cannot run.
+
 The lab attention is not the flash kernels' function (K1, K3): it scales
 the f32 scores after the product, sums the unrounded p, rounds p to bf16
 only for the P V product, divides by l after it, stores the natural
@@ -30,13 +38,22 @@ tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Tuple
 
 import torch
+
+from latteclip_torch.device import sm_count
+from latteclip_torch.kernels.attention import CTA_RESERVED_SMEM, SM_SMEM, SW128_ALIGN
 
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_SMEM = 232448      # dynamic shared memory a CTA may use on an H100 (csrc/lab.cu)
 PRODUCT_MAX_LEN = 128  # rows of the head-summed products held by one CTA
-QK_CHUNK = 64          # HD columns of one streamed chunk of the Q K^T kernel
+QK_CHUNK = 64          # HD columns of one streamed chunk of the Q K^T kernels
+FWD_RING_MAX_LEN = 256  # keys whose scores a forward ring warpgroup holds in registers
+RING_MAX_STAGES = 4    # ring slots of the forward ring
+QK_MIN_STAGES, QK_MAX_STAGES = 2, 8  # ring slots of the Q K^T ring: a chunk's slot is
+                                     # released once the next chunk's products are issued
 
 # Launches of each kernel in this process (chip_smoke.py resets and reads them).
 launch_counts = {"lab_fwd": 0, "lab_bwd": 0, "lab_qk": 0, "lab_pv": 0}
@@ -131,15 +148,144 @@ def pv_heads_plain(p: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Te
     return torch.matmul(p.float()[:, None], to_bhld(v, num_heads).float()).sum(dim=1)
 
 
+# -- launch plans ------------------------------------------------------------------
+# The constants and shared-memory sizes mirror csrc/lab.cu.
+
+
+@dataclasses.dataclass(frozen=True)
+class LabPlan:
+    """How a lab kernel is launched: ``form`` "ring" (``grid`` persistent
+    CTAs, ``ctas_per_sm`` of them an SM, each with ``warpgroups`` consumer
+    warpgroups and ``stages`` slots of a TMA ring) or "cta" (the first
+    port's kernel: one CTA per (b, h) for the forward, per batch row for
+    Q K^T), and the ring CTA's dynamic shared memory (0 for "cta")."""
+    form: str
+    warpgroups: int
+    ctas_per_sm: int
+    stages: int
+    grid: int
+    smem_bytes: int
+
+    def c_args(self) -> Tuple[int, int]:
+        """The entry points' plan integers: (grid, stages) of the ring, or
+        (0, 0) for the one-CTA form."""
+        return (self.grid, self.stages) if self.form == "ring" else (0, 0)
+
+
+CTA_PLAN = LabPlan("cta", 0, 0, 0, 0, 0)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _ring_plan(items: int, sms: int, warpgroups: int, max_ctas: int, min_stages: int,
+               max_stages: int, smem_of) -> LabPlan:
+    """The most CTAs an SM (at most ``max_ctas``, which the kernel's registers
+    allow) at which ``min_stages`` stages fit each CTA's share of the SM's
+    shared memory; then as many stages as fit (at most ``max_stages``); a
+    grid of ``min(items, sms * ctas)``. The rings' time falls with the
+    warpgroups an SM holds, more than with their stages."""
+    def fitting(ctas):
+        budget = min(MAX_SMEM, SM_SMEM // ctas - CTA_RESERVED_SMEM)
+        return [s for s in range(min_stages, max_stages + 1) if smem_of(s) <= budget]
+
+    ctas = next(c for c in range(max_ctas, 0, -1) if fitting(c) or c == 1)
+    stages = max(fitting(ctas))
+    return LabPlan("ring", warpgroups, ctas, stages, min(items, sms * ctas), smem_of(stages))
+
+
+def qk_warpgroups(L: int) -> int:
+    """Consumer warpgroups of a Q K^T ring CTA: one per 64 rows of S."""
+    return 1 if L <= 64 else 2
+
+
+def lab_qk_smem_bytes(L: int, stages: int) -> int:
+    """Shared memory of one Q K^T ring CTA (``qk_ring_smem`` in csrc/lab.cu):
+    per stage a q and a k tile of 64 rows a warpgroup x 128 B and a flat
+    64 x L chunk of kT, then S of one row (L x L f32, + 16 B), the
+    mbarriers, and 1 KB to align."""
+    tile = 64 * qk_warpgroups(L) * 128
+    return SW128_ALIGN + stages * (2 * tile + 128 * L) + _round16(4 * L * L) + 16 + 16 * stages
+
+
+def lab_qk_plan(B: int, L: int, HD: int, sms: int) -> LabPlan:
+    """The head-summed Q K^T's launch plan (natural and pret alike) for B
+    batch rows of L <= 128 tokens on a card of ``sms`` SMs: the ring, one
+    consumer warpgroup up to 64 tokens and two beyond, two CTAs an SM where
+    two stages (``QK_MIN_STAGES``) fit each, else one, as many stages as fit
+    (at most ``QK_MAX_STAGES``), a grid of ``min(B, sms * ctas_per_sm)`` CTAs, each
+    walking the batch rows ``x, x + grid, ...`` and each row's ``HD / 64``
+    chunks through the ring."""
+    if not 1 <= L <= PRODUCT_MAX_LEN or HD < QK_CHUNK or HD % QK_CHUNK:
+        raise ValueError(f"the Q K^T plan takes 1 <= L <= {PRODUCT_MAX_LEN} and HD a multiple of "
+                         f"{QK_CHUNK}, got L={L}, HD={HD}")
+    return _ring_plan(B, sms, qk_warpgroups(L), 2, QK_MIN_STAGES, QK_MAX_STAGES,
+                      lambda s: lab_qk_smem_bytes(L, s))
+
+
+def fwd_key_blocks(L: int) -> int:
+    """64-key blocks of a forward ring row (its box holds 64 of them a block)."""
+    return -(-L // 64)
+
+
+def fwd_warpgroups(L: int) -> int:
+    """Consumer warpgroups of a forward ring CTA (``fwd_ring_wgs``): two where
+    the row's 64-row query blocks split evenly between them, else one."""
+    return 1 if fwd_key_blocks(L) % 2 else 2
+
+
+def fwd_max_ctas(L: int, D: int) -> int:
+    """CTAs an SM the forward ring's registers allow (``fwd_ring_min_ctas``:
+    a warpgroup holds its rows' scores over 64 keys a key block in
+    registers, 32 a thread each)."""
+    kb = fwd_key_blocks(L)
+    if kb == 1:
+        return 4 if D == 64 else 2
+    if kb == 3:
+        return 2
+    return 2 if kb == 2 and D == 64 else 1
+
+
+def lab_fwd_smem_bytes(L: int, D: int, stages: int) -> int:
+    """Shared memory of one forward ring CTA (``fwd_ring_smem`` in
+    csrc/lab.cu): per stage Q, K and V of one (b, h) in boxes of 64 rows a
+    key block, a full mbarrier and a release count; a warpgroup's 64 x D
+    output tile; 1 KB to align."""
+    return (SW128_ALIGN + stages * 3 * D * 64 * fwd_key_blocks(L) * 2 + fwd_warpgroups(L) * 64 * D * 2
+            + 16 * stages)
+
+
+def lab_fwd_plan(B: int, L: int, H: int, D: int, sms: int) -> LabPlan:
+    """The lab forward's launch plan (packed and BHLD alike: it reads the
+    shape only) on a card of ``sms`` SMs:
+
+    * "cta" for rows of more than ``FWD_RING_MAX_LEN`` tokens, whose scores
+      do not fit a warpgroup's registers;
+    * otherwise the ring: one consumer warpgroup a CTA where the row has an
+      odd number of 64-row blocks, else two; the most CTAs an SM that the
+      kernel's registers allow and at which one stage fits; as many stages
+      as fit (at most ``RING_MAX_STAGES``); a grid of
+      ``min(B * H, sms * ctas_per_sm)`` CTAs, each walking the (b, h) items
+      ``x, x + grid, ...``."""
+    _head_dim(D)
+    if L < 1:
+        raise ValueError(f"the lab forward takes L >= 1, got {L}")
+    if L > FWD_RING_MAX_LEN:
+        return CTA_PLAN
+    return _ring_plan(B * H, sms, fwd_warpgroups(L), fwd_max_ctas(L, D), 1, RING_MAX_STAGES,
+                      lambda s: lab_fwd_smem_bytes(L, D, s))
+
+
 # -- wrappers ----------------------------------------------------------------------
 
 _SIGNATURES = {
     # name: argument kinds, "p" pointer, "i" int, "f" float; every one returns int
-    "latteclip_lab_fwd_packed": "pppppiiiifp",
-    "latteclip_lab_fwd_bhld": "pppppiiiifp",
+    "latteclip_lab_fwd_packed": "pppppiiiifiip",
+    "latteclip_lab_fwd_bhld": "pppppiiiifiip",
     "latteclip_lab_bwd_bhld": "ppppppppiiiifp",
-    "latteclip_lab_qk_natural": "pppiiip",
-    "latteclip_lab_qk_pret": "pppiiip",
+    "latteclip_lab_qk_natural": "pppiiiiip",
+    "latteclip_lab_qk_pret": "pppiiiiip",
     "latteclip_lab_pv": "pppiiiip",
 }
 
@@ -169,10 +315,6 @@ def _head_dim(D: int) -> None:
         raise ValueError(f"the lab kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}")
 
 
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
 def _check_row_fits(L: int, D: int, tiles: int, extra: int = 0) -> None:
     """One (b, h)'s ``tiles`` [L, D] bf16 tiles (rows padded to 16, columns by
     8) must fit in a CTA's shared memory."""
@@ -199,12 +341,14 @@ def _launch(name: str, counter: str, tensors, *args) -> None:
 
 def _fwd(name: str, q, k, v, B: int, L: int, H: int, D: int, o_shape, lse_shape):
     _head_dim(D)
-    _check_row_fits(L, D, 3)
     for n, x in (("q", q), ("k", k), ("v", v)):
         _check(n, x, o_shape)
+    plan = lab_fwd_plan(B, L, H, D, sm_count(q.device.index))
+    if plan.form == "cta":
+        _check_row_fits(L, D, 3)
     o = torch.empty(o_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(lse_shape, dtype=torch.float32, device=q.device)
-    _launch(name, "lab_fwd", [q, k, v, o, lse], B, L, H, D, D ** -0.5)
+    _launch(name, "lab_fwd", [q, k, v, o, lse], B, L, H, D, D ** -0.5, *plan.c_args())
     return o, lse
 
 
@@ -275,7 +419,7 @@ def _qk(name: str, q: torch.Tensor, k: torch.Tensor, k_shape, num_heads: int) ->
     _check("q", q, (B, L, HD))
     _check("k", k, k_shape(B, L, HD))
     s = torch.empty((B, L, L), dtype=torch.float32, device=q.device)
-    _launch(name, "lab_qk", [q, k, s], B, L, HD)
+    _launch(name, "lab_qk", [q, k, s], B, L, HD, *lab_qk_plan(B, L, HD, sm_count(q.device.index)).c_args())
     return s
 
 

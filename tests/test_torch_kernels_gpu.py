@@ -837,7 +837,7 @@ def _assert_f32_close(out, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("L", [1, 16, 50, 77, 129, 197])
+@pytest.mark.parametrize("L", [1, 16, 50, 64, 65, 77, 128, 129, 197, 256, 257])
 def test_cuda_lab_forward_matches_plain_versions(L, D):
     """Packed, BHLD and BHLD between permutes against their plain versions;
     the packed and BHLD entry points run one kernel and agree bit for bit."""
@@ -908,7 +908,7 @@ def test_cuda_lab_function_matches_autograd_through_plain_forward():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,D", [(2, 64), (8, 64), (2, 128)])
-@pytest.mark.parametrize("L", [1, 16, 50, 77, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 77, 127, 128])
 def test_cuda_lab_head_summed_products_match_plain_versions(L, H, D):
     """Q K^T (natural and pret, which agree bit for bit) and P V against
     their plain versions, N(0, 1) bf16 operands."""
@@ -936,6 +936,134 @@ def test_cuda_lab_head_summed_products_match_plain_versions(L, H, D):
             _assert_f32_close(LB.qk_heads_natural_plain(q, dk, H), ref_s)
         with pytest.raises(AssertionError):
             _assert_f32_close(LB.pv_heads_plain(p, dv, H), ref_o)
+
+
+def _lab_fwd_entry(entry, q, k, v, H, plan_args):
+    """A lab forward entry point called with an explicit plan (grid,
+    stages; (0, 0) is the one-CTA form): (error, o, lse)."""
+    if entry == "packed":
+        B, L, HD = q.shape
+        D, lse_shape = HD // H, (B, H, L)
+    else:
+        B, H, L, D = q.shape
+        lse_shape = (H, B, L)
+    o = torch.empty_like(q)
+    lse = torch.empty(lse_shape, device="cuda")
+    err = LB._kernel(f"latteclip_lab_fwd_{entry}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, L, H, D, D ** -0.5,
+        *plan_args, torch.cuda.current_stream().cuda_stream)
+    return err, o, lse
+
+
+def _lab_qk_entry(entry, q, k, plan_args):
+    """A Q K^T entry point called with an explicit plan: (error, S)."""
+    B, L, HD = q.shape
+    s = torch.empty(B, L, L, device="cuda")
+    err = LB._kernel(f"latteclip_lab_qk_{entry}")(q.data_ptr(), k.data_ptr(), s.data_ptr(), B, L, HD,
+                                                   *plan_args, torch.cuda.current_stream().cuda_stream)
+    return err, s
+
+
+# The lab rings on explicit grids: (B, grid) so that the items (B * H for the
+# forward at H = 2, B for Q K^T) wrap the grid many times, are no multiple of
+# it, or are fewer than the CTAs (the grid then has one CTA per item); and
+# the one-CTA form, grid 0.
+LAB_GRIDS = {"wraps": (15, 4), "ragged": (7, 5), "fewer_than_ctas": (2, 300), "cta": (3, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(LAB_GRIDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 16, 50, 64, 65, 77, 128, 129, 197, 256, 257])
+def test_cuda_lab_forward_forms_match_plain_versions(L, D, grids):
+    """Each form of the lab forward (the ring, with the plan's stages, and
+    the one-CTA form) against the plain version on explicit grids; packed and
+    BHLD agree bit for bit on each. Rows beyond the ring's 256 tokens take
+    the one-CTA form only: the ring's entry refuses them."""
+    _need_cuda()
+    B, grid = LAB_GRIDS[grids]
+    H = 2
+    rng = np.random.default_rng(L * 1000 + D + 29 + B)
+    q, k, v = _lab_qkv(rng, B, H, L, D, "packed")
+    qb, kb, vb = (LB.to_bhld(x, H).contiguous() for x in (q, k, v))
+    stages = LB.lab_fwd_plan(B, L, H, D, 132).stages or 1
+    if L > LB.FWD_RING_MAX_LEN and grid:
+        err, _, _ = _lab_fwd_entry("packed", q, k, v, H, (grid, 1))
+        assert err != 0
+        return
+    err, o, lse = _lab_fwd_entry("packed", q, k, v, H, (grid, stages))
+    errb, ob, lseb = _lab_fwd_entry("bhld", qb, kb, vb, H, (grid, stages))
+    ref_o, ref_lse = LB.lab_fwd_packed_plain(q, k, v, H)
+    torch.cuda.synchronize()
+    assert err == 0 and errb == 0
+    _assert_out_close(o, ref_o)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
+    assert torch.equal(LB.from_bhld(ob), o) and torch.equal(lseb.transpose(0, 1), lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(LAB_GRIDS))
+@pytest.mark.parametrize("H,D", [(2, 64), (8, 64), (2, 128)])
+@pytest.mark.parametrize("L", [1, 16, 50, 77, 127, 128])
+def test_cuda_lab_qk_forms_match_plain_versions(L, H, D, grids):
+    """Each form of the head-summed Q K^T (the ring, with the plan's stages,
+    and the one-CTA form) against the plain version on explicit grids;
+    natural and pret agree bit for bit on each."""
+    _need_cuda()
+    B, grid = LAB_GRIDS[grids]
+    rng = np.random.default_rng(L * 100 + H * 10 + D + 31 + B)
+    HD = H * D
+    q, k = (torch.from_numpy(rng.standard_normal((B, L, HD)).astype(np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    kt = k.transpose(1, 2).contiguous()
+    stages = LB.lab_qk_plan(B, L, HD, 132).stages
+    err, s = _lab_qk_entry("natural", q, k, (grid, stages))
+    errp, sp = _lab_qk_entry("pret", q, kt, (grid, stages))
+    ref = LB.qk_heads_natural_plain(q, k, H)
+    torch.cuda.synchronize()
+    assert err == 0 and errp == 0
+    _assert_f32_close(s, ref)
+    assert torch.equal(sp, s)
+
+
+@pytest.mark.gpu
+def test_cuda_lab_rings_refuse_a_plan_they_cannot_take():
+    """The ring entry points return an error for stages they cannot hold
+    (none, more than the ring's most, or past a CTA's shared memory; Q K^T
+    also one, since its slot is released only once the next chunk's
+    products are issued) and
+    for rows the ring does not take, and launch nothing for them."""
+    _need_cuda()
+    H = 2
+    for L, D, stages in ((50, 64, 0), (50, 64, LB.RING_MAX_STAGES + 1), (197, 128, 2), (257, 64, 1)):
+        x = torch.zeros(1, L, H * D, device="cuda", dtype=torch.bfloat16)
+        err, _, _ = _lab_fwd_entry("packed", x, x, x, H, (1, stages))
+        assert err != 0, (L, D, stages)
+    for L, stages in ((77, 0), (77, 1), (77, LB.QK_MAX_STAGES + 1), (128, 4)):
+        x = torch.zeros(1, L, 128, device="cuda", dtype=torch.bfloat16)
+        for entry in ("natural", "pret"):
+            err, _ = _lab_qk_entry(entry, x, x, (1, stages))
+            assert err != 0, (entry, L, stages)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_lab_plan_forms_count_their_launch():
+    """Each form the lab plans pick, through the wrappers, adds one to its
+    kernel's count and matches the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(37)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, L, H, D in ((4, 197, 2, 64), (2, 300, 2, 64), (5, 50, 2, 128)):
+        q, k, v = _lab_qkv(rng, B, H, L, D, "packed")
+        LB.reset_launch_counts()
+        o, lse = LB.lab_fwd_packed(q, k, v, H)
+        assert LB.launch_counts == {"lab_fwd": 1, "lab_bwd": 0, "lab_qk": 0, "lab_pv": 0}
+        assert LB.lab_fwd_plan(B, L, H, D, sms).form == ("cta" if L > LB.FWD_RING_MAX_LEN else "ring")
+        ref_o, ref_lse = LB.lab_fwd_packed_plain(q, k, v, H)
+        torch.cuda.synchronize()
+        _assert_out_close(o, ref_o)
+        torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=0)
 
 
 @pytest.mark.gpu
