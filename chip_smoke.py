@@ -54,17 +54,20 @@ Phases, each raising on failure:
    16-key block of v zeroed, yardstick SDPA (forward, or backward alone).
    Products: N(0, 1) bf16, f32 out held by ||S - plain|| / ||plain|| and
    max|S - plain| / max|plain| <= 1e-4, control one 16-column block of k or
-   v zeroed, yardstick torch.bmm on the same operands. Then both lab tools'
+   v zeroed, yardstick torch.bmm on the same operands (Q K^T), or for P V
+   torch.einsum("blm,bmhd->bld"), the one call that sums the heads, with
+   torch.bmm(p, v), which keeps every head's product, timed beside it
+   (bmm_ms). Then both lab tools'
    run at their default shapes (latteclip_torch.tools.attn_lab and
    .r4_transpose_probe), printing their lines, with the launch counters set
    to 0 just before and read just after: every lab kernel must have
    launched, the packed and BHLD forwards must agree bit for bit, and so
-   must the natural and pret products. The lab forward and Q K^T cases name
-   their launch plan (form "ring", persistent CTAs fed by a TMA ring, with
-   its warpgroups a CTA, CTAs an SM, stages and grid; or "cta", one CTA per
-   (b, h) or batch row); where the plan takes the ring, the one-CTA form
-   is checked against the same plain result and timed beside it, in the
-   order kernel, cta, cta, kernel (`design`);
+   must the natural and pret products. Every lab case names its launch
+   plan (form "ring", persistent CTAs fed by TMA, with its warpgroups a CTA,
+   CTAs an SM, stages (the backward's resident items) and grid; or "cta",
+   one CTA per (b, h) or batch row); where the plan takes the ring, the
+   one-CTA form is checked against the same plain result and timed beside
+   it, in the order kernel, cta, cta, kernel (`design`);
 5. slice: ViT-B/32 zero-shot classification at full width from seeded random
    weights: the 1000-class ImageNet template classifier, run_zero_shot_eval
    over four batches of 256 images and one of 255, and the prototype
@@ -608,12 +611,14 @@ def lab_draw(gen, shape, std=1.0) -> torch.Tensor:
 
 
 def lab_record(name, entry, shape, ok, errs, control_rejected, control_errs, kernel, plain,
-               library, flops, nbytes, timer, max_abs_err, cta=None):
-    """Time the kernel, its plain version and the library yardstick, and log
-    one kernel_case line. ``cta`` = (call, agrees, errors) of the one-CTA form
+               library, flops, nbytes, timer, max_abs_err, cta=None, yardsticks=None):
+    """Time the kernel, its plain version and the library yardstick (and the
+    other ``yardsticks``, {key: call}, each timed into its key), and log one
+    kernel_case line. ``cta`` = (call, agrees, errors) of the one-CTA form
     of a kernel whose plan picks the ring: it is checked and timed beside the
     kernel, in the order kernel, cta, cta, kernel (``design``)."""
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    others = {key: timer(call) for key, call in (yardsticks or {}).items()}
     bound_ms, bound_by = bound(flops, nbytes)
     design = None
     if cta is not None:
@@ -626,7 +631,7 @@ def lab_record(name, entry, shape, ok, errs, control_rejected, control_errs, ker
         "name": name, "entry": entry, "shape": list(shape), "max_abs_err": max_abs_err,
         "errors": errs, "ok": ok, "control_errors": control_errs,
         "control_rejected": control_rejected,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **others,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         **lab_plan_fields(name, shape), "design": design,
     }
@@ -636,17 +641,21 @@ def lab_record(name, entry, shape, ok, errs, control_rejected, control_errs, ker
 
 
 def lab_plan_of(name, shape):
-    """The launch plan of a lab_fwd or lab_qk case on this card, or None for
-    the other lab kernels and for a tree whose lab kernels have no plans (so
-    that this script also measures such a tree)."""
+    """The launch plan of a lab case on this card, or None for a tree whose
+    lab kernel has no plan (so that this script also measures such a
+    tree)."""
     from latteclip_torch.kernels import lab
 
     B, L, H, D = shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if name == "lab_fwd" and hasattr(lab, "lab_fwd_plan"):
         return lab.lab_fwd_plan(B, L, H, D, sms)
+    if name == "lab_bwd" and hasattr(lab, "lab_bwd_plan"):
+        return lab.lab_bwd_plan(B, L, H, D, sms)
     if name == "lab_qk" and hasattr(lab, "lab_qk_plan"):
         return lab.lab_qk_plan(B, L, H * D, sms)
+    if name == "lab_pv" and hasattr(lab, "lab_pv_plan"):
+        return lab.lab_pv_plan(B, L, H, D, sms)
     return None
 
 
@@ -660,18 +669,18 @@ def lab_plan_fields(name, shape) -> dict:
                                          "stages": p.stages, "grid": p.grid} if p.form == "ring" else {})}}
 
 
-def lab_cta_call(name, entry, tensors, out_shapes, ints, scale=None):
-    """A call of the lab entry point ``entry`` with the plan of the one-CTA
-    form (grid 0), through the C entry point: it is no part of any path, so
-    it is not counted. Returns the outputs."""
+def lab_cta_call(entry, tensors, out_shapes, ints, scale=None):
+    """A call of the lab C entry point ``entry`` with the plan of the one-CTA
+    form (grid 0): it is no part of any path, so it is not counted. Returns
+    the outputs."""
     from latteclip_torch.kernels import lab
 
     outs = [torch.empty(shape, dtype=dt, device="cuda") for shape, dt in out_shapes]
-    fn = lab._kernel(f"latteclip_lab_{name}_{entry}")
+    fn = lab._kernel(entry)
     err = fn(*(t.data_ptr() for t in (*tensors, *outs)), *ints, *([] if scale is None else [scale]), 0, 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"the one-CTA form of latteclip_lab_{name}_{entry} failed with CUDA error {err}")
+        raise RuntimeError(f"the one-CTA form of {entry} failed with CUDA error {err}")
     return outs
 
 
@@ -705,7 +714,8 @@ def lab_fwd_case(entry, B, L, H, D, timer, gen):
     plan = lab_plan_of("lab_fwd", (B, L, H, D))
     if plan is not None and plan.form == "ring":
         cta_call = lambda: lab_cta_call(  # noqa: E731
-            "fwd", entry, (q, k, v), [(o.shape, o.dtype), (lse.shape, lse.dtype)], (B, L, H, D), D ** -0.5)
+            f"latteclip_lab_fwd_{entry}", (q, k, v), [(o.shape, o.dtype), (lse.shape, lse.dtype)], (B, L, H, D),
+            D ** -0.5)
         co, cl = cta_call()
         torch.cuda.synchronize()
         cta_ok, cta_rel = out_check(co, ref_o)
@@ -750,10 +760,18 @@ def lab_bwd_case(B, L, H, D, timer, gen):
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     o = F.scaled_dot_product_attention(*leaves)
     library = lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)  # noqa: E731
+    cta = None
+    plan = lab_plan_of("lab_bwd", (B, L, H, D))
+    if plan is not None and plan.form == "ring":
+        cta_call = lambda: lab_cta_call(  # noqa: E731
+            "latteclip_lab_bwd_bhld", (q, k, v, do, lse), [(q.shape, q.dtype)] * 3, (B, L, H, D), D ** -0.5)
+        cta_out = cta_call()
+        torch.cuda.synchronize()
+        cta = (cta_call, *lab_grad_check(cta_out, ref))
     rec = lab_record(
         "lab_bwd", "bhld", (B, L, H, D), ok, errs, not control_ok, control_errs, kernel,
         lambda: plain_of(v), library, 10 * B * H * L * L * D, 7 * B * L * H * D * 2 + B * H * L * 4,
-        timer, max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref)))
+        timer, max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref)), cta)
     del o, leaves
     return rec
 
@@ -768,7 +786,10 @@ def f32_check(out, ref):
 def lab_product_case(entry, B, L, H, D, timer, gen):
     """A head-summed product (natural or pret Q K^T, or P V) against its
     plain version on N(0, 1) bf16 operands; control: one 16-column block of
-    k (Q K^T) or v (P V) zeroed; yardstick torch.bmm on the same operands."""
+    k (Q K^T) or v (P V) zeroed; yardstick torch.bmm on the same operands,
+    which computes the head-summed Q K^T, or for P V torch.einsum, which
+    sums the heads as the kernel does (bmm, which keeps every head's
+    product, timed beside it)."""
     from latteclip_torch.kernels import lab
 
     HD = H * D
@@ -781,7 +802,9 @@ def lab_product_case(entry, B, L, H, D, timer, gen):
         wrapper, plain_fn = lab.qk_heads_natural, lab.qk_heads_natural_plain
         library = lambda: torch.bmm(a, b.transpose(1, 2))  # noqa: E731
     else:
-        wrapper, plain_fn, library = lab.pv_heads, lab.pv_heads_plain, lambda: torch.bmm(a, b)
+        wrapper, plain_fn = lab.pv_heads, lab.pv_heads_plain
+        vh = b.view(B, L, H, D)
+        library = lambda: torch.einsum("blm,bmhd->bld", a, vh)  # noqa: E731
     kernel = lambda: wrapper(a, b, H)  # noqa: E731
     out, ref = kernel(), plain_fn(a, b, H)
     torch.cuda.synchronize()
@@ -797,15 +820,20 @@ def lab_product_case(entry, B, L, H, D, timer, gen):
     cta = None
     plan = lab_plan_of(name, (B, L, H, D))
     if plan is not None and plan.form == "ring":
-        cta_call = lambda: lab_cta_call(  # noqa: E731
-            "qk", entry, (a, b), [((B, L, L), torch.float32)], (B, L, HD))[0]
+        if entry == "pv":
+            cta_call = lambda: lab_cta_call(  # noqa: E731
+                "latteclip_lab_pv", (a, b), [((B, L, D), torch.float32)], (B, L, H, D))[0]
+        else:
+            cta_call = lambda: lab_cta_call(  # noqa: E731
+                f"latteclip_lab_qk_{entry}", (a, b), [((B, L, L), torch.float32)], (B, L, HD))[0]
         cta_out = cta_call()
         torch.cuda.synchronize()
         cta = (cta_call, *f32_check(cta_out, ref))
     return lab_record(
         name, entry, (B, L, H, D), ok, errs, not control_ok,
         control_errs, kernel, lambda: plain_fn(a, b, H), library, 2 * B * H * L * L * D,
-        a.numel() * 2 + b.numel() * 2 + out_bytes, timer, float((out - ref).abs().max()), cta)
+        a.numel() * 2 + b.numel() * 2 + out_bytes, timer, float((out - ref).abs().max()), cta,
+        {"bmm_ms": lambda: torch.bmm(a, b)} if entry == "pv" else None)
 
 
 def phase_lab(smi: str):
@@ -1505,9 +1533,10 @@ def phase_train_b16(smi: str, train: dict):
 
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
-    performance notes (a wgmma serialised, which it reports as info)."""
+    performance notes and wgmma notes (a wgmma serialised, or a
+    warpgroup.arrive it injected, which it reports as info, numbered C75xx)."""
     return [ln for ln in lines
-            if any(w in ln.lower() for w in ("warning", "advisory", "performance loss"))]
+            if any(w in ln.lower() for w in ("warning", "advisory", "performance loss", "(c75"))]
 
 
 def ptxas_usage(lines) -> dict:

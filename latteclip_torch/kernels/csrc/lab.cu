@@ -36,9 +36,9 @@
 // limit), the backward 153 GFLOP (five products) against 1089.4 MB, the
 // head-summed products at [1024, 77, 8 x 64] 6.2 GFLOP against 185.8 MB
 // (Q K^T) and 113.1 MB (P V). So the designs read every input once from
-// device memory and keep scores, p and ds on chip. Each entry point of the
-// lab forward and of Q K^T takes a launch plan (lab.py::lab_fwd_plan,
-// lab_qk_plan: grid and stages), which picks one of two forms:
+// device memory and keep scores, p and ds on chip. Every entry point takes a
+// launch plan (lab.py::lab_fwd_plan, lab_bwd_plan, lab_qk_plan,
+// lab_pv_plan: grid and stages), which picks one of two forms:
 //   * the ring (lab_fwd_ring_kernel, lab_qk_ring_kernel): persistent CTAs
 //     that keep the next items' operands in flight by TMA through a ring of
 //     mbarrier slots, and consumer warpgroups that multiply with wgmma from
@@ -62,12 +62,31 @@
 //     is not a multiple of 16 at odd L), transposed in shared memory into
 //     exactly the tile natural's TMA writes, so both entries run the same
 //     products and agree bit for bit; S goes out through shared memory, 16
-//     bytes a thread on consecutive addresses;
+//     bytes a thread on consecutive addresses.
+//     The lab backward (head_dim 64, rows of at most 208 tokens) holds
+//     Q, dO, V and K of a (b, h) item by TMA, and ds [L, L] bf16 of the item
+//     beside them: two items up to 144 tokens, else one, which is what fits
+//     one CTA (227 KB). The next item is prefetched into L2; with one slot
+//     its Q, dO and V are copied while this item's dq is multiplied, with
+//     two the whole item is copied while this one is multiplied. Two
+//     warpgroups take 64-row blocks in three phases: delta = rowsum(p * dp)
+//     by query block (S and dP once); dk and dv by key block over every
+//     query (S^T and dP^T a second time, p and ds in registers as the A
+//     operands of wgmma), writing bf16(ds) into shared memory transposed
+//     (stmatrix); dq = ds . K by query block from shared memory. Each
+//     gradient row has one owner, so no atomics; the gradients leave by TMA
+//     stores. P V walks the batch rows with a producer warp: one 16-key step
+//     of every head a ring slot (16 contiguous token rows of v), by TMA; the
+//     row's p, whose rows of 2 L bytes take no tensor map, by one 1-D bulk
+//     copy of the 16-byte aligned span that covers it, a row ahead; each
+//     step's A fragments of p are read from that copy at its offset and
+//     serve every head;
 //   * one CTA per (b, h) (lab forward rows beyond 256 tokens, whose scores
-//     do not fit a warpgroup's registers) or per batch row (Q K^T), the first
-//     port's kernels, kept where the plan picks them by shape;
-//   * the lab backward and P V keep one CTA per (b, h) or batch row: q, k, v
-//     (and do) of the whole row are copied once into shared memory with
+//     do not fit a warpgroup's registers; lab backward rows beyond 208
+//     tokens or at head_dim 128, whose item and ds do not fit) or per batch
+//     row (Q K^T, P V), the first port's kernels, kept where the plan picks
+//     them by shape:
+//     q, k, v (and do) of the whole row are copied once into shared memory with
 //     16-byte cp.async copies, rows padded by 16 bytes so the ldmatrix reads
 //     are free of bank conflicts; each warp owns 16-row query blocks (the
 //     backward also 16-key blocks for dk and dv, so no gradient row has two
@@ -262,6 +281,11 @@ template <int K>
 __device__ __forceinline__ void fence_operands(float (&r)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_operands(uint32_t (&r)[N][4]) {
@@ -1051,6 +1075,535 @@ __global__ void __launch_bounds__(PROD_MAX_L / 16 * 32)
   }
 }
 
+// ---- head-summed P V on persistent CTAs fed by a ring ------------------------
+
+// One stage is one 16-key step of every head. With one stage no copy would
+// be in flight while a step is multiplied. p has three slots, so that a
+// row's p is copied a whole row ahead of its use.
+constexpr int PV_MIN_STAGES = 2, PV_MAX_STAGES = 8, PV_P_SLOTS = 3;
+
+// Consumer warpgroups of a P V ring CTA: one per 64 rows of O.
+__host__ __device__ constexpr int pv_ring_wgs(int L) { return L <= 64 ? 1 : 2; }
+
+// Bytes of a p slot: one batch row of p (2 L^2 bytes at an even offset),
+// the up to 14 bytes before it that its 16-byte aligned copy starts with and
+// the up to 14 after it that the copy ends with.
+__host__ __device__ constexpr int pv_p_bytes(int L) { return round16(2 * L * L + 28); }
+
+// Shared memory of the P V ring (lab.py::lab_pv_smem_bytes mirrors it): 1 KB
+// to align; per stage 16 token rows of v (HD / 64 panels of 16 rows x 128 B);
+// the p slots; the full and empty mbarriers of the stages and of the p slots.
+size_t pv_ring_smem(int L, int HD, int stages) {
+  return SW128_ALIGN + (size_t)stages * 32 * HD + PV_P_SLOTS * (size_t)pv_p_bytes(L) +
+         16 * ((size_t)stages + PV_P_SLOTS);
+}
+
+// NWG consumer warpgroups (rows 64 w .. 64 w + 63 of O), then one producer
+// warp. CTA x takes the batch rows x, x + gridDim.x, ...; the producer
+// copies p of the next row into a p slot, then v of this row through
+// `stages` slots,
+// one 16-key step a slot: tokens 16 c .. 16 c + 15 of every head, which are
+// 16 KB of contiguous device memory at HD = 512, as HD / 64 TMA boxes of 16
+// token rows x 64 columns over (HD, L, B) (zeros past L), one panel of the
+// 128-byte swizzle each. p[b] starts at 2 L^2 b bytes, 16-byte aligned only
+// when 8 divides b at odd L, and its rows of 2 L bytes take no tensor map:
+// one 1-D bulk copy brings the 16-byte aligned span that covers it (cut at
+// the tensor's last 16-byte boundary; the consumers read the few values
+// past that, in the last batch row, from device memory). For each step the
+// consumers build their A fragments of p (keys 16 c .. 16 c + 15, zeros
+// outside L x L) from the copy, then multiply every head: O += p_c . v_{c,h}
+// by wgmma m64nDk16 with v read MN-major, H products into one f32
+// accumulator a step. A slot is released when its products have retired,
+// before the next step's fragments are built over the registers they read;
+// O goes out by 8-byte stores (a quad of lanes writes one 32-byte sector).
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, D == 64 ? 2 : 1)
+    lab_pv_ring_kernel(const bf16* __restrict__ p, const __grid_constant__ CUtensorMap v_map,
+                       float* __restrict__ out, int B, int L, int H, int stages) {
+  constexpr int PANEL = 16 * SW128_ROW;  // 16 token rows of one 64-column panel
+  constexpr int CONSUMERS = NWG * 128;
+  const int HD = H * D;
+  const int STAGE = HD / 64 * PANEL;     // one 16-key step of every head
+  const int steps = (L + 15) / 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  const int pb = pv_p_bytes(L);
+  unsigned char* pbuf = ring + (size_t)stages * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(pbuf + PV_P_SLOTS * pb);
+  uint64_t* empty = full + stages;
+  uint64_t* p_full = empty + stages;
+  uint64_t* p_empty = p_full + PV_P_SLOTS;
+
+  const int tid = threadIdx.x;
+  const long row_bytes = 2L * L * L;
+  const long end_bytes = (row_bytes * B) & ~15L;  // the copies stop at the tensor's last 16-byte boundary
+  // the 16-byte aligned span of batch row `row`: [start, end)
+  auto span = [&](int row, long& start, long& end) {
+    const long first = row_bytes * row;
+    start = first & ~15L;
+    end = (first + row_bytes + 15) & ~15L;
+    if (end > end_bytes) end = end_bytes;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    for (int s = 0; s < PV_P_SLOTS; ++s) {
+      mbar_init(&p_full[s], 1);
+      mbar_init(&p_empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane issues the copies
+    if (tid != CONSUMERS) return;
+    // p of the row this CTA takes i-th, into p slot i % PV_P_SLOTS
+    auto copy_p = [&](int i, int row) {
+      const int ps = i % PV_P_SLOTS;
+      if (i >= PV_P_SLOTS) mbar_wait(&p_empty[ps], (i / PV_P_SLOTS - 1) & 1);
+      long start, end;
+      span(row, start, end);
+      const uint32_t bytes = end > start ? (uint32_t)(end - start) : 0u;
+      mbar_expect_tx(&p_full[ps], bytes);
+      if (bytes)
+        bulk_load(pbuf + ps * pb, reinterpret_cast<const unsigned char*>(p) + start, bytes, &p_full[ps]);
+    };
+    int n = 0, m = 0;
+    if ((int)blockIdx.x < B) copy_p(0, blockIdx.x);
+    for (int row = blockIdx.x; row < B; row += gridDim.x, ++n) {
+      if (row + (int)gridDim.x < B) copy_p(n + 1, row + gridDim.x);
+      for (int c = 0; c < steps; ++c, ++m) {
+        const int s = m % stages;
+        if (m >= stages) mbar_wait(&empty[s], (m / stages - 1) & 1);
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* dst = ring + (size_t)s * STAGE;
+        for (int q = 0; q < HD / 64; ++q) tma_load_3d(dst + q * PANEL, &v_map, &full[s], q * 64, 16 * c, row);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int r_a = wg * 64 + (warp % 4) * 16 + lane / 4, r_b = r_a + 8;
+  const uint32_t ring_base = smem_addr(ring);
+  const bool signals = tid % 128 == 0;  // one arrival a warpgroup on `empty`
+  const uint16_t* p16 = reinterpret_cast<const uint16_t*>(p);
+  int n = 0, m = 0;
+  for (int row = blockIdx.x; row < B; row += gridDim.x, ++n) {
+    const int ps = n % PV_P_SLOTS;
+    long start, end;
+    span(row, start, end);
+    const long first = row_bytes / 2 * row;  // elements
+    const int shift = (int)(first & 7);      // elements of the copy before the row
+    const int copied = end > start ? (int)((end - start) / 2) : 0;
+    const uint16_t* sp = reinterpret_cast<const uint16_t*>(pbuf + ps * pb) + shift;
+    const uint16_t* gp = p16 + first;
+    // p[r][j], zero outside L x L: from the copy, or from device memory for
+    // the values past the tensor's last 16-byte boundary (a generic load from
+    // either pointer, and selections: no branch may diverge before a wgmma)
+    auto el = [&](int r, int j) -> uint32_t {
+      const bool in = r < L && j < L;
+      const int i = in ? r * L + j : 0;
+      const uint16_t* src = i + shift < copied ? sp : gp;
+      const uint32_t x = src[i];
+      return in ? x : 0u;
+    };
+    mbar_wait(&p_full[ps], (n / PV_P_SLOTS) & 1);
+
+    float acc[D / 2];
+#pragma unroll 1
+    for (int c = 0; c < steps; ++c, ++m) {
+      const int s = m % stages;
+      const int j = 16 * c + 2 * t;
+      uint32_t pf[4] = {el(r_a, j) | el(r_a, j + 1) << 16, el(r_b, j) | el(r_b, j + 1) << 16,
+                              el(r_a, j + 8) | el(r_a, j + 9) << 16, el(r_b, j + 8) | el(r_b, j + 9) << 16};
+      mbar_wait(&full[s], (m / stages) & 1);
+      const uint32_t vt = ring_base + s * STAGE;
+      fence_operands(pf);  // the fragments are whole before the fence
+      wgmma_fence();
+#pragma unroll 1
+      for (int h = 0; h < H; ++h) {
+        const uint64_t db = sw128_mn_desc(vt + h * (D / 64) * PANEL, PANEL);
+        if constexpr (D == 64)
+          wgmma_rs64<1>(acc, pf, db, c > 0 || h > 0);
+        else
+          wgmma_rs128<1>(acc, pf, db, c > 0 || h > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(pf);
+      if (signals) mbar_arrive(&empty[s]);
+    }
+    mbar_arrive(&p_empty[ps]);  // this thread is done with the slot
+
+    float* orow = out + (long)row * L * D;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      const int col = 8 * jb + 2 * t;
+      if (r_a < L) *reinterpret_cast<float2*>(orow + (long)r_a * D + col) = make_float2(acc[4 * jb], acc[4 * jb + 1]);
+      if (r_b < L)
+        *reinterpret_cast<float2*>(orow + (long)r_b * D + col) = make_float2(acc[4 * jb + 2], acc[4 * jb + 3]);
+    }
+  }
+}
+
+// ---- lab backward on persistent CTAs fed by TMA ------------------------------
+
+constexpr int BWD_RING_WGS = 2;
+
+// Token rows of a backward ring tile: round16(L) for rows of two or more
+// 64-row blocks, else 64. A 64-row wgmma operand of the last block reads up
+// to 48 rows past a tile of round16(L) rows; the tiles are laid out so that
+// those rows are rows of the item's next tile, in shared memory the item
+// owns (see lab_bwd_ring_kernel).
+__host__ __device__ constexpr int bwd_ring_rows(int L) { return L <= 64 ? 64 : round16(L); }
+
+constexpr int BWD_RING_MAX_STAGES = 2;
+
+// Shared memory of the backward ring at head_dim 64 (lab.py::
+// lab_bwd_smem_bytes mirrors it): 1 KB to align; per stage (item slot) Q,
+// dO, V and K of one (b, h) (R = bwd_ring_rows(L) rows x 128 B each), with
+// ds, one R x 128 B panel a 64-key block, after the first slot; a 64 x 64
+// bf16 output tile a warpgroup; lse2 and delta (R f32 each); an mbarrier a
+// stage and a release count.
+size_t bwd_ring_smem(int L, int stages) {
+  const int R = bwd_ring_rows(L), KB = (L + 63) / 64;
+  return SW128_ALIGN + (size_t)(4 * stages + KB) * R * SW128_ROW + (size_t)BWD_RING_WGS * 64 * 64 * 2 +
+         (size_t)8 * R + 16 * (size_t)stages;
+}
+
+// Store four 8 x 8 bf16 matrices transposed: r[i] is each lane's fragment of
+// matrix i (row lane / 4, columns 2 (lane % 4) and + 1), and lane 8 i + c
+// gives the address of the 16 bytes that receive column c of matrix i.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// Bring the box at (c0, c1, c2) of a tensor map into L2, ahead of its copy.
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// Two consumer warpgroups and no producer warp, head_dim 64, rows of KB
+// 64-row blocks (at most 208 tokens). CTA x takes the (b, h) items x, x +
+// gridDim.x, ...; STAGES (1 or 2) items are resident, each in a slot
+// holding Q, dO, V and K, each a TMA box of R = bwd_ring_rows(L) token rows
+// (zeros past L) over (D, L, B * H) in the 128-byte swizzle, in that order;
+// ds follows the first slot. Per item:
+//   1. warpgroup w takes query blocks w, w + 2, ...: over 64-key chunks, S =
+//      Q K^T and dP = dO V^T by wgmma from shared memory, p = exp(s D^-1/2 -
+//      lse) (ex2.approx of the scores scaled by D^-1/2 log2 e, lse taken to
+//      base 2), delta = the f32 sum of p * dp over the keys below L; lse2 and
+//      delta of each row go to shared memory;
+//   2. warpgroup w takes key blocks w, w + 2, ...: over 64-query chunks, S^T
+//      = K Q^T and dP^T = V dO^T (the second and last time any score is
+//      multiplied), p^T and ds^T = bf16(p (dp - delta) D^-1/2) in registers
+//      (0 wherever the query or the key is from L on), dv += bf16(p)^T dO and
+//      dk += ds^T Q with p^T and ds^T as register A operands and dO and Q read
+//      MN-major; ds^T also goes into ds's panel of this key block, transposed
+//      by stmatrix into rows of queries (K-major for phase 3); dk and dv out;
+//   3. warpgroup w takes query blocks w, w + 2, ...: dq = ds K, ds read
+//      K-major and K MN-major, both from shared memory; dq out.
+// A 64-row operand of the last block reads up to 48 rows past its tile of R
+// rows. Those rows are never stored, and where they enter a sum (a product's
+// reduction over tokens) they meet factors that are exactly 0 (p and ds of
+// tokens from L on): what they hold must only be finite. So the tiles follow
+// one another in the order Q, dO, V, K, ds, and each reads into the next:
+// Q into dO, dO into V, K into ds, all the item's own values (V only ever
+// reads past its rows as an A operand, whose extra rows are dropped); the
+// last ds panel reads into what follows ds (dropped rows). Keys and queries
+// from L on are masked by selection, never by a product, so no such value
+// reaches a result (the second slot's K reads into the output tiles, which
+// start as zeros). Thread 0 fills every slot at the start. With one slot,
+// thread 0 copies the next item's Q, dO and V after phase 2 (phase 3 reads
+// only K and ds), and the warpgroup that finishes phase 3 last copies its
+// K; with two, that warpgroup refills the whole slot with the item two on.
+// The item to be copied next is prefetched into L2 when an item starts
+// (phases 1 and 2 read every tile). The gradients go out through each
+// warpgroup's 64 x 64 tile by TMA stores over (D, L, B * H), which drop the
+// rows from L on. Each gradient row has one owner: no atomics, and the result
+// does not depend on scheduling.
+template <int KB, int STAGES>
+__global__ void __launch_bounds__(BWD_RING_WGS * 128, 1)
+    lab_bwd_ring_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap dq_map,
+                        const __grid_constant__ CUtensorMap dk_map,
+                        const __grid_constant__ CUtensorMap dv_map, const float* __restrict__ lse,
+                        Layout lay, int items, int L, int H, float scale) {
+  constexpr int NWG = BWD_RING_WGS;
+  constexpr int BLOCK = 64 * SW128_ROW;  // bytes of 64 rows of a tile
+  const int R = bwd_ring_rows(L);
+  const int T = R * SW128_ROW;           // bytes of one tile
+  const int SLOT = (4 + KB) * T;         // slot s at ring + s * SLOT; ds after slot 0
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* out_tiles = ring + (size_t)(4 * STAGES + KB) * T;  // 64 x 64 a warpgroup
+  float* s_lse = reinterpret_cast<float*>(out_tiles + NWG * BLOCK);  // lse2 of each query
+  float* s_delta = s_lse + R;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_delta + R);
+  unsigned* released = reinterpret_cast<unsigned*>(full + STAGES);
+
+  const int tid = threadIdx.x;
+  // an item's Q, dO and V into slot s (with the expected bytes of all four
+  // tiles), then its K apart: K is read until the item's last product
+  auto load_qov = [&](int s, int item) {
+    unsigned char* dst = ring + (size_t)s * SLOT;
+    mbar_expect_tx(&full[s], 4 * T);
+    tma_load_3d(dst, &q_map, &full[s], 0, 0, item);
+    tma_load_3d(dst + T, &do_map, &full[s], 0, 0, item);
+    tma_load_3d(dst + 2 * T, &v_map, &full[s], 0, 0, item);
+  };
+  auto load_k = [&](int s, int item) {
+    tma_load_3d(ring + (size_t)s * SLOT + 3 * T, &k_map, &full[s], 0, 0, item);
+  };
+  for (int i = tid; i < NWG * BLOCK / 16; i += NWG * 128)
+    reinterpret_cast<uint4*>(out_tiles)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();  // the zeros, written by the threads, are read by wgmma
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    *released = 0;
+    mbar_fence_init();
+    for (int s = 0; s < STAGES && (int)(blockIdx.x + s * gridDim.x) < items; ++s) {
+      load_qov(s, blockIdx.x + s * gridDim.x);
+      load_k(s, blockIdx.x + s * gridDim.x);
+    }
+  }
+  __syncthreads();
+
+  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w16 = (warp % 4) * 16;  // this warp's rows within a 64-row block
+  const float c2 = scale * LOG2E;
+  const uint32_t base = smem_addr(ring);
+  const uint32_t sds = base + 4 * T;
+  const bool leader = tid % 128 == 0;
+  unsigned char* tile = out_tiles + wg * BLOCK;
+
+  // bf16 of a 64 x 64 accumulator out through this warpgroup's tile by one
+  // TMA store at token row row0 of `item` (rows from L on are dropped); the
+  // tile is free once the previous store has read it
+  auto store_block = [&](const float (&acc)[32], const CUtensorMap* map, int row0, int item) {
+    if (leader) bulk_wait_read<0>();
+    named_barrier(2 + wg, 128);
+    const int ra = w16 + g;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      *reinterpret_cast<uint32_t*>(tile + sw128_offset(ra, jb) + 4 * t) = pack_bf16(acc[4 * jb], acc[4 * jb + 1]);
+      *reinterpret_cast<uint32_t*>(tile + sw128_offset(ra + 8, jb) + 4 * t) =
+          pack_bf16(acc[4 * jb + 2], acc[4 * jb + 3]);
+    }
+    fence_proxy_async();  // the tile, written by the threads, is read by TMA
+    named_barrier(2 + wg, 128);
+    if (leader) {
+      tma_store_3d(map, tile, 0, row0, item);
+      bulk_commit();
+    }
+  };
+
+  int n = 0;
+#pragma unroll 1
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int b = item / H, h = item % H;
+    const int slot = n % STAGES;
+    const int refill = item + STAGES * (int)gridDim.x;  // the item this slot takes next
+    if (tid == 0 && refill < items) {
+      tma_prefetch_3d(&q_map, 0, 0, refill);
+      tma_prefetch_3d(&do_map, 0, 0, refill);
+      tma_prefetch_3d(&v_map, 0, 0, refill);
+      tma_prefetch_3d(&k_map, 0, 0, refill);
+    }
+    const uint32_t sq = base + slot * SLOT, sdo = sq + T, sv = sq + 2 * T, sk = sq + 3 * T;
+    mbar_wait(&full[slot], (n / STAGES) & 1);
+
+    // 1. delta of each query row of this warpgroup's blocks: S and dP of
+    //    64-key chunk kc into buffer kc % 2, chunk kc + 1's products running
+    //    while chunk kc's p and p * dp are taken
+    const float* lrow = lse + b * lay.lse_b + h * lay.lse_h;
+#pragma unroll 1
+    for (int qb = wg; qb < KB; qb += NWG) {
+      const int ra = qb * 64 + w16 + g, rb = ra + 8;
+      const float la = ra < L ? lrow[ra] * LOG2E : 0.f, lb = rb < L ? lrow[rb] * LOG2E : 0.f;
+      float da[2] = {0.f, 0.f}, db[2] = {0.f, 0.f};
+      float s[2][32], dp[2][32];
+      auto scores = [&](int kc) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64<0>(s[kc % 2], sw128_desc(sq + qb * BLOCK) + 2 * kk, sw128_desc(sk + kc * BLOCK) + 2 * kk,
+                        kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64<0>(dp[kc % 2], sw128_desc(sdo + qb * BLOCK) + 2 * kk, sw128_desc(sv + kc * BLOCK) + 2 * kk,
+                        kk > 0);
+        wgmma_commit();
+      };
+      scores(0);
+#pragma unroll
+      for (int kc = 0; kc < KB; ++kc) {
+        if (kc + 1 < KB) {
+          scores(kc + 1);
+          wgmma_wait<1>();  // chunk kc has retired, chunk kc + 1 may still run
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_operands(s[kc % 2]);
+        fence_operands(dp[kc % 2]);
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kc * 64 + jb * 8 + 2 * t + (e & 1);
+            const float pr = exp2_approx(fmaf(s[kc % 2][4 * jb + e], c2, -(e < 2 ? la : lb)));
+            const float term = key < L ? pr * dp[kc % 2][4 * jb + e] : 0.f;
+            if (e < 2)
+              da[jb % 2] += term;
+            else
+              db[jb % 2] += term;
+          }
+      }
+      const float delta_a = quad_sum(da[0] + da[1]), delta_b = quad_sum(db[0] + db[1]);
+      if (t == 0) {
+        if (ra < R) {
+          s_lse[ra] = la;
+          s_delta[ra] = delta_a;
+        }
+        if (rb < R) {
+          s_lse[rb] = lb;
+          s_delta[rb] = delta_b;
+        }
+      }
+    }
+    named_barrier(1, NWG * 128);  // every lse2 and delta is in shared memory
+
+    // 2. dk and dv of each key row of this warpgroup's blocks, over 64-query
+    //    chunks; ds into shared memory. S^T and dP^T of chunk qc + 1 are
+    //    issued with chunk qc's dv and dk products, in one group.
+#pragma unroll 1
+    for (int kb = wg; kb < KB; kb += NWG) {
+      const int ka = kb * 64 + w16 + g, kbb = ka + 8;
+      float dk[32], dv[32], st[32], dpt[32];
+      // p^T and ds^T: rows are keys, columns queries; pa[c] and da[c] the A
+      // fragments of the 16 queries from qc * 64 + 16 c
+      uint32_t pa[4][4], da[4][4];
+      auto scores = [&](int qc) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64<0>(st, sw128_desc(sk + kb * BLOCK) + 2 * kk, sw128_desc(sq + qc * BLOCK) + 2 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64<0>(dpt, sw128_desc(sv + kb * BLOCK) + 2 * kk, sw128_desc(sdo + qc * BLOCK) + 2 * kk,
+                        kk > 0);
+      };
+      wgmma_fence();
+      scores(0);
+      wgmma_commit();
+#pragma unroll
+      for (int qc = 0; qc < KB; ++qc) {
+        wgmma_wait<0>();  // chunk qc's scores and chunk qc - 1's products have retired
+        fence_operands(st);
+        fence_operands(dpt);
+        fence_operands(pa);
+        fence_operands(da);
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          float pr[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = qc * 64 + jb * 8 + 2 * t + (e & 1);
+            const bool visible = q < L && (e < 2 ? ka : kbb) < L;
+            const float lq = q < L ? s_lse[q] : 0.f, dl = q < L ? s_delta[q] : 0.f;
+            const float x = exp2_approx(fmaf(st[4 * jb + e], c2, -lq));
+            pr[e] = visible ? x : 0.f;
+            ds[e] = visible ? x * (dpt[4 * jb + e] - dl) * scale : 0.f;
+          }
+          pa[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(pr[0], pr[1]);
+          pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(pr[2], pr[3]);
+          da[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+          da[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        // ds of these 64 keys and 64 queries into the key block's panel, rows
+        // of queries (below R): 8 x 8 matrix i of da[c] holds keys 8 (i % 2) ..
+        // and queries 8 (i / 2) .. of the 16 from qc * 64 + 16 c
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int q0 = qc * 64 + 16 * c;
+          if (q0 < R) {
+            const int i = lane / 8;
+            stmatrix_x4_trans(sds + kb * T + sw128_offset(q0 + 8 * (i / 2) + lane % 8, w16 / 8 + i % 2), da[c]);
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t row = (qc * 64 + 16 * c) * SW128_ROW;
+          wgmma_rs64<1>(dv, pa[c], sw128_mn_desc(sdo + row, T), qc > 0 || c > 0);
+          wgmma_rs64<1>(dk, da[c], sw128_mn_desc(sq + row, T), qc > 0 || c > 0);
+        }
+        if (qc + 1 < KB) scores(qc + 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_operands(pa);
+      fence_operands(da);
+      fence_operands(dv);
+      fence_operands(dk);
+      store_block(dk, &dk_map, kb * 64, item);
+      store_block(dv, &dv_map, kb * 64, item);
+    }
+    fence_proxy_async();          // ds, written by the threads, is read by wgmma
+    named_barrier(1, NWG * 128);  // ds is whole; Q, dO and V are free
+    if (STAGES == 1 && tid == 0 && refill < items) load_qov(0, refill);
+
+    // 3. dq of each query row of this warpgroup's blocks
+#pragma unroll 1
+    for (int qb = wg; qb < KB; qb += NWG) {
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < KB; ++kc)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64<1>(dq, sw128_desc(sds + kc * T + qb * BLOCK) + 2 * kk,
+                        sw128_mn_desc(sk + (kc * 64 + 16 * kk) * SW128_ROW, T), kc > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dq);
+      store_block(dq, &dq_map, qb * 64, item);
+    }
+
+    // K (and with two slots the whole slot) is free once both warpgroups'
+    // products have retired: the last to finish refills it
+    if (leader) {
+      __threadfence_block();
+      if (atomicAdd(released, 1u) == NWG - 1) {
+        __threadfence_block();
+        *released = 0;
+        if (refill < items) {
+          if (STAGES > 1) load_qov(slot, refill);
+          load_k(slot, refill);
+        }
+      }
+    }
+  }
+  if (leader) bulk_wait_read<0>();  // shared memory outlives the last stores' reads
+}
+
 // ---- launches ----------------------------------------------------------------
 
 template <typename Kernel, typename... Args>
@@ -1138,6 +1691,61 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
                 static_cast<bf16*>(dv), lay, L, H, scale);
 }
 
+// The backward ring (head_dim 64) on `grid` persistent CTAs with STAGES item slots.
+template <int KB, int STAGES>
+int bwd_ring(const void* q, const void* k, const void* v, const void* dout, const void* lse, void* dq,
+             void* dk, void* dv, Layout lay, int B, int L, int H, float scale, int grid, void* stream) {
+  auto kernel = lab_bwd_ring_kernel<KB, STAGES>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = bwd_ring_smem(L, STAGES);
+  if ((long)B * H > INT_MAX || grid < 1 || smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // [B * H][L][64]: q, k, v, do in boxes of the tile's rows (zeros past L);
+  // dq, dk, dv in 64-row blocks (rows past L not written)
+  const uint64_t dims[3] = {64, (uint64_t)L, (uint64_t)B * H};
+  CUtensorMap maps[7];
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  for (int i = 0; i < 7; ++i)
+    if (!tensor_map_bf16(&maps[i], ptrs[i], 3, dims, i < 4 ? bwd_ring_rows(L) : 64))
+      return (int)cudaErrorInvalidValue;
+  kernel<<<grid, BWD_RING_WGS * 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], static_cast<const float*>(lse), lay,
+      B * H, L, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// grid and stages: the launch plan, lab.py::lab_bwd_plan; a grid of 0 takes
+// one CTA per (b, h); the ring takes head_dim 64, rows of at most 208 tokens
+// and one or two item slots (two up to 144 tokens)
+int bwd_dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 void* dq, void* dk, void* dv, Layout lay, int B, int L, int H, int D, float scale,
+                 int grid, int stages, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || grid < 0) return (int)cudaErrorInvalidValue;
+  if (grid == 0) {
+    if (D == 64) return bwd<64>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, stream);
+    if (D == 128) return bwd<128>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D != 64 || stages < 1 || stages > BWD_RING_MAX_STAGES) return (int)cudaErrorInvalidValue;
+  const bool two = stages == 2;
+  switch ((L + 63) / 64) {
+    case 1:
+      return two ? bwd_ring<1, 2>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream)
+                 : bwd_ring<1, 1>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream);
+    case 2:
+      return two ? bwd_ring<2, 2>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream)
+                 : bwd_ring<2, 1>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream);
+    case 3:
+      return two ? bwd_ring<3, 2>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream)
+                 : bwd_ring<3, 1>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream);
+    case 4:  // two items of 193 to 208 tokens do not fit
+      return two ? (int)cudaErrorInvalidValue
+                 : bwd_ring<4, 1>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool PRET>
 int qk_cta(const void* q, const void* k, void* out, int B, int L, int HD, void* stream) {
   static bool allowed[MAX_DEVICES] = {};
@@ -1186,13 +1794,42 @@ int qk(const void* q, const void* k, void* out, int B, int L, int HD, int grid, 
 }
 
 template <int D>
-int pv(const void* p, const void* v, void* out, int B, int L, int H, void* stream) {
+int pv_cta(const void* p, const void* v, void* out, int B, int L, int H, void* stream) {
   static bool allowed[MAX_DEVICES] = {};
   const int rows = round16(L);
   const size_t smem = (size_t)rows * (rows + 8) * 2 + (size_t)2 * rows * (D + 8) * 2;
   return launch(lab_pv_kernel<D>, allowed, (long)B, 2 * rows, smem, stream,
                 static_cast<const bf16*>(p), static_cast<const bf16*>(v), static_cast<float*>(out),
                 L, H);
+}
+
+// The P V ring on `grid` persistent CTAs with `stages` V slots.
+template <int D, int NWG>
+int pv_ring(const void* p, const void* v, void* out, int B, int L, int H, int grid, int stages,
+            void* stream) {
+  auto kernel = lab_pv_ring_kernel<D, NWG>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = pv_ring_smem(L, H * D, stages);
+  if (grid < 1 || stages < PV_MIN_STAGES || stages > PV_MAX_STAGES || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  // v as [B][L][H * D] in boxes of 16 token rows x 64 columns: rows past L read as zeros
+  const uint64_t dims[3] = {(uint64_t)H * D, (uint64_t)L, (uint64_t)B};
+  CUtensorMap v_map;
+  if (!tensor_map_bf16(&v_map, v, 3, dims, 16)) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, NWG * 128 + 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(p), v_map, static_cast<float*>(out), B, L, H, stages);
+  return (int)cudaGetLastError();
+}
+
+// grid and stages: the launch plan, lab.py::lab_pv_plan; a grid of 0 takes
+// one CTA per batch row
+template <int D>
+int pv(const void* p, const void* v, void* out, int B, int L, int H, int grid, int stages, void* stream) {
+  if (grid == 0) return pv_cta<D>(p, v, out, B, L, H, stream);
+  if (pv_ring_wgs(L) == 1) return pv_ring<D, 1>(p, v, out, B, L, H, grid, stages, stream);
+  return pv_ring<D, 2>(p, v, out, B, L, H, grid, stages, stream);
 }
 
 }  // namespace
@@ -1214,16 +1851,14 @@ extern "C" int latteclip_lab_fwd_bhld(const void* q, const void* k, const void* 
   return fwd_dispatch(q, k, v, o, lse, lay, B, L, H, D, scale, true, grid, stages, stream);
 }
 
-// q, k, v, do, dq, dk, dv [B, H, L, D]; lse [H, B, L]
+// q, k, v, do, dq, dk, dv [B, H, L, D]; lse [H, B, L]; grid, stages:
+// lab.py::lab_bwd_plan (a grid of 0 takes one CTA per (b, h))
 extern "C" int latteclip_lab_bwd_bhld(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, void* dq, void* dk,
-                                      void* dv, int B, int L, int H, int D, float scale,
-                                      void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                                      void* dv, int B, int L, int H, int D, float scale, int grid,
+                                      int stages, void* stream) {
   const Layout lay{(long)H * L * D, (long)L * D, D, L, (long)B * L};
-  if (D == 64) return bwd<64>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, stream);
-  if (D == 128) return bwd<128>(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dispatch(q, k, v, dout, lse, dq, dk, dv, lay, B, L, H, D, scale, grid, stages, stream);
 }
 
 // q, k [B, L, HD] -> s [B, L, L] f32 (L <= 128, HD a multiple of 64); grid,
@@ -1240,11 +1875,12 @@ extern "C" int latteclip_lab_qk_pret(const void* q, const void* kt, void* s, int
   return qk<true>(q, kt, s, B, L, HD, grid, stages, stream);
 }
 
-// p [B, L, L], v [B, L, H*D] -> o [B, L, D] f32 (L <= 128, D 64 or 128)
+// p [B, L, L], v [B, L, H*D] -> o [B, L, D] f32 (L <= 128, D 64 or 128); grid,
+// stages: lab.py::lab_pv_plan (a grid of 0 takes one CTA per batch row)
 extern "C" int latteclip_lab_pv(const void* p, const void* v, void* o, int B, int L, int H, int D,
-                                void* stream) {
-  if (B <= 0 || L <= 0 || L > PROD_MAX_L || H <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 64) return pv<64>(p, v, o, B, L, H, stream);
-  if (D == 128) return pv<128>(p, v, o, B, L, H, stream);
+                                int grid, int stages, void* stream) {
+  if (B <= 0 || L <= 0 || L > PROD_MAX_L || H <= 0 || grid < 0) return (int)cudaErrorInvalidValue;
+  if (D == 64) return pv<64>(p, v, o, B, L, H, grid, stages, stream);
+  if (D == 128) return pv<128>(p, v, o, B, L, H, grid, stages, stream);
   return (int)cudaErrorInvalidValue;
 }

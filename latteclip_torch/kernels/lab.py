@@ -17,13 +17,14 @@ Port of the Pallas bodies of the two lab tools, ``tools/attn_lab.py`` and
 * ``pv_heads`` launches ``latteclip_lab_pv``, which replaces ``_kern_pv``:
   ``O = sum_h p . v_h [B, L, D]`` f32 with one p ``[B, L, L]`` for every head.
 
-The lab forward and Q K^T take a launch plan (:func:`lab_fwd_plan`,
-:func:`lab_qk_plan`), read from the shape alone so that both entry points of
-a kernel launch alike: "ring" (persistent CTAs fed by a TMA ring and
-multiplying with wgmma; the forward up to ``FWD_RING_MAX_LEN`` tokens) or
-"cta" (one CTA per (b, h) or batch row, the first port's kernels, for the
-forward's longer rows). The C entry points take the plan's ``(grid,
-stages)``, grid 0 for the one-CTA form, and refuse one they cannot run.
+Every kernel takes a launch plan (:func:`lab_fwd_plan`, :func:`lab_bwd_plan`,
+:func:`lab_qk_plan`, :func:`lab_pv_plan`), read from the shape alone so that
+both entry points of a kernel launch alike: "ring" (persistent CTAs fed by
+TMA and multiplying with wgmma; the forward up to ``FWD_RING_MAX_LEN``
+tokens, the backward at head_dim 64 up to ``BWD_RING_MAX_LEN``) or "cta"
+(one CTA per (b, h) or batch row, the first port's kernels, for the other
+rows). The C entry points take the plan's ``(grid, stages)``, grid 0 for the
+one-CTA form, and refuse one they cannot run.
 
 The lab attention is not the flash kernels' function (K1, K3): it scales
 the f32 scores after the product, sums the unrounded p, rounds p to bf16
@@ -54,6 +55,11 @@ FWD_RING_MAX_LEN = 256  # keys whose scores a forward ring warpgroup holds in re
 RING_MAX_STAGES = 4    # ring slots of the forward ring
 QK_MIN_STAGES, QK_MAX_STAGES = 2, 8  # ring slots of the Q K^T ring: a chunk's slot is
                                      # released once the next chunk's products are issued
+PV_MIN_STAGES, PV_MAX_STAGES = 2, 8  # v slots of the P V ring, one 16-key step each
+PV_P_SLOTS = 3                       # p slots of the P V ring: p is copied a row ahead
+PV_INFLIGHT_BYTES = 65536            # v the P V plan keeps in flight an SM
+BWD_RING_MAX_LEN = 208  # rows whose item and ds fit one backward ring CTA (head_dim 64)
+BWD_RING_MAX_STAGES = 2  # resident items of the backward ring
 
 # Launches of each kernel in this process (chip_smoke.py resets and reads them).
 launch_counts = {"lab_fwd": 0, "lab_bwd": 0, "lab_qk": 0, "lab_pv": 0}
@@ -156,9 +162,10 @@ def pv_heads_plain(p: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Te
 class LabPlan:
     """How a lab kernel is launched: ``form`` "ring" (``grid`` persistent
     CTAs, ``ctas_per_sm`` of them an SM, each with ``warpgroups`` consumer
-    warpgroups and ``stages`` slots of a TMA ring) or "cta" (the first
-    port's kernel: one CTA per (b, h) for the forward, per batch row for
-    Q K^T), and the ring CTA's dynamic shared memory (0 for "cta")."""
+    warpgroups and ``stages`` slots of a TMA ring; the backward's stages
+    are its resident items) or "cta" (the first port's kernel:
+    one CTA per (b, h) for the forward and backward, per batch row for the
+    products), and the ring CTA's dynamic shared memory (0 for "cta")."""
     form: str
     warpgroups: int
     ctas_per_sm: int
@@ -224,6 +231,87 @@ def lab_qk_plan(B: int, L: int, HD: int, sms: int) -> LabPlan:
                       lambda s: lab_qk_smem_bytes(L, s))
 
 
+def pv_warpgroups(L: int) -> int:
+    """Consumer warpgroups of a P V ring CTA: one per 64 rows of O."""
+    return 1 if L <= 64 else 2
+
+
+def pv_p_bytes(L: int) -> int:
+    """Bytes of a P V ring's p slot: one batch row of p and the up to 14
+    bytes on each side that its 16-byte aligned copy brings along."""
+    return _round16(2 * L * L + 28)
+
+
+def lab_pv_smem_bytes(L: int, HD: int, stages: int) -> int:
+    """Shared memory of one P V ring CTA (``pv_ring_smem`` in csrc/lab.cu):
+    per stage one 16-key step of every head (16 rows x HD bf16), the p
+    slots, the mbarriers (16 B a stage and a p slot), and 1 KB to align."""
+    return SW128_ALIGN + stages * 32 * HD + PV_P_SLOTS * pv_p_bytes(L) + 16 * (stages + PV_P_SLOTS)
+
+
+def lab_pv_plan(B: int, L: int, H: int, D: int, sms: int) -> LabPlan:
+    """The head-summed P V's launch plan for B batch rows of L <= 128 tokens
+    and H heads of D on a card of ``sms`` SMs: the ring, one consumer
+    warpgroup up to 64 tokens and two beyond; two CTAs an SM at head_dim 64
+    (one at 128, whose accumulators need the registers) where two stages
+    (``PV_MIN_STAGES``) fit each, else one; the fewest stages that keep
+    ``PV_INFLIGHT_BYTES`` of v in flight an SM (the time rose with more, in
+    the sweep of ``tools/lab_plans.py``), at most as many as fit; a grid of
+    ``min(B, sms * ctas_per_sm)`` CTAs, each walking the batch rows
+    ``x, x + grid, ...`` and each row's 16-key steps of v (every head a step)
+    through the ring; "cta" where two stages of v do not fit a CTA."""
+    _head_dim(D)
+    if not 1 <= L <= PRODUCT_MAX_LEN or H < 1:
+        raise ValueError(f"the P V plan takes 1 <= L <= {PRODUCT_MAX_LEN} and H >= 1, got L={L}, H={H}")
+
+    def fits(ctas, stages):
+        return lab_pv_smem_bytes(L, H * D, stages) <= min(MAX_SMEM, SM_SMEM // ctas - CTA_RESERVED_SMEM)
+
+    ctas = 2 if D == 64 and fits(2, PV_MIN_STAGES) else 1
+    if not fits(ctas, PV_MIN_STAGES):
+        return CTA_PLAN
+    want = min(PV_MAX_STAGES, max(PV_MIN_STAGES, -(-PV_INFLIGHT_BYTES // (ctas * 32 * H * D))))
+    stages = max(s for s in range(PV_MIN_STAGES, want + 1) if fits(ctas, s))
+    return LabPlan("ring", pv_warpgroups(L), ctas, stages, min(B, sms * ctas),
+                   lab_pv_smem_bytes(L, H * D, stages))
+
+
+def bwd_tile_rows(L: int) -> int:
+    """Token rows of a backward ring tile (``bwd_ring_rows``): round16(L) for
+    rows of two or more 64-row blocks, else 64."""
+    return 64 if L <= 64 else _round16(L)
+
+
+def lab_bwd_smem_bytes(L: int, stages: int) -> int:
+    """Shared memory of one backward ring CTA at head_dim 64
+    (``bwd_ring_smem`` in csrc/lab.cu): per stage Q, dO, V and K of one
+    (b, h), and ds, one panel a 64-key block, each ``bwd_tile_rows(L)`` rows
+    x 128 B; a 64 x 64 bf16 output tile for each of the two warpgroups;
+    lse2 and delta (f32 a row); an mbarrier a stage and a count; 1 KB to
+    align."""
+    R = bwd_tile_rows(L)
+    return (SW128_ALIGN + (4 * stages + fwd_key_blocks(L)) * R * 128 + 2 * 64 * 64 * 2 + 8 * R
+            + 16 * stages)
+
+
+def lab_bwd_plan(B: int, L: int, H: int, D: int, sms: int) -> LabPlan:
+    """The lab backward's launch plan on a card of ``sms`` SMs:
+
+    * the ring at head_dim 64 for rows of at most ``BWD_RING_MAX_LEN``
+      tokens (an item and its ds must fit a CTA's shared memory): two
+      consumer warpgroups, one CTA an SM, two resident items where they fit
+      (up to 144 tokens), else one, and a grid of ``min(B * H, sms)`` CTAs,
+      each walking the (b, h) items ``x, x + grid, ...``;
+    * otherwise "cta": head_dim 128 and longer rows."""
+    _head_dim(D)
+    if L < 1:
+        raise ValueError(f"the lab backward takes L >= 1, got {L}")
+    if D != 64 or L > BWD_RING_MAX_LEN:
+        return CTA_PLAN
+    stages = max(s for s in range(1, BWD_RING_MAX_STAGES + 1) if lab_bwd_smem_bytes(L, s) <= MAX_SMEM)
+    return LabPlan("ring", 2, 1, stages, min(B * H, sms), lab_bwd_smem_bytes(L, stages))
+
+
 def fwd_key_blocks(L: int) -> int:
     """64-key blocks of a forward ring row (its box holds 64 of them a block)."""
     return -(-L // 64)
@@ -283,10 +371,10 @@ _SIGNATURES = {
     # name: argument kinds, "p" pointer, "i" int, "f" float; every one returns int
     "latteclip_lab_fwd_packed": "pppppiiiifiip",
     "latteclip_lab_fwd_bhld": "pppppiiiifiip",
-    "latteclip_lab_bwd_bhld": "ppppppppiiiifp",
+    "latteclip_lab_bwd_bhld": "ppppppppiiiifiip",
     "latteclip_lab_qk_natural": "pppiiiiip",
     "latteclip_lab_qk_pret": "pppiiiiip",
-    "latteclip_lab_pv": "pppiiiip",
+    "latteclip_lab_pv": "pppiiiiiip",
 }
 
 
@@ -398,13 +486,15 @@ def lab_bwd_bhld(qb: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor, dob: torc
         raise ValueError(f"qb must be [B, H, L, D], got {tuple(qb.shape)}")
     B, H, L, D = qb.shape
     _head_dim(D)
-    _check_row_fits(L, D, 4, extra=8)
     for n, x in (("qb", qb), ("kb", kb), ("vb", vb), ("dob", dob)):
         _check(n, x, (B, H, L, D))
     _check("lse", lse, (H, B, L), torch.float32)
+    plan = lab_bwd_plan(B, L, H, D, sm_count(qb.device.index))
+    if plan.form == "cta":
+        _check_row_fits(L, D, 4, extra=8)
     grads = [torch.empty_like(qb) for _ in range(3)]
     _launch("latteclip_lab_bwd_bhld", "lab_bwd", [qb, kb, vb, dob, lse, *grads], B, L, H, D,
-            D ** -0.5)
+            D ** -0.5, *plan.c_args())
     return tuple(grads)
 
 
@@ -458,7 +548,8 @@ def pv_heads(p: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
     _check("p", p, (B, L, L))
     _check("v", v, (B, L, HD))
     o = torch.empty((B, L, D), dtype=torch.float32, device=v.device)
-    _launch("latteclip_lab_pv", "lab_pv", [p, v, o], B, L, num_heads, D)
+    _launch("latteclip_lab_pv", "lab_pv", [p, v, o], B, L, num_heads, D,
+            *lab_pv_plan(B, L, num_heads, D, sm_count(v.device.index)).c_args())
     return o
 
 

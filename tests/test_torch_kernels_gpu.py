@@ -1047,6 +1047,143 @@ def test_cuda_lab_rings_refuse_a_plan_they_cannot_take():
     torch.cuda.synchronize()
 
 
+def _lab_bwd_entry(qb, kb, vb, dob, lse, plan_args):
+    """The lab backward's entry point called with an explicit plan (grid,
+    stages; (0, 0) is the one-CTA form): (error, [dq, dk, dv])."""
+    B, H, L, D = qb.shape
+    grads = [torch.empty_like(qb) for _ in range(3)]
+    err = LB._kernel("latteclip_lab_bwd_bhld")(
+        *(x.data_ptr() for x in (qb, kb, vb, dob, lse, *grads)), B, L, H, D, D ** -0.5, *plan_args,
+        torch.cuda.current_stream().cuda_stream)
+    return err, grads
+
+
+def _lab_pv_entry(p, v, H, plan_args):
+    """The P V entry point called with an explicit plan: (error, O)."""
+    B, L, HD = v.shape
+    o = torch.empty(B, L, HD // H, device="cuda")
+    err = LB._kernel("latteclip_lab_pv")(p.data_ptr(), v.data_ptr(), o.data_ptr(), B, L, H, HD // H, *plan_args,
+                                          torch.cuda.current_stream().cuda_stream)
+    return err, o
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(LAB_GRIDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [16, 50, 77, 129, 197])
+def test_cuda_lab_bwd_forms_match_plain_versions(L, D, grids):
+    """Each form of the lab backward (the ring with one and, where two fit,
+    two resident items, and the one-CTA form) against the plain version and
+    against each other on explicit grids. At head_dim 128 the ring's entry
+    refuses the row: the plan keeps the one-CTA form there."""
+    _need_cuda()
+    B, grid = LAB_GRIDS[grids]
+    H = 2
+    rng = np.random.default_rng(L * 1000 + D + 41 + B)
+    qb, kb, vb = _lab_qkv(rng, B, H, L, D, "bhld")
+    dob = torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    _, lse = LB.lab_fwd_bhld(qb, kb, vb)
+    ref = LB.lab_bwd_bhld_plain(qb, kb, vb, dob, lse)
+    err, cta = _lab_bwd_entry(qb, kb, vb, dob, lse, (0, 0))
+    rings = []
+    if grid and D == 128:
+        assert _lab_bwd_entry(qb, kb, vb, dob, lse, (grid, 1))[0] != 0
+    elif grid:
+        rings = [_lab_bwd_entry(qb, kb, vb, dob, lse, (grid, stages)) for stages in (1, 2)
+                 if LB.lab_bwd_smem_bytes(L, stages) <= LB.MAX_SMEM]
+        assert len(rings) == (2 if L <= 144 else 1)
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_lab_grads_close(cta, ref)
+    for err_ring, grads in rings:
+        assert err_ring == 0
+        _assert_lab_grads_close(grads, ref)
+        _assert_lab_grads_close(grads, cta)
+
+
+# P V on explicit grids: one CTA for every row, fewer CTAs than rows, more
+# CTAs than rows, and the one-CTA-per-row form (grid 0)
+PV_GRIDS = {"one_cta": 1, "ragged": 2, "more_than_rows": 300, "cta": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(PV_GRIDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 77, 127])
+@pytest.mark.parametrize("B", [3, 9])
+def test_cuda_lab_pv_forms_match_plain_versions(B, L, D, grids):
+    """Each form of the head-summed P V (the ring with the plan's stages and
+    with the fewest, and the one-CTA form) against the plain version and
+    against each other, at batch sizes and odd rows where most batch rows of
+    p start off a 16-byte boundary (the ring copies the aligned span around
+    each and reads the last batch row's tail from device memory)."""
+    _need_cuda()
+    grid, H = PV_GRIDS[grids], 3
+    rng = np.random.default_rng(L * 100 + B * 10 + D + 43)
+    p, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", torch.bfloat16)
+            for shape in ((B, L, L), (B, L, H * D)))
+    ref = LB.pv_heads_plain(p, v, H)
+    err, cta = _lab_pv_entry(p, v, H, (0, 0))
+    stages = {LB.lab_pv_plan(B, L, H, D, 132).stages, LB.PV_MIN_STAGES}
+    rings = [_lab_pv_entry(p, v, H, (grid, st)) for st in sorted(stages)] if grid else []
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_f32_close(cta, ref)
+    for err_ring, o in rings:
+        assert err_ring == 0
+        _assert_f32_close(o, ref)
+        _assert_f32_close(o, cta)
+
+
+@pytest.mark.gpu
+def test_cuda_lab_bwd_and_pv_rings_refuse_a_plan_they_cannot_take():
+    """The backward ring refuses no resident item or more than two, two items
+    of rows past 144 tokens, rows past 208 and head_dim 128; the P V ring one
+    stage (no copy would be in flight while a step is multiplied), more than
+    PV_MAX_STAGES, rows past 128 and stages that do not fit a CTA."""
+    _need_cuda()
+    H = 2
+    for L, D, stages in ((50, 64, 0), (50, 64, LB.BWD_RING_MAX_STAGES + 1), (197, 64, 2), (209, 64, 1),
+                         (77, 128, 1)):
+        xb = torch.zeros(1, H, L, D, device="cuda", dtype=torch.bfloat16)
+        lse = torch.zeros(H, 1, L, device="cuda")
+        assert _lab_bwd_entry(xb, xb, xb, xb, lse, (1, stages))[0] != 0, (L, D, stages)
+    for L, HD, stages in ((77, 128, 1), (77, 128, LB.PV_MAX_STAGES + 1), (129, 128, 2), (77, 8192, 2)):
+        p = torch.zeros(1, L, L, device="cuda", dtype=torch.bfloat16)
+        v = torch.zeros(1, L, HD, device="cuda", dtype=torch.bfloat16)
+        assert _lab_pv_entry(p, v, HD // 64, (1, stages))[0] != 0, (L, HD, stages)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_lab_bwd_and_pv_plan_forms_count_their_launch():
+    """Each form the backward and P V plans pick, through the wrappers, adds
+    one to its kernel's count and matches the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(47)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, L, H, D, want in ((4, 197, 2, 64, ("ring", 1)), (4, 77, 2, 64, ("ring", 2)), (3, 50, 2, 128, ("cta", 0))):
+        qb, kb, vb = _lab_qkv(rng, B, H, L, D, "bhld")
+        _, lse = LB.lab_fwd_bhld(qb, kb, vb)
+        plan = LB.lab_bwd_plan(B, L, H, D, sms)
+        assert (plan.form, plan.stages) == want
+        LB.reset_launch_counts()
+        grads = LB.lab_bwd_bhld(qb, kb, vb, vb, lse)
+        assert LB.launch_counts == {"lab_fwd": 0, "lab_bwd": 1, "lab_qk": 0, "lab_pv": 0}
+        ref = LB.lab_bwd_bhld_plain(qb, kb, vb, vb, lse)
+        torch.cuda.synchronize()
+        _assert_lab_grads_close(grads, ref)
+    for B, L, H, D in ((3, 77, 3, 64), (9, 1, 2, 128)):
+        p, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", torch.bfloat16)
+                for shape in ((B, L, L), (B, L, H * D)))
+        assert LB.lab_pv_plan(B, L, H, D, sms).form == "ring"
+        LB.reset_launch_counts()
+        o = LB.pv_heads(p, v, H)
+        assert LB.launch_counts == {"lab_fwd": 0, "lab_bwd": 0, "lab_qk": 0, "lab_pv": 1}
+        torch.cuda.synchronize()
+        _assert_f32_close(o, LB.pv_heads_plain(p, v, H))
+
+
 @pytest.mark.gpu
 def test_cuda_lab_plan_forms_count_their_launch():
     """Each form the lab plans pick, through the wrappers, adds one to its
