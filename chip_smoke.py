@@ -125,7 +125,38 @@ Phases, each raising on failure:
    64-image batch with augment off: loss within 1e-2 relative, gradient
    cosine >= 0.99, bank rows cosine >= 0.999; a train_b16 JSON line with
    images/s, device busy ms per step and by kind, and peak memory;
-7. report: one JSON line of kernels, nvidia-smi's line, and the final line
+   then packed_b16_remat, the same step with both towers rematerialised,
+   from fresh seed-0 weights: from one batch and one generator its first
+   loss must equal the step's without remat (1e-6 relative) and the
+   gradients agree at cosine >= 0.9999; its 10 counted steps must launch
+   exactly what packed_b16's launched (no attention forward runs again in
+   the backward) and peak below packed_b16's memory; a train_b16_remat line
+   with both peaks and both device busy ms per step. Phase 6 also runs two
+   more routes at ViT-B/32: packed_crop (the packed step fed 256-pixel
+   canvases and crop boxes, so the on-device crop runs in the step; launches
+   as packed; the crop alone timed by CUDA events, its share of the step's
+   device busy time, and the kernel route against the plain route on the
+   crop's images) and padded_fused_text (fuse_text_fwd: the templates and
+   both caption streams in one padded forward, K1 = K3 = 12 a step, and the
+   padded route's agreement bounds against padded);
+7. cli: the training entry point, latteclip_torch.train.main.main, in
+   process on the card at ViT-B/32, batch 512, captions packed at 128, on
+   the synthetic fixture its --dataset-type synthetic writes (1024 train and
+   32 val images at 224 px): (a) 2 epochs of 2 steps with an eval and a
+   checkpoint each; every step must launch exactly 36 flash_fwd_seg and 36
+   flash_bwd_seg, every eval 12 flash_fwd_seg (one batch of 64, in pairs),
+   the bank init 12 flash_fwd; losses finite, epoch_1.pt and epoch_2.pt
+   written; the traced second epoch's host-to-device copies are reported
+   (pinned or pageable, overlap with kernels); (b) --resume latest for epoch 3: it must start at epoch
+   2, step 4, log the schedule's LR at step 4 first, and restore the
+   optimizer entry that (a) saved bit for bit; (c) --lock-image
+   --accum-freq 2 --grad-clip-norm 1.0 for one epoch: 2 calls and 1
+   update, every visual.* parameter bit-equal to its seed-0 start and the
+   text parameters moved. A cli JSON line gives the images/s and data-wait
+   share of the loop's last log line, the traced epoch's Memcpy HtoD ms,
+   pinned flag and overlap with kernels, peak memory, checkpoint bytes and
+   write seconds, eval top-1 and launches per step;
+8. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -137,7 +168,10 @@ import ctypes
 import dataclasses
 import importlib.util
 import json
+import logging
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -188,6 +222,7 @@ LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
 TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
 TRAIN_BATCH_B16, AGREE_BATCH_B16 = 512, 64  # ViT-B/16 train batch; its agreement batch
+CANVAS = 256         # the pipeline's on-device crop canvas (PipelineConfig.canvas_size)
 EVAL_BATCH = 256     # the serving phases' eval batch (four of 256 and one of 255)
 # the lab tools' shapes (B, L, H, D) and one small shape of each
 LAB_ATTN, LAB_ATTN_SMALL = (512, 197, 12, 64), (4, 50, 2, 64)
@@ -1271,6 +1306,43 @@ def train_batch(rng, batch, image_size, num_classes, eot_id, bucket, pack_len):
     return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
 
 
+def crop_batches(rng, batches):
+    """The train batches with their images replaced by seeded CANVAS-pixel
+    canvases and torchvision crop boxes (scale 0.9-1.0), as the pipeline's
+    on-device crop path ships them."""
+    from latteclip_torch.data import transforms as T
+
+    out = []
+    for b in batches:
+        n = b["images"].shape[0]
+        canvases = rng.integers(0, 256, (n, CANVAS, CANVAS, 3), dtype=np.uint8)
+        boxes = np.asarray([T.random_crop_box(CANVAS, CANVAS, rng) for _ in range(n)], np.float32)
+        out.append({**b, "images": torch.from_numpy(canvases).cuda(),
+                    "crop_boxes": torch.from_numpy(boxes).cuda()})
+    return out
+
+
+def event_ms(fn, iters=5) -> float:
+    """Mean device ms of fn() by CUDA events, after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def agree(a, b) -> dict:
+    """Loss, gradient and bank agreement of two route_gradients results."""
+    (loss_a, grad_a, bank_a), (loss_b, grad_b, bank_b) = a, b
+    return {"loss": loss_a, "loss_ref": loss_b, "loss_rel_diff": abs(loss_a - loss_b) / abs(loss_b),
+            "grad_cos": float(F.cosine_similarity(grad_a, grad_b, dim=0)),
+            "bank_row_cos_min": float(F.cosine_similarity(bank_a, bank_b, dim=1).min())}
+
+
 def timed_steps(step_fn, state, batches, gen, n):
     """n steps; (images/s on the host clock around synchronised steps, losses)."""
     losses = []
@@ -1372,6 +1444,13 @@ def phase_train(smi: str, train: dict):
                       "ln_linear": 2 * n * (vision_sites + text_sites)},
         "padded_bd": {"flash_fwd_bd": n * text_sites, "flash_bwd": n * text_sites, **segmented},
         "plain": {},
+        # the crop changes the images only; the fused text forward runs the
+        # templates and both caption streams in one forward: one K1 and one
+        # K3 a text layer
+        "packed_crop": {"flash_fwd_seg": n * (vision_sites + text_sites),
+                        "flash_bwd_seg": n * (vision_sites + text_sites)},
+        "padded_fused_text": {"flash_fwd": n * cfg.text.layers, "flash_bwd": n * cfg.text.layers,
+                              **segmented},
     }
 
     bank = St.init_memory_bank(model, tok, classes, templates)
@@ -1388,13 +1467,18 @@ def phase_train(smi: str, train: dict):
     bd_step = S.make_train_step(model, padded, table, T.AugConfig(), attention="blockdiag")
     plain_step = S.make_train_step(model, S.LatteHParams(text_packing=True), table, T.AugConfig(),
                                    template_packed=tpl, attention="plain")
-    steps = (("packed", packed_step, 3), ("padded", padded_step, 1), ("padded_hs", hs_step, 1),
-             ("padded_bd", bd_step, 1), ("plain", plain_step, 1))
+    fused = S.LatteHParams(text_packing=False, fuse_text_fwd=True)
+    fused_step = S.make_train_step(model, fused, table, T.AugConfig())
+    canvas_batches = crop_batches(np.random.default_rng(256), batches)
+    steps = (("packed", packed_step, 3, batches), ("padded", padded_step, 1, batches),
+             ("padded_hs", hs_step, 1, batches), ("padded_bd", bd_step, 1, batches),
+             ("plain", plain_step, 1, batches), ("packed_crop", packed_step, 1, canvas_batches),
+             ("padded_fused_text", fused_step, 1, batches))
     routes = {}
-    for route, step_fn, warm in steps:
-        _, warm_losses = timed_steps(step_fn, state, batches, gen, warm)
+    for route, step_fn, warm, route_batches in steps:
+        _, warm_losses = timed_steps(step_fn, state, route_batches, gen, warm)
         torch.cuda.reset_peak_memory_stats()
-        ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+        ips, losses, launches = counted_steps(step_fn, state, route_batches, gen, n)
         routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
                          "max_memory_allocated": torch.cuda.max_memory_allocated()}
         log(f"train kernels {route}: {json.dumps(launches)}")
@@ -1403,10 +1487,17 @@ def phase_train(smi: str, train: dict):
             raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
         check_state(state, warm_losses + losses, f"{route} route")
 
-    for route, step_fn, _ in steps:
-        profile = device_profile(lambda: step_fn(state, batches[0], gen))
+    for route, step_fn, _, route_batches in steps:
+        profile = device_profile(lambda: step_fn(state, route_batches[0], gen))
         routes[route]["device_busy_ms_per_step"] = profile["device_busy_ms"]
         log(f"profile train_step_{route} " + json.dumps(profile))
+    # the crop's share of the packed_crop step: its weight build and two
+    # batched matmuls, timed alone on the same canvases and boxes
+    crop = canvas_batches[0]
+    crop_ms = event_ms(lambda: T.device_random_resized_crop(crop["images"], crop["crop_boxes"],
+                                                            cfg.vision.image_size))
+    routes["packed_crop"]["crop_ms"] = crop_ms
+    routes["packed_crop"]["crop_share"] = crop_ms / routes["packed_crop"]["device_busy_ms_per_step"]
 
     # kernel route against plain route from one copied state, augment off
     hp = S.LatteHParams(augment=False, text_packing=True)
@@ -1427,16 +1518,22 @@ def phase_train(smi: str, train: dict):
     }
     # each other padded route against the padded route, same state and batch
     hp_padded = S.LatteHParams(augment=False, text_packing=False)
+    hp_fused = S.LatteHParams(augment=False, text_packing=False, fuse_text_fwd=True)
     padded_runs = {route: route_gradients(copy.deepcopy(model), hp_padded, batch, images, state,
                                           table_t, None, attention, ln_linear)
                    for route, (attention, ln_linear) in padded_routes.items()}
-    loss_r, grad_r, bank_r = padded_runs["padded"]
-    route_agreement = {
-        route: {"loss": loss, "loss_padded": loss_r, "loss_rel_diff": abs(loss - loss_r) / abs(loss_r),
-                "grad_cos": float(F.cosine_similarity(grad, grad_r, dim=0)),
-                "bank_row_cos_min": float(F.cosine_similarity(bank, bank_r, dim=1).min())}
-        for route, (loss, grad, bank) in padded_runs.items() if route != "padded"}
+    padded_runs["padded_fused_text"] = route_gradients(copy.deepcopy(model), hp_fused, batch,
+                                                       images, state, table_t, None, "kernel")
+    route_agreement = {route: agree(run, padded_runs["padded"])
+                       for route, run in padded_runs.items() if route != "padded"}
     del padded_runs
+    # the packed step on the crop's images, kernel against plain attention
+    crop_images = T.train_augment_normalize(
+        crop["images"], None, T.AugConfig(color_jitter_prob=0.0, gray_scale_prob=0.0),
+        *T.model_mean_std(cfg), boxes=crop["crop_boxes"], size=cfg.vision.image_size)
+    route_agreement["packed_crop"] = agree(*(
+        route_gradients(copy.deepcopy(model), hp, crop, crop_images, state, table_t, tpl_t, att)
+        for att in ("kernel", "plain")))
     report = {
         "model": cfg.name, "batch": TRAIN_BATCH, "classes": len(classes), "steps_per_route": n,
         "caption_rows_per_batch": [int(b["cap_tokens"].shape[0]) for b in batches],
@@ -1446,7 +1543,7 @@ def phase_train(smi: str, train: dict):
     }
     log("train " + json.dumps(report))
     for name, a in {"kernel and plain routes": agreement, **{
-            f"{route} and padded routes": a for route, a in route_agreement.items()}}.items():
+            f"{route} and its reference route": a for route, a in route_agreement.items()}}.items():
         if a["loss_rel_diff"] > 1e-2 or a["grad_cos"] < 0.99 or a["bank_row_cos_min"] < 0.999:
             raise RuntimeError(f"{name} disagree: {a}")
     return {k: sum(r["launches"][k] for r in routes.values()) for k in routes["packed"]["launches"]}
@@ -1528,7 +1625,351 @@ def phase_train_b16(smi: str, train: dict):
     if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
             or agreement["bank_row_cos_min"] < 0.999):
         raise RuntimeError(f"ViT-B/16 kernel and plain routes disagree: {agreement}")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    remat_launches = phase_train_b16_remat(smi, train, cfg, launches, peak,
+                                           profile["device_busy_ms"])
+    return {k: launches[k] + remat_launches[k] for k in launches}
+
+
+def phase_train_b16_remat(smi: str, train: dict, cfg, packed_launches: dict, packed_peak: int,
+                          packed_busy_ms: float):
+    """packed_b16_remat: the ViT-B/16 step with both towers rematerialised,
+    from fresh seed-0 weights. Its 10 counted steps must launch exactly what
+    packed_b16's did (no attention forward runs again in the backward) and
+    peak below its memory; from one batch and one generator, the first step's
+    loss equals the step's without remat and the gradients agree at cosine
+    >= 0.9999."""
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.data.packing import PackRowBucketer
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St, step as S
+
+    tok, classes, templates = train["tok"], train["classes"], train["templates"]
+    table, tpl = train["table"], train["tpl"]
+    rng = np.random.default_rng(16)
+    bucket = PackRowBucketer(multiple=8)
+    batches = [train_batch(rng, TRAIN_BATCH_B16, cfg.vision.image_size, len(classes),
+                           tok.eot_token_id, bucket, PACK_LEN) for _ in range(2)]
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    bank = St.init_memory_bank(model, tok, classes, templates)
+    table_t = torch.from_numpy(table).cuda()
+    tpl_t = tuple(torch.from_numpy(a).cuda() for a in tpl)
+    images = T.train_augment_normalize(batches[0]["images"],
+                                       torch.Generator(device="cuda").manual_seed(0),
+                                       T.AugConfig(), *T.model_mean_std(cfg))
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
+    first = {remat: route_gradients(model, S.LatteHParams(text_packing=True, remat=remat),
+                                    batches[0], images, state, table_t, tpl_t, "kernel")
+             for remat in (False, True)}
+    first_step = agree(first[True], first[False])
+    first_step_equal = first[True][0] == first[False][0]
+    del images, first
+    model.zero_grad(set_to_none=True)
+    step_fn = S.make_train_step(model, S.LatteHParams(text_packing=True, remat=True), table,
+                                T.AugConfig(), template_packed=tpl)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, warm_losses = timed_steps(step_fn, state, batches, gen, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ips, losses, launches = counted_steps(step_fn, state, batches, gen, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train kernels packed_b16_remat: {json.dumps(launches)}")
+    check_state(state, warm_losses + losses, "packed_b16_remat route")
+    profile = device_profile(lambda: step_fn(state, batches[0], gen))
+    log("profile train_step_packed_b16_remat " + json.dumps(profile))
+    report = {
+        "model": cfg.name, "batch": TRAIN_BATCH_B16, "steps": TRAIN_STEPS, "remat": "both towers",
+        "images_per_s": ips, "losses": losses, "launches": launches,
+        "max_memory_allocated": peak, "max_memory_allocated_packed_b16": packed_peak,
+        "device_busy_ms_per_step": profile["device_busy_ms"],
+        "device_busy_ms_per_step_packed_b16": packed_busy_ms,
+        "device_idle_share": profile["device_idle_share"],
+        "device_ms_by_kind": profile["device_ms_by_kind"],
+        "first_step": first_step, "first_step_loss_equal": first_step_equal,
+        "card": smi,
+    }
+    log("train_b16_remat " + json.dumps(report))
+    if launches != packed_launches:
+        raise RuntimeError(f"packed_b16_remat launched {launches}, packed_b16 {packed_launches}")
+    if peak >= packed_peak:
+        raise RuntimeError(f"packed_b16_remat peaked at {peak} bytes, packed_b16 at {packed_peak}")
+    if first_step["loss_rel_diff"] > 1e-6 or first_step["grad_cos"] < 0.9999:
+        raise RuntimeError(f"remat and no remat disagree on the first step: {first_step}")
     return launches
+
+
+# -- phase 7: the training entry point -----------------------------------------
+
+CLI_MODEL, CLI_BATCH = "ViT-B-32", 512
+CLI_ARGS = ["--dataset-type", "synthetic", "--model", CLI_MODEL, "--batch-size", str(CLI_BATCH),
+            "--lr", "1e-5", "--warmup", "1", "--save-frequency", "1", "--zeroshot-frequency", "1",
+            "--no-save-most-recent", "--name", "cli"]
+_TRAIN_LINE = re.compile(r"Train Epoch: (\d+) \[\s*(\d+)/\d+\] Data \(t\): ([0-9.]+) "
+                         r"Batch \(t\): ([0-9.]+), ([0-9.e+]+)/s.*?LR: ([0-9.]+) .*?"
+                         r"Loss: ([0-9.e+-]+|nan|inf)")
+_RESUMED = re.compile(r"resumed from .* \(epoch (\d+), step (\d+)\)")
+
+
+class _Messages(logging.Handler):
+    """Collects the formatted messages of the port's logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _patch(obj, name, make):
+    """Replace obj.name by make(original); returns the undo."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def htod_profile(prof) -> dict:
+    """Memcpy HtoD of a torch.profiler trace: ms, whether every copy came
+    from pinned memory, and the share of copy time that overlapped a kernel."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        if "memcpy htod" in ev.name.lower():
+            copies.append((span, ev.name))
+        elif "memcpy" not in ev.name.lower() and "memset" not in ev.name.lower():
+            kernels.append(span)
+    overlap = 0
+    for (a, b), _ in copies:
+        covered = sorted((max(a, c), min(b, d)) for c, d in kernels if c < b and d > a)
+        end = a
+        for c, d in covered:
+            overlap += max(0, d - max(c, end))
+            end = max(end, d)
+    total = sum(b - a for (a, b), _ in copies)
+    by_name = {}
+    for (a, b), name in copies:
+        n, ms = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, ms + (b - a) / 1e3)
+    longest = sorted(((b - a) / 1e3, name) for (a, b), name in copies)[-4:]
+    return {"htod_ms": total / 1e3, "htod_copies": len(copies), "htod_by_name": by_name,
+            "htod_longest": longest,
+            # the batch's arrays are the long copies; a few small constants
+            # (mean, std) go from pageable memory
+            "htod_pinned": bool(copies) and "pinned" in longest[-1][1].lower(),
+            "htod_overlap_share": overlap / total if total else None}
+
+
+def run_cli(argv, step_launches, eval_launches, init_launches, timings, profile_epoch=None):
+    """latteclip_torch.train.main.main(argv) with the launches of every
+    step, eval and bank init recorded, the checkpoint writes timed, and, for
+    ``profile_epoch``, that epoch's steps and copies traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from latteclip_torch.train import loop as L, main as M
+
+    def counted(fn, out):
+        def wrapper(*args, **kwargs):
+            before = read_counts()
+            result = fn(*args, **kwargs)
+            after = read_counts()
+            out.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+            return result
+        return wrapper
+
+    def train(orig):
+        return lambda state, step_fn, *a, **k: orig(state, counted(step_fn, step_launches), *a, **k)
+
+    def timed(orig):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            orig(*args, **kwargs)
+            timings.append(time.perf_counter() - t0)
+        return wrapper
+
+    epochs_seen = []
+
+    def traced_prefetch(orig):
+        def wrapper(*args, **kwargs):
+            epochs_seen.append(None)
+            if len(epochs_seen) - 1 != profile_epoch:
+                return orig(*args, **kwargs)
+
+            def gen():
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    yield from orig(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                timings.append({"profile": prof, "wall_ms": wall})
+            return gen()
+        return wrapper
+
+    undo = [_patch(L, "train", train),
+            _patch(L, "evaluate_zero_shot", lambda f: counted(f, eval_launches)),
+            _patch(M, "init_memory_bank", lambda f: counted(f, init_launches)),
+            _patch(L, "save_epoch_checkpoint", timed),
+            _patch(L, "prefetch", traced_prefetch)]
+    try:
+        if M.main(argv) != 0:
+            raise RuntimeError(f"main({argv}) returned non-zero")
+    finally:
+        for u in undo:
+            u()
+
+
+def phase_cli(smi: str):
+    """The training entry point at ViT-B/32, batch 512, on the card
+    (python -m latteclip_torch.train.main, called in process): (a) 2 epochs
+    of 2 steps on the synthetic fixture (1024 train and 32 val images at 224
+    px, written by the port's data/synthetic.py), captions packed at 128, the
+    crop on the device; (b) --resume latest for a third epoch; (c)
+    --lock-image --accum-freq 2 --grad-clip-norm 1.0 for one epoch."""
+    import tempfile
+
+    from latteclip_torch import checkpoint as ckpt
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim
+
+    messages = _Messages()
+    logging.getLogger("latteclip_torch").addHandler(messages)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    old_tempdir, tempfile.tempdir = tempfile.tempdir, workdir
+    layers = get_model_config(CLI_MODEL).text.layers
+    totals = dict.fromkeys(read_counts(), 0)
+    try:
+        logs = os.path.join(workdir, "logs")
+        ckpt_dir = os.path.join(logs, "cli", "checkpoints")
+
+        # (a) two epochs, traced second epoch
+        steps, evals, inits, timings = [], [], [], []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run_cli([*CLI_ARGS, "--text-packing", "128", "--epochs", "2", "--logs", logs],
+                steps, evals, inits, timings, profile_epoch=1)
+        counts_a = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+        losses = [float(m.group(7)) for m in lines]
+        per_step = {"flash_fwd_seg": 3 * layers, "flash_bwd_seg": 3 * layers}
+        want_eval = {"flash_fwd_seg": layers}   # one eval batch of 64 (32 images padded), in pairs
+        trace = next(t for t in timings if isinstance(t, dict))
+        writes = [t for t in timings if not isinstance(t, dict)]
+        htod = htod_profile(trace["profile"])
+        with open(os.path.join(ckpt_dir, "results.jsonl")) as f:
+            results = [json.loads(x) for x in f]
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, "epoch_2.pt"))
+        saved = torch.load(os.path.join(ckpt_dir, "epoch_2.pt"), map_location="cpu",
+                           weights_only=True)["optimizer"]
+        report = {
+            "model": CLI_MODEL, "batch": CLI_BATCH, "steps": len(steps), "evals": len(evals),
+            "images_per_s": float(lines[-1].group(5)),
+            "data_wait_share": float(lines[-1].group(3)) / float(lines[-1].group(4)),
+            "losses": losses, "launches_per_step": steps, "eval_launches": evals,
+            "bank_init_launches": inits, "max_memory_allocated": peak,
+            "profiled_epoch": {"steps": 2, "wall_ms": trace["wall_ms"], **htod},
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_write_s": writes,
+            "eval_top1": results[-1]["top1"], "results": results,
+        }
+        bad = []
+        if len(steps) != 4 or any(d != per_step for d in steps):
+            bad.append(f"step launches {steps}, expected 4 x {per_step}")
+        if len(evals) != 2 or any(d != want_eval for d in evals):
+            bad.append(f"eval launches {evals}, expected 2 x {want_eval}")
+        if inits != [{"flash_fwd": layers}]:
+            bad.append(f"bank init launches {inits}, expected [{{'flash_fwd': {layers}}}]")
+        if len(losses) != 4 or not all(np.isfinite(losses)):
+            bad.append(f"losses {losses}")
+        for name in ("epoch_1.pt", "epoch_2.pt"):
+            if not os.path.exists(os.path.join(ckpt_dir, name)):
+                bad.append(f"{name} missing")
+
+        # (b) resume the latest checkpoint for a third epoch
+        messages.lines.clear()
+        restored = []
+
+        def checked_restore(orig):
+            def wrapper(model, optimizer, saved_entry, accum=None):
+                orig(model, optimizer, saved_entry, accum)
+                again = ckpt.optimizer_state(model, optimizer, accum)
+                restored.append(sorted(again) == sorted(saved_entry) and all(
+                    torch.equal(again[k], saved_entry[k]) for k in saved_entry))
+            return wrapper
+
+        undo = _patch(ckpt, "restore_optimizer_state", checked_restore)
+        steps_b, evals_b, inits_b = [], [], []
+        reset_counts()
+        try:
+            run_cli([*CLI_ARGS, "--text-packing", "128", "--epochs", "3", "--logs", logs,
+                     "--resume", "latest"], steps_b, evals_b, inits_b, [])
+        finally:
+            undo()
+        counts_b = read_counts()
+        resumed = next(m for m in (_RESUMED.search(x) for x in messages.lines) if m)
+        lines_b = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+        want_lr = "%f" % optim.make_schedule("cosine", 1e-5, 1, 6)(4)
+        report["resume"] = {"epoch": int(resumed.group(1)), "step": int(resumed.group(2)),
+                            "first_lr": lines_b[0].group(6), "schedule_lr_at_4": want_lr,
+                            "moments_restored": restored,
+                            "optimizer_leaves": len(saved),
+                            "losses": [float(m.group(7)) for m in lines_b]}
+        if (int(resumed.group(1)), int(resumed.group(2))) != (2, 4):
+            bad.append(f"resumed at {resumed.group(0)}, expected epoch 2, step 4")
+        if lines_b[0].group(6) != want_lr or int(lines_b[0].group(1)) != 2:
+            bad.append(f"first resumed line {lines_b[0].group(0)}, expected LR {want_lr}")
+        if restored != [True]:
+            bad.append(f"moments not restored as saved: {restored}")
+        if len(steps_b) != 2 or any(d != per_step for d in steps_b):
+            bad.append(f"resumed step launches {steps_b}")
+
+        # (c) locked image tower, accumulation over 2 calls, clipping
+        messages.lines.clear()
+        logs_c = os.path.join(workdir, "logs_c")
+        steps_c, evals_c, inits_c = [], [], []
+        reset_counts()
+        run_cli([*CLI_ARGS, "--text-packing", "128", "--epochs", "1", "--logs", logs_c,
+                 "--lock-image", "--accum-freq", "2", "--grad-clip-norm", "1.0"],
+                steps_c, evals_c, inits_c, [])
+        counts_c = read_counts()
+        obj = torch.load(os.path.join(logs_c, "cli", "checkpoints", "epoch_1.pt"),
+                         map_location="cpu", weights_only=True)
+        start = clip_mod.init_clip_params(torch.Generator().manual_seed(0),
+                                          get_model_config(CLI_MODEL), device="cpu")
+        visual_equal = all(torch.equal(obj["state_dict"][n], p.detach())
+                           for n, p in start.named_parameters() if n.startswith("visual."))
+        text_moved = [n for n, p in start.named_parameters()
+                      if not n.startswith("visual.") and n != "logit_scale"
+                      and not torch.equal(obj["state_dict"][n], p.detach())]
+        opt = obj["optimizer"]
+        report["locked"] = {"step": obj["step"], "visual_bit_equal": visual_equal,
+                            "text_params_moved": len(text_moved),
+                            "mini_step": int(opt[".mini_step"]),
+                            "gradient_step": int(opt[".gradient_step"]),
+                            "schedule_count": int(opt[".inner_opt_state[1][0][2].count"])}
+        if not visual_equal or not text_moved:
+            bad.append(f"locked run: visual bit-equal {visual_equal}, text moved {len(text_moved)}")
+        if (obj["step"], report["locked"]["gradient_step"], report["locked"]["schedule_count"]) \
+                != (2, 1, 1):
+            bad.append(f"locked run: {report['locked']}, expected 2 calls and 1 update")
+        report["card"] = smi
+        log("cli " + json.dumps(report))
+        if bad:
+            raise RuntimeError("training entry point: " + "; ".join(bad))
+        for counts in (counts_a, counts_b, counts_c):
+            for k in totals:
+                totals[k] += counts[k]
+        return totals
+    finally:
+        tempfile.tempdir = old_tempdir
+        logging.getLogger("latteclip_torch").removeHandler(messages)
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def ptxas_warnings(lines) -> list:
@@ -1600,6 +2041,8 @@ def main() -> int:
     train_launches = phase_train(smi, train)
     torch.cuda.empty_cache()
     b16_train_launches = phase_train_b16(smi, train)
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli(smi)
 
     kernels = []
     for name in SOURCES:
@@ -1607,7 +2050,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
-                                                     b16_train_launches, lab_launches)),
+                                                     b16_train_launches, lab_launches,
+                                                     cli_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

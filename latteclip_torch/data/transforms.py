@@ -1,22 +1,32 @@
-"""Image normalization and the train colour augment (port of
+"""Image geometry, normalization and the train augment (port of
 ``latteclip_tpu/data/transforms.py``: ``OPENAI_MEAN``/``OPENAI_STD``,
-``model_mean_std``, ``normalize_images``, ``AugConfig``, ``color_augment``
-and ``train_augment_normalize`` without crop boxes).
+``model_mean_std``, the host geometry ``eval_resize_crop``,
+``random_crop_box``, ``random_resized_crop`` and ``load_rgb`` (PIL),
+``normalize_images``, ``AugConfig``, ``color_augment``,
+``device_random_resized_crop`` and ``train_augment_normalize``).
 
 The augment is LatteCLIP's forced recipe: colour jitter (0.5, 0.5, 0.5, 0.1)
 with p = 0.8 and grayscale with p = 0.2, on the device, batched, in NHWC, with
 the JAX package's arithmetic (jitter sub-ops in the fixed order brightness,
 contrast, saturation, hue). Its random draws come from an explicit
 ``torch.Generator``; ``factors=`` takes them from the caller instead, so a
-test can hand both packages the same draws. The on-device random resized crop
-(``device_random_resized_crop``) is not ported yet (ROADMAP.md, section 1).
+test can hand both packages the same draws.
+
+The on-device random resized crop reproduces ``jax.image.scale_and_translate``
+with the Keys cubic kernel and antialiasing: per sample and axis an explicit
+``[in, out]`` weight matrix (sample positions, the kernel widened by the
+downsampling factor, renormalised columns, zero columns for samples outside
+the input), built on the device in float32, then two batched matmuls.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from PIL import Image
 
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -28,9 +38,10 @@ FACTOR_NAMES = ("brightness", "contrast", "saturation", "hue", "jitter_draw", "g
 
 @dataclasses.dataclass(frozen=True)
 class AugConfig:
-    """LatteCLIP's forced train augmentation (reference main.py:233-235).
-    The crop's scale range comes with the crop (ROADMAP.md, section 1)."""
+    """LatteCLIP's forced train augmentation (reference main.py:233-235)."""
 
+    scale_min: float = 0.9
+    scale_max: float = 1.0
     color_jitter: Tuple[float, float, float, float] = (0.5, 0.5, 0.5, 0.1)
     color_jitter_prob: float = 0.8
     gray_scale_prob: float = 0.2
@@ -41,6 +52,75 @@ def model_mean_std(cfg) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
     mean = getattr(cfg, "image_mean", None) or OPENAI_MEAN
     std = getattr(cfg, "image_std", None) or OPENAI_STD
     return tuple(mean), tuple(std)
+
+
+def eval_resize_crop(img: Image.Image, size: int, resize_mode: str = "shortest") -> np.ndarray:
+    """Eval geometry -> uint8 [size, size, 3]: ``shortest`` resizes the
+    shortest edge to ``size`` (bicubic, the long edge truncated as
+    torchvision does) and centre-crops; ``squash`` resizes both edges;
+    ``longest`` resizes the longest edge and pads the other with black."""
+    w, h = img.size
+    if resize_mode == "squash":
+        return np.asarray(img.resize((size, size), Image.BICUBIC), dtype=np.uint8)
+    if resize_mode == "longest":
+        scale = size / max(w, h)
+        new_w, new_h = max(1, round(w * scale)), max(1, round(h * scale))
+        img = img.resize((new_w, new_h), Image.BICUBIC)
+        canvas = np.zeros((size, size, 3), np.uint8)
+        top, left = (size - new_h) // 2, (size - new_w) // 2
+        canvas[top:top + new_h, left:left + new_w] = np.asarray(img, dtype=np.uint8)
+        return canvas
+    if resize_mode != "shortest":
+        raise ValueError(f"unknown resize_mode: {resize_mode}")
+    if w <= h:
+        new_w, new_h = size, max(size, int(size * h / w))
+    else:
+        new_w, new_h = max(size, int(size * w / h)), size
+    img = img.resize((new_w, new_h), Image.BICUBIC)
+    left = int(round((new_w - size) / 2.0))
+    top = int(round((new_h - size) / 2.0))
+    return np.asarray(img.crop((left, top, left + size, top + size)), dtype=np.uint8)
+
+
+def random_crop_box(w: int, h: int, rng: np.random.Generator,
+                    scale: Tuple[float, float] = (0.9, 1.0),
+                    ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)) -> Tuple[int, int, int, int]:
+    """torchvision RandomResizedCrop box sampling -> (left, top, cw, ch):
+    ten tries at an area and log-aspect draw, then a centre crop at the
+    clamped aspect."""
+    area = w * h
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = math.exp(rng.uniform(*log_ratio))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = int(rng.integers(0, w - cw + 1))
+            top = int(rng.integers(0, h - ch + 1))
+            return left, top, cw, ch
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    return (w - cw) // 2, (h - ch) // 2, cw, ch
+
+
+def random_resized_crop(img: Image.Image, size: int, rng: np.random.Generator,
+                        scale: Tuple[float, float] = (0.9, 1.0),
+                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)) -> np.ndarray:
+    """RandomResizedCrop on the host (PIL bicubic) -> uint8 [size, size, 3]."""
+    left, top, cw, ch = random_crop_box(*img.size, rng, scale, ratio)
+    img = img.resize((size, size), Image.BICUBIC, box=(left, top, left + cw, top + ch))
+    return np.asarray(img, dtype=np.uint8)
+
+
+def load_rgb(path_or_file) -> Image.Image:
+    img = Image.open(path_or_file)
+    return img.convert("RGB") if img.mode != "RGB" else img
 
 
 def _standardize(x: torch.Tensor, mean, std) -> torch.Tensor:
@@ -129,10 +209,66 @@ def color_augment(x: torch.Tensor, generator: Optional[torch.Generator], aug: Au
     return torch.where(f["gray_draw"] < aug.gray_scale_prob, _grayscale(x).expand_as(x), x)
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def crop_weights(in_size: int, out_size: int, start: torch.Tensor,
+                 extent: torch.Tensor) -> torch.Tensor:
+    """Per-sample resampling matrices [B, in_size, out_size] (float32) that
+    map the span [start, start + extent) of an axis onto ``out_size``
+    pixels: ``scale_and_translate``'s ``compute_weight_mat`` with the Keys
+    cubic kernel, antialiased, at scale ``out / extent`` and translation
+    ``-start * out / extent``."""
+    dev = start.device
+    scale = out_size / extent
+    translation = -start * out_size / extent
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    out_pos = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    sample_f = (out_pos[None, :] * inv_scale[:, None] - (translation * inv_scale)[:, None]
+                - 0.5)                                                    # [B, out]
+    in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)
+    x = (sample_f[:, None, :] - in_pos[None, :, None]).abs() / kernel_scale[:, None, None]
+    weights = _keys_cubic(x)                                              # [B, in, out]
+    total = weights.sum(dim=1, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], weights, 0.0)
+
+
+def device_random_resized_crop(batch_u8: torch.Tensor, boxes: torch.Tensor,
+                               size: int) -> torch.Tensor:
+    """uint8 canvases [B, CV, CV, 3] and crop boxes [B, 4] (left, top, cw,
+    ch in canvas pixels) -> float32 [B, size, size, 3] in [0, 255]: the
+    separable antialiased Keys-cubic resample of each box, as two batched
+    matmuls (rows, then columns)."""
+    B, H, W, C = batch_u8.shape
+    boxes = boxes.to(batch_u8.device, torch.float32)
+    left, top, cw, ch = boxes.unbind(dim=1)
+    wy = crop_weights(H, size, top, ch)                                  # [B, H, S]
+    wx = crop_weights(W, size, left, cw)                                 # [B, W, S]
+    x = batch_u8.float().reshape(B, H, W * C)
+    rows = torch.bmm(wy.transpose(1, 2), x).reshape(B, size, W, C)       # [B, S, W, C]
+    cols = torch.bmm(rows.permute(0, 1, 3, 2).reshape(B, size * C, W), wx)  # [B, S*C, S]
+    return cols.reshape(B, size, C, size).permute(0, 1, 3, 2)
+
+
 def train_augment_normalize(batch_u8: torch.Tensor, generator: Optional[torch.Generator],
                             aug: AugConfig = AugConfig(), mean: Tuple[float, ...] = OPENAI_MEAN,
                             std: Tuple[float, ...] = OPENAI_STD,
-                            factors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """uint8 [B, H, W, 3] -> colour-augmented, normalized float32 (train path)."""
-    x = color_augment(batch_u8.float() / 255.0, generator, aug, factors)
+                            factors: Optional[Dict[str, torch.Tensor]] = None,
+                            boxes: Optional[torch.Tensor] = None,
+                            size: int = 224) -> torch.Tensor:
+    """uint8 [B, H, W, 3] -> colour-augmented, normalized float32 (train
+    path). With ``boxes`` the images are canvases and the random resized
+    crop to ``size`` runs first, on the device."""
+    if boxes is not None:
+        x = device_random_resized_crop(batch_u8, boxes, size).clamp(0.0, 255.0) / 255.0
+    else:
+        x = batch_u8.float() / 255.0
+    x = color_augment(x, generator, aug, factors)
     return _standardize(x, mean, std)

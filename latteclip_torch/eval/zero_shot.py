@@ -9,19 +9,21 @@ these functions one to one:
 * :func:`prototype_classifier`: the LatteCLIP memory bank ``[C, D]`` as a
   normalized ``[D, C]`` classifier;
 * :func:`run_zero_shot_eval`: ``logits = 100 * normalize(f(image)) @
-  classifier`` over uint8 batches, with top-1/5/10 accuracy.
+  classifier`` over uint8 batches, with top-1/5/10 accuracy; on the card
+  the batches come from pinned memory, copied a batch ahead.
 
 Everything runs on the model's device under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, Iterator, List, Sequence
 
 import numpy as np
 import torch
 
 from latteclip_torch.data import transforms as T
 from latteclip_torch.data.packing import pack_token_rows, token_lengths
+from latteclip_torch.data.pipeline import prefetch
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.models.tokenizer import ClipTokenizer
@@ -102,13 +104,22 @@ def topk_counts(logits: np.ndarray, target: np.ndarray, ks=(1, 5, 10)) -> List[f
     return [float((order[:, :k] == target[:, None]).any(axis=1).sum()) for k in ks]
 
 
+def _on_device(batches: Iterable, dev: torch.device) -> Iterator:
+    """``(images, labels, valid)`` per batch; on a CUDA device the images
+    come from pinned memory, copied ahead on a side stream by
+    :func:`latteclip_torch.data.pipeline.prefetch`."""
+    items = ({"images": images, "meta": (labels, valid)} for _ids, images, labels, valid in batches)
+    for item in prefetch(items, device=dev) if dev.type == "cuda" else items:
+        yield (item["images"], *item["meta"])
+
+
 def run_zero_shot_eval(model: clip_mod.CLIP, classifier: torch.Tensor, batches: Iterable, *,
                        attention: str = "kernel", ln_linear: str = "unfused") -> Dict[str, float]:
     """Top-1/5/10 over an iterator of ``(ids, uint8 images, labels, valid)``;
     only the first ``valid`` rows of a batch count."""
     step = make_eval_step(model, classifier, attention=attention, ln_linear=ln_linear)
     top1 = top5 = top10 = n = 0.0
-    for _ids, images, labels, valid in batches:
+    for images, labels, valid in _on_device(batches, _device(model)):
         logits = step(images)[:valid].cpu().numpy()
         a1, a5, a10 = topk_counts(logits, np.asarray(labels)[:valid])
         top1 += a1

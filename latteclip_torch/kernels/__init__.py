@@ -22,12 +22,15 @@ backward), a combination one ``attention`` value cannot express.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from latteclip_torch.kernels.attention import (
     BLOCKDIAG_MAX_LEN,
     BLOCKDIAG_MAX_WIDTH,
     KERNEL_HEAD_DIMS,
+    AttentionResiduals,
     FlashAttention,
     FlashAttentionBlockDiag,
     FlashAttentionHeadSplit,
@@ -65,23 +68,31 @@ def whole_row_route(attention: str, seq_len: int, num_heads: int, head_dim: int)
     return attention
 
 
+def _apply(fn, residuals, *args) -> torch.Tensor:
+    return residuals.attend(fn, *args) if residuals is not None else fn.apply(*args)[0]
+
+
 def attention_core_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False,
-                       attention: str = "kernel") -> torch.Tensor:
-    """Attention on the packed projection ``qkv [B, L, 3*H*D]`` -> ``[B, L, H*D]``."""
+                       attention: str = "kernel",
+                       residuals: Optional[AttentionResiduals] = None) -> torch.Tensor:
+    """Attention on the packed projection ``qkv [B, L, 3*H*D]`` -> ``[B, L, H*D]``.
+    ``residuals`` records or replays the kernels' ``(out, lse2)`` for a
+    rematerialised block; the plain route recomputes instead."""
     _, L, HD3 = qkv.shape
     on_kernel = kernel_route(HD3, num_heads, qkv.dtype, qkv.device, attention)
     route = whole_row_route(attention, L, num_heads, HD3 // 3 // num_heads)
     if on_kernel:
-        return _WHOLE_ROW[route].apply(qkv.contiguous(), num_heads, causal)[0]
+        return _apply(_WHOLE_ROW[route], residuals, qkv.contiguous(), num_heads, causal)
     plain = flash_fwd_bd_plain if route == "blockdiag" else flash_fwd_plain
     return plain(qkv, num_heads, causal)[0]
 
 
 def attention_core_qkv_segmented(qkv: torch.Tensor, num_heads: int, seg_ids: torch.Tensor,
-                                 causal: bool = True, attention: str = "kernel") -> torch.Tensor:
+                                 causal: bool = True, attention: str = "kernel",
+                                 residuals: Optional[AttentionResiduals] = None) -> torch.Tensor:
     """Segment-masked attention on packed rows ``qkv [R, P, 3*H*D]``,
     ``seg_ids [R, P]`` (0 = padding) -> ``[R, P, H*D]``."""
     if kernel_route(qkv.shape[-1], num_heads, qkv.dtype, qkv.device, attention):
         seg = seg_ids.to(torch.int32).contiguous()
-        return FlashAttentionSegmented.apply(qkv.contiguous(), seg, num_heads, causal)[0]
+        return _apply(FlashAttentionSegmented, residuals, qkv.contiguous(), seg, num_heads, causal)
     return flash_fwd_seg_plain(qkv, seg_ids, num_heads, causal)[0]

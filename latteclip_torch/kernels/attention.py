@@ -42,7 +42,10 @@ base-2 logsumexp; the backwards take those residuals and the cotangent of
 ``(qkv, out, lse2)`` (and ``seg_ids``) saved, the JAX package's residuals;
 ``FlashAttentionHeadSplit`` pairs the head-split kernels, and
 ``FlashAttentionBlockDiag`` pairs the block-diagonal forward with the
-whole-row backward, as JAX does. ``flash_{fwd,bwd}{,_seg,_hs}_plain`` and
+whole-row backward, as JAX does. Each Function takes ``residuals=(out,
+lse2)`` from an earlier forward of the same call instead of launching its
+forward: a rematerialised block replays them (:class:`AttentionResiduals`).
+``flash_{fwd,bwd}{,_seg,_hs}_plain`` and
 ``flash_fwd_bd_plain`` compute the same functions in plain PyTorch,
 repeating the TPU kernels' rounding step by step; the wrappers take them only
 for a tensor on the CPU, and a CUDA tensor either launches the kernel or
@@ -720,14 +723,45 @@ def _kernel_ready(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _stored(residuals):
+    """``(out, lse2)`` kept from an earlier forward of the same call, as new
+    tensor objects on the same storage, or None. A rematerialised block's
+    recompute passes them so its attention forward launches no kernel
+    (``AttentionResiduals``); the backward then reads them as saved."""
+    if residuals is None:
+        return None
+    return tuple(t.detach() for t in residuals)
+
+
+class AttentionResiduals:
+    """The attention outputs of one rematerialised block: its forward under
+    ``torch.no_grad`` records each attention call's ``(out, lse2)``, and its
+    recompute in the backward replays them in order, so the recompute runs
+    the projections, LayerNorms and activations again but never the
+    attention forward (JAX keeps ``flash_out`` and ``flash_lse`` saved under
+    ``jax.checkpoint`` for the same reason)."""
+
+    def __init__(self):
+        self.saved = []
+        self.replay = False
+
+    def attend(self, fn, *args) -> torch.Tensor:
+        """``fn.apply(*args)[0]``, recorded or replayed."""
+        if self.replay:
+            return fn.apply(*args, self.saved.pop(0))[0]
+        out, lse2 = fn.apply(*args)
+        self.saved.append((out, lse2))
+        return out
+
+
 class FlashAttention(torch.autograd.Function):
     """``(out, lse2) = flash_attention_qkv(qkv)`` with the backward kernel as
     its gradient (JAX ``_make_fa``). lse2 is not differentiable: its cotangent
     is ignored, as in the JAX backward."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
-        out, lse2 = flash_attention_qkv(qkv, num_heads, causal)
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool, residuals=None):
+        out, lse2 = _stored(residuals) or flash_attention_qkv(qkv, num_heads, causal)
         ctx.save_for_backward(qkv, out, lse2)
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.mark_non_differentiable(lse2)
@@ -738,7 +772,7 @@ class FlashAttention(torch.autograd.Function):
         qkv, out, lse2 = ctx.saved_tensors
         dqkv = flash_attention_qkv_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
                                        ctx.num_heads, ctx.causal)
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
 class FlashAttentionSegmented(torch.autograd.Function):
@@ -747,8 +781,10 @@ class FlashAttentionSegmented(torch.autograd.Function):
     ``seg_ids`` and lse2 take no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, seg_ids: torch.Tensor, num_heads: int, causal: bool):
-        out, lse2 = flash_attention_qkv_segmented(qkv, num_heads, seg_ids, causal)
+    def forward(ctx, qkv: torch.Tensor, seg_ids: torch.Tensor, num_heads: int, causal: bool,
+                residuals=None):
+        out, lse2 = _stored(residuals) or flash_attention_qkv_segmented(qkv, num_heads, seg_ids,
+                                                                        causal)
         ctx.save_for_backward(qkv, seg_ids, out, lse2)
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.mark_non_differentiable(lse2)
@@ -759,7 +795,7 @@ class FlashAttentionSegmented(torch.autograd.Function):
         qkv, seg_ids, out, lse2 = ctx.saved_tensors
         dqkv = flash_attention_qkv_segmented_bwd(
             qkv, seg_ids, out, _kernel_ready(dout, qkv.dtype), lse2, ctx.num_heads, ctx.causal)
-        return dqkv, None, None, None
+        return dqkv, None, None, None, None
 
 
 class FlashAttentionHeadSplit(torch.autograd.Function):
@@ -769,8 +805,8 @@ class FlashAttentionHeadSplit(torch.autograd.Function):
     ``[H/HP, HP, B, L]`` takes no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
-        out, lse2 = flash_attention_qkv_hs(qkv, num_heads, causal)
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool, residuals=None):
+        out, lse2 = _stored(residuals) or flash_attention_qkv_hs(qkv, num_heads, causal)
         ctx.save_for_backward(qkv, out, lse2)
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.mark_non_differentiable(lse2)
@@ -781,7 +817,7 @@ class FlashAttentionHeadSplit(torch.autograd.Function):
         qkv, out, lse2 = ctx.saved_tensors
         dqkv = flash_attention_qkv_hs_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
                                           ctx.num_heads, ctx.causal)
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
 class FlashAttentionBlockDiag(torch.autograd.Function):
@@ -790,8 +826,8 @@ class FlashAttentionBlockDiag(torch.autograd.Function):
     ``_bwd_kernel``. lse2 takes no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool):
-        out, lse2 = flash_attention_qkv_bd(qkv, num_heads, causal)
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, causal: bool, residuals=None):
+        out, lse2 = _stored(residuals) or flash_attention_qkv_bd(qkv, num_heads, causal)
         ctx.save_for_backward(qkv, out, lse2)
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.mark_non_differentiable(lse2)
@@ -802,4 +838,4 @@ class FlashAttentionBlockDiag(torch.autograd.Function):
         qkv, out, lse2 = ctx.saved_tensors
         dqkv = flash_attention_qkv_bwd(qkv, out, _kernel_ready(dout, qkv.dtype), lse2,
                                        ctx.num_heads, ctx.causal)
-        return dqkv, None, None
+        return dqkv, None, None, None

@@ -86,34 +86,37 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
 
 def encode_image(model: CLIP, images: torch.Tensor, *, normalize: bool = False,
                  attention: str = "kernel", pack_pairs: Optional[bool] = None,
-                 ln_linear: str = "unfused") -> torch.Tensor:
+                 ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
     """Normalized images [B, H, W, 3] -> features [B, embed_dim] (float32).
     ``attention`` (``kernels.ATTENTION_CHOICES``) and ``ln_linear``
-    (``"unfused"`` or ``"fused"``) select the kernel routes."""
+    (``"unfused"`` or ``"fused"``) select the kernel routes; ``remat``
+    rematerialises each block in the backward."""
     cfg = model.cfg
     feats = vit_forward(model.visual, images, dtype=model.compute_dtype,
                         quick_gelu=cfg.quick_gelu, attention=attention, pack_pairs=pack_pairs,
-                        ln_linear=ln_linear)
+                        ln_linear=ln_linear, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats
 
 
 def encode_text(model: CLIP, tokens: torch.Tensor, *, normalize: bool = False,
-                attention: str = "kernel", ln_linear: str = "unfused") -> torch.Tensor:
+                attention: str = "kernel", ln_linear: str = "unfused",
+                remat: bool = False) -> torch.Tensor:
     """Token ids [B, ctx] -> features [B, embed_dim] (float32)."""
     cfg = model.cfg
     feats = text_forward(model, tokens, dtype=model.compute_dtype,
-                         quick_gelu=cfg.quick_gelu, attention=attention, ln_linear=ln_linear)
+                         quick_gelu=cfg.quick_gelu, attention=attention, ln_linear=ln_linear,
+                         remat=remat)
     return layers.l2_normalize(feats) if normalize else feats
 
 
 def encode_text_packed(model: CLIP, tokens: torch.Tensor, positions: torch.Tensor,
                        seg_ids: torch.Tensor, eot_row: torch.Tensor, eot_col: torch.Tensor, *,
                        normalize: bool = False, attention: str = "kernel",
-                       ln_linear: str = "unfused") -> torch.Tensor:
+                       ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
     """Rows packed by :mod:`latteclip_torch.data.packing` -> features
     [N, embed_dim] (float32), as :func:`encode_text` gives on the padded rows."""
     cfg = model.cfg
     feats = text_forward_packed(model, tokens, positions, seg_ids, eot_row, eot_col,
                                 dtype=model.compute_dtype, quick_gelu=cfg.quick_gelu,
-                                attention=attention, ln_linear=ln_linear)
+                                attention=attention, ln_linear=ln_linear, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats

@@ -8,6 +8,13 @@ OpenCLIP state dict loads with ``strict=True``. Weights keep torch's
 ``[out, in]`` orientation and go through ``F.linear``. ``layer_norm`` and
 ``dense`` come from :mod:`latteclip_torch.kernels.fused_ln_linear`, whose
 ``ln_linear`` runs the two LayerNorm -> projection pairs of each block.
+
+``Transformer.forward(remat=True)`` rematerialises each block, as JAX's
+``jax.checkpoint`` with ``REMAT_SAVE_NAMES`` does (layers.py:39-43,
+244-253): the forward keeps only the block's input and its attention's
+``(out, lse2)``, and the backward recomputes the block's projections,
+LayerNorms and activations from them but replays the attention output, so
+no attention forward kernel launches twice.
 """
 from __future__ import annotations
 
@@ -17,7 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from latteclip_torch.kernels import attention_core_qkv, attention_core_qkv_segmented
+from latteclip_torch.kernels import (
+    AttentionResiduals,
+    attention_core_qkv,
+    attention_core_qkv_segmented,
+)
 from latteclip_torch.kernels import fused_ln_linear as fused
 from latteclip_torch.kernels.fused_ln_linear import LN_EPS, dense, layer_norm
 
@@ -78,19 +89,48 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
                 seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
-                ln_linear: str = "unfused") -> torch.Tensor:
+                ln_linear: str = "unfused",
+                residuals: Optional[AttentionResiduals] = None) -> torch.Tensor:
         """``ln_linear`` routes the two LayerNorm -> projection pairs
-        (``fused.ln_linear``); ``attention`` the attention (``kernels``)."""
+        (``fused.ln_linear``); ``attention`` the attention (``kernels``);
+        ``residuals`` records or replays its output under remat."""
         qkv = fused.ln_linear(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
                               self.attn.in_proj_bias, dtype, self.ln_1.eps, ln_linear)
         if seg_ids is not None:
-            a = attention_core_qkv_segmented(qkv, self.attn.heads, seg_ids, causal, attention)
+            a = attention_core_qkv_segmented(qkv, self.attn.heads, seg_ids, causal, attention,
+                                             residuals)
         else:
-            a = attention_core_qkv(qkv, self.attn.heads, causal, attention)
+            a = attention_core_qkv(qkv, self.attn.heads, causal, attention, residuals)
         x = x + dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias, dtype)
         h = act(fused.ln_linear(x, self.ln_2.weight, self.ln_2.bias, self.mlp.c_fc.weight,
                                 self.mlp.c_fc.bias, dtype, self.ln_2.eps, ln_linear))
         return x + dense(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dtype)
+
+
+class _BlockRemat(torch.autograd.Function):
+    """One block, rematerialised: ``forward`` runs it without autograd and
+    keeps its input and its attention residuals; ``backward`` runs it again
+    with autograd, replaying the attention, and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, x, block, kwargs, *params):
+        residuals = AttentionResiduals()
+        with torch.no_grad():
+            y = block(x, residuals=residuals, **kwargs)
+        ctx.block, ctx.kwargs, ctx.residuals = block, kwargs, residuals
+        ctx.save_for_backward(x)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        x = x.detach().requires_grad_(True)
+        ctx.residuals.replay = True
+        params = tuple(ctx.block.parameters())
+        with torch.enable_grad():
+            y = ctx.block(x, residuals=ctx.residuals, **ctx.kwargs)
+        grads = torch.autograd.grad(y, (x,) + params, dy, allow_unused=True)
+        return (grads[0], None, None) + grads[1:]
 
 
 class Transformer(nn.Module):
@@ -104,8 +144,13 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
                 seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
-                ln_linear: str = "unfused") -> torch.Tensor:
-        for block in self.resblocks:
-            x = block(x, causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
+                ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
+        kwargs = dict(causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
                       ln_linear=ln_linear)
+        remat = remat and torch.is_grad_enabled()
+        for block in self.resblocks:
+            if remat:
+                x = _BlockRemat.apply(x, block, kwargs, *block.parameters())
+            else:
+                x = block(x, **kwargs)
         return x

@@ -25,6 +25,7 @@ def text_forward(
     quick_gelu: bool = False,
     attention: str = "kernel",
     ln_linear: str = "unfused",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Token ids [B, ctx] -> pooled features [B, embed_dim] (float32).
 
@@ -35,7 +36,7 @@ def text_forward(
     x = F.embedding(tokens, model.token_embedding.weight).to(dtype)
     x = x + model.positional_embedding[:ctx].to(dtype)
     x = model.transformer(x, causal=True, act=act, dtype=dtype, attention=attention,
-                          ln_linear=ln_linear)
+                          ln_linear=ln_linear, remat=remat)
     x = model.ln_final(x)
     pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     return layers.dense(pooled, model.text_projection.t(), None, dtype).float()
@@ -53,6 +54,7 @@ def text_forward_packed(
     quick_gelu: bool = False,
     attention: str = "kernel",
     ln_linear: str = "unfused",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Packed rows -> pooled features [N, embed_dim] (float32).
 
@@ -66,7 +68,7 @@ def text_forward_packed(
     x = F.embedding(tokens, model.token_embedding.weight).to(dtype)     # [R, P, D]
     x = x + F.embedding(positions, model.positional_embedding).to(dtype)
     x = model.transformer(x, causal=True, act=act, dtype=dtype, seg_ids=seg_ids,
-                          attention=attention, ln_linear=ln_linear)
+                          attention=attention, ln_linear=ln_linear, remat=remat)
     x = model.ln_final(x)
     pooled = x[eot_row, eot_col]                                        # [N, D]
     return layers.dense(pooled, model.text_projection.t(), None, dtype).float()

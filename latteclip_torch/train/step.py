@@ -19,8 +19,15 @@ One step, as the reference's ``train_one_epoch_v2`` inner loop
      features over both branches, renormalized; classes not seen keep their
      rows.
 
-The JAX step's TPU levers (``remat``, ``fuse_text_fwd``) and its CoCa-only
-``zero_update_subtrees`` are not ported (ROADMAP.md, section 1).
+``hp.remat`` (per tower ``remat_text``/``remat_vision``) rematerialises the
+towers' blocks, keeping the attention outputs (:mod:`latteclip_torch.models.layers`);
+``hp.fuse_text_fwd`` runs the templates and both caption streams as one
+padded ``[C + 2B, ctx]`` text forward, rows zero-padded to a multiple of 8,
+where JAX does (captions not packed). With ``batch["crop_boxes"]`` the
+images are canvases and the random resized crop runs in the step. The update
+(:func:`apply_gradients`) accumulates, clips and steps as the JAX package's
+optax chain does (:mod:`latteclip_torch.train.optim`). The CoCa-only
+``zero_update_subtrees`` comes with the CoCa tower (ROADMAP.md, section 1).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from latteclip_torch.data import transforms as T
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.train.objective import clip_loss, text_confidence_weights
+from latteclip_torch.train.optim import clip_by_global_norm_
 from latteclip_torch.train.state import TrainState
 
 LOG100 = 4.6051702  # ln(100), reference train.py:563-565
@@ -50,10 +58,23 @@ class LatteHParams:
     use_batch_caption: float = 1.0
     use_zeroshot_pseudolabel: float = 1.0
     use_finetune_pseudolabel: float = 1.0
+    remat: bool = False                 # rematerialise both towers' blocks
+    remat_text: Optional[bool] = None   # per-tower override; None follows remat
+    remat_vision: Optional[bool] = None
     augment: bool = True
     bug_compat: bool = False            # replay the reference's fusion quirks
+    # templates and both caption streams in one padded text forward
+    fuse_text_fwd: bool = False
     # captions packed by data.packing (batch carries the cap_* arrays)
     text_packing: bool = False
+
+    @property
+    def text_remat(self) -> bool:
+        return self.remat if self.remat_text is None else self.remat_text
+
+    @property
+    def vision_remat(self) -> bool:
+        return self.remat if self.remat_vision is None else self.remat_vision
 
 
 def _fuse(label_f, per_img_f, per_grp_f, w_label, w_img, w_grp) -> torch.Tensor:
@@ -88,7 +109,8 @@ def fuse_text_streams(label_f, label_zs_f, per_img_f, per_grp_f,
 
 
 def _to_device(batch: Dict, keys: Sequence[str], device) -> Tuple[torch.Tensor, ...]:
-    return tuple(torch.as_tensor(batch[k]).to(device) for k in keys)
+    """The batch's arrays on ``device``; a tensor already there is used as is."""
+    return tuple(torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in keys)
 
 
 def latteclip_loss_fn(
@@ -110,9 +132,11 @@ def latteclip_loss_fn(
     for ``hp.text_packing``; without it the templates run padded.
     ``attention`` and ``ln_linear`` select the towers' kernel routes."""
     dev = images.device
-    zs_preds = torch.as_tensor(batch["zs_preds"]).to(dev).long()
+    zs_preds = _to_device(batch, ("zs_preds",), dev)[0].long()
     routes = {"attention": attention, "ln_linear": ln_linear}
-    image_features = clip_mod.encode_image(model, images, normalize=True, **routes)
+    text = {**routes, "normalize": True, "remat": hp.text_remat}
+    image_features = clip_mod.encode_image(model, images, normalize=True, remat=hp.vision_remat,
+                                           **routes)
     logit_scale = model.logit_scale.exp()
 
     # fine-tune pseudo-labels from the live prototype classifier (train.py:384-411)
@@ -120,19 +144,28 @@ def latteclip_loss_fn(
         preds = (100.0 * image_features @ l2_normalize(memory_bank).T).argmax(dim=1)
 
     # the C class templates run once and their rows are gathered per label
-    if hp.text_packing and template_packed is not None:
-        class_text_feats = clip_mod.encode_text_packed(model, *template_packed, normalize=True,
-                                                       **routes)
-    else:
-        class_text_feats = clip_mod.encode_text(model, template_table, normalize=True, **routes)
     B = zs_preds.shape[0]
     if hp.text_packing:
+        if template_packed is not None:
+            class_text_feats = clip_mod.encode_text_packed(model, *template_packed, **text)
+        else:
+            class_text_feats = clip_mod.encode_text(model, template_table, **text)
         caption_feats = clip_mod.encode_text_packed(
-            model, *_to_device(batch, PACKED_KEYS, dev), normalize=True, **routes)
+            model, *_to_device(batch, PACKED_KEYS, dev), **text)
+        per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
+    elif hp.fuse_text_fwd:
+        C = template_table.shape[0]
+        tokens = torch.cat([template_table,
+                            *_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev)])
+        tokens = torch.cat([tokens, tokens.new_zeros((-tokens.shape[0] % 8, tokens.shape[1]))])
+        feats = clip_mod.encode_text(model, tokens, **text)
+        class_text_feats = feats[:C]
+        per_img_f, per_grp_f = feats[C:C + B], feats[C + B:C + 2 * B]
     else:
+        class_text_feats = clip_mod.encode_text(model, template_table, **text)
         tokens = torch.cat(_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev))
-        caption_feats = clip_mod.encode_text(model, tokens, normalize=True, **routes)
-    per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
+        caption_feats = clip_mod.encode_text(model, tokens, **text)
+        per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
     label_f = class_text_feats[preds]
     label_zs_f = class_text_feats[zs_preds]
 
@@ -184,6 +217,35 @@ def update_memory_bank(memory_bank: torch.Tensor, preds: torch.Tensor, zs_preds:
     return torch.where((counts > 0)[:, None], updated, memory_bank)
 
 
+@torch.no_grad()
+def apply_gradients(state: TrainState) -> None:
+    """The optimizer update after the backward, as the JAX package's optax
+    chain applies it: with ``state.accum`` the gradient joins the running
+    mean of its cycle (``acc + (g - acc) / (n + 1)``) and only the cycle's
+    last call goes on, with the mean; then the global-norm clip over every
+    gradient, locked towers' included, when ``grad_clip_norm`` is set, and
+    the AdamW step."""
+    opt, acc = state.optimizer, state.accum
+    params = list(state.model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    if acc is not None:
+        n = acc.mini_step
+        torch._foreach_add_(acc.grads, torch._foreach_div(torch._foreach_sub(grads, acc.grads),
+                                                          float(n + 1)))
+        acc.mini_step = (n + 1) % acc.every
+        if n != acc.every - 1:
+            return
+        grads = [g.clone() for g in acc.grads]
+        torch._foreach_zero_(acc.grads)
+        acc.gradient_step += 1
+    for p, g in zip(params, grads):
+        p.grad = g
+    clip = getattr(opt, "grad_clip_norm", None)
+    if clip is not None:
+        clip_by_global_norm_(grads, clip)
+    opt.step()
+
+
 def make_train_step(
     model: clip_mod.CLIP,
     hp: LatteHParams,
@@ -195,13 +257,14 @@ def make_train_step(
     ln_linear: str = "unfused",
 ):
     """Build the step ``(state, batch, generator) -> metrics``, which
-    updates ``state`` in place: augment, forward, backward, AdamW update,
-    logit-scale clamp, then the bank update from the detached anchored text
-    features (JAX step.py:329-372).
+    updates ``state`` in place: augment, forward, backward, the update of
+    :func:`apply_gradients`, logit-scale clamp, then the bank update from
+    the detached anchored text features (JAX step.py:329-372).
 
-    ``batch`` holds numpy or tensor arrays: ``images`` uint8 [B, H, W, 3],
-    ``zs_preds`` [B], and ``per_image_tokens``/``per_group_tokens`` [B, 77]
-    or, with ``hp.text_packing``, the ``cap_*`` arrays of
+    ``batch`` holds numpy or tensor arrays: ``images`` uint8 [B, H, W, 3]
+    (canvases, with ``crop_boxes`` [B, 4] float32), ``zs_preds`` [B], and
+    ``per_image_tokens``/``per_group_tokens`` [B, 77] or, with
+    ``hp.text_packing``, the ``cap_*`` arrays of
     :func:`latteclip_torch.data.packing.pack_caption_batch`.
     ``template_packed``: the packed template table (a ``PackedText``) for
     ``hp.text_packing``. ``generator`` draws the augment (a
@@ -218,9 +281,13 @@ def make_train_step(
     mean, std = T.model_mean_std(cfg)
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
-        images_u8 = torch.as_tensor(batch["images"]).to(dev)
+        images_u8 = _to_device(batch, ("images",), dev)[0]
         if hp.augment:
-            images = T.train_augment_normalize(images_u8, generator, aug, mean=mean, std=std)
+            boxes = batch.get("crop_boxes")
+            if boxes is not None:
+                boxes = _to_device(batch, ("crop_boxes",), dev)[0]
+            images = T.train_augment_normalize(images_u8, generator, aug, mean=mean, std=std,
+                                               boxes=boxes, size=cfg.vision.image_size)
         else:
             images = T.normalize_images(images_u8, mean=mean, std=std)
 
@@ -229,7 +296,7 @@ def make_train_step(
                                       state.prototypes, table, packed, attention=attention,
                                       ln_linear=ln_linear)
         loss.backward()
-        state.optimizer.step()
+        apply_gradients(state)
         with torch.no_grad():
             state.model.logit_scale.clamp_(0.0, LOG100)
 

@@ -1291,3 +1291,85 @@ def test_lab_checks_see_one_zeroed_block(kind):
     with pytest.raises(AssertionError):
         _assert_f32_close(wrong, ref)
     assert float((wrong - ref).norm() / ref.norm()) > 100 * F32_REL_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_prefetch_pinned_copy_gives_the_same_batch():
+    """The pipeline's pinned buffers and prefetch's non_blocking copy on a
+    side stream hand the consumer the batch it was given, bit for bit, with
+    the consumer's stream ordered after the copy."""
+    _need_cuda()
+    from latteclip_torch.data import pipeline as P
+
+    rng = np.random.default_rng(0)
+    pipe = P.TrainPipeline.__new__(P.TrainPipeline)
+    pipe.cfg = P.PipelineConfig(pin_memory=True)
+    batches = []
+    for _ in range(4):
+        images = pipe._empty((64, 256, 256, 3), np.uint8)
+        images[:] = rng.integers(0, 256, images.shape, dtype=np.uint8)
+        batches.append({"images": images, "zs_preds": rng.integers(0, 47, 64).astype(np.int32),
+                        "crop_boxes": rng.random((64, 4)).astype(np.float32)})
+    assert torch.from_numpy(batches[0]["images"]).is_pinned()
+    for got, want in zip(P.prefetch(iter(batches), size=2, device="cuda"), batches):
+        total = got["images"].long().sum()       # runs on the consumer's stream
+        for k, v in want.items():
+            assert got[k].is_cuda and torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+        assert int(total) == int(want["images"].astype(np.int64).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packing", [False, True])
+def test_cuda_remat_launches_each_attention_forward_once(packing):
+    """A v2 loss and backward with heads 64 wide (the kernels' width):
+    under remat the forward kernels launch once per attention site, in the
+    forward, and the backward kernels as often as without remat; the loss is
+    equal and the gradients agree at cosine >= 0.9999."""
+    _need_cuda()
+    from latteclip_torch.config import config_from_dict
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.data.packing import pack_caption_batch, pack_template_table
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.tokenizer import get_tokenizer
+    from latteclip_torch.train import state as St, step as S
+
+    cfg = config_from_dict("tiny_hd64", {
+        "embed_dim": 32,
+        "vision_cfg": {"image_size": 64, "layers": 2, "width": 128, "patch_size": 16},
+        "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 128, "heads": 2,
+                     "layers": 2}})
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    tok = get_tokenizer()
+    classes = [f"class {i}" for i in range(5)]
+    table = St.build_template_table(tok, classes, [lambda c: f"a photo of a {c}."])
+    bank = St.init_memory_bank(model, tok, classes, [lambda c: f"a photo of a {c}."])
+    rng = np.random.default_rng(0)
+    rows = np.zeros((16, 77), np.int32)
+    for r in range(16):
+        n = int(rng.integers(5, 40))
+        rows[r, :n - 1] = rng.integers(1, 40000, n - 1)
+        rows[r, n - 1] = tok.eot_token_id
+    batch = {"per_image_tokens": rows[:8], "per_group_tokens": rows[8:],
+             "zs_preds": rng.integers(0, 5, 8).astype(np.int32)}
+    batch.update(pack_caption_batch(rows[:8], rows[8:], 128, 8))
+    images = T.normalize_images(torch.from_numpy(
+        rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)).cuda())
+    table_t = torch.from_numpy(table).cuda()
+    packed = tuple(torch.from_numpy(a).cuda() for a in pack_template_table(table, 128))
+    fwd = ("flash_fwd_seg",) if packing else ("flash_fwd", "flash_fwd_seg")
+    runs = {}
+    for remat in (False, True):
+        model.zero_grad(set_to_none=True)
+        A.reset_launch_counts()
+        hp = S.LatteHParams(augment=False, text_packing=packing, remat=remat)
+        loss, _ = S.latteclip_loss_fn(model, hp, batch, images, bank, bank.clone(), table_t,
+                                      packed)
+        after_forward = sum(A.launch_counts[k] for k in fwd)
+        loss.backward()
+        torch.cuda.synchronize()
+        grad = torch.cat([p.grad.flatten().float() for p in model.parameters()])
+        runs[remat] = (float(loss.detach()), grad, after_forward, dict(A.launch_counts))
+    assert runs[True][2] == runs[False][2] == 3 * cfg.text.layers
+    assert runs[True][3] == runs[False][3]
+    assert runs[True][0] == runs[False][0]
+    assert float(torch.nn.functional.cosine_similarity(runs[True][1], runs[False][1], dim=0)) >= 0.9999
