@@ -156,7 +156,37 @@ Phases, each raising on failure:
    share of the loop's last log line, the traced epoch's Memcpy HtoD ms,
    pinned flag and overlap with kernels, peak memory, checkpoint bytes and
    write seconds, eval top-1 and launches per step;
-8. report: one JSON line of kernels, nvidia-smi's line, and the final line
+8. offline: the CLI's offline and eval jobs in process at ViT-B/32 full
+   width and depth, bf16, seed-0 weights, on a fixture of data/synthetic.py
+   (1024 train and 32 val images at 224 px, 4 DTD classes), a 47-class
+   (DTD's count) eval set of 8 images, a 1000-directory ImageNet folder (64
+   directories of 2 images) and a CSV of 256 image-caption pairs; the
+   launch counters are set to 0 just before each job and read just after.
+   (a) --extract-features-path at batch 512: 1024 records; exactly 12 K1
+   (the classifier build) and 12 K2 a batch; against the plain route,
+   feature cosine >= 0.999 on every row and the top-1 pseudo-label equal on
+   >= 99%. (b) the join: one epoch with --clip-prediction-path on (a)'s
+   pickle, --imagenet-val and --val-data, captions packed at 128: 36 K2 and
+   36 K4 a step as phase 7; the 80,000-row ImageNet classifier (80 templates
+   x 1000 classes; packed, as the loop builds it under --text-packing)
+   timed, and the same rows padded at L=77 timed on K1 (12 a chunk of 64
+   classes) and held against the plain route at cosine >= 0.999. (c)
+   --extract-group-weight-path: 1024 weights in [0, 1]; K1 12 (bank) + 12
+   (class texts) + 12 a batch (captions), K2 12 a batch; the job's weights
+   equal its own batches' margins; against the plain route on the same
+   samples the predictions equal on >= 99%, every margin within 2^-5 and
+   every weight within 4 eps / (S - 3 eps) of the plain route's (S the
+   row's margin sum; GW_MARGIN_EPS states the derivation). (d) --tta (TPT)
+   and --method rlcf (the reward model seeded from seed 1), 63 views on 8
+   images: per image 12 K2 (views; RLCF 24 with the reward model's), 36 K1
+   (selection, step, base view) and 12 K3 (the ctx gradient through the
+   frozen text tower at [47, 77, 8 x 3 x 64] causal), RLCF 12 K1 more (the
+   reward model's class texts); against the plain route on one image the
+   ctx gradient cosine >= 0.99 and the adapted base-view logits' cosine >=
+   0.999. An offline JSON line gives each job's images/s (TTA: s an
+   image), the classifier builds' seconds, launches, peak memory, the
+   phase's seconds and nvidia-smi's line;
+9. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -1022,7 +1052,8 @@ def serving_inputs(name: str) -> dict:
     routes (cuBLAS heuristics, allocator), neither timed nor counted."""
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
-    from latteclip_torch.data.eval_dataset import get_templates, imagenet_classnames
+    from latteclip_torch.data.eval_dataset import get_templates
+    from latteclip_torch.eval.imagenet_metadata import imagenet_classnames
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.models.tokenizer import get_tokenizer
 
@@ -1773,17 +1804,9 @@ def run_cli(argv, step_launches, eval_launches, init_launches, timings, profile_
 
     from latteclip_torch.train import loop as L, main as M
 
-    def counted(fn, out):
-        def wrapper(*args, **kwargs):
-            before = read_counts()
-            result = fn(*args, **kwargs)
-            after = read_counts()
-            out.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
-            return result
-        return wrapper
-
     def train(orig):
-        return lambda state, step_fn, *a, **k: orig(state, counted(step_fn, step_launches), *a, **k)
+        return lambda state, step_fn, *a, **k: orig(state, counted_call(step_fn, step_launches),
+                                                    *a, **k)
 
     def timed(orig):
         def wrapper(*args, **kwargs):
@@ -1811,8 +1834,8 @@ def run_cli(argv, step_launches, eval_launches, init_launches, timings, profile_
         return wrapper
 
     undo = [_patch(L, "train", train),
-            _patch(L, "evaluate_zero_shot", lambda f: counted(f, eval_launches)),
-            _patch(M, "init_memory_bank", lambda f: counted(f, init_launches)),
+            _patch(L, "evaluate_zero_shot", lambda f: counted_call(f, eval_launches)),
+            _patch(M, "init_memory_bank", lambda f: counted_call(f, init_launches)),
             _patch(L, "save_epoch_checkpoint", timed),
             _patch(L, "prefetch", traced_prefetch)]
     try:
@@ -1972,6 +1995,375 @@ def phase_cli(smi: str):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 8: the offline and eval jobs ------------------------------------------
+
+OFFLINE_MODEL, OFFLINE_BATCH = "ViT-B-32", 512
+OFFLINE_TRAIN, OFFLINE_PAIRS = 1024, 256          # train images; --val-data pairs
+IMAGENET_DIRS, IMAGENET_FILLED = 1000, 64         # class folders; those holding 2 images
+TTA_VIEWS, TTA_IMAGES = 63, 8
+# DTD's 47 classes, for the TTA fixture
+DTD_CLASSES = (
+    "banded blotchy braided bubbly bumpy chequered cobwebbed cracked crosshatched crystalline "
+    "dotted fibrous flecked freckled frilly gauzy grid grooved honeycombed interlaced knitted "
+    "lacelike lined marbled matted meshed paisley perforated pitted pleated polka-dotted porous "
+    "potholed scaly smeared spiralled sprinkled stained stratified striped studded swirly "
+    "veined waffled woven wrinkled zigzagged").split()
+# The group-weight bound. A weight is w_grp / (w_label + w_img + w_grp), each
+# w a margin between two cosines of a unit bf16 text feature and unit
+# prototypes. The kernel and plain routes' features differ by bf16 roundings
+# carried through the tower: phase 5 measures them at cosine >= 0.9999
+# (0.99991 worst on the H100; it checks 0.999), so ||df|| = sqrt(2 (1 - cos))
+# <= 0.0141 <= 2^-6, about seven bf16 roundings (2^-9 each) of a unit
+# vector. A cosine against a unit prototype then moves by at most 2^-6 and a
+# margin by at most 2^-5 (GW_MARGIN_EPS). With every margin within eps, a row
+# of margin sum S (plain route) has |d weight| <= 4 eps / (S - 3 eps) where
+# S > 3 eps, else <= 1.
+GW_MARGIN_EPS = 2.0 ** -5
+
+
+def offline_fixture(workdir: str) -> dict:
+    """The phase's data at 224 px: the synthetic fixture (1024 train
+    images, 32 val, 4 DTD classes, tar shards, pseudo-labels, captions), a
+    47-class eval set of TTA_IMAGES images, an ImageNet folder of 1000
+    class directories (the first IMAGENET_FILLED holding 2 images each) and
+    a CSV of OFFLINE_PAIRS (train image, caption) pairs."""
+    from PIL import Image
+
+    from latteclip_torch.data import synthetic
+
+    root = os.path.join(workdir, "fixture")
+    synthetic.make_full_fixture(root, num_train=OFFLINE_TRAIN, num_val=32, image_size=224)
+    root47 = os.path.join(workdir, "dtd47")
+    synthetic.make_flat_dataset(root47, num_train=0, num_val=TTA_IMAGES, classes=DTD_CLASSES,
+                                image_size=224)
+    rng = np.random.default_rng(0)
+    folder = os.path.join(workdir, "imagenet")
+    cells = exemplar_images(rng, 2 * IMAGENET_FILLED, 240)
+    for i in range(IMAGENET_DIRS):
+        os.makedirs(os.path.join(folder, f"n{i:08d}"))
+    for i in range(2 * IMAGENET_FILLED):
+        Image.fromarray(cells[i, :, :200 + i % 40]).save(
+            os.path.join(folder, f"n{i // 2:08d}", f"img{i % 2}.JPEG"), quality=90)
+    csv_path = os.path.join(workdir, "val_pairs.csv")
+    train_dir = os.path.join(root, "webdataset", "train")
+    with open(csv_path, "w") as f:
+        f.write("filepath\ttitle\n")
+        for i in range(OFFLINE_PAIRS):
+            stem = os.path.join(train_dir, f"train_{i % OFFLINE_TRAIN:05d}")
+            with open(stem + ".txt") as t:
+                f.write(f"{stem}.jpg\t{t.read()} {i}\n")
+    shards = sorted(os.listdir(os.path.join(root, "webdataset", "train_tars")))
+    return {"root": root, "root47": root47, "imagenet": folder, "csv": csv_path,
+            "train_data": os.path.join(root, "webdataset", "train_tars",
+                                       f"{{00000..{len(shards) - 1:05d}}}.tar")}
+
+
+def counted_call(fn, out: list, seconds: list = None):
+    """fn wrapped to append the launches it made to ``out`` and, given
+    ``seconds``, its host-clock seconds between two device syncs."""
+    def wrapper(*args, **kwargs):
+        before = read_counts()
+        if seconds is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        if seconds is not None:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        after = read_counts()
+        out.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return result
+    return wrapper
+
+
+def run_main(argv) -> dict:
+    """latteclip_torch.train.main.main(argv) in process, launch counters set
+    to 0 just before and read just after: the run's launches."""
+    from latteclip_torch.train import main as M
+
+    reset_counts()
+    if M.main(argv) != 0:
+        raise RuntimeError(f"main({argv}) returned non-zero")
+    return {k: v for k, v in read_counts().items() if v}
+
+
+def tta_agreement(model, tok, root47, size) -> dict:
+    """Kernel against plain route on one TTA image: the ctx gradient of the
+    first TPT step (the same view features and kept views) and the base
+    view's logits after adaptation."""
+    from latteclip_torch.data.augmix import augmix_views
+    from latteclip_torch.data.eval_dataset import FlatFileDataset
+    from latteclip_torch.eval import tta
+
+    ds = FlatFileDataset(root47, train=False, image_size=size, dataset_name="dtd")
+    cfg = tta.TTAConfig(n_views=TTA_VIEWS)
+    views = augmix_views(ds.load_image(0), size, TTA_VIEWS, np.random.default_rng(0))
+    out = {}
+    with tta.frozen(model):
+        prompt = tta.build_prompt_context(model, tok, ds.display_class_names)
+        feats = tta.encode_views(model, views)
+        fns = {r: tta.prompt_logits_fn(model, prompt, attention=r) for r in ("kernel", "plain")}
+        with torch.no_grad():
+            kept = tta.select_confident(fns["kernel"](prompt.init_ctx, feats), cfg.selection_p)
+        grads, logits = {}, {}
+        for route, logits_of in fns.items():
+            ctx = prompt.init_ctx.clone().requires_grad_(True)
+            tta.avg_entropy(logits_of(ctx, feats[kept])).backward()
+            grads[route] = ctx.grad.flatten()
+            logits[route] = tta.tpt_adapt(logits_of, prompt, cfg, feats)
+    out["ctx_grad_cos"] = float(F.cosine_similarity(grads["kernel"], grads["plain"], dim=0))
+    out["base_logits_cos"] = float(F.cosine_similarity(logits["kernel"], logits["plain"], dim=0))
+    out["top1_equal"] = bool(logits["kernel"].argmax() == logits["plain"].argmax())
+    return out
+
+
+def phase_offline(smi: str):
+    """The CLI's offline and eval jobs at ViT-B/32 full width and depth,
+    bf16, seed-0 weights, on the card (latteclip_torch.train.main.main in
+    process): (a) --extract-features-path over the 1024 train images at
+    batch 512; (b) the join, one epoch trained with --clip-prediction-path
+    on (a)'s pickle, --imagenet-val and --val-data; (c)
+    --extract-group-weight-path; (d) --tta (TPT) and --method rlcf with 63
+    views on 8 images of 47 classes. Each job is held against the plain
+    attention route."""
+    import pickle
+    import tempfile
+
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data.eval_dataset import FlatFileDataset, iter_batches
+    from latteclip_torch.data.pipeline import PipelineConfig, TrainPipeline, build_train_data
+    from latteclip_torch.eval import features, group_weights, imagenet_metadata
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.tokenizer import get_tokenizer
+    from latteclip_torch.train import loop as L, main as M
+    from latteclip_torch.train.state import init_memory_bank
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    messages = _Messages()
+    logging.getLogger("latteclip_torch").addHandler(messages)
+    layers = get_model_config(OFFLINE_MODEL).text.layers
+    size = get_model_config(OFFLINE_MODEL).vision.image_size
+    totals = dict.fromkeys(read_counts(), 0)
+    bad, report = [], {"model": OFFLINE_MODEL, "batch": OFFLINE_BATCH}
+    try:
+        fx = offline_fixture(workdir)
+        common = ["--model", OFFLINE_MODEL, "--batch-size", str(OFFLINE_BATCH),
+                  "--eval-preprocess-path", fx["root"], "--zeroshot-eval-data", "dtd"]
+        train_args = ["--train-data", fx["train_data"], "--train-num-samples", str(OFFLINE_TRAIN),
+                      "--generated-captions-path", os.path.join(fx["root"], "captions_per_image"),
+                      "--generated-common-captions-path",
+                      os.path.join(fx["root"], "captions_per_group")]
+        model = clip_mod.init_clip_params(torch.Generator().manual_seed(0),
+                                          get_model_config(OFFLINE_MODEL), device="cuda")
+        tok = get_tokenizer()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) the features job
+        feat_dir, plain_dir = os.path.join(workdir, "features"), os.path.join(workdir, "plain")
+        secs = []
+        undo = _patch(M, "extract_features", lambda f: counted_call(f, [], secs))
+        try:
+            launches_a = run_main([*common, "--logs", os.path.join(workdir, "logs"), "--name",
+                                   "features", "--extract-features-path", feat_dir])
+        finally:
+            undo()
+        with open(os.path.join(feat_dir, "clip_features_train.pkl"), "rb") as f:
+            ours = pickle.load(f)
+        split = FlatFileDataset(fx["root"], train=True, image_size=size, dataset_name="dtd")
+        t0 = time.perf_counter()
+        for _ in iter_batches(split, OFFLINE_BATCH, pad_final=True):   # the job's host side
+            pass
+        host_s = time.perf_counter() - t0
+        plain = features.extract_features(model, tok, split, plain_dir, "train",
+                                          batch_size=OFFLINE_BATCH, attention="plain")
+        cos = F.cosine_similarity(torch.from_numpy(np.stack([ours[k]["image"] for k in plain])),
+                                  torch.from_numpy(np.stack([r["image"] for r in plain.values()])),
+                                  dim=1)
+        top1 = np.mean([ours[k]["top_class_ids"][0] == r["top_class_ids"][0]
+                        for k, r in plain.items()])
+        want_a = {"flash_fwd": layers, "flash_fwd_seg": layers * OFFLINE_TRAIN // OFFLINE_BATCH}
+        report["features"] = {"records": len(ours), "seconds": secs[0],
+                              "images_per_s": OFFLINE_TRAIN / secs[0], "host_decode_s": host_s,
+                              "launches": launches_a,
+                              "feature_cos_min": float(cos.min()), "top1_agree": float(top1)}
+        if len(ours) != OFFLINE_TRAIN or sorted(ours) != sorted(plain):
+            bad.append(f"features: {len(ours)} records, expected {OFFLINE_TRAIN}")
+        if launches_a != want_a:
+            bad.append(f"features launches {launches_a}, expected {want_a}")
+        if float(cos.min()) < 0.999 or top1 < 0.99:
+            bad.append(f"features against plain: cosine {float(cos.min())}, top-1 {top1}")
+
+        # (b) the join: (a)'s pickle trains an epoch, with the ImageNet and pair evals
+        pkl = os.path.join(feat_dir, "clip_features_train.pkl")
+        steps, evals, inits, pairs, imagenet, builds, build_s = [], [], [], [], [], [], []
+        undo = [_patch(L, "evaluate_val_pairs", lambda f: counted_call(f, pairs)),
+                _patch(L, "evaluate_imagenet", lambda f: counted_call(f, imagenet)),
+                _patch(L, "build_zero_shot_classifier",
+                       lambda f: counted_call(f, builds, build_s))]
+        messages.lines.clear()
+        reset_counts()
+        try:
+            run_cli([*common, *train_args, "--clip-prediction-path", pkl, "--imagenet-val",
+                     fx["imagenet"], "--val-data", fx["csv"], "--text-packing", str(PACK_LEN),
+                     "--epochs", "1", "--lr", "1e-5", "--warmup", "1", "--save-frequency", "0",
+                     "--logs", os.path.join(workdir, "logs"), "--name", "join"],
+                    steps, evals, inits, [])
+        finally:
+            for u in undo:
+                u()
+        launches_b = {k: v for k, v in read_counts().items() if v}
+        lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+        with open(os.path.join(workdir, "logs", "join", "checkpoints", "results.jsonl")) as f:
+            (results,) = [json.loads(x) for x in f]
+        per_step = {"flash_fwd_seg": 3 * layers, "flash_bwd_seg": 3 * layers}
+        # the same 80,000-row classifier padded at L=77 (K1), timed, against plain
+        names = imagenet_metadata.imagenet_classnames()
+        tpls = imagenet_metadata.openai_imagenet_templates()
+        padded = {}
+        for route in ("kernel", "plain", "kernel"):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf = zs.build_zero_shot_classifier(model, tok, names, tpls, attention=route)
+            torch.cuda.synchronize()
+            padded.setdefault(route + "_s", []).append(time.perf_counter() - t0)
+            padded[route + "_launches"] = {k: v for k, v in read_counts().items() if v}
+            padded[route] = clf
+        clf_cos = float(F.cosine_similarity(padded.pop("kernel"), padded.pop("plain"), dim=0).min())
+        report["join"] = {
+            "steps": len(steps), "launches_per_step": steps, "eval_launches": evals,
+            "val_pairs_launches": pairs, "imagenet_launches": imagenet, "launches": launches_b,
+            "images_per_s": float(lines[-1].group(5)) if lines else None,
+            "losses": [float(m.group(7)) for m in lines],
+            "imagenet_classifier": {"rows": len(names) * len(tpls), "packed": PACK_LEN,
+                                    "seconds": build_s[-1], "launches": builds[-1]},
+            "imagenet_classifier_padded": {**padded, "classifier_cos_min": clf_cos},
+            "results": results}
+        if len(steps) != OFFLINE_TRAIN // OFFLINE_BATCH or any(d != per_step for d in steps):
+            bad.append(f"join step launches {steps}, expected 2 x {per_step}")
+        if len(lines) != 2 or not all(np.isfinite(float(m.group(7))) for m in lines):
+            bad.append(f"join losses {[m.group(0) for m in lines]}")
+        if len(pairs) != 1 or len(imagenet) != 1 or results.get("num_samples") != OFFLINE_PAIRS \
+                or results.get("imagenet-zeroshot-val-n") != 2 * IMAGENET_FILLED:
+            bad.append(f"join evals: pairs {pairs}, imagenet {imagenet}, results {results}")
+        if padded["kernel_launches"] != {"flash_fwd": layers * -(-len(names) // 64)} \
+                or padded["plain_launches"] or clf_cos < 0.999:
+            bad.append("padded ImageNet classifier: "
+                       f"{report['join']['imagenet_classifier_padded']}")
+
+        # (c) the group-weight job, then both routes' margins on its samples
+        gw_dir, secs = os.path.join(workdir, "gw"), []
+        undo = _patch(M, "extract_group_weights", lambda f: counted_call(f, [], secs))
+        try:
+            launches_c = run_main([*common, *train_args, "--clip-prediction-path", pkl,
+                                   "--logs", os.path.join(workdir, "logs"), "--name", "gw",
+                                   "--extract-group-weight-path", gw_dir])
+        finally:
+            undo()
+        weights = np.load(os.path.join(gw_dir, "group_weights.npy"))
+        val = FlatFileDataset(fx["root"], train=False, image_size=size, dataset_name="dtd")
+        bank = init_memory_bank(model, tok, val.display_class_names, val.templates)
+        data = build_train_data(fx["train_data"], pkl,
+                                [os.path.join(fx["root"], "captions_per_image")],
+                                [os.path.join(fx["root"], "captions_per_group")],
+                                val.display_class_names, tok)
+        table = torch.from_numpy(np.asarray(tok([val.templates[0](c)
+                                                  for c in val.display_class_names]))).cuda()
+        stream = TrainPipeline(data, PipelineConfig(batch_size=OFFLINE_BATCH, image_size=size,
+                                                    shuffle_buffer=1),
+                               len(data.zs_top1))._sample_stream(0)
+        terms, stream_s = {"kernel": [], "plain": []}, 0.0
+        for _ in range(OFFLINE_TRAIN // OFFLINE_BATCH):
+            t0 = time.perf_counter()
+            samples = [next(stream) for _ in range(OFFLINE_BATCH)]   # the job's host side
+            stream_s += time.perf_counter() - t0
+            arrays = [np.stack([s[k] for s in samples]).astype(dtype) for k, dtype in
+                      (("image", np.uint8), ("per_image_tokens", np.int32),
+                       ("per_group_tokens", np.int32))]
+            for route in terms:
+                class_feats = clip_mod.encode_text(model, table, normalize=True, attention=route)
+                terms[route].append(group_weights.group_weight_terms(
+                    model, *arrays, bank, class_feats, attention=route))
+        w = {r: [torch.cat([b[i] for b in t]).cpu().double() for i in range(4)]
+             for r, t in terms.items()}
+        gw = {r: (v[2] / (v[0] + v[1] + v[2])).numpy() for r, v in w.items()}
+        margin_err = max(float((w["kernel"][i] - w["plain"][i]).abs().max()) for i in range(3))
+        S = (w["plain"][0] + w["plain"][1] + w["plain"][2]).numpy()
+        eps = GW_MARGIN_EPS
+        limit = np.where(S > 3 * eps,
+                         np.minimum(1.0, 4 * eps / np.maximum(S - 3 * eps, 1e-30)), 1.0)
+        err = np.abs(gw["kernel"] - gw["plain"])
+        preds_equal = float((w["kernel"][3] == w["plain"][3]).double().mean())
+        want_c = {"flash_fwd": layers * (2 + OFFLINE_TRAIN // OFFLINE_BATCH),
+                  "flash_fwd_seg": layers * OFFLINE_TRAIN // OFFLINE_BATCH}
+        report["group_weights"] = {
+            "weights": len(weights), "min": float(weights.min()), "max": float(weights.max()),
+            "seconds": secs[0], "images_per_s": OFFLINE_TRAIN / secs[0],
+            "host_stream_s": stream_s, "launches": launches_c,
+            "job_vs_kernel_terms_max_diff": float(np.abs(weights - gw["kernel"]).max()),
+            "preds_equal": preds_equal, "margin_eps": eps, "margin_err_max": margin_err,
+            "weight_err_max": float(err.max()), "weight_err_median": float(np.median(err)),
+            "rows_with_bound_below_1": int((limit < 1).sum()),
+            "rows_within_bound": int((err <= limit).sum())}
+        if len(weights) != OFFLINE_TRAIN or weights.min() < 0 or weights.max() > 1:
+            bad.append(f"group weights: {len(weights)} in [{weights.min()}, {weights.max()}]")
+        if launches_c != want_c:
+            bad.append(f"group-weight launches {launches_c}, expected {want_c}")
+        if float(np.abs(weights - gw["kernel"]).max()) > 1e-6:
+            bad.append("group weights: the job's weights are not its own batches' terms")
+        if preds_equal < 0.99 or margin_err > eps or not (err <= limit).all():
+            bad.append(f"group weights against plain: {report['group_weights']}")
+
+        # (d) TTA: TPT, then RLCF with its seed-1 reward model
+        tta_common = ["--model", OFFLINE_MODEL, "--eval-preprocess-path", fx["root47"],
+                      "--zeroshot-eval-data", "dtd", "--tta-n-views", str(TTA_VIEWS),
+                      "--tta-max-samples", str(TTA_IMAGES)]
+        report["tta"] = {}
+        for method, flags in (("tpt", ["--tta"]), ("rlcf", ["--method", "rlcf"])):
+            secs, messages.lines[:] = [], []
+            undo = _patch(M, "evaluate_tta", lambda f: counted_call(f, [], secs))
+            try:
+                launches_d = run_main([*tta_common, *flags, "--logs",
+                                       os.path.join(workdir, "logs"), "--name", method])
+            finally:
+                undo()
+            encodes = 2 if method == "rlcf" else 1        # the reward model's views too
+            want_d = {"flash_fwd": layers * (3 * TTA_IMAGES + (method == "rlcf")),
+                      "flash_fwd_seg": layers * encodes * TTA_IMAGES,
+                      "flash_bwd": layers * TTA_IMAGES}
+            line = next((x for x in messages.lines if x.startswith("TTA eval:")), None)
+            report["tta"][method] = {"seconds_per_image": secs[0] / TTA_IMAGES,
+                                     "launches": launches_d, "metrics": line}
+            if launches_d != want_d:
+                bad.append(f"{method} launches {launches_d}, expected {want_d}")
+            if line is None or f"'n': {float(TTA_IMAGES)}" not in line:
+                bad.append(f"{method}: {line}")
+        agreement = tta_agreement(model, tok, fx["root47"], size)
+        report["tta"]["agreement"] = agreement
+        if agreement["ctx_grad_cos"] < 0.99 or agreement["base_logits_cos"] < 0.999:
+            bad.append(f"TTA against plain: {agreement}")
+
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        report["phase_s"] = time.perf_counter() - t_phase
+        report["card"] = smi
+        log("offline " + json.dumps(report))
+        if bad:
+            raise RuntimeError("offline jobs: " + "; ".join(bad))
+        for counts in (launches_a, launches_b, launches_c):
+            for k, v in counts.items():
+                totals[k] += v
+        for method in ("tpt", "rlcf"):
+            for k, v in report["tta"][method]["launches"].items():
+                totals[k] += v
+        return totals
+    finally:
+        logging.getLogger("latteclip_torch").removeHandler(messages)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -2043,6 +2435,8 @@ def main() -> int:
     b16_train_launches = phase_train_b16(smi, train)
     torch.cuda.empty_cache()
     cli_launches = phase_cli(smi)
+    torch.cuda.empty_cache()
+    offline_launches = phase_offline(smi)
 
     kernels = []
     for name in SOURCES:
@@ -2051,7 +2445,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
                                                      b16_train_launches, lab_launches,
-                                                     cli_launches)),
+                                                     cli_launches, offline_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,8 +1,6 @@
-"""Flat-file classification datasets, per-dataset prompt templates and the
-ImageNet class names (port of ``latteclip_tpu/data/eval_dataset.py``:
-``DATASET_TEMPLATES``, ``get_templates``, ``FlatFileDataset``,
-``iter_batches``, and of
-``latteclip_tpu/eval/imagenet_metadata.py::imagenet_classnames``).
+"""Flat-file classification datasets and per-dataset prompt templates
+(port of ``latteclip_tpu/data/eval_dataset.py``: ``DATASET_TEMPLATES``,
+``get_templates``, ``FlatFileDataset``, ``iter_batches``).
 
 A ``preprocess_path`` holds ``webdataset/{train,val}/`` with ``{id}.jpg`` and
 ``{id}.json`` flat files and ``id_to_class.json``/``class_to_id.json`` at the
@@ -16,16 +14,14 @@ import json
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
+from PIL import Image
 
 from latteclip_torch.data import transforms as T
 
 TemplateFn = Callable[[str], str]
-
-_ASSET_DIR = Path(__file__).resolve().parents[1] / "assets"
 
 # dataset key -> prompt template(s)
 DATASET_TEMPLATES: Dict[str, List[TemplateFn]] = {
@@ -49,11 +45,6 @@ DATASET_TEMPLATES: Dict[str, List[TemplateFn]] = {
 
 def get_templates(dataset: str) -> List[TemplateFn]:
     return DATASET_TEMPLATES.get(dataset, DATASET_TEMPLATES["default"])
-
-
-def imagenet_classnames() -> List[str]:
-    with open(_ASSET_DIR / "imagenet_classnames.json") as f:
-        return json.load(f)
 
 
 @dataclasses.dataclass
@@ -90,10 +81,13 @@ class FlatFileDataset:
             meta = json.load(f)
         return int(self.class_to_id[meta[self.class_name_field]])
 
+    def load_image(self, index: int) -> Image.Image:
+        """The decoded image, for callers with their own geometry (TTA)."""
+        return T.load_rgb(os.path.join(self.split_path, self.image_ids[index] + ".jpg"))
+
     def load_sample(self, index: int) -> Tuple[str, np.ndarray, int]:
         image_id = self.image_ids[index]
-        img = T.load_rgb(os.path.join(self.split_path, image_id + ".jpg"))
-        arr = T.eval_resize_crop(img, self.image_size, self.resize_mode)
+        arr = T.eval_resize_crop(self.load_image(index), self.image_size, self.resize_mode)
         return image_id, arr, self.label_of(image_id)
 
     @property

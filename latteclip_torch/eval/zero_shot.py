@@ -104,13 +104,15 @@ def topk_counts(logits: np.ndarray, target: np.ndarray, ks=(1, 5, 10)) -> List[f
     return [float((order[:, :k] == target[:, None]).any(axis=1).sum()) for k in ks]
 
 
-def _on_device(batches: Iterable, dev: torch.device) -> Iterator:
-    """``(images, labels, valid)`` per batch; on a CUDA device the images
-    come from pinned memory, copied ahead on a side stream by
-    :func:`latteclip_torch.data.pipeline.prefetch`."""
-    items = ({"images": images, "meta": (labels, valid)} for _ids, images, labels, valid in batches)
+def on_device(batches: Iterable, dev: torch.device) -> Iterator:
+    """``(ids, images, labels, valid)`` batches with the images on ``dev``;
+    on a CUDA device they come from pinned memory, copied ahead on a side
+    stream by :func:`latteclip_torch.data.pipeline.prefetch`."""
+    items = ({"images": images, "meta": (ids, labels, valid)}
+             for ids, images, labels, valid in batches)
     for item in prefetch(items, device=dev) if dev.type == "cuda" else items:
-        yield (item["images"], *item["meta"])
+        ids, labels, valid = item["meta"]
+        yield ids, item["images"], labels, valid
 
 
 def run_zero_shot_eval(model: clip_mod.CLIP, classifier: torch.Tensor, batches: Iterable, *,
@@ -119,7 +121,7 @@ def run_zero_shot_eval(model: clip_mod.CLIP, classifier: torch.Tensor, batches: 
     only the first ``valid`` rows of a batch count."""
     step = make_eval_step(model, classifier, attention=attention, ln_linear=ln_linear)
     top1 = top5 = top10 = n = 0.0
-    for images, labels, valid in _on_device(batches, _device(model)):
+    for _ids, images, labels, valid in on_device(batches, _device(model)):
         logits = step(images)[:valid].cpu().numpy()
         a1, a5, a10 = topk_counts(logits, np.asarray(labels)[:valid])
         top1 += a1

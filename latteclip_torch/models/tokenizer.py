@@ -1,7 +1,7 @@
 """Byte-level BPE tokenizer with OpenAI-CLIP token ids.
 
-Port of ``latteclip_tpu/models/tokenizer.py`` (``ClipTokenizer``,
-``get_tokenizer``): the same byte-to-unicode table, merge ranks (the
+Port of ``latteclip_tpu/models/tokenizer.py`` (``ClipTokenizer`` with
+``decode``, ``get_tokenizer``): the same byte-to-unicode table, merge ranks (the
 package's own copy of ``assets/clip_bpe_merges.txt.gz``), special tokens
 (``<start_of_text>`` = 49406, ``<end_of_text>`` = 49407), context length 77
 and pad/truncate rules (zero padding, EOT forced on truncation). Output is an
@@ -65,6 +65,7 @@ class ClipTokenizer:
 
     def __init__(self, context_length: int = DEFAULT_CONTEXT_LENGTH):
         self.byte_encoder = byte_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         with gzip.open(MERGES_PATH) as f:
             raw = f.read().decode("utf-8")
         merges: List[Tuple[str, str]] = [tuple(line.split()) for line in raw.split("\n") if line]
@@ -76,6 +77,7 @@ class ClipTokenizer:
         self.special_tokens = ["<start_of_text>", "<end_of_text>"]
         vocab += self.special_tokens
         self.encoder: Dict[str, int] = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder: Dict[int, str] = dict(enumerate(vocab))
         self.vocab_size = len(self.encoder)
         self.sot_token_id = self.encoder["<start_of_text>"]
         self.eot_token_id = self.encoder["<end_of_text>"]
@@ -129,6 +131,13 @@ class ClipTokenizer:
             unicode_token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[piece] for piece in self.bpe(unicode_token).split(" "))
         return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Token ids -> text; each ``</w>`` becomes a space, bytes that are
+        not valid UTF-8 become U+FFFD."""
+        text = "".join(self.decoder[int(i)] for i in ids)
+        data = bytearray(self.byte_decoder[c] for c in text if c in self.byte_decoder)
+        return data.decode("utf-8", errors="replace").replace("</w>", " ")
 
     def __call__(self, texts: Union[str, Sequence[str]],
                  context_length: Optional[int] = None) -> np.ndarray:

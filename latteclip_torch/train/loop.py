@@ -6,8 +6,12 @@ Per epoch, as the reference's ``main.py`` loop (``src/training/main.py:
 480-551``) and the JAX loop run it: snapshot the prototypes, run
 ``steps_per_epoch`` steps over the pipeline's batches (copied to the card a
 batch ahead by :func:`latteclip_torch.data.pipeline.prefetch`), log in the
-JAX package's format, evaluate zero-shot, append ``results.jsonl`` and save
-an OpenCLIP-layout ``epoch_<n>.pt`` (plus ``epoch_latest.pt``).
+JAX package's format, evaluate zero-shot (with, where given, the validation
+loss and retrieval over (image, caption) pairs, ``--val-data``, and the
+ImageNet eval with the 80-template classifier of the current text tower,
+``--imagenet-val``, under the keys ``imagenet-zeroshot-val-*``), append
+``results.jsonl`` and save an OpenCLIP-layout ``epoch_<n>.pt`` (plus
+``epoch_latest.pt``).
 
 Each step's augment draws from a ``torch.Generator`` on the model's device
 seeded with ``(seed << 32) + epoch * 100003 + i``: the number the JAX loop
@@ -26,6 +30,8 @@ import torch
 from latteclip_torch.checkpoint import optimizer_state, save_clip_pt
 from latteclip_torch.data.eval_dataset import FlatFileDataset, iter_batches
 from latteclip_torch.data.pipeline import TrainPipeline, prefetch
+from latteclip_torch.eval import imagenet_metadata
+from latteclip_torch.eval.retrieval import evaluate_val_pairs
 from latteclip_torch.eval.zero_shot import (
     build_zero_shot_classifier,
     prototype_classifier,
@@ -61,6 +67,7 @@ class LoopConfig:
     name: str = "run"
     log_every_n_steps: int = 10
     zeroshot_frequency: int = 1
+    val_frequency: int = 1              # the --val-data branch, every N epochs
     save_frequency: int = 1
     save_most_recent: bool = True       # epoch_latest.pt (reference main.py:546)
     delete_previous_checkpoint: bool = False
@@ -90,6 +97,21 @@ def evaluate_zero_shot(state: TrainState, val_dataset: FlatFileDataset, batch_si
                               iter_batches(val_dataset, batch_size, pad_final=True), **routes)
 
 
+def evaluate_imagenet(state: TrainState, dataset, batch_size: int, tokenizer, *,
+                      packing: int = 0, attention: str = "kernel",
+                      ln_linear: str = "unfused") -> Dict[str, float]:
+    """The reference zero_shot_eval's ImageNet branch (zero_shot.py:117-137):
+    the 1000-class classifier of the 80 OpenAI templates, built from the
+    current text tower, over ``dataset``; keys ``imagenet-zeroshot-val-*``."""
+    routes = {"attention": attention, "ln_linear": ln_linear}
+    classifier = build_zero_shot_classifier(
+        state.model, tokenizer, imagenet_metadata.imagenet_classnames(),
+        imagenet_metadata.openai_imagenet_templates(), packing=packing, **routes)
+    metrics = run_zero_shot_eval(state.model, classifier,
+                                 iter_batches(dataset, batch_size, pad_final=True), **routes)
+    return {f"imagenet-zeroshot-val-{k}": v for k, v in metrics.items()}
+
+
 def save_epoch_checkpoint(state: TrainState, classnames: Sequence[str], loop_cfg: LoopConfig,
                           epoch: int) -> None:
     """``epoch_<epoch>.pt`` (and ``epoch_latest.pt``) with the bank, the
@@ -116,7 +138,8 @@ def step_generator(device: torch.device, seed: int, epoch: int, i: int) -> torch
 
 def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopConfig,
           classnames: Sequence[str], val_dataset: Optional[FlatFileDataset] = None,
-          start_epoch: int = 0, seed: int = 0, tokenizer=None, templates=None) -> TrainState:
+          start_epoch: int = 0, seed: int = 0, tokenizer=None, templates=None,
+          val_pairs_dataset=None, imagenet_val_dataset=None) -> TrainState:
     """Run the epochs from ``start_epoch``; returns the final state."""
     device = next(state.model.parameters()).device
     results_path = os.path.join(loop_cfg.checkpoint_dir, "results.jsonl")
@@ -152,6 +175,17 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
                 tokenizer=tokenizer, classnames=classnames, templates=templates,
                 packing=loop_cfg.text_packing, attention=loop_cfg.attention,
                 ln_linear=loop_cfg.ln_linear)
+            routes = {"attention": loop_cfg.attention, "ln_linear": loop_cfg.ln_linear}
+            if (val_pairs_dataset is not None and loop_cfg.val_frequency
+                    and (completed % loop_cfg.val_frequency == 0
+                         or completed == loop_cfg.epochs)):
+                eval_metrics.update(evaluate_val_pairs(
+                    state.model, val_pairs_dataset, batch_size=loop_cfg.eval_batch_size,
+                    tokenizer=tokenizer, **routes))
+            if imagenet_val_dataset is not None and tokenizer is not None:
+                eval_metrics.update(evaluate_imagenet(
+                    state, imagenet_val_dataset, loop_cfg.eval_batch_size, tokenizer,
+                    packing=loop_cfg.text_packing, **routes))
             logger.info("Eval Epoch: %d %s", completed,
                         {k: round(v, 4) for k, v in eval_metrics.items()})
             append_results_jsonl(results_path, {"epoch": completed, **eval_metrics})

@@ -9,13 +9,24 @@ zero-shot eval and checkpoints; ``--resume latest|path`` restores the
 weights, the bank, the step, the AdamW moments and the schedule, from a
 checkpoint of either package. Without train data it evaluates once and
 exits. ``--dataset-type synthetic`` writes the synthetic fixture to a
-temporary directory and trains on it.
+temporary directory and trains on it. ``--val-data`` (a CSV of image-caption
+pairs) and ``--imagenet-val`` (an ImageNet folder) join the epoch's eval.
+
+The offline and eval jobs run instead of training and exit, as in the JAX
+package: ``--extract-features-path`` writes the pseudo-label pickle
+(``clip_features_<split>.pkl``) that ``--clip-prediction-path`` reads;
+``--tta`` or ``--method tpt|rlcf`` runs test-time adaptation on the eval
+split (RLCF's reward model from ``--reward-model``/``--reward-pretrained``,
+seeded from ``torch.Generator`` seed 1 without a checkpoint);
+``--extract-group-weight-path`` writes the fusion-weight analysis.
+``--eval-config-path`` resolves the eval split from a YAML task registry.
 
 The model runs on ``--device`` (``cuda`` by default: the Hopper kernels; it
 raises without a CUDA device). The JAX package's kernel switches
 ``LATTECLIP_ATTN_HEADSPLIT``, ``LATTECLIP_ATTN_BLOCKDIAG`` and
 ``LATTECLIP_FUSED_LN`` select the same routes here (``attention=`` and
-``ln_linear=``). Flags whose feature the port does not have yet are refused
+``ln_linear=``); its ``LATTECLIP_TEXT_XLA_ATTN`` is refused. Flags whose
+feature the port does not have yet are refused
 with a ``SystemExit`` that names the ROADMAP item; the GPU/infra flags the
 JAX package ignores with a warning are ignored with the same warning.
 """
@@ -34,6 +45,7 @@ from latteclip_torch import checkpoint as ckpt
 from latteclip_torch.config import get_model_config
 from latteclip_torch.data import synthetic
 from latteclip_torch.data.eval_dataset import FlatFileDataset
+from latteclip_torch.data.folder_dataset import CsvDataset, ImageFolderDataset
 from latteclip_torch.data.packing import pack_template_table
 from latteclip_torch.data.pipeline import (
     PipelineConfig,
@@ -44,6 +56,9 @@ from latteclip_torch.data.pipeline import (
 from latteclip_torch.data.tar_reader import expand_shard_pattern
 from latteclip_torch.data.transforms import AugConfig
 from latteclip_torch.device import resolve_device
+from latteclip_torch.eval.features import extract_features
+from latteclip_torch.eval.group_weights import extract_group_weights
+from latteclip_torch.eval.tta import TTAConfig, evaluate_tta
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.tokenizer import get_tokenizer
 from latteclip_torch.obs.meters import append_results_jsonl
@@ -82,22 +97,16 @@ def setup_logging(log_path: Optional[str] = None):
 def refuse_unported(args) -> None:
     """SystemExit for every flag whose feature the port does not have yet."""
     refused = {
-        "--method " + args.method: args.method != "ours",
+        "--method " + args.method: args.method not in ("ours", "tpt", "rlcf"),
         "--gamma": bool(args.gamma),
-        "--tta": args.tta,
-        "--extract-features-path": args.extract_features_path is not None,
-        "--extract-group-weight-path": args.extract_group_weight_path is not None,
         "--siglip": args.siglip,
         "--distill-model/--distill-pretrained": (args.distill_model is not None
                                                  or args.distill_pretrained is not None),
-        "--imagenet-val": args.imagenet_val is not None,
         "--imagenet-v2": args.imagenet_v2 is not None,
-        "--val-data": args.val_data is not None,
         "--report-to": bool(args.report_to),
         "--remote-sync": args.remote_sync is not None,
         "--profile": args.profile,
         "--use-native-jpeg": args.use_native_jpeg,
-        "--eval-config-path": args.eval_config_path is not None,
         "--force-image-size": args.force_image_size is not None,
         "--force-patch-dropout": args.force_patch_dropout is not None,
         "--image-resize-mode": args.image_resize_mode not in (None, "shortest"),
@@ -112,6 +121,9 @@ def refuse_unported(args) -> None:
 
 def kernel_routes() -> dict:
     """The towers' routes from the JAX package's environment switches."""
+    if os.environ.get("LATTECLIP_TEXT_XLA_ATTN", "0") == "1":
+        raise SystemExit("LATTECLIP_TEXT_XLA_ATTN=1 (whole-row sites under 128 tokens on the "
+                         f"plain attention): not ported to latteclip_torch yet ({_ITEM_6})")
     on = {k: os.environ.get(k, "0") == "1"
           for k in ("LATTECLIP_ATTN_HEADSPLIT", "LATTECLIP_ATTN_BLOCKDIAG", "LATTECLIP_FUSED_LN")}
     if on["LATTECLIP_ATTN_HEADSPLIT"] and on["LATTECLIP_ATTN_BLOCKDIAG"]:
@@ -124,13 +136,18 @@ def kernel_routes() -> dict:
             "ln_linear": "fused" if on["LATTECLIP_FUSED_LN"] else "unfused"}
 
 
+def model_config(flag: str, name: str):
+    """The named config; a ``SystemExit`` naming ``flag`` for one not ported."""
+    try:
+        return get_model_config(name)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"{flag} {name}: {e} ({_ITEM_6})") from e
+
+
 def build_model(args, device):
     """``(cfg, model, bank_by_class)``: the config with the CLI's overrides,
     and the model seeded from ``--seed`` or loaded from ``--pretrained``."""
-    try:
-        cfg = get_model_config(args.model)
-    except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"--model {args.model}: {e} ({_ITEM_6})") from e
+    cfg = model_config("--model", args.model)
     changes = {}
     if args.precision == "fp32":
         changes["compute_dtype"] = "float32"
@@ -151,6 +168,47 @@ def build_model(args, device):
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(args.seed), cfg,
                                       device=device)
     return cfg, model, {}
+
+
+def resolve_preprocess_path(args) -> str:
+    """The eval dataset's directory: the ``--eval-config-path`` task
+    ``<zeroshot-eval-data>_val_zeroshot_classification`` when it has one,
+    else ``--eval-preprocess-path``, else ``<data dir>/<name>_preprocess``."""
+    if args.eval_config_path and args.zeroshot_eval_data:
+        from latteclip_torch.data.eval_config import expand_env, load_eval_config
+
+        tasks = load_eval_config(args.eval_config_path)
+        key = f"{args.zeroshot_eval_data}_val_zeroshot_classification"
+        if key in tasks:
+            return expand_env(str(tasks[key]["dataset_specific_kwargs"]["preprocess_path"]))
+    if args.eval_preprocess_path:
+        return args.eval_preprocess_path
+    data_dir = args.data_dir or os.environ.get("LATTECLIP_DATA_DIR")
+    if not data_dir or not args.zeroshot_eval_data:
+        raise SystemExit("need --eval-preprocess-path, or --zeroshot-eval-data with "
+                         "--data-dir / $LATTECLIP_DATA_DIR")
+    return os.path.join(data_dir, f"{args.zeroshot_eval_data}_preprocess")
+
+
+def run_tta(args, model, tokenizer, dataset, device, routes) -> None:
+    """``--tta`` / ``--method tpt|rlcf``: test-time adaptation over
+    ``dataset``, logged as ``TTA eval: {...}``."""
+    tta_cfg = TTAConfig(n_views=args.tta_n_views, selection_p=args.selection_p,
+                        tta_steps=args.tta_step, lr=args.lr)
+    reward_model = None
+    if args.method == "rlcf":
+        name = args.reward_model or args.model
+        reward_cfg = model_config("--reward-model", name)
+        if args.reward_pretrained:
+            reward_model = ckpt.load_clip_pt(args.reward_pretrained, reward_cfg, device=device)[0]
+        else:
+            reward_model = clip_mod.init_clip_params(torch.Generator().manual_seed(1), reward_cfg,
+                                                     device=device)
+    metrics = evaluate_tta(model, tokenizer, dataset, tta_cfg,
+                           method="rlcf" if args.method == "rlcf" else "tpt",
+                           reward_model=reward_model, max_samples=args.tta_max_samples,
+                           seed=args.seed, **routes)
+    logger.info("TTA eval: %s", {k: round(float(v), 4) for k, v in metrics.items()})
 
 
 def synthetic_root(args, cfg) -> str:
@@ -235,18 +293,27 @@ def main(argv=None) -> int:
     if synthetic_mode:
         preprocess_path, dataset_name = synthetic_root(args, cfg), "dtd"
     else:
-        preprocess_path = args.eval_preprocess_path
-        if not preprocess_path:
-            data_dir = args.data_dir or os.environ.get("LATTECLIP_DATA_DIR")
-            if not data_dir or not args.zeroshot_eval_data:
-                raise SystemExit("need --eval-preprocess-path, or --zeroshot-eval-data with "
-                                 "--data-dir / $LATTECLIP_DATA_DIR")
-            preprocess_path = os.path.join(data_dir, f"{args.zeroshot_eval_data}_preprocess")
+        preprocess_path = resolve_preprocess_path(args)
         dataset_name = args.zeroshot_eval_data or "default"
+
+    # ---- feature-extraction mode: the pseudo-label pickle, then exit ------
+    if args.extract_features_path:
+        split = args.extract_features_split
+        split_ds = FlatFileDataset(preprocess_path, train=(split == "train"),
+                                   image_size=cfg.vision.image_size, dataset_name=dataset_name)
+        extract_features(model, tokenizer, split_ds, args.extract_features_path, split,
+                         batch_size=args.batch_size, **routes)
+        return 0
+
     val_dataset = FlatFileDataset(preprocess_path, train=False, image_size=cfg.vision.image_size,
                                   dataset_name=dataset_name)
     classnames = val_dataset.display_class_names
     templates = val_dataset.templates
+
+    # ---- test-time adaptation on the eval split, then exit -----------------
+    if args.tta or args.method in ("tpt", "rlcf"):
+        run_tta(args, model, tokenizer, val_dataset, device, routes)
+        return 0
 
     bank = _bank_for(classnames, bank_by_class)
     if bank is not None:
@@ -303,6 +370,14 @@ def main(argv=None) -> int:
                                                         tokenizer.eot_token_id, table)
         logger.info("text context cap: %s -> %d columns (%d caption rows truncated with "
                     "forced EOT)", args.text_context_cap, eff, truncated)
+
+    # ---- fusion-weight analysis mode, then exit -----------------------------
+    if args.extract_group_weight_path:
+        extract_group_weights(model, data, bank, templates, tokenizer,
+                              args.extract_group_weight_path, batch_size=args.batch_size,
+                              image_size=cfg.vision.image_size, **routes)
+        logger.info("group weights written to %s", args.extract_group_weight_path)
+        return 0
 
     aug = build_aug_config(args.aug_cfg)
     pipeline = TrainPipeline(data, PipelineConfig(
@@ -379,13 +454,24 @@ def main(argv=None) -> int:
     loop_cfg = loop_mod.LoopConfig(
         epochs=args.epochs, checkpoint_dir=checkpoint_dir, name=name,
         log_every_n_steps=args.log_every_n_steps, zeroshot_frequency=args.zeroshot_frequency,
-        save_frequency=args.save_frequency, save_most_recent=args.save_most_recent,
+        val_frequency=args.val_frequency, save_frequency=args.save_frequency,
+        save_most_recent=args.save_most_recent,
         delete_previous_checkpoint=args.delete_previous_checkpoint,
         eval_batch_size=args.eval_batch_size, method=args.method, lr_schedule=schedule,
         text_packing=args.text_packing, **routes)
+    imagenet_val_dataset = val_pairs_dataset = None
+    if args.imagenet_val:
+        imagenet_val_dataset = ImageFolderDataset(args.imagenet_val,
+                                                  image_size=cfg.vision.image_size,
+                                                  dataset_name="imagenet")
+    if args.val_data:
+        val_pairs_dataset = CsvDataset(args.val_data, img_key=args.csv_img_key,
+                                       caption_key=args.csv_caption_key, sep=args.csv_separator,
+                                       image_size=cfg.vision.image_size)
     loop_mod.train(state, step_fn, pipeline, loop_cfg, classnames, val_dataset=val_dataset,
                    start_epoch=start_epoch, seed=args.seed, tokenizer=tokenizer,
-                   templates=templates)
+                   templates=templates, val_pairs_dataset=val_pairs_dataset,
+                   imagenet_val_dataset=imagenet_val_dataset)
     return 0
 
 

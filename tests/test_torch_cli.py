@@ -13,21 +13,27 @@
   tests/test_torch_train_step.py, and in the crop's rounding,
   tests/test_torch_crop.py); the final parameters within 2 * lr * steps
   absolute, the bound tests/test_torch_train_step.py argues for AdamW (each
-  update is about lr per element, and noise can flip its sign); the bank
-  rows at cosine >= 0.9999; the ``results.jsonl`` eval metrics equal;
+  update is about lr per element, and noise can flip its sign); each
+  tensor's change from the shared start in the same direction, cosine >=
+  1 - 1e-6 (``DELTA_COS_GAP``, derived there); the bank rows at cosine >=
+  0.9999; the ``results.jsonl`` eval metrics equal;
 * cross-resume: each package resumes the other's ``epoch_1.pt`` (weights,
   bank, step, AdamW moments, schedule count) for epoch 2, and its
   ``epoch_2.pt`` agrees with the other package's own within the same bounds;
 * the eval-only mode (no train data, ``--resume`` a checkpoint) writes the
   same ``results.jsonl`` record in both;
+* ``--eval-config-path`` resolves the eval split from a YAML task registry
+  in both mains to the same eval record, and without PyYAML the port
+  refuses it with a ``SystemExit`` that names the package;
 * every flag whose feature is not ported is refused with a ``SystemExit``
-  naming the ROADMAP item, and the default ``--device cuda`` raises where
-  CUDA is absent.
+  naming the ROADMAP item, as is the JAX switch ``LATTECLIP_TEXT_XLA_ATTN=1``,
+  and the default ``--device cuda`` raises where CUDA is absent.
 """
 import glob
 import json
 import os
 import re
+import sys
 
 import jax
 import numpy as np
@@ -45,6 +51,16 @@ from latteclip_torch.train import params as torch_params
 
 torch.set_num_threads(2)
 LR, STEPS = 1e-4, 4
+# 1 - cos between the packages' per-tensor parameter deltas. Both run the
+# same float32 AdamW; the float32 rounding of the stored weights alone moves
+# a 4-update delta element (~4e-4) by at most 2^-24 * |p| <= 1.2e-7 (|p| <= 2),
+# which costs 1 - cos <= (3e-4)^2 / 2 = 5e-8 at worst; the gradients' summation
+# order (1e-6 relative, tests/test_torch_train_step.py) leaves Adam's
+# normalised step alone except where a gradient element lies within that
+# noise of 0. Observed: at most 8.5e-8 (visual in_proj_bias, 192 elements).
+# A wrong update rule moves whole tensors: a flipped step in one element of a
+# 192-element tensor already gives ~1e-2.
+DELTA_COS_GAP = 1e-6
 COMMON = ["--dataset-type", "synthetic", "--model", "ViT-tiny-test", "--batch-size", "32",
           "--epochs", "2", "--warmup", "2", "--lr", str(LR), "--precision", "fp32",
           "--aug-cfg", "color_jitter_prob=0", "gray_scale_prob=0", "--workers", "2"]
@@ -118,7 +134,7 @@ def _checkpoint(run_dir, epoch):
     return {k: v for k, v in sd.items() if k not in bank}, bank, obj
 
 
-def _assert_checkpoints_agree(a_dir, b_dir, epoch=2):
+def _assert_checkpoints_agree(a_dir, b_dir, start, epoch=2):
     a, a_bank, a_obj = _checkpoint(a_dir, epoch)
     b, b_bank, b_obj = _checkpoint(b_dir, epoch)
     assert sorted(a) == sorted(b) and sorted(a_bank) == sorted(b_bank)
@@ -127,6 +143,10 @@ def _assert_checkpoints_agree(a_dir, b_dir, epoch=2):
     for k in a:
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=0, atol=2 * LR * STEPS,
                                    err_msg=k)
+        da = (a[k].double() - start[k].double()).flatten()
+        db = (b[k].double() - start[k].double()).flatten()
+        assert da.norm() > 0 and db.norm() > 0, k
+        assert 1 - float(da @ db / (da.norm() * db.norm())) <= DELTA_COS_GAP, k
     for k in a_bank:
         cos = float(torch.nn.functional.cosine_similarity(a_bank[k], b_bank[k], dim=0))
         assert cos >= 0.9999, k
@@ -147,7 +167,8 @@ def runs(tmp_path_factory):
     pretrained = str(base / "pretrained.pt")
     jax_ckpt.save_clip_pt(pretrained, jax_clip.init_clip_params(jax.random.PRNGKey(0), cfg), cfg)
     pre = ["--pretrained", pretrained]
-    out = {"base": base, "pretrained": pretrained}
+    out = {"base": base, "pretrained": pretrained,
+           "start": torch.load(pretrained, map_location="cpu", weights_only=True)["state_dict"]}
     out["jax"] = _run(jax_main.main, str(base / "jax"), *pre)
     out["torch"] = _run(torch_main.main, str(base / "torch"), *pre, "--device", "cpu")
     out["torch_from_jax"] = _run(
@@ -161,7 +182,7 @@ def runs(tmp_path_factory):
 
 def test_cli_trains_like_jax(runs):
     _assert_logs_agree(runs["torch"], runs["jax"], expect_steps=4)
-    _assert_checkpoints_agree(runs["torch"], runs["jax"])
+    _assert_checkpoints_agree(runs["torch"], runs["jax"], runs["start"])
     assert _results(runs["torch"]) == _results(runs["jax"])
     assert os.path.exists(os.path.join(runs["torch"], "params.txt"))
     for name in ("epoch_1.pt", "epoch_2.pt", "epoch_latest.pt"):
@@ -177,7 +198,7 @@ def test_cross_package_resume(runs, resumed, own):
     assert len(got) == len(epoch2) == 2
     for x, y in zip(got, epoch2):
         assert x[:3] == y[:3] and abs(x[4] - y[4]) <= 1e-4 * abs(y[4])
-    _assert_checkpoints_agree(runs[resumed], runs[own])
+    _assert_checkpoints_agree(runs[resumed], runs[own], runs["start"])
 
 
 def test_eval_only_equals_jax(runs, tmp_path):
@@ -194,11 +215,8 @@ def test_eval_only_equals_jax(runs, tmp_path):
 
 
 REFUSED = {
-    "method": ["--method", "flyp"], "gamma": ["--gamma", "0.5"], "tta": ["--tta"],
-    "extract_features": ["--extract-features-path", "x"],
-    "group_weights": ["--extract-group-weight-path", "x"], "siglip": ["--siglip"],
+    "method": ["--method", "flyp"], "gamma": ["--gamma", "0.5"], "siglip": ["--siglip"],
     "distill": ["--distill-model", "ViT-B-32", "--distill-pretrained", "x"],
-    "imagenet_val": ["--imagenet-val", "x"], "val_data": ["--val-data", "x"],
     "report_to": ["--report-to", "tensorboard"], "remote_sync": ["--remote-sync", "x"],
     "profile": ["--profile"], "model_parallelism": ["--model-parallelism", "2"],
     "native_jpeg": ["--use-native-jpeg"], "coca": ["--model", "coca_ViT-B-32"],
@@ -209,6 +227,63 @@ REFUSED = {
 def test_unported_flags_are_refused(case, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md, section 1, item [56]"):
         torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu", *REFUSED[case]])
+
+
+def test_text_xla_attention_switch_is_refused(tmp_path, monkeypatch):
+    monkeypatch.setenv("LATTECLIP_TEXT_XLA_ATTN", "1")
+    with pytest.raises(SystemExit, match="LATTECLIP_TEXT_XLA_ATTN.*ROADMAP.md, section 1, item 6"):
+        torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu"])
+
+
+def _eval_config(tmp_path, root):
+    path = tmp_path / "eval.yaml"
+    path.write_text("tasks:\n  dtd_val_zeroshot_classification:\n"
+                    "    dataset_loading_kwargs: {dataset_name: dtd_zero_shot}\n"
+                    "    dataset_specific_kwargs: {preprocess_path: $EVAL_ROOT, train: false}\n")
+    return str(path)
+
+
+def test_eval_config_path_equals_jax(runs, tmp_path, monkeypatch):
+    root = str(tmp_path / "fixture")
+    jax_synthetic.make_full_fixture(root, num_train=8, num_val=12, image_size=64)
+    monkeypatch.setenv("EVAL_ROOT", root)
+    argv = ["--model", "ViT-tiny-test", "--precision", "fp32", "--zeroshot-eval-data", "dtd",
+            "--eval-config-path", _eval_config(tmp_path, root), "--pretrained",
+            runs["pretrained"], "--eval-batch-size", "8", "--name", "eval"]
+    assert jax_main.main(argv + ["--logs", str(tmp_path / "jax")]) == 0
+    assert torch_main.main(argv + ["--logs", str(tmp_path / "torch"), "--device", "cpu"]) == 0
+    ours = _results(str(tmp_path / "torch" / "eval"))
+    assert ours == _results(str(tmp_path / "jax" / "eval")) and ours[0]["n"] == 12
+
+
+def test_eval_config_tasks_match_jax(tmp_path, monkeypatch):
+    from latteclip_tpu.data import eval_config as jax_eval_config
+    from latteclip_torch.data import eval_config
+
+    root = str(tmp_path / "fixture")
+    jax_synthetic.make_flat_dataset(root, num_train=3, num_val=5, image_size=32)
+    monkeypatch.setenv("EVAL_ROOT", root)
+    path = _eval_config(tmp_path, root)
+    assert eval_config.load_eval_config(path) == jax_eval_config.load_eval_config(path)
+    ours = eval_config.get_zero_shot_classification_data(path, "dtd_val_zeroshot_classification",
+                                                         image_size=32)
+    theirs = jax_eval_config.get_zero_shot_classification_data(
+        path, "dtd_val_zeroshot_classification", image_size=32)
+    assert ours.preprocess_path == theirs.preprocess_path == root
+    assert (ours.image_ids, ours.class_names, ours.dataset_name) == \
+        (theirs.image_ids, theirs.class_names, theirs.dataset_name) and len(ours) == 5
+    assert [t("x") for t in ours.templates] == [t("x") for t in theirs.templates]
+    assert eval_config.expand_env("${EVAL_ROOT}/a/$NOT_SET") == f"{root}/a/$NOT_SET"
+    with pytest.raises(KeyError, match="not in"):
+        eval_config.get_zero_shot_classification_data(path, "missing")
+
+
+def test_eval_config_path_needs_pyyaml(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "yaml", None)   # import yaml raises ImportError
+    argv = ["--model", "ViT-tiny-test", "--zeroshot-eval-data", "dtd", "--eval-config-path",
+            _eval_config(tmp_path, str(tmp_path)), "--logs", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(SystemExit, match="PyYAML"):
+        torch_main.main(argv)
 
 
 def test_default_device_needs_cuda(tmp_path, monkeypatch):

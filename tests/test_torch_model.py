@@ -64,7 +64,7 @@ def _shared(name, compute_dtype):
 @pytest.mark.parametrize("rel", [
     "model_configs/ViT-B-32.json", "model_configs/ViT-B-16.json",
     "model_configs/ViT-tiny-test.json", "assets/clip_bpe_merges.txt.gz",
-    "assets/imagenet_classnames.json",
+    "assets/imagenet_classnames.json", "assets/openai_imagenet_templates.json",
 ])
 def test_data_copies_are_byte_identical(rel):
     src = ("latteclip_tpu/core/" if rel.startswith("model_configs") else "latteclip_tpu/") + rel

@@ -9,7 +9,8 @@ import torch
 
 from latteclip_tpu.data.eval_dataset import DATASET_TEMPLATES as JAX_TEMPLATES
 from latteclip_tpu.models.tokenizer import get_tokenizer as jax_get_tokenizer
-from latteclip_torch.data.eval_dataset import DATASET_TEMPLATES, get_templates, imagenet_classnames
+from latteclip_torch.data.eval_dataset import DATASET_TEMPLATES, get_templates
+from latteclip_torch.eval.imagenet_metadata import imagenet_classnames
 from latteclip_torch.models.tokenizer import get_tokenizer
 
 torch.set_num_threads(1)
