@@ -23,7 +23,11 @@ Phases, each raising on failure:
    serving and synthetic shapes, the cases take the train phase's own segment
    ids (packed captions and templates) and batch shapes, and K1 and K5 the
    ViT-B/16 eval's [256, 197, 12 x 3 x 64] and K3 ViT-B/16 training's
-   [512, 197, 12 x 3 x 64]; forward cases of more than 128 tokens name the
+   [512, 197, 12 x 3 x 64], and the native ViT family's rows: K1 at
+   ViT-L/14's [64, 257, 16 x 3 x 64], ViT-L-14-336's [64, 577, 16 x 3 x 64],
+   ViT-B-16-SigLIP-512's [16, 1024, 12 x 3 x 64] and SigLIP's non-causal
+   text [64, 64, 12 x 3 x 64], K3 at [64, 257, 16 x 3 x 64] and ViT-L/14
+   training's [512, 257, 16 x 3 x 64]; forward cases of more than 128 tokens name the
    long-row kernel's form (resident or streamed), CTAs per (row, head) and
    warps a CTA, backward ones the backward plan's form (resident_pair,
    resident or tiled) and warps; cases of at most 128 tokens name the
@@ -186,7 +190,24 @@ Phases, each raising on failure:
    0.999. An offline JSON line gives each job's images/s (TTA: s an
    image), the classifier builds' seconds, launches, peak memory, the
    phase's seconds and nvidia-smi's line;
-9. report: one JSON line of kernels, nvidia-smi's line, and the final line
+9. vit_family: the native ViT family at full width and depth, bf16, seed-0
+   weights. (a) ViT-L/14 (vision 24 x 1024, L=257, no pair-packing; text 12
+   x 768) trained as phase 6b's step, batch 512, captions and templates
+   packed at 128, both towers rematerialised: warm-up and 10 timed steps
+   with exactly 24 flash_fwd, 24 flash_bwd (the tiled form), 24
+   flash_fwd_seg and 24 flash_bwd_seg a step; a profiled step; kernel and
+   plain routes on one batch of 64 with augment off at phase 6's bounds; a
+   train_l14 line with images/s, device busy ms, idle share and peak memory.
+   (b) ViT-L/14 serving, the requests of phase 5b (serve_whole_rows): the
+   1000-row classifier (12 K1) and 4 x 256 + 255 images (24 K1 a batch), at
+   phase 5b's bounds, a slice_l14 line. (c) ViT-L-14-336 (577 tokens, its
+   long_row_plan printed), ViT-B-16-SigLIP (no class token, the MAP head,
+   text non-causal at 64 tokens from seeded ids) and ViT-H-14-quickgelu
+   (vision heads 80 wide: the plain route, zero vision launches asserted;
+   its text tower on K1): 64 images and 64 text rows each against the plain
+   route, features at cosine >= 0.999 row by row, prototype top-1 on >= 99%
+   of rows, exact launches; a geometry line each;
+10. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -607,7 +628,13 @@ def phase_kernels(train, tiled_lib):
         ("flash_fwd_seg", 128, 100, 12, 64, False, np.tile(pair, (128, 1))),  # vision pairs
         ("flash_fwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_fwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
-    ] + train_cases
+    ] + train_cases + [
+        # the native ViT family's rows (phase 9)
+        ("flash_fwd", 64, 257, 16, 64, False, None),       # ViT-L/14 vision
+        ("flash_fwd", 64, 577, 16, 64, False, None),       # ViT-L-14-336 vision
+        ("flash_fwd", 16, 1024, 12, 64, False, None),      # ViT-B-16-SigLIP-512 vision
+        ("flash_fwd", 64, 64, 12, 64, False, None),        # SigLIP text, non-causal
+    ]
     bwd_cases = [
         ("flash_bwd", 2 * TRAIN_BATCH, 77, Ht, Dt, True, None),  # train captions, padded
         ("flash_bwd", 255, 50, 12, 64, False, None),       # odd vision batch
@@ -618,6 +645,8 @@ def phase_kernels(train, tiled_lib):
     ] + [("flash_bwd" + n[len("flash_fwd"):], *rest) for n, *rest in train_cases] + [
         ("flash_bwd_seg", 64, 128, 8, 64, True, random_segments(rng, 64, 128)),  # packed text
         ("flash_bwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
+        ("flash_bwd", 64, 257, 16, 64, False, None),       # ViT-L/14 vision
+        ("flash_bwd", VIT_L_BATCH, 257, 16, 64, False, None),  # ViT-L/14 training's batch
     ]
     # the head-split and block-diagonal routes at K1/K3's whole-row cases
     whole_rows = [
@@ -1221,21 +1250,30 @@ def phase_slice_b16(smi: str):
     """ViT-B/16 serving at full width and depth (vision 12 x 768 at 224 px /
     patch 16, L=197, heads 64 wide): the same requests as the ViT-B/32 slice.
     No batch pair-packs at 197 tokens (that needs 2L <= 128), so every vision
-    layer runs K1 on the long-row kernel at [256, 197, 12 x 3 x 64]. The
-    counters are set to 0 just before the requests and read just after
-    (exactly one flash_fwd launch a layer: the classifier build's text tower
-    at L=77, then the vision tower on five eval batches and the prototype
-    request's batch), and again around the eval alone (12 a batch, all at
-    L=197, no flash_fwd_seg)."""
+    layer runs K1 on the long-row kernel at [256, 197, 12 x 3 x 64]."""
+    return serve_whole_rows(smi, "ViT-B-16", 197, "slice_b16", "eval_b16")
+
+
+def serve_whole_rows(smi: str, name: str, seq_len: int, label: str, profile_label: str):
+    """The serving requests at a model whose vision rows (``seq_len``
+    tokens) are too long to pair-pack. The counters are set to 0 just
+    before the requests and read just after (exactly one flash_fwd launch a
+    layer: the classifier build's text tower at L=77, then the vision tower
+    on five eval batches and the prototype request's batch), and again
+    around the eval alone (one a vision layer and batch, no flash_fwd_seg).
+    Features and classifier columns must agree with the plain route at
+    cosine >= 0.999, prototype top-1 on >= 99% of rows; a torch.profiler
+    trace of the eval gives its device busy ms, idle share and device ms by
+    kind, printed with images/s and peak memory on one ``label`` JSON line."""
     from latteclip_torch.data import transforms as T
     from latteclip_torch.eval import zero_shot as zs
     from latteclip_torch.models import clip as clip_mod
 
-    inputs = serving_inputs("ViT-B-16")
+    inputs = serving_inputs(name)
     cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
     classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
-    if cfg.vision.seq_len != 197:
-        raise RuntimeError(f"ViT-B/16 vision rows of {cfg.vision.seq_len} tokens, expected 197")
+    if cfg.vision.seq_len != seq_len:
+        raise RuntimeError(f"{name} vision rows of {cfg.vision.seq_len} tokens, expected {seq_len}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1245,20 +1283,20 @@ def phase_slice_b16(smi: str):
     reset_counts()
     zs.run_zero_shot_eval(model, fast["classifier"], batches)
     eval_launches = read_counts()
-    log(f"slice_b16 kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}")
+    log(f"{label} kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}")
     vision_runs = len(batches) + 1  # the eval's batches, then the prototype request's
     for window, got, n in (("requests", launches, cfg.text.layers + cfg.vision.layers * vision_runs),
                            ("eval", eval_launches, cfg.vision.layers * len(batches))):
         want = {**dict.fromkeys(got, 0), "flash_fwd": n}
         if got != want:
-            raise RuntimeError(f"ViT-B/16 {window} launched {got}, expected {want}")
+            raise RuntimeError(f"{name} {window} launched {got}, expected {want}")
 
     reset_counts()
     slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
     if any(read_counts().values()):
         raise RuntimeError(f"plain run launched kernels: {read_counts()}")
     profile = device_profile(lambda: zs.run_zero_shot_eval(model, fast["classifier"], batches))
-    log("profile eval_b16 " + json.dumps(profile))
+    log(f"profile {profile_label} " + json.dumps(profile))
 
     # agreement of the kernel route with the plain one, as the ViT-B/32 slice holds it
     proto = zs.prototype_classifier(bank)
@@ -1294,12 +1332,12 @@ def phase_slice_b16(smi: str):
         "launches": launches, "eval_launches": eval_launches,
         "max_memory_allocated": peak, "card": smi,
     }
-    log("slice_b16 " + json.dumps(report))
+    log(f"{label} " + json.dumps(report))
     if cos_min < 0.999 or clf_cos < 0.999:
-        raise RuntimeError(f"ViT-B/16 features disagree: min cosine {cos_min} (images), "
+        raise RuntimeError(f"{name} features disagree: min cosine {cos_min} (images), "
                            f"{clf_cos} (classifier)")
     if agree / rows < 0.99:
-        raise RuntimeError(f"ViT-B/16 prototype top-1 agrees on only {agree / rows:.4f} of rows")
+        raise RuntimeError(f"{name} prototype top-1 agrees on only {agree / rows:.4f} of rows")
     return launches
 
 
@@ -2364,6 +2402,203 @@ def phase_offline(smi: str):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 9: the native ViT family ---------------------------------------------
+
+VIT_L, VIT_L_BATCH, VIT_L_AGREE_BATCH = "ViT-L-14", 512, 64
+# the serving geometries beside ViT-L/14: 577-token rows; no class token and
+# the MAP head with non-causal text; vision heads 80 wide (the plain route)
+GEOMETRIES = ("ViT-L-14-336", "ViT-B-16-SigLIP", "ViT-H-14-quickgelu")
+GEOMETRY_IMAGES = 64
+
+
+def phase_vit_l_train(smi: str, train: dict):
+    """The LatteCLIP v2 step at ViT-L/14 (vision 24 x 1024 at 224 px / patch
+    14, L=257; text 12 x 768), batch VIT_L_BATCH, captions and templates
+    packed at 128, colour augment on, AdamW 1e-5, both towers
+    rematerialised: warm-up and 10 timed steps with the counters set to 0
+    just before and read just after: no vision pair packs at 257 tokens, so
+    exactly 24 flash_fwd and 24 flash_bwd (the backward's tiled form) and
+    24 flash_fwd_seg and 24 flash_bwd_seg (captions, templates) a step;
+    losses finite, logit_scale in [0, ln 100], bank rows unit-norm; a
+    profiled step; kernel and plain routes from one copied state on one
+    batch of VIT_L_AGREE_BATCH with augment off: loss within 1e-2 relative,
+    gradient cosine >= 0.99, bank rows cosine >= 0.999."""
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.data.packing import PackRowBucketer
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St, step as S
+
+    cfg = get_model_config(VIT_L)
+    if cfg.vision.seq_len != 257:
+        raise RuntimeError(f"ViT-L/14 vision rows of {cfg.vision.seq_len} tokens, expected 257")
+    tok, classes, templates = train["tok"], train["classes"], train["templates"]
+    table, tpl = train["table"], train["tpl"]
+    rng = np.random.default_rng(14)
+    bucket = PackRowBucketer(multiple=8)
+    batches = [train_batch(rng, VIT_L_BATCH, cfg.vision.image_size, len(classes),
+                           tok.eot_token_id, bucket, PACK_LEN) for _ in range(2)]
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bank = St.init_memory_bank(model, tok, classes, templates)
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
+    step_fn = S.make_train_step(model, S.LatteHParams(text_packing=True, remat=True), table,
+                                T.AugConfig(), template_packed=tpl)
+    n, vision_sites, text_sites = TRAIN_STEPS, cfg.vision.layers, 2 * cfg.text.layers
+    _, warm_losses = timed_steps(step_fn, state, batches, gen, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train kernels packed_l14_remat: {json.dumps(launches)}")
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": n * vision_sites,
+            "flash_bwd": n * vision_sites, "flash_fwd_seg": n * text_sites,
+            "flash_bwd_seg": n * text_sites}
+    if launches != want:
+        raise RuntimeError(f"packed_l14_remat steps launched {launches}, expected {want}")
+    check_state(state, warm_losses + losses, "packed_l14_remat route")
+    profile = device_profile(lambda: step_fn(state, batches[0], gen))
+    log("profile train_step_packed_l14_remat " + json.dumps(profile))
+
+    del batches
+    torch.cuda.empty_cache()
+    hp = S.LatteHParams(augment=False, text_packing=True, remat=True)
+    batch = train_batch(rng, VIT_L_AGREE_BATCH, cfg.vision.image_size, len(classes),
+                        tok.eot_token_id, bucket, PACK_LEN)
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    tpl_t = tuple(torch.from_numpy(a).cuda() for a in tpl)
+    runs = [route_gradients(copy.deepcopy(model), hp, batch, images, state, table_t, tpl_t, att)
+            for att in ("kernel", "plain")]
+    agreement = {"batch": VIT_L_AGREE_BATCH, **agree(*runs)}
+    del runs
+    report = {
+        "model": cfg.name, "batch": VIT_L_BATCH, "classes": len(classes), "steps": n,
+        "remat": "both towers", "images_per_s": ips, "losses": losses, "launches": launches,
+        "max_memory_allocated": peak, "device_busy_ms_per_step": profile["device_busy_ms"],
+        "device_idle_share": profile["device_idle_share"],
+        "device_ms_by_kind": profile["device_ms_by_kind"],
+        "logit_scale": float(state.model.logit_scale.detach()), "agreement": agreement, "card": smi,
+    }
+    log("train_l14 " + json.dumps(report))
+    if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
+            or agreement["bank_row_cos_min"] < 0.999):
+        raise RuntimeError(f"ViT-L/14 kernel and plain routes disagree: {agreement}")
+    return launches
+
+
+def text_rows(rng: np.random.Generator, cfg, n: int) -> np.ndarray:
+    """Seeded token rows for a text tower: CLIP-vocabulary captions
+    (lognormal lengths, EOT the highest id, zero padding), or for another
+    vocabulary (SigLIP's) ids from 2 up with the sentencepiece tokenizer's
+    layout, eos then padding both id 1."""
+    t = cfg.text
+    if t.vocab_size == 49408:
+        return caption_rows(rng, caption_lengths(rng, n, t.context_length), 49407)[:, :t.context_length]
+    rows = np.ones((n, t.context_length), np.int32)
+    for i, ln in enumerate(rng.integers(4, t.context_length, n)):
+        rows[i, :ln] = rng.integers(2, t.vocab_size, ln)
+    return rows
+
+
+def geometry_check(smi: str, name: str) -> dict:
+    """One model of GEOMETRIES at full width and depth, seed-0 weights:
+    GEOMETRY_IMAGES seeded images (one exemplar per class with pixel noise)
+    and as many seeded text rows through the kernel route and the plain
+    one, the counters set to 0 just before each kernel-route call and read
+    just after: the vision tower launches flash_fwd once a layer where its
+    heads are 64 or 128 wide and nothing at all otherwise (JAX's routing
+    rule), the text tower once a layer. Image and text features agree row
+    by row at cosine >= 0.999 and prototype top-1 (the exemplars' plain
+    features as the bank) on >= 99% of rows."""
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.kernels import attention as A, kernel_route
+    from latteclip_torch.models import clip as clip_mod
+
+    cfg = get_model_config(name)
+    v = cfg.vision
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(9)
+    exemplars = exemplar_images(rng, GEOMETRY_IMAGES, v.image_size)
+    _ids, images, _labels, _ = seeded_batches(rng, exemplars, (GEOMETRY_IMAGES,))[0]
+    mean, std = T.model_mean_std(cfg)
+    x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
+    ex = T.normalize_images(torch.from_numpy(exemplars).cuda(), mean, std)
+    tokens = torch.from_numpy(text_rows(rng, cfg, GEOMETRY_IMAGES)).long().cuda()
+    vision_kernel = kernel_route(3 * v.width, v.heads, torch.bfloat16, torch.device("cuda"))
+    with torch.no_grad():
+        bank = clip_mod.encode_image(model, ex, normalize=True, attention="plain")
+        feats, counts, ms = {}, {}, {}
+        for tower, fn in (("image", lambda a: clip_mod.encode_image(model, x, normalize=True,
+                                                                     attention=a)),
+                          ("text", lambda a: clip_mod.encode_text(model, tokens, normalize=True,
+                                                                  attention=a))):
+            fn("kernel")  # warm-up
+            reset_counts()
+            fk = fn("kernel")
+            torch.cuda.synchronize()
+            counts[tower] = read_counts()
+            reset_counts()
+            fp = fn("plain")
+            if any(read_counts().values()):
+                raise RuntimeError(f"{name} plain {tower} route launched {read_counts()}")
+            ms[tower] = {"kernel": event_ms(lambda: fn("kernel"), 3),
+                         "plain": event_ms(lambda: fn("plain"), 3)}
+            if fk.shape != fp.shape or not torch.isfinite(fk).all():
+                raise RuntimeError(f"{name} bad {tower} features {tuple(fk.shape)}")
+            feats[tower] = (fk, fp)
+    (ik, ip), (tk, tp) = feats["image"], feats["text"]
+    proto = bank.T
+    want = {
+        "image": {**dict.fromkeys(counts["image"], 0),
+                  **({"flash_fwd": v.layers} if vision_kernel else {})},
+        "text": {**dict.fromkeys(counts["text"], 0), "flash_fwd": cfg.text.layers},
+    }
+    plan = None
+    if vision_kernel:
+        p = A.long_row_plan(GEOMETRY_IMAGES, v.seq_len, v.heads, v.head_width, False,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = {"form": p.form, "warps": p.warps, "ctas_per_bh": p.splits}
+    rec = {
+        "model": name, "images": GEOMETRY_IMAGES, "vision_tokens": v.seq_len,
+        "vision_head_width": v.head_width, "vision_route": "kernel" if vision_kernel else "plain",
+        "long_row_plan": plan, "text_tokens": cfg.text.context_length,
+        "text_causal": not cfg.text.no_causal_mask, "launches": counts,
+        "image_cos_min": float(F.cosine_similarity(ik, ip, dim=-1).min()),
+        "text_cos_min": float(F.cosine_similarity(tk, tp, dim=-1).min()),
+        "top1_agree_prototype": float(((ik @ proto).argmax(-1) == (ip @ proto).argmax(-1))
+                                      .float().mean()),
+        "images_per_s": GEOMETRY_IMAGES / ms["image"]["kernel"] * 1e3,
+        "images_per_s_plain": GEOMETRY_IMAGES / ms["image"]["plain"] * 1e3,
+        "text_ms": ms["text"], "card": smi,
+    }
+    log("geometry " + json.dumps(rec))
+    for tower in ("image", "text"):
+        if counts[tower] != want[tower]:
+            raise RuntimeError(f"{name} {tower} tower launched {counts[tower]}, "
+                               f"expected {want[tower]}")
+    if rec["image_cos_min"] < 0.999 or rec["text_cos_min"] < 0.999:
+        raise RuntimeError(f"{name} features disagree with the plain route: {rec}")
+    if rec["top1_agree_prototype"] < 0.99:
+        raise RuntimeError(f"{name} prototype top-1 agrees on {rec['top1_agree_prototype']}")
+    return {k: counts["image"][k] + counts["text"][k] for k in counts["image"]}
+
+
+def phase_vit_family(smi: str, train: dict) -> dict:
+    """Phase 9: ViT-L/14 trained (phase_vit_l_train) and served (the
+    serving requests, serve_whole_rows at 257 tokens), then the
+    GEOMETRIES (geometry_check). Returns the launches of these paths."""
+    totals = phase_vit_l_train(smi, train)
+    torch.cuda.empty_cache()
+    for launches in [serve_whole_rows(smi, VIT_L, 257, "slice_l14", "eval_l14")] + [
+            geometry_check(smi, name) for name in GEOMETRIES]:
+        totals = {k: totals.get(k, 0) + launches.get(k, 0) for k in {*totals, *launches}}
+        torch.cuda.empty_cache()
+    return totals
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -2437,6 +2672,8 @@ def main() -> int:
     cli_launches = phase_cli(smi)
     torch.cuda.empty_cache()
     offline_launches = phase_offline(smi)
+    torch.cuda.empty_cache()
+    family_launches = phase_vit_family(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -2445,7 +2682,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
                                                      b16_train_launches, lab_launches,
-                                                     cli_launches, offline_launches)),
+                                                     cli_launches, offline_launches,
+                                                     family_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,8 +1,13 @@
 """Model architecture configuration and JSON registry.
 
 Port of ``latteclip_tpu/core/config.py`` for the towers this package has:
-the native ViT vision tower and the native CLIP text tower. The JSON files in
-``model_configs/`` are byte-identical copies of the reference package's.
+the native ViT vision tower and the native CLIP text tower, with every option
+of theirs that a ``ViT-*`` config sets (class token or none, ``ln_pre`` or
+none, token, average or MAP pooling, LayerScale, sin-cos positions, patch
+dropout, tanh GELU, the SigLIP logit bias, text pooling at the EOT token,
+the first or the last column, with or without the causal mask). The JSON
+files in ``model_configs/`` are byte-identical copies of the reference
+package's.
 """
 from __future__ import annotations
 
@@ -28,7 +33,13 @@ class VisionConfig:
     layers: int = 12
     head_width: int = 64
     mlp_ratio: float = 4.0
-    pool_type: str = "tok"          # 'tok' | 'avg'
+    pool_type: str = "tok"          # 'tok' | 'avg' | 'map' (big_vision MAP head)
+    final_ln_after_pool: bool = False
+    no_ln_pre: bool = False
+    no_cls_token: bool = False      # SigLIP towers have no class token
+    patch_dropout: float = 0.0      # train-time patch dropout probability
+    pos_embed_type: str = "learnable"  # 'learnable' | 'sin_cos_2d'
+    ls_init_value: float = None     # LayerScale init (None = no LayerScale)
     ln_eps: float = 1e-5
 
     @property
@@ -41,8 +52,8 @@ class VisionConfig:
 
     @property
     def seq_len(self) -> int:
-        """Token count incl. class token."""
-        return self.grid * self.grid + 1
+        """Token count, with the class token where the tower has one."""
+        return self.grid * self.grid + (0 if self.no_cls_token else 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +64,12 @@ class TextConfig:
     heads: int = 8
     layers: int = 12
     mlp_ratio: float = 4.0
+    pool_type: str = "argmax"       # 'argmax' (EOT) | 'first' | 'last'
+    no_causal_mask: bool = False
+    ls_init_value: float = None     # LayerScale init (None = no LayerScale)
     ln_eps: float = 1e-5
+    # a non-CLIP vocabulary on the native tower (CLIPA: bert-base-uncased)
+    hf_tokenizer_name: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,22 +79,15 @@ class CLIPConfig:
     vision: VisionConfig
     text: TextConfig
     quick_gelu: bool = False
+    gelu_tanh: bool = False         # tanh-approximate GELU (SigLIP towers)
     init_logit_scale: float = 2.6592600369  # ln(1/0.07)
+    init_logit_bias: float = None   # SigLIP's logit bias
     image_mean: tuple = None
     image_std: tuple = None
+    resize_mode: str = "shortest"   # eval geometry: 'shortest' | 'squash' | 'longest'
     # parameters and LayerNorm statistics stay float32; matmul inputs and
     # activations use this dtype
     compute_dtype: str = "bfloat16"
-
-
-# vision_cfg / text_cfg keys that select a tower this package lacks
-_FOREIGN_VISION = ("timm_model_name", "attentional_pool", "pos_embed_type")
-_FOREIGN_TEXT = ("hf_model_name", "hf_tokenizer_name", "embed_cls")
-# options of the reference towers that no config of this package sets yet,
-# with the value that leaves them off
-_UNPORTED_VISION = {"final_ln_after_pool": False, "no_ln_pre": False,
-                    "no_cls_token": False, "ls_init_value": None}
-_UNPORTED_TEXT = {"pool_type": "argmax", "no_causal_mask": False, "ls_init_value": None}
 
 
 def _filter_fields(cls, d: Dict[str, Any]) -> Dict[str, Any]:
@@ -86,44 +95,52 @@ def _filter_fields(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in d.items() if k in names}
 
 
+def _refuse_other_towers(name: str, raw: Dict[str, Any], vision: Dict[str, Any],
+                         text: Dict[str, Any]) -> None:
+    """NotImplementedError for the towers and options of ROADMAP item 6."""
+    if "multimodal_cfg" in raw:
+        raise NotImplementedError(f"{name}: the CoCa model {_LATER_SLICE}")
+    if isinstance(vision.get("layers"), (list, tuple)):
+        raise NotImplementedError(f"{name}: the ModifiedResNet tower {_LATER_SLICE}")
+    if vision.get("timm_model_name"):
+        raise NotImplementedError(f"{name}: vision_cfg.timm_model_name {_LATER_SLICE}")
+    if vision.get("attentional_pool"):
+        raise NotImplementedError(f"{name}: the attentional pool (CoCa) {_LATER_SLICE}")
+    if text.get("hf_model_name"):
+        raise NotImplementedError(f"{name}: the HF text tower {_LATER_SLICE}")
+    if text.get("embed_cls"):
+        raise NotImplementedError(f"{name}: text_cfg.embed_cls (CoCa) {_LATER_SLICE}")
+    for key, sub, allowed in (("vision_cfg.pool_type", vision, ("tok", "avg", "map")),
+                              ("vision_cfg.pos_embed_type", vision, ("learnable", "sin_cos_2d")),
+                              ("text_cfg.pool_type", text, ("argmax", "first", "last"))):
+        value = sub.get(key.split(".")[1])
+        if value is not None and value not in allowed:
+            raise NotImplementedError(f"{name}: {key}={value!r} {_LATER_SLICE}")
+
+
 def config_from_dict(name: str, raw: Dict[str, Any]) -> CLIPConfig:
     vision_raw = dict(raw.get("vision_cfg", {}))
     text_raw = dict(raw.get("text_cfg", {}))
-    if "multimodal_cfg" in raw:
-        raise NotImplementedError(f"{name}: the CoCa model {_LATER_SLICE}")
-    if isinstance(vision_raw.get("layers"), (list, tuple)):
-        raise NotImplementedError(f"{name}: the ModifiedResNet tower {_LATER_SLICE}")
-    for key in _FOREIGN_VISION:
-        if vision_raw.get(key) and vision_raw.get(key) != "learnable":
-            raise NotImplementedError(f"{name}: vision_cfg.{key} {_LATER_SLICE}")
-    if vision_raw.get("pool_type", "tok") not in ("tok", "avg"):
-        raise NotImplementedError(
-            f"{name}: vision pool_type {vision_raw['pool_type']!r} {_LATER_SLICE}")
-    for key in _FOREIGN_TEXT:
-        if text_raw.get(key):
-            raise NotImplementedError(f"{name}: text_cfg.{key} {_LATER_SLICE}")
-    for prefix, sub, off in (("vision_cfg", vision_raw, _UNPORTED_VISION),
-                             ("text_cfg", text_raw, _UNPORTED_TEXT)):
-        for key, value in off.items():
-            if sub.get(key, value) != value:
-                raise NotImplementedError(f"{name}: {prefix}.{key}={sub[key]!r} {_LATER_SLICE}")
+    _refuse_other_towers(name, raw, vision_raw, text_raw)
     for sub in (vision_raw, text_raw):
         nk = sub.get("norm_kwargs")
         if isinstance(nk, dict) and "eps" in nk and "ln_eps" not in sub:
             sub["ln_eps"] = float(nk["eps"])
     kwargs = {}
+    if raw.get("init_logit_bias") is not None:
+        kwargs["init_logit_bias"] = float(raw["init_logit_bias"])
     if raw.get("init_logit_scale") is not None:
         kwargs["init_logit_scale"] = float(raw["init_logit_scale"])
-    if raw.get("init_logit_bias") is not None:
-        raise NotImplementedError(f"{name}: the SigLIP logit bias {_LATER_SLICE}")
     if raw.get("gelu_tanh"):
-        raise NotImplementedError(f"{name}: gelu_tanh {_LATER_SLICE}")
+        kwargs["gelu_tanh"] = True
     if raw.get("compute_dtype"):
         kwargs["compute_dtype"] = str(raw["compute_dtype"])
     if raw.get("image_mean") is not None:
         kwargs["image_mean"] = tuple(raw["image_mean"])
     if raw.get("image_std") is not None:
         kwargs["image_std"] = tuple(raw["image_std"])
+    if raw.get("resize_mode"):
+        kwargs["resize_mode"] = str(raw["resize_mode"])
     return CLIPConfig(
         name=name,
         embed_dim=int(raw["embed_dim"]),

@@ -6,8 +6,12 @@ where JAX runs its Pallas kernels (head_dim 64 or 128), a bf16 CUDA tensor
 runs the Hopper kernels, forward and, under autograd, backward (the
 ``torch.autograd.Function``s of :mod:`.attention`); where JAX goes to XLA,
 the port runs the forward kernel's plain version and autograd differentiates
-it. A CPU tensor always runs the plain version. ``attention="plain"`` forces
-the plain version on the card too, for comparisons.
+it: the vision towers whose heads are 72 (SO400M), 80 (the H-14
+family), 104 (bigG) or 112 (ViT-e) wide run there, as JAX runs them on
+XLA. A CPU tensor always runs the plain version. ``attention="plain"``
+forces the plain version on the card too, for comparisons. A text tower
+without a causal mask (SigLIP, CLIPA) runs the same kernels with
+``causal=False``.
 
 The JAX package's attention switches are the other values of ``attention``.
 ``"headsplit"`` (``LATTECLIP_ATTN_HEADSPLIT=1``) runs whole-row sites on the

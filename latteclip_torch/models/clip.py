@@ -6,7 +6,11 @@ and text towers. The
 module's state dict has OpenCLIP's layout (``visual.*``,
 ``transformer.resblocks.{i}.*``, ``token_embedding.weight``,
 ``positional_embedding``, ``ln_final.*``, ``text_projection``,
-``logit_scale``), so a real OpenCLIP checkpoint loads with ``strict=True``.
+``logit_scale``), so a real OpenCLIP checkpoint loads with ``strict=True``;
+plus ``logit_bias`` where the config sets ``init_logit_bias``, and the keys
+the JAX package writes under its own namespace: a SigLIP tower's MAP head
+(``latteclip.visual.map_head.*``, flax layout) and the text projection's
+bias (``latteclip.text.text_projection_b``, from a checkpoint that has one).
 """
 from __future__ import annotations
 
@@ -19,39 +23,77 @@ from latteclip_torch.config import CLIPConfig
 from latteclip_torch.device import resolve_device
 from latteclip_torch.models import layers
 from latteclip_torch.models.text import text_forward, text_forward_packed
-from latteclip_torch.models.vit import VisionTransformer, vit_forward
+from latteclip_torch.models.pos_embed import sincos_2d
+from latteclip_torch.models.vit import MapHead, VisionTransformer, vit_forward
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    """``text_projection_b`` adds the text projection's bias, which no config
+    sets: the JAX package has it only from a checkpoint."""
+
+    def __init__(self, cfg: CLIPConfig, *, text_projection_b: bool = False):
         super().__init__()
-        t = cfg.text
+        t, v = cfg.text, cfg.vision
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg.vision, cfg.embed_dim)
-        self.transformer = layers.Transformer(t.width, t.layers, t.heads, t.mlp_ratio, t.ln_eps)
+        self.visual = VisionTransformer(v, cfg.embed_dim)
+        self.transformer = layers.Transformer(t.width, t.layers, t.heads, t.mlp_ratio, t.ln_eps,
+                                              layer_scale=t.ls_init_value is not None)
         self.token_embedding = nn.Embedding(t.vocab_size, t.width)
         self.positional_embedding = nn.Parameter(torch.empty(t.context_length, t.width))
         self.ln_final = layers.LayerNorm(t.width, eps=t.ln_eps)
         self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(float(cfg.init_logit_scale)))
+        if cfg.init_logit_bias is not None:
+            self.logit_bias = nn.Parameter(torch.tensor(float(cfg.init_logit_bias)))
+        if v.pool_type == "map" or text_projection_b:
+            self.latteclip = nn.Module()  # the JAX package's own checkpoint namespace
+            if v.pool_type == "map":
+                self.latteclip.visual = nn.Module()
+                self.latteclip.visual.map_head = MapHead(v.width, int(v.width * v.mlp_ratio))
+            if text_projection_b:
+                self.latteclip.text = nn.Module()
+                self.latteclip.text.text_projection_b = nn.Parameter(torch.empty(cfg.embed_dim))
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    @property
+    def map_head(self) -> Optional[MapHead]:
+        extra = self._modules.get("latteclip")
+        return extra.visual.map_head if extra is not None and hasattr(extra, "visual") else None
+
+    @property
+    def text_projection_b(self) -> Optional[torch.Tensor]:
+        extra = self._modules.get("latteclip")
+        return (extra.text.text_projection_b
+                if extra is not None and hasattr(extra, "text") else None)
+
 
 def _init_rule(name: str, cfg: CLIPConfig):
-    """("normal", std) or ("const", value) for one parameter, following the
-    JAX package's init (models/vit.py::init_vit_params,
-    models/text.py::init_text_params)."""
-    tower = cfg.vision if name.startswith("visual.") else cfg.text
+    """("normal", std), ("const", value) or ("sincos", None) for one
+    parameter, following the JAX package's init (models/vit.py::
+    init_vit_params and init_map_head_params, models/text.py::
+    init_text_params, models/clip.py::init_clip_params)."""
+    visual = name.startswith(("visual.", "latteclip.visual."))
+    tower = cfg.vision if visual else cfg.text
     D, L = tower.width, tower.layers
     scale = D ** -0.5
     proj_std = scale * (2 * L) ** -0.5
     leaf = name.rsplit(".", 1)[-1]
+    if name.startswith("latteclip.visual.map_head."):  # flax names: *_w, *_b, ln_*
+        if leaf in ("ln_scale", "ln_bias"):
+            return ("const", 1.0 if leaf == "ln_scale" else 0.0)
+        return ("const", 0.0) if leaf.endswith("_b") else ("normal", scale)
+    if leaf == "gamma":  # LayerScale
+        return ("const", tower.ls_init_value)
+    if name == "logit_bias":
+        return ("const", cfg.init_logit_bias)
+    if name == "visual.positional_embedding" and cfg.vision.pos_embed_type == "sin_cos_2d":
+        return ("sincos", None)
     if ".ln_" in name or name.startswith("ln_"):
         return ("const", 1.0 if leaf == "weight" else 0.0)
-    if leaf.endswith("bias"):
+    if leaf.endswith("bias") or leaf == "text_projection_b":
         return ("const", 0.0)
     if name == "logit_scale":
         return ("const", cfg.init_logit_scale)
@@ -79,6 +121,9 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
             kind, value = _init_rule(name, cfg)
             if kind == "const":
                 p.fill_(value)
+            elif kind == "sincos":
+                v = cfg.vision
+                p.copy_(torch.from_numpy(sincos_2d(v.width, v.grid, not v.no_cls_token)))
             else:
                 p.copy_(torch.randn(p.shape, generator=generator) * value)
     return model.to(dev)
@@ -86,15 +131,18 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
 
 def encode_image(model: CLIP, images: torch.Tensor, *, normalize: bool = False,
                  attention: str = "kernel", pack_pairs: Optional[bool] = None,
-                 ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
+                 ln_linear: str = "unfused", remat: bool = False, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Normalized images [B, H, W, 3] -> features [B, embed_dim] (float32).
     ``attention`` (``kernels.ATTENTION_CHOICES``) and ``ln_linear``
     (``"unfused"`` or ``"fused"``) select the kernel routes; ``remat``
-    rematerialises each block in the backward."""
+    rematerialises each block in the backward; ``train`` applies the
+    config's patch dropout, drawn from ``generator``."""
     cfg = model.cfg
     feats = vit_forward(model.visual, images, dtype=model.compute_dtype,
-                        quick_gelu=cfg.quick_gelu, attention=attention, pack_pairs=pack_pairs,
-                        ln_linear=ln_linear, remat=remat)
+                        quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh,
+                        map_head=model.map_head, attention=attention, pack_pairs=pack_pairs,
+                        ln_linear=ln_linear, remat=remat, train=train, generator=generator)
     return layers.l2_normalize(feats) if normalize else feats
 
 
@@ -104,8 +152,8 @@ def encode_text(model: CLIP, tokens: torch.Tensor, *, normalize: bool = False,
     """Token ids [B, ctx] -> features [B, embed_dim] (float32)."""
     cfg = model.cfg
     feats = text_forward(model, tokens, dtype=model.compute_dtype,
-                         quick_gelu=cfg.quick_gelu, attention=attention, ln_linear=ln_linear,
-                         remat=remat)
+                         quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh, attention=attention,
+                         ln_linear=ln_linear, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats
 
 
@@ -118,5 +166,6 @@ def encode_text_packed(model: CLIP, tokens: torch.Tensor, positions: torch.Tenso
     cfg = model.cfg
     feats = text_forward_packed(model, tokens, positions, seg_ids, eot_row, eot_col,
                                 dtype=model.compute_dtype, quick_gelu=cfg.quick_gelu,
-                                attention=attention, ln_linear=ln_linear, remat=remat)
+                                gelu_tanh=cfg.gelu_tanh, attention=attention,
+                                ln_linear=ln_linear, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats

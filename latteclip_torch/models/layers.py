@@ -41,8 +41,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def activation(quick: bool) -> Callable[[torch.Tensor], torch.Tensor]:
-    return quick_gelu if quick else gelu
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (flax's ``nn.gelu`` default, which the
+    SigLIP towers use)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(quick: bool, tanh: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The towers' MLP activation: QuickGELU first, then tanh GELU, else
+    exact GELU (JAX ``vit_forward``/``text_forward``)."""
+    return quick_gelu if quick else (gelu_tanh if tanh else gelu)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -77,15 +85,29 @@ class Mlp(nn.Module):
         self.c_proj = nn.Linear(hidden, width)
 
 
-class ResidualAttentionBlock(nn.Module):
-    """Pre-LN residual attention block (OpenCLIP ``ResidualAttentionBlock``)."""
+class LayerScale(nn.Module):
+    """OpenCLIP's ``LayerScale``: a learned per-channel ``gamma``."""
 
-    def __init__(self, width: int, heads: int, mlp_ratio: float, ln_eps: float = LN_EPS):
+    def __init__(self, width: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(width))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN residual attention block (OpenCLIP ``ResidualAttentionBlock``);
+    with ``layer_scale`` its ``ls_1.gamma`` and ``ls_2.gamma`` scale the
+    attention and MLP branches before each joins the residual (JAX
+    ``ls_1_gamma``/``ls_2_gamma``)."""
+
+    def __init__(self, width: int, heads: int, mlp_ratio: float, ln_eps: float = LN_EPS,
+                 layer_scale: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, eps=ln_eps)
         self.attn = Attention(width, heads)
         self.ln_2 = LayerNorm(width, eps=ln_eps)
         self.mlp = Mlp(width, int(width * mlp_ratio))
+        self.ls_1 = LayerScale(width) if layer_scale else None
+        self.ls_2 = LayerScale(width) if layer_scale else None
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
                 seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
@@ -101,10 +123,16 @@ class ResidualAttentionBlock(nn.Module):
                                              residuals)
         else:
             a = attention_core_qkv(qkv, self.attn.heads, causal, attention, residuals)
-        x = x + dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias, dtype)
+        a = dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias, dtype)
+        if self.ls_1 is not None:
+            a = a * self.ls_1.gamma.to(dtype)
+        x = x + a
         h = act(fused.ln_linear(x, self.ln_2.weight, self.ln_2.bias, self.mlp.c_fc.weight,
                                 self.mlp.c_fc.bias, dtype, self.ln_2.eps, ln_linear))
-        return x + dense(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dtype)
+        h = dense(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dtype)
+        if self.ls_2 is not None:
+            h = h * self.ls_2.gamma.to(dtype)
+        return x + h
 
 
 class _BlockRemat(torch.autograd.Function):
@@ -137,10 +165,11 @@ class Transformer(nn.Module):
     """A stack of residual blocks, run as a Python loop (``resblocks.{i}``)."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float,
-                 ln_eps: float = LN_EPS):
+                 ln_eps: float = LN_EPS, layer_scale: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_ratio, ln_eps) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, mlp_ratio, ln_eps, layer_scale)
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
                 seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",

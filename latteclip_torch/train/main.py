@@ -42,6 +42,7 @@ from typing import List, Optional
 import torch
 
 from latteclip_torch import checkpoint as ckpt
+from latteclip_torch import pretrained
 from latteclip_torch.config import get_model_config
 from latteclip_torch.data import synthetic
 from latteclip_torch.data.eval_dataset import FlatFileDataset
@@ -60,7 +61,7 @@ from latteclip_torch.eval.features import extract_features
 from latteclip_torch.eval.group_weights import extract_group_weights
 from latteclip_torch.eval.tta import TTAConfig, evaluate_tta
 from latteclip_torch.models import clip as clip_mod
-from latteclip_torch.models.tokenizer import get_tokenizer
+from latteclip_torch.models.tokenizer import get_tokenizer_for_config
 from latteclip_torch.obs.meters import append_results_jsonl
 from latteclip_torch.train import loop as loop_mod
 from latteclip_torch.train.optim import make_optimizer, make_schedule
@@ -107,9 +108,6 @@ def refuse_unported(args) -> None:
         "--remote-sync": args.remote_sync is not None,
         "--profile": args.profile,
         "--use-native-jpeg": args.use_native_jpeg,
-        "--force-image-size": args.force_image_size is not None,
-        "--force-patch-dropout": args.force_patch_dropout is not None,
-        "--image-resize-mode": args.image_resize_mode not in (None, "shortest"),
     }
     bad = [flag for flag, on in refused.items() if on]
     if bad:
@@ -146,28 +144,73 @@ def model_config(flag: str, name: str):
 
 def build_model(args, device):
     """``(cfg, model, bank_by_class)``: the config with the CLI's overrides,
-    and the model seeded from ``--seed`` or loaded from ``--pretrained``."""
+    and the model seeded from ``--seed`` or loaded from ``--pretrained`` (a
+    file, or a tag of the pretrained registry resolved in the cache, whose
+    QuickGELU and preprocessing apply as in JAX's ``build_model``); then the
+    overrides JAX applies after building (``--image-mean``/``--image-std``,
+    ``--image-resize-mode``, ``--force-patch-dropout``)."""
     cfg = model_config("--model", args.model)
     changes = {}
     if args.precision == "fp32":
         changes["compute_dtype"] = "float32"
     if args.force_quick_gelu:
         changes["quick_gelu"] = True
+    if args.force_image_size:
+        # the loader resizes a checkpoint's positional embedding to the new grid
+        patch = cfg.vision.patch_size
+        if args.force_image_size % patch != 0:
+            raise SystemExit(f"--force-image-size {args.force_image_size} must be a multiple "
+                             f"of the model's patch size ({patch})")
+        changes["vision"] = dataclasses.replace(cfg.vision, image_size=args.force_image_size)
+    cfg = dataclasses.replace(cfg, **changes)
+    bank_by_class = {}
+    if args.pretrained:
+        path = args.pretrained
+        if not os.path.exists(path):
+            cfg = pretrained_tag_overrides(cfg, args.model, path)
+            path = pretrained.resolve_pretrained(args.model, args.pretrained)
+        model, bank, names, _meta = ckpt.load_clip_pt(path, cfg, device=device)
+        cfg = model.cfg
+        logger.info("loaded pretrained weights from %s", path)
+        if bank is not None:
+            bank_by_class = dict(zip(names, bank))
+    else:
+        model = clip_mod.init_clip_params(torch.Generator().manual_seed(args.seed), cfg,
+                                          device=device)
+    changes = {}
     if args.image_mean:
         changes["image_mean"] = tuple(args.image_mean)
     if args.image_std:
         changes["image_std"] = tuple(args.image_std)
+    if args.image_resize_mode:
+        changes["resize_mode"] = args.image_resize_mode
+    if args.force_patch_dropout is not None:
+        changes["vision"] = dataclasses.replace(cfg.vision,
+                                                patch_dropout=float(args.force_patch_dropout))
     cfg = dataclasses.replace(cfg, **changes)
-    if args.pretrained:
-        if not os.path.exists(args.pretrained):
-            raise SystemExit(f"--pretrained {args.pretrained}: no such file; pretrained tags "
-                             f"are not ported to latteclip_torch yet ({_ITEM_6})")
-        model, bank, names, _meta = ckpt.load_clip_pt(args.pretrained, cfg, device=device)
-        logger.info("loaded pretrained weights from %s", args.pretrained)
-        return cfg, model, dict(zip(names, bank)) if bank is not None else {}
-    model = clip_mod.init_clip_params(torch.Generator().manual_seed(args.seed), cfg,
-                                      device=device)
-    return cfg, model, {}
+    model.cfg, model.visual.cfg = cfg, cfg.vision
+    return cfg, model, bank_by_class
+
+
+def pretrained_tag_overrides(cfg, model_name: str, tag: str):
+    """A registry tag's QuickGELU and preprocessing (mean, std, resize
+    mode) where the config leaves them at their defaults (JAX
+    ``build_model``)."""
+    pcfg = pretrained.get_pretrained_cfg(model_name, tag)
+    if pcfg.get("quick_gelu") and not cfg.quick_gelu:
+        cfg = dataclasses.replace(cfg, quick_gelu=True)
+        logger.info("pretrained tag implies QuickGELU; enabled")
+    overrides = {}
+    if pcfg.get("mean") and not cfg.image_mean:
+        overrides["image_mean"] = tuple(pcfg["mean"])
+    if pcfg.get("std") and not cfg.image_std:
+        overrides["image_std"] = tuple(pcfg["std"])
+    if pcfg.get("resize_mode") and cfg.resize_mode == "shortest":
+        overrides["resize_mode"] = pcfg["resize_mode"]
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+        logger.info("pretrained tag preprocessing: %s", overrides)
+    return cfg
 
 
 def resolve_preprocess_path(args) -> str:
@@ -288,7 +331,7 @@ def main(argv=None) -> int:
                                              args.lock_text_unlocked_layers)
 
     cfg, model, bank_by_class = build_model(args, device)
-    tokenizer = get_tokenizer()
+    tokenizer = get_tokenizer_for_config(cfg)
     synthetic_mode = args.dataset_type == "synthetic"
     if synthetic_mode:
         preprocess_path, dataset_name = synthetic_root(args, cfg), "dtd"
@@ -300,13 +343,14 @@ def main(argv=None) -> int:
     if args.extract_features_path:
         split = args.extract_features_split
         split_ds = FlatFileDataset(preprocess_path, train=(split == "train"),
-                                   image_size=cfg.vision.image_size, dataset_name=dataset_name)
+                                   image_size=cfg.vision.image_size, dataset_name=dataset_name,
+                                   resize_mode=cfg.resize_mode)
         extract_features(model, tokenizer, split_ds, args.extract_features_path, split,
                          batch_size=args.batch_size, **routes)
         return 0
 
     val_dataset = FlatFileDataset(preprocess_path, train=False, image_size=cfg.vision.image_size,
-                                  dataset_name=dataset_name)
+                                  dataset_name=dataset_name, resize_mode=cfg.resize_mode)
     classnames = val_dataset.display_class_names
     templates = val_dataset.templates
 

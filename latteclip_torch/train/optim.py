@@ -52,9 +52,12 @@ Schedule = Callable[[int], float]
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
-    """Parameter name -> True where AdamW's weight decay applies."""
+    """Parameter name -> True where AdamW's weight decay applies: 2-D and
+    more, and no norm, bias (``*bias``, the MAP head's ``*_b``) or logit
+    scale, as JAX's ``decay_mask`` decides on the same parameters."""
     return {
-        name: p.ndim >= 2 and not any(k in name for k in ("bn", "ln", "bias", "logit_scale"))
+        name: p.ndim >= 2 and not name.endswith("_b")
+        and not any(k in name for k in ("bn", "ln", "bias", "logit_scale"))
         for name, p in model.named_parameters()
     }
 
@@ -114,11 +117,11 @@ def make_schedule(kind: str, base_lr: float, warmup: int, total_steps: int = 0,
 
 
 def _visual(name: str) -> bool:
-    return name.startswith("visual.")
+    return name.startswith(("visual.", "latteclip.visual."))
 
 
 def _text(name: str) -> bool:
-    return not _visual(name) and name != "logit_scale"
+    return not _visual(name) and name not in ("logit_scale", "logit_bias")
 
 
 _TOWER = {"visual": _visual, "text": _text}
@@ -128,7 +131,7 @@ _TOWER = {"visual": _visual, "text": _text}
 _TOWER_HEAD = {"visual": ("visual.conv1.", "visual.class_embedding", "visual.positional_embedding",
                           "visual.ln_pre."),
                "text": ("token_embedding.", "positional_embedding")}
-_TOWER_POST = {"visual": ("visual.ln_post.",), "text": ("ln_final.",)}
+_TOWER_POST = {"visual": ("visual.ln_post.", "latteclip.visual.map_head."), "text": ("ln_final.",)}
 _TOWER_BLOCKS = {"visual": "visual.transformer.resblocks.", "text": "transformer.resblocks."}
 
 

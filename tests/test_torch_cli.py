@@ -290,3 +290,83 @@ def test_default_device_needs_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_main.main([*COMMON, "--logs", str(tmp_path)])
+
+
+# a tiny SigLIP-like model (no class token, MAP head, tanh GELU, logit bias,
+# non-causal text pooled at the last column) at the CLIP vocabulary
+TINY_SIGLIP = {
+    "embed_dim": 64, "gelu_tanh": True, "init_logit_bias": -10.0, "resize_mode": "shortest",
+    "vision_cfg": {"image_size": 64, "patch_size": 16, "width": 64, "layers": 2,
+                   "pool_type": "map", "no_cls_token": True, "no_ln_pre": True, "ln_eps": 1e-6},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 64, "heads": 4, "layers": 2,
+                 "pool_type": "last", "no_causal_mask": True, "ln_eps": 1e-6},
+}
+
+
+def _register_tiny_siglip(monkeypatch):
+    from latteclip_torch import config as torch_config
+
+    for main, config_mod in ((jax_main, jax_config), (torch_main, torch_config)):
+        real = main.get_model_config
+        monkeypatch.setattr(main, "get_model_config", lambda name, real=real, c=config_mod: (
+            c.config_from_dict(name, TINY_SIGLIP) if name == "tiny-siglip" else real(name)))
+
+
+@pytest.mark.parametrize("case", ["force_image_size", "siglip_squash"])
+def test_vit_family_flags_train_like_jax(case, tmp_path, monkeypatch):
+    """``--model ViT-S-32 --force-image-size 256`` (both packages resize the
+    224-px checkpoint's positional embedding to the 8 x 8 grid on loading)
+    and a tiny SigLIP-like model with ``--image-resize-mode squash``: one
+    epoch of two steps of batch 8 from one JAX checkpoint, the losses within
+    the file's bound."""
+    if case == "force_image_size":
+        model, extra = "ViT-S-32", ["--force-image-size", "256"]
+    else:
+        _register_tiny_siglip(monkeypatch)
+        model, extra = "tiny-siglip", ["--image-resize-mode", "squash"]
+    cfg = jax_main.get_model_config(model)
+    pretrained = str(tmp_path / "pretrained.pt")
+    jax_ckpt.save_clip_pt(pretrained, jax_clip.init_clip_params(jax.random.PRNGKey(0), cfg), cfg)
+    argv = ["--model", model, "--batch-size", "8", "--epochs", "1", "--pretrained", pretrained,
+            "--name", "run", *extra]
+    jax_dir = _run(jax_main.main, str(tmp_path / "jax"), *argv)
+    torch_dir = _run(torch_main.main, str(tmp_path / "torch"), *argv, "--device", "cpu")
+    _assert_logs_agree(torch_dir, jax_dir, expect_steps=2)
+    sd = _checkpoint(torch_dir, 1)[0]
+    grid = (256 // 32) ** 2 + 1 if case == "force_image_size" else (64 // 16) ** 2
+    assert tuple(sd["visual.positional_embedding"].shape) == (grid, cfg.vision.width)
+    with open(os.path.join(torch_dir, "params.txt")) as f:
+        assert ("image_resize_mode: squash" in f.read()) == (case == "siglip_squash")
+
+
+def test_pretrained_tag_resolves_in_the_cache(runs, tmp_path, monkeypatch):
+    """``--pretrained <tag>`` resolves to the registry's file name in
+    ``$LATTECLIP_CACHE_DIR`` in both mains (a registry entry for ViT-tiny-test
+    added to both packages' tables), takes the tag's QuickGELU, and trains
+    alike; an unknown tag and a tag whose file is absent raise JAX's
+    messages."""
+    import shutil
+
+    from latteclip_tpu.core import pretrained as jax_pretrained
+    from latteclip_torch import pretrained as torch_pretrained
+
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    monkeypatch.setenv("LATTECLIP_CACHE_DIR", str(cache))
+    for registry in (jax_pretrained, torch_pretrained):
+        monkeypatch.setitem(registry.PRETRAINED, "ViT-tiny-test",
+                            {"toy": registry._pcfg("weights/toy-tiny.pt", quick_gelu=True)})
+    argv = ["--pretrained", "toy", "--epochs", "1", "--name", "tag"]
+    errors = []
+    for main, extra in ((jax_main.main, []), (torch_main.main, ["--device", "cpu"])):
+        for tag in ("toy", "laion2b"):  # file absent; tag unknown
+            with pytest.raises((FileNotFoundError, ValueError)) as e:
+                main([*COMMON, "--logs", str(tmp_path / "none"), *argv, "--pretrained", tag, *extra])
+            errors.append((type(e.value), str(e.value)))
+    assert errors[:2] == errors[2:]
+    shutil.copy(runs["pretrained"], cache / "toy-tiny.pt")
+    jax_dir = _run(jax_main.main, str(tmp_path / "jax"), *argv)
+    torch_dir = _run(torch_main.main, str(tmp_path / "torch"), *argv, "--device", "cpu")
+    _assert_logs_agree(torch_dir, jax_dir, expect_steps=2)
+    with open(os.path.join(torch_dir, "out.log")) as f:
+        assert "pretrained tag implies QuickGELU" in f.read()

@@ -61,9 +61,12 @@ def _shared(name, compute_dtype):
     return jcfg, params, model
 
 
+VIT_JSONS = sorted(f for f in os.listdir(os.path.join(REPO, "latteclip_tpu", "core", "model_configs"))
+                   if f.startswith("ViT-") and f.endswith(".json"))
+
+
 @pytest.mark.parametrize("rel", [
-    "model_configs/ViT-B-32.json", "model_configs/ViT-B-16.json",
-    "model_configs/ViT-tiny-test.json", "assets/clip_bpe_merges.txt.gz",
+    *(f"model_configs/{f}" for f in VIT_JSONS), "assets/clip_bpe_merges.txt.gz",
     "assets/imagenet_classnames.json", "assets/openai_imagenet_templates.json",
 ])
 def test_data_copies_are_byte_identical(rel):
@@ -97,11 +100,33 @@ def test_config_matches_jax_and_refuses_other_towers():
     {"text_cfg": {"ls_init_value": 1e-5}},
     {"gelu_tanh": True},
 ])
-def test_config_refuses_options_no_ported_config_sets(raw):
-    base = {"embed_dim": 8, "vision_cfg": {"no_cls_token": False}, "text_cfg": {"pool_type": "argmax"}}
-    torch_config.config_from_dict("x", base)  # the values that leave them off load
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config.config_from_dict("x", {**base, **raw})
+def test_config_option_matches_jax(raw):
+    """Each tower option of the native ViT configs, alone on tiny-hd64 in
+    float32: both towers' features equal JAX's to F32_TOL, from JAX's seeded
+    init with every parameter moved by N(0, 0.05^2) (so that LayerScale's
+    gammas, LayerNorms and biases sit at no value that hides a misplaced
+    one)."""
+    base = {**HD64_RAW, "compute_dtype": "float32"}
+    merged = {**base, **{k: ({**base[k], **v} if isinstance(v, dict) else v)
+                         for k, v in raw.items()}}
+    jcfg = jax_config.config_from_dict("opt", merged)
+    tcfg = torch_config.config_from_dict("opt", merged)
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(
+        lambda a: np.asarray(a) + np.float32(0.05) * rng.standard_normal(np.shape(a)).astype(np.float32),
+        jax_clip.init_clip_params(jax.random.PRNGKey(0), jcfg))
+    model = torch_clip.CLIP(tcfg)
+    model.load_state_dict(state_dict_from_jax_params(params, tcfg), strict=True)
+    x = _images(4, jcfg.vision.image_size, seed=4)
+    from latteclip_torch.models.tokenizer import get_tokenizer
+
+    tokens = get_tokenizer()(["a photo of a dog.", "a diagram", "two cats on a warm mat"])
+    with torch.no_grad():
+        for ours, ref in ((torch_clip.encode_image(model, torch.from_numpy(x), normalize=True),
+                           jax_clip.encode_image(params, jcfg, x, normalize=True)),
+                          (torch_clip.encode_text(model, torch.from_numpy(tokens), normalize=True),
+                           jax_clip.encode_text(params, jcfg, tokens, normalize=True))):
+            np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=F32_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("name", ["ViT-tiny-test", "tiny-hd64"])
