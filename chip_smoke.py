@@ -207,7 +207,35 @@ Phases, each raising on failure:
    its text tower on K1): 64 images and 64 text rows each against the plain
    route, features at cosine >= 0.999 row by row, prototype top-1 on >= 99%
    of rows, exact launches; a geometry line each;
-10. report: one JSON line of kernels, nvidia-smi's line, and the final line
+10. trainers: the JAX CLI's other trainers at ViT-B/32 full width and
+   depth, bf16, seed-0 weights, with a seed-1 ViT-B/32 teacher written by
+   the port's save_clip_pt. (a) The steps at batch 512, 47 classes, the
+   colour augment on: flyp, flyp_gt (a few ground-truth labels -1),
+   flyp with the SigLIP loss (logit_bias injected at -10), v1 (--gamma
+   0.5) and flyp with the teacher; warm-up and 10 timed steps between a
+   reset and a read of the counters, which must show exactly, a step, 12
+   flash_fwd (the padded [47, 77] templates, causal, 8 x 64), 12
+   flash_fwd_seg (the vision pairs [256, 100], 12 x 64), 12 flash_bwd (the
+   templates' backward; none under v1, whose anchor is detached) and 12
+   flash_bwd_seg, the teacher doubling both forwards; losses finite,
+   logit_scale in [0, ln 100], under v1 the text tower bit-equal and the
+   updated bank rows not unit-norm (the gamma mean is not renormalised), the
+   FLYP bank unchanged; a profiled step each (device busy ms, idle share,
+   device ms by kind), peak memory; from one copied state and one batch with
+   augment off the kernel route against the plain attention: loss within
+   1e-2 relative, gradient cosine >= 0.99, v1's bank rows cosine >= 0.999;
+   a trainers JSON line. (b) The CLI in process, 1 epoch of 2 steps at
+   batch 512 on the synthetic fixture: --method flyp --report-to
+   tensorboard --profile (step 0) --remote-sync <local dir>; --method
+   flyp_gt --siglip; the same resumed from the flyp run's plain epoch_1.pt
+   (--epochs 2); --gamma 0.5; --method flyp --distill-model ViT-B-32
+   --distill-pretrained <the teacher>. Every step's launches must match
+   (a)'s table; the event file must read back with the port's reader and
+   hold the logged losses, the trace file name K1-K4 (by the kernels'
+   names and their SEG template argument), the synced directory hold
+   epoch_1.pt, and the resume restore logit_bias at -10 with zero moments
+   beside the restored ones; a trainers_cli JSON line;
+11. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -2599,6 +2627,339 @@ def phase_vit_family(smi: str, train: dict) -> dict:
     return totals
 
 
+# -- phase 10: the other trainers of the JAX CLI -------------------------------
+
+TRAINERS = ("flyp", "flyp_gt", "flyp_siglip", "v1", "flyp_teacher")
+V1_GAMMA = 0.5
+TRAINER_CLI_ARGS = ["--dataset-type", "synthetic", "--model", CLI_MODEL, "--batch-size",
+                    str(CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--epochs", "1",
+                    "--no-save-most-recent"]
+# an attention kernel's name and template arguments, demangled or mangled
+# (Itanium: Li64E an int, Lb1E a bool); the first bool is SEG
+_KERNEL_NAME = re.compile(r"flash_(fwd|bwd)_\w*?kernel(?:<([^>]*)>|I((?:L[ib]\d+E)+))")
+
+
+def trainer_launches(cfg, trainer: str, steps: int) -> dict:
+    """A trainer's K1-K4 launches over ``steps`` steps: the padded template
+    table's forward (K1) and the vision pairs' (K2) once a layer, the
+    teacher's twice; the backward of the templates (K3, none under v1, whose
+    anchor is detached) and of the vision pairs (K4) once a layer."""
+    text, vision = cfg.text.layers, cfg.vision.layers
+    towers = 2 if trainer == "flyp_teacher" else 1
+    return {"flash_fwd": steps * towers * text, "flash_fwd_seg": steps * towers * vision,
+            "flash_bwd": 0 if trainer == "v1" else steps * text, "flash_bwd_seg": steps * vision}
+
+
+def trainer_model(base, trainer: str):
+    """A copy of the seed-0 model; FLYP under the SigLIP loss gets the
+    logit_bias the CLI injects."""
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train.step import DEFAULT_LOGIT_BIAS
+
+    model = copy.deepcopy(base)
+    if trainer == "flyp_siglip":
+        clip_mod.add_logit_bias(model, DEFAULT_LOGIT_BIAS)
+    return model
+
+
+def trainer_step(trainer: str, model, table, teacher, hp=None):
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.train import step as S
+
+    hp = hp or S.LatteHParams()
+    if trainer == "v1":
+        return S.make_v1_step(model, hp, table, gamma=V1_GAMMA, aug=T.AugConfig())
+    return S.make_flyp_step(model, hp, table, use_gt=trainer == "flyp_gt", aug=T.AugConfig(),
+                            use_siglip=trainer == "flyp_siglip",
+                            teacher=teacher if trainer == "flyp_teacher" else None)
+
+
+def trainer_gradients(trainer, model, batch, images, bank, table, teacher, attention):
+    """(loss, flattened gradient, bank after the step's update) of one
+    forward and backward on ``attention``; the bank moves under v1 only."""
+    from latteclip_torch.train import step as S
+
+    hp = S.LatteHParams(augment=False)
+    model.zero_grad(set_to_none=True)
+    if trainer == "v1":
+        loss, aux = S.v1_loss_fn(model, hp, batch, images, bank, table, attention=attention)
+    else:
+        loss, aux = S.flyp_loss_fn(model, hp, batch, images, table, trainer == "flyp_gt",
+                                   trainer == "flyp_siglip",
+                                   teacher if trainer == "flyp_teacher" else None,
+                                   attention=attention)
+    loss.backward()
+    grad = torch.cat([p.grad.flatten().float() for p in model.parameters() if p.grad is not None])
+    if trainer == "v1":
+        bank = S.v1_update_memory_bank(bank, aux["zs_preds"], aux["anchored"],
+                                       aux["image_features"], V1_GAMMA)
+    return float(loss.detach()), grad, bank
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel time (ms) by K1-K4 in a Chrome trace of the train loop, read
+    from each attention kernel's demangled name: forward or backward, and
+    SEG, its first bool template argument."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for ev in events:
+        m = _KERNEL_NAME.search(ev.get("name", "")) if ev.get("cat") == "kernel" else None
+        if not m:
+            continue
+        if m.group(2) is not None:
+            seg = next(a.strip() == "true" for a in m.group(2).split(",")
+                       if a.strip() in ("true", "false"))
+        else:
+            seg = re.search(r"Lb([01])E", m.group(3)).group(1) == "1"
+        k = {("fwd", False): "K1", ("fwd", True): "K2", ("bwd", False): "K3",
+             ("bwd", True): "K4"}[(m.group(1), seg)]
+        out[k] = out.get(k, 0.0) + ev.get("dur", 0) / 1e3
+    return out
+
+
+def phase_trainers_steps(smi: str, train: dict, teacher_path: str) -> dict:
+    """(a) Each trainer's step at ViT-B/32, batch 512, 47 classes, bf16, the
+    colour augment on: warm-up, then 10 timed steps between a reset and a
+    read of the launch counters, which must equal :func:`trainer_launches`;
+    losses finite and logit_scale in [0, ln 100]; under v1 the text tower
+    bit-equal after the steps and the bank's updated rows not unit-norm (the
+    gamma mean is not renormalised); a profiled step; peak memory. Then, from
+    one copied state and one batch with augment off, the kernel route
+    against the plain attention: loss within 1e-2 relative, gradient cosine
+    >= 0.99, and v1's updated bank rows at cosine >= 0.999."""
+    from latteclip_torch import checkpoint as ckpt
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St
+
+    cfg, tok, classes, templates = train["cfg"], train["tok"], train["classes"], train["templates"]
+    table = torch.from_numpy(train["table"]).cuda()
+    rng = np.random.default_rng(10)
+    batches = []
+    for b in train["batches"]:
+        gt = rng.integers(0, len(classes), b["zs_preds"].shape[0]).astype(np.int32)
+        gt[::97] = -1   # samples without ground truth gather the last row, as in JAX
+        batches.append({k: b[k] for k in ("images", "zs_preds")} |
+                       {"gt_labels": torch.from_numpy(gt).cuda()})
+    base = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    teacher = ckpt.load_clip_pt(teacher_path, cfg, device="cuda")[0]
+    bank0 = St.init_memory_bank(base, tok, classes, templates)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = TRAIN_STEPS
+    report, totals = {}, {}
+    for trainer in TRAINERS:
+        model = trainer_model(base, trainer)
+        text0 = [p.detach().clone() for p in optim.tower_parameters(model, "text")]
+        state = St.create_train_state(
+            model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)),
+            bank0)
+        step_fn = trainer_step(trainer, model, table, teacher)
+        _, warm = timed_steps(step_fn, state, batches, gen, 2)
+        torch.cuda.reset_peak_memory_stats()
+        ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"trainers kernels {trainer}: {json.dumps(launches)}")
+        want = {**dict.fromkeys(launches, 0), **trainer_launches(cfg, trainer, n)}
+        if launches != want:
+            raise RuntimeError(f"{trainer} steps launched {launches}, expected {want}")
+        scale = float(model.logit_scale.detach())
+        if not all(np.isfinite(warm + losses)) or not 0.0 <= scale <= LOG100:
+            raise RuntimeError(f"{trainer}: losses {warm + losses}, logit_scale {scale}")
+        entry = {"images_per_s": ips, "losses": losses, "launches": launches,
+                 "max_memory_allocated": peak, "logit_scale": scale}
+        if trainer == "v1":
+            text_equal = all(torch.equal(p.detach(), q) for p, q in
+                             zip(optim.tower_parameters(model, "text"), text0))
+            seen = torch.unique(torch.cat([b["zs_preds"] for b in batches]).long())
+            norms = state.memory_bank[seen].norm(dim=1)
+            entry |= {"text_bit_equal": text_equal, "bank_row_norm_min": float(norms.min()),
+                      "bank_row_norm_max": float(norms.max())}
+            if not text_equal or float((norms - 1).abs().max()) < 1e-3:
+                raise RuntimeError(f"v1: text tower bit-equal {text_equal}, updated bank row "
+                                   f"norms {float(norms.min())}..{float(norms.max())}")
+        elif not torch.equal(state.memory_bank, bank0):
+            raise RuntimeError(f"{trainer} changed the memory bank")
+        profile = device_profile(lambda: step_fn(state, batches[0], gen))
+        log(f"profile trainers_step_{trainer} " + json.dumps(profile))
+        entry |= {"device_busy_ms_per_step": profile["device_busy_ms"],
+                  "device_idle_share": profile["device_idle_share"],
+                  "device_ms_by_kind": profile["device_ms_by_kind"]}
+        report[trainer] = entry
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        del state, step_fn, model
+        torch.cuda.empty_cache()
+
+    # kernel route against the plain attention, one copied state and batch
+    batch = batches[1]
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    agreement = {}
+    for trainer in TRAINERS:
+        runs = [trainer_gradients(trainer, trainer_model(base, trainer), batch, images, bank0,
+                                  table, teacher, att) for att in ("kernel", "plain")]
+        a = agree(*runs)
+        agreement[trainer] = a
+        del runs
+        if a["loss_rel_diff"] > 1e-2 or a["grad_cos"] < 0.99 or a["bank_row_cos_min"] < 0.999:
+            raise RuntimeError(f"{trainer}: kernel and plain routes disagree: {a}")
+    log("trainers " + json.dumps({"model": cfg.name, "batch": TRAIN_BATCH,
+                                  "classes": len(classes), "steps": n, "gamma": V1_GAMMA,
+                                  "trainers": report, "agreement": agreement, "card": smi}))
+    return totals
+
+
+def run_trainer_cli(argv, per_step) -> list:
+    """The CLI in process (:func:`run_cli`); every step's launches must be
+    ``per_step``. Returns the step launches."""
+    steps, per_step = [], {k: v for k, v in per_step.items() if v}
+    run_cli(argv, steps, [], [], [])
+    if not steps or any(d != per_step for d in steps):
+        raise RuntimeError(f"main({argv}): step launches {steps}, expected {per_step} each")
+    return steps
+
+
+def phase_trainers_cli(smi: str, teacher_path: str) -> dict:
+    """(b) The CLI at ViT-B/32, batch 512, 1 epoch of 2 steps on the
+    synthetic fixture: --method flyp with --report-to tensorboard, --profile
+    (step 0) and --remote-sync to a local directory; --method flyp_gt
+    --siglip, then the same resumed from the flyp run's plain epoch_1.pt;
+    --gamma 0.5; --method flyp with a ViT-B/32 teacher. Every step's
+    launches must match :func:`trainer_launches`; the event file must read
+    back with the port's reader and hold the logged losses, the trace name
+    K1-K4, the synced directory hold the checkpoint, and the resume restore
+    logit_bias at -10 with fresh moments beside the restored ones."""
+    import glob
+    import tempfile
+
+    from latteclip_torch import checkpoint as ckpt
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.obs import tensorboard as tb
+
+    cfg = get_model_config(CLI_MODEL)
+    messages = _Messages()
+    logging.getLogger("latteclip_torch").addHandler(messages)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_trainers_")
+    old_tempdir, tempfile.tempdir = tempfile.tempdir, workdir
+    before = read_counts()
+    report, bad = {}, []
+
+    def run(name, trainer, *extra):
+        messages.lines.clear()
+        logs = os.path.join(workdir, name)
+        t0 = time.perf_counter()
+        steps = run_trainer_cli([*TRAINER_CLI_ARGS, "--logs", logs, "--name", name, *extra],
+                                trainer_launches(cfg, trainer, 1))
+        lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+        losses = [float(m.group(7)) for m in lines]
+        if not losses or not all(np.isfinite(losses)):
+            bad.append(f"{name}: losses {losses}")
+        report[name] = {"seconds": time.perf_counter() - t0, "steps": len(steps),
+                        "launches_per_step": steps[0], "losses": losses,
+                        "images_per_s": float(lines[-1].group(5))}
+        return os.path.join(logs, name), losses
+
+    try:
+        remote = os.path.join(workdir, "remote")
+        flyp_dir, flyp_losses = run(
+            "flyp", "flyp", "--method", "flyp", "--report-to", "tensorboard", "--profile",
+            "--profile-start-step", "0", "--profile-num-steps", "1", "--remote-sync", remote)
+        (events,) = glob.glob(os.path.join(flyp_dir, "tensorboard", "events.out.tfevents.*"))
+        scalars = [tb.decode_scalar_event(r) for r in tb.read_records(events)[1:]]
+        logged = [e["simple_value"] for e in scalars if e["tag"] == "train/loss"]
+        traces = glob.glob(os.path.join(flyp_dir, "trace", "*.pt.trace.json"))
+        kinds = trace_kernels(traces[0]) if traces else {}
+        synced = os.path.join(remote, "flyp", "checkpoints", "epoch_1.pt")
+        report["flyp"] |= {"event_tags": sorted({e["tag"] for e in scalars}),
+                           "event_losses": logged, "trace": os.path.basename(traces[0])
+                           if traces else None, "trace_kernel_ms": kinds,
+                           "synced_checkpoint_bytes": os.path.getsize(synced)
+                           if os.path.exists(synced) else None}
+        if len(logged) != len(flyp_losses) or any(abs(a - b) > 1e-4 * abs(b)
+                                                  for a, b in zip(logged, flyp_losses)):
+            bad.append(f"event file losses {logged}, logged {flyp_losses}")
+        if sorted(kinds) != ["K1", "K2", "K3", "K4"]:
+            bad.append(f"trace {traces} names {sorted(kinds)}, expected K1-K4")
+        if not os.path.exists(synced):
+            bad.append(f"{synced} not synced")
+        shutil.rmtree(remote, ignore_errors=True)
+
+        siglip_dir, _ = run("siglip", "flyp_siglip", "--method", "flyp_gt", "--siglip")
+        sd = torch.load(os.path.join(siglip_dir, "checkpoints", "epoch_1.pt"),
+                        map_location="cpu", weights_only=True)["state_dict"]
+        report["siglip"]["logit_bias"] = float(sd["logit_bias"]) if "logit_bias" in sd else None
+        if "logit_bias" not in sd:
+            bad.append("the --siglip checkpoint has no logit_bias")
+        del sd
+        shutil.rmtree(os.path.dirname(siglip_dir), ignore_errors=True)
+
+        restored = []
+
+        def checked_restore(orig):
+            def wrapper(model, optimizer, saved, accum=None):
+                bias = float(model.logit_bias.detach())
+                orig(model, optimizer, saved, accum)
+                again = ckpt.optimizer_state(model, optimizer, accum)
+                kept = all(torch.equal(again[k].cpu(), saved[k].cpu()) for k in saved)
+                moments = optimizer.state[model.logit_bias]
+                fresh = not moments["exp_avg"].any() and not moments["exp_avg_sq"].any()
+                restored.append({"logit_bias": bias, "saved_leaves_restored": kept,
+                                 "logit_bias_moments_fresh": bool(fresh),
+                                 "logit_bias_in_file": any("logit_bias" in k for k in saved)})
+            return wrapper
+
+        undo = _patch(ckpt, "restore_optimizer_state", checked_restore)
+        try:
+            resume_dir, _ = run("siglip_resume", "flyp_siglip", "--method", "flyp_gt", "--siglip",
+                                "--epochs", "2", "--resume",
+                                os.path.join(flyp_dir, "checkpoints", "epoch_1.pt"))
+        finally:
+            undo()
+        report["siglip_resume"]["restore"] = restored
+        if restored != [{"logit_bias": -10.0, "saved_leaves_restored": True,
+                         "logit_bias_moments_fresh": True, "logit_bias_in_file": False}]:
+            bad.append(f"siglip resume restored {restored}")
+        shutil.rmtree(os.path.dirname(resume_dir), ignore_errors=True)
+        shutil.rmtree(os.path.dirname(flyp_dir), ignore_errors=True)
+
+        gamma_dir, _ = run("gamma", "v1", "--gamma", str(V1_GAMMA))
+        shutil.rmtree(os.path.dirname(gamma_dir), ignore_errors=True)
+        teacher_dir, _ = run("teacher", "flyp_teacher", "--method", "flyp", "--distill-model",
+                             CLI_MODEL, "--distill-pretrained", teacher_path)
+        shutil.rmtree(os.path.dirname(teacher_dir), ignore_errors=True)
+        after = read_counts()
+        report["card"] = smi
+        log("trainers_cli " + json.dumps(report))
+        if bad:
+            raise RuntimeError("trainers through the CLI: " + "; ".join(bad))
+        return {k: after[k] - before[k] for k in after}
+    finally:
+        tempfile.tempdir = old_tempdir
+        logging.getLogger("latteclip_torch").removeHandler(messages)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_trainers(smi: str, train: dict) -> dict:
+    """Phase 10: the seeded ViT-B/32 teacher written by the port's
+    save_clip_pt, then (a) the steps and (b) the CLI."""
+    import tempfile
+
+    from latteclip_torch import checkpoint as ckpt
+    from latteclip_torch.models import clip as clip_mod
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_teacher_")
+    try:
+        teacher_path = os.path.join(workdir, "teacher_vit_b32_seed1.pt")
+        ckpt.save_clip_pt(teacher_path, clip_mod.init_clip_params(
+            torch.Generator().manual_seed(1), train["cfg"], device="cpu"))
+        steps = phase_trainers_steps(smi, train, teacher_path)
+        torch.cuda.empty_cache()
+        cli = phase_trainers_cli(smi, teacher_path)
+        return {k: steps.get(k, 0) + cli.get(k, 0) for k in {*steps, *cli}}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -2674,6 +3035,8 @@ def main() -> int:
     offline_launches = phase_offline(smi)
     torch.cuda.empty_cache()
     family_launches = phase_vit_family(smi, train)
+    torch.cuda.empty_cache()
+    trainer_launches_total = phase_trainers(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -2683,7 +3046,7 @@ def main() -> int:
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
                                                      b16_train_launches, lab_launches,
                                                      cli_launches, offline_launches,
-                                                     family_launches)),
+                                                     family_launches, trainer_launches_total)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import struct
 from collections import OrderedDict
@@ -326,10 +327,16 @@ def optimizer_state(model: CLIP, optimizer, accum=None) -> Dict[str, torch.Tenso
             for k, v in flat.items()}
 
 
-def restore_optimizer_state(model: CLIP, optimizer, saved: Mapping[str, Any], accum=None) -> None:
+def restore_optimizer_state(model: CLIP, optimizer, saved: Mapping[str, Any], accum=None,
+                            allow_missing: Sequence[str] = ("logit_bias",)) -> None:
     """Load :func:`optimizer_state`'s keys (from either package) into
     ``optimizer`` and ``accum``: moments, counts and the accumulator. A key
-    these flags need and the file lacks raises ``KeyError``."""
+    these flags need and the file lacks raises ``KeyError``, except for a
+    parameter whose name holds one of ``allow_missing``: one added after the
+    checkpoint was written (``--siglip`` adds ``logit_bias`` to a plain CLIP)
+    keeps fresh moments (zeros, at the restored count) and a zero
+    accumulator, and the fact is logged, as JAX's ``restore_opt_state``
+    does."""
     cfg = model.cfg
     adam, sched = _prefixes(optimizer, accum)
     for key in (f"{adam}.count", f"{sched}.count"):
@@ -339,10 +346,20 @@ def restore_optimizer_state(model: CLIP, optimizer, saved: Mapping[str, Any], ac
     mu = state_dict_from_jax_params(_unflatten(saved, f"{adam}.mu"), cfg)
     nu = state_dict_from_jax_params(_unflatten(saved, f"{adam}.nu"), cfg)
     adam_count = float(torch.as_tensor(saved[f"{adam}.count"]).reshape(()))
+    fresh = set()
     for name, p in model.named_parameters():
-        optimizer.state[p] = {"step": torch.tensor(adam_count, dtype=torch.float32),
-                              "exp_avg": mu[name].to(p.device, p.dtype).reshape(p.shape),
-                              "exp_avg_sq": nu[name].to(p.device, p.dtype).reshape(p.shape)}
+        if name not in mu:
+            if not any(m in name for m in allow_missing):
+                raise KeyError(f"checkpoint optimizer state missing the moments of {name}")
+            logging.getLogger("latteclip_torch").warning(
+                "optimizer moments of %s absent from checkpoint; keeping fresh moments (param "
+                "injected after the checkpoint was written)", name)
+            fresh.add(name)
+        optimizer.state[p] = {
+            "step": torch.tensor(adam_count, dtype=torch.float32),
+            **{key: (torch.zeros_like(p) if name in fresh
+                     else m[name].to(p.device, p.dtype).reshape(p.shape))
+               for key, m in (("exp_avg", mu), ("exp_avg_sq", nu))}}
     optimizer.count = count
     if accum is not None:
         for key in (".mini_step", ".gradient_step"):
@@ -352,7 +369,10 @@ def restore_optimizer_state(model: CLIP, optimizer, saved: Mapping[str, Any], ac
         accum.gradient_step = int(torch.as_tensor(saved[".gradient_step"]).reshape(()))
         acc = state_dict_from_jax_params(_unflatten(saved, ".acc_grads"), cfg)
         for g, (name, p) in zip(accum.grads, model.named_parameters()):
-            g.copy_(acc[name].reshape(p.shape))
+            if name in fresh:
+                g.zero_()
+            else:
+                g.copy_(acc[name].reshape(p.shape))
 
 
 def save_clip_pt(path: str, model: CLIP, *, epoch: Optional[int] = None,

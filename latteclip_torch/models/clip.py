@@ -14,6 +14,7 @@ bias (``latteclip.text.text_projection_b``, from a checkpoint that has one).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -68,6 +69,16 @@ class CLIP(nn.Module):
         extra = self._modules.get("latteclip")
         return (extra.text.text_projection_b
                 if extra is not None and hasattr(extra, "text") else None)
+
+
+def add_logit_bias(model: CLIP, value: float) -> CLIP:
+    """Give ``model`` a trainable ``logit_bias`` of ``value`` on its device,
+    as JAX's CLI injects one into a plain CLIP trained with the SigLIP loss;
+    the config records it as ``init_logit_bias``."""
+    dev = model.logit_scale.device
+    model.logit_bias = nn.Parameter(torch.tensor(float(value), device=dev))
+    model.cfg = dataclasses.replace(model.cfg, init_logit_bias=float(value))
+    return model
 
 
 def _init_rule(name: str, cfg: CLIPConfig):

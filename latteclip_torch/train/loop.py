@@ -11,7 +11,10 @@ loss and retrieval over (image, caption) pairs, ``--val-data``, and the
 ImageNet eval with the 80-template classifier of the current text tower,
 ``--imagenet-val``, under the keys ``imagenet-zeroshot-val-*``), append
 ``results.jsonl`` and save an OpenCLIP-layout ``epoch_<n>.pt`` (plus
-``epoch_latest.pt``).
+``epoch_latest.pt``). The logged steps' metrics and each eval's go to the
+``--report-to`` writers, and ``--profile`` traces a window of steps
+(:class:`latteclip_torch.obs.profiler.StepTraceProfiler`), counted over the
+run as JAX counts them.
 
 Each step's augment draws from a ``torch.Generator`` on the model's device
 seeded with ``(seed << 32) + epoch * 100003 + i``: the number the JAX loop
@@ -38,6 +41,7 @@ from latteclip_torch.eval.zero_shot import (
     run_zero_shot_eval,
 )
 from latteclip_torch.obs.meters import DeviceMeterBank, Throughput, append_results_jsonl
+from latteclip_torch.obs.profiler import StepTraceProfiler
 from latteclip_torch.train.state import TrainState
 
 logger = logging.getLogger("latteclip_torch")
@@ -74,6 +78,10 @@ class LoopConfig:
     eval_batch_size: int = 64
     method: str = "ours"                # eval classifier, reference zero_shot.py:117-145
     lr_schedule: Optional[object] = None  # schedule(step) -> lr, for the "LR:" field
+    # --profile: a torch.profiler trace of the loop's steps [start, start + num)
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 3
+    profile_num_steps: int = 5
     text_packing: int = 0               # packed templates in a template classifier build
     attention: str = "kernel"           # the towers' kernel routes
     ln_linear: str = "unfused"
@@ -139,10 +147,19 @@ def step_generator(device: torch.device, seed: int, epoch: int, i: int) -> torch
 def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopConfig,
           classnames: Sequence[str], val_dataset: Optional[FlatFileDataset] = None,
           start_epoch: int = 0, seed: int = 0, tokenizer=None, templates=None,
-          val_pairs_dataset=None, imagenet_val_dataset=None) -> TrainState:
-    """Run the epochs from ``start_epoch``; returns the final state."""
+          val_pairs_dataset=None, imagenet_val_dataset=None, writers=()) -> TrainState:
+    """Run the epochs from ``start_epoch``; returns the final state.
+    ``writers`` (:func:`latteclip_torch.obs.tensorboard.make_writers`) take
+    every logged step's metrics as ``train/<key>`` plus the data and batch
+    times and samples/s, and each eval's metrics as ``val/<key>``."""
     device = next(state.model.parameters()).device
     results_path = os.path.join(loop_cfg.checkpoint_dir, "results.jsonl")
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    tracer = None
+    if loop_cfg.profile_dir:
+        tracer = StepTraceProfiler(loop_cfg.profile_dir, start_step=loop_cfg.profile_start_step,
+                                   num_steps=loop_cfg.profile_num_steps)
+    global_step = 0
     for epoch in range(start_epoch, loop_cfg.epochs):
         state.start_epoch()
         meters = DeviceMeterBank()
@@ -151,9 +168,12 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
                            device=device)
         for i, batch in enumerate(batches):
             thr.tick_data()
+            if tracer is not None:
+                tracer.on_step(global_step, sync=sync)
             metrics = step_fn(state, batch, step_generator(device, seed, epoch, i))
             meters.update(metrics)
             thr.tick_batch()
+            global_step += 1
             if i % loop_cfg.log_every_n_steps == 0 or i == pipeline.steps_per_epoch - 1:
                 fetched = meters.fetch()
                 lr_str = (" LR: %f" % float(loop_cfg.lr_schedule(state.step - 1))
@@ -165,6 +185,14 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
                     thr.data_time.avg, thr.batch_time.avg, thr.samples_per_second,
                     thr.samples_per_second_per_chip, lr_str, fetched["logit_scale"].val,
                     fetched["loss"].val, fetched["loss"].avg)
+                gstep = epoch * pipeline.steps_per_epoch + i
+                for w in writers:
+                    for k, m in fetched.items():
+                        w.add_scalar(f"train/{k}", m.val, gstep)
+                    w.add_scalar("train/data_time", thr.data_time.avg, gstep)
+                    w.add_scalar("train/batch_time", thr.batch_time.avg, gstep)
+                    w.add_scalar("train/samples_per_second", thr.samples_per_second, gstep)
+                    w.flush()
 
         completed = epoch + 1
         if (val_dataset is not None and loop_cfg.zeroshot_frequency
@@ -189,7 +217,13 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
             logger.info("Eval Epoch: %d %s", completed,
                         {k: round(v, 4) for k, v in eval_metrics.items()})
             append_results_jsonl(results_path, {"epoch": completed, **eval_metrics})
+            for w in writers:
+                for k, v in eval_metrics.items():
+                    w.add_scalar(f"val/{k}", float(v), completed)
+                w.flush()
         if loop_cfg.save_frequency and (completed % loop_cfg.save_frequency == 0
                                         or completed == loop_cfg.epochs):
             save_epoch_checkpoint(state, classnames, loop_cfg, completed)
+    if tracer is not None:
+        tracer.close(sync=sync)
     return state

@@ -21,14 +21,26 @@ seeded from ``torch.Generator`` seed 1 without a checkpoint);
 ``--extract-group-weight-path`` writes the fusion-weight analysis.
 ``--eval-config-path`` resolves the eval split from a YAML task registry.
 
+Each trainer of the JAX CLI trains here: ``--method ours`` the LatteCLIP v2
+step, with ``--gamma`` the legacy v1 step, ``--method flyp|flyp_gt`` the FLYP
+step on the pseudo-labels or the ground-truth labels, with ``--siglip`` the
+sigmoid loss (a plain CLIP gets a trainable ``logit_bias`` of -10, also on
+a resume) and ``--distill-model`` with ``--distill-pretrained`` a frozen
+teacher. The pipeline packs captions (``--text-packing``) for the v2 step
+only. ``--report-to tensorboard|wandb`` logs the steps and evals,
+``--profile`` traces a window of steps, ``--remote-sync`` mirrors the run's
+directory, and ``--resume`` reads an ``s3://`` path through it.
+
 The model runs on ``--device`` (``cuda`` by default: the Hopper kernels; it
 raises without a CUDA device). The JAX package's kernel switches
 ``LATTECLIP_ATTN_HEADSPLIT``, ``LATTECLIP_ATTN_BLOCKDIAG`` and
 ``LATTECLIP_FUSED_LN`` select the same routes here (``attention=`` and
 ``ln_linear=``); its ``LATTECLIP_TEXT_XLA_ATTN`` is refused. Flags whose
-feature the port does not have yet are refused
-with a ``SystemExit`` that names the ROADMAP item; the GPU/infra flags the
-JAX package ignores with a warning are ignored with the same warning.
+feature the port does not have yet (``--use-native-jpeg``,
+``--model-parallelism`` above 1) and the towers it does not have are refused
+with a ``SystemExit`` that names the ROADMAP item; the flags JAX refuses are
+refused with its messages; the GPU/infra flags the JAX package ignores with
+a warning are ignored with the same warning.
 """
 from __future__ import annotations
 
@@ -62,7 +74,9 @@ from latteclip_torch.eval.group_weights import extract_group_weights
 from latteclip_torch.eval.tta import TTAConfig, evaluate_tta
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.tokenizer import get_tokenizer_for_config
+from latteclip_torch.obs.file_sync import RemoteSync, pt_load_path
 from latteclip_torch.obs.meters import append_results_jsonl
+from latteclip_torch.obs.tensorboard import make_writers
 from latteclip_torch.train import loop as loop_mod
 from latteclip_torch.train.optim import make_optimizer, make_schedule
 from latteclip_torch.train.params import parse_args
@@ -71,7 +85,13 @@ from latteclip_torch.train.state import (
     create_train_state,
     init_memory_bank,
 )
-from latteclip_torch.train.step import LatteHParams, make_train_step
+from latteclip_torch.train.step import (
+    DEFAULT_LOGIT_BIAS,
+    LatteHParams,
+    make_flyp_step,
+    make_train_step,
+    make_v1_step,
+)
 
 logger = logging.getLogger("latteclip_torch")
 
@@ -96,22 +116,10 @@ def setup_logging(log_path: Optional[str] = None):
 
 
 def refuse_unported(args) -> None:
-    """SystemExit for every flag whose feature the port does not have yet."""
-    refused = {
-        "--method " + args.method: args.method not in ("ours", "tpt", "rlcf"),
-        "--gamma": bool(args.gamma),
-        "--siglip": args.siglip,
-        "--distill-model/--distill-pretrained": (args.distill_model is not None
-                                                 or args.distill_pretrained is not None),
-        "--imagenet-v2": args.imagenet_v2 is not None,
-        "--report-to": bool(args.report_to),
-        "--remote-sync": args.remote_sync is not None,
-        "--profile": args.profile,
-        "--use-native-jpeg": args.use_native_jpeg,
-    }
-    bad = [flag for flag, on in refused.items() if on]
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: not ported to latteclip_torch yet ({_ITEM_6})")
+    """SystemExit for every flag whose feature the port does not have yet
+    (the towers it lacks are refused by :func:`model_config`)."""
+    if args.use_native_jpeg:
+        raise SystemExit(f"--use-native-jpeg: not ported to latteclip_torch yet ({_ITEM_6})")
     if args.model_parallelism > 1:
         raise SystemExit(f"--model-parallelism {args.model_parallelism}: not ported to "
                          f"latteclip_torch yet ({_ITEM_5})")
@@ -303,6 +311,69 @@ def _bank_for(classnames, bank_by_class) -> Optional[torch.Tensor]:
     return None
 
 
+def refuse_trainer_flags(args) -> None:
+    """The trainer flags JAX's CLI refuses, with its messages: ``--siglip``
+    with the LatteCLIP step (v2 or v1), and one of the two distill flags
+    without the other on the FLYP step."""
+    if args.method == "ours":
+        if args.siglip:
+            raise SystemExit("--siglip applies to the contrastive baseline paths (--method "
+                             "flyp/flyp_gt), matching the reference's create_loss wiring")
+    elif (args.distill_model is None) != (args.distill_pretrained is None):
+        raise SystemExit("--distill-model and --distill-pretrained must be given together "
+                         "(reference main.py:213-219)")
+
+
+def load_teacher(args, device) -> Optional[clip_mod.CLIP]:
+    """The FLYP step's frozen teacher: ``--distill-model``'s config as the
+    registry gives it, loaded from ``--distill-pretrained``; None without
+    the flags or with the LatteCLIP step, as in JAX."""
+    if args.method == "ours" or args.distill_model is None:
+        return None
+    teacher_cfg = model_config("--distill-model", args.distill_model)
+    teacher = ckpt.load_clip_pt(args.distill_pretrained, teacher_cfg, device=device)[0]
+    logger.info("distilling from %s (%s)", args.distill_model, args.distill_pretrained)
+    return teacher
+
+
+def make_step(args, model, hp: LatteHParams, table, aug: AugConfig, teacher, routes: dict):
+    """The step of the trainer the flags select (JAX main's dispatch): the
+    v1 step for ``ours`` with ``--gamma``, the v2 step for ``ours``, else
+    the FLYP step."""
+    if args.method == "ours" and args.gamma:
+        logger.info("gamma=%g: using the legacy v1 momentum-prototype trainer (reference "
+                    "train_one_epoch; detached text anchor, EMA bank mix of image features)",
+                    args.gamma)
+        return make_v1_step(model, hp, table, gamma=args.gamma, aug=aug, **routes)
+    if args.method == "ours":
+        template_packed = None
+        if hp.text_packing:
+            template_packed = pack_template_table(table, args.text_packing)
+            logger.info("text packing: captions -> [R, %d] segment-masked rows; templates "
+                        "packed to [%d, %d] (from [%d, %d])", args.text_packing,
+                        template_packed.tokens.shape[0], args.text_packing, *table.shape)
+        return make_train_step(model, hp, table, aug=aug, template_packed=template_packed,
+                               **routes)
+    return make_flyp_step(model, hp, table, use_gt=args.method == "flyp_gt", aug=aug,
+                          use_siglip=args.siglip, teacher=teacher, **routes)
+
+
+@torch.no_grad()
+def load_resumed_weights(model, r_model, args) -> None:
+    """Copy the resumed checkpoint's weights into ``model`` by name. Under
+    ``--siglip`` a checkpoint without ``logit_bias`` (a plain CLIP) gets it
+    again at -10, as JAX re-injects it; any other parameter the checkpoint
+    lacks raises ``KeyError``."""
+    saved = dict(r_model.named_parameters())
+    for name, p in model.named_parameters():
+        if name in saved:
+            p.copy_(saved[name])
+        elif name == "logit_bias" and args.siglip:
+            p.fill_(DEFAULT_LOGIT_BIAS)
+        else:
+            raise KeyError(f"the resumed checkpoint has no {name}")
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     refuse_unported(args)
@@ -329,6 +400,10 @@ def main(argv=None) -> int:
     if args.lock_text_unlocked_layers:
         args.lock_text_unlocked_groups = max(args.lock_text_unlocked_groups,
                                              args.lock_text_unlocked_layers)
+    if args.imagenet_v2:
+        raise SystemExit("--imagenet-v2 needs the imagenetv2_pytorch dataset package "
+                         "(reference data.py:142-186), which is not installed in this "
+                         "environment")
 
     cfg, model, bank_by_class = build_model(args, device)
     tokenizer = get_tokenizer_for_config(cfg)
@@ -372,7 +447,8 @@ def main(argv=None) -> int:
             raise SystemExit("At least one train or eval dataset must be specified.")
         start_epoch = 0
         if args.resume and args.resume != "latest" and not args.pretrained:
-            model, r_bank, r_names, r_meta = ckpt.load_clip_pt(args.resume, cfg, device=device)
+            model, r_bank, r_names, r_meta = ckpt.load_clip_pt(pt_load_path(args.resume), cfg,
+                                                               device=device)
             start_epoch = int(r_meta.get("epoch", 0))
             r_bank = _bank_for(classnames, dict(zip(r_names, r_bank)) if r_bank is not None
                                else {})
@@ -423,16 +499,38 @@ def main(argv=None) -> int:
         logger.info("group weights written to %s", args.extract_group_weight_path)
         return 0
 
+    v2 = args.method == "ours" and not args.gamma
+    if args.text_packing and not v2:
+        logger.info("--text-packing with method=%s/gamma=%s: the trainer has no caption streams "
+                    "to pack; packing the eval classifier template encodes only", args.method,
+                    args.gamma)
     aug = build_aug_config(args.aug_cfg)
     pipeline = TrainPipeline(data, PipelineConfig(
         batch_size=args.batch_size, image_size=cfg.vision.image_size, seed=args.seed,
         num_threads=args.workers, raw_cache_bytes=args.raw_cache_mb * 1024**2,
         train_with_gt_text=args.train_with_gt_text, ondevice_resize=args.ondevice_resize,
         crop_scale=(aug.scale_min, aug.scale_max), resampled=args.dataset_resampled,
-        upsampling_factors=parse_upsampling(args), text_packing_len=args.text_packing,
+        upsampling_factors=parse_upsampling(args),
+        text_packing_len=args.text_packing if v2 else 0,
         text_packing_rows=args.text_packing_rows,
         pin_memory=device.type == "cuda"), num_samples)
     total_steps = pipeline.steps_per_epoch * args.epochs
+
+    # ---- the trainer's parameters: the resumed weights, logit_bias, teacher --
+    refuse_trainer_flags(args)
+    resumed = None
+    if args.resume:
+        path = (loop_mod.find_latest_checkpoint(checkpoint_dir) if args.resume == "latest"
+                else args.resume)
+        if path:
+            resumed = (path, *ckpt.load_clip_pt(pt_load_path(path), cfg, device=device))
+        else:
+            logger.info("no checkpoint to resume from in %s", checkpoint_dir)
+    if not hasattr(model, "logit_bias") and (
+            args.siglip or (resumed is not None and hasattr(resumed[1], "logit_bias"))):
+        # a plain CLIP under the SigLIP loss, or resuming a run that had one
+        clip_mod.add_logit_bias(model, DEFAULT_LOGIT_BIAS)
+    teacher = load_teacher(args, device)
 
     # ---- optimizer + step ----------------------------------------------------
     if args.skip_scheduler:
@@ -457,43 +555,31 @@ def main(argv=None) -> int:
         remat=args.grad_checkpointing, remat_text=args.grad_checkpointing_text,
         remat_vision=args.grad_checkpointing_vision, bug_compat=args.fusion_bug_compat,
         fuse_text_fwd=args.fuse_text_forward and not args.text_packing,
-        text_packing=bool(args.text_packing))
-    template_packed = None
-    if args.text_packing:
-        template_packed = pack_template_table(table, args.text_packing)
-        logger.info("text packing: captions -> [R, %d] segment-masked rows; templates packed "
-                    "to [%d, %d] (from [%d, %d])", args.text_packing,
-                    template_packed.tokens.shape[0], args.text_packing, *table.shape)
-    step_fn = make_train_step(model, hp, table, aug=aug, template_packed=template_packed,
-                              **routes)
+        text_packing=bool(args.text_packing) and v2)
+    step_fn = make_step(args, model, hp, table, aug, teacher, routes)
     state = create_train_state(model, optimizer, bank)
 
     # ---- resume --------------------------------------------------------------
     start_epoch = 0
-    if args.resume:
-        path = (loop_mod.find_latest_checkpoint(checkpoint_dir) if args.resume == "latest"
-                else args.resume)
-        if path:
-            r_model, r_bank, r_names, r_meta = ckpt.load_clip_pt(path, cfg, device=device)
-            with torch.no_grad():
-                for p, q in zip(model.parameters(), r_model.parameters()):
-                    p.copy_(q)
-            r_bank = _bank_for(classnames, dict(zip(r_names, r_bank)) if r_bank is not None
-                               else {})
-            if r_bank is not None:
-                state.memory_bank = r_bank.to(device)
-                state.prototypes = state.memory_bank.clone()
-            start_epoch = int(r_meta.get("epoch", 0))
-            state.step = int(r_meta.get("step", start_epoch * pipeline.steps_per_epoch))
-            if "optimizer" in r_meta:
-                ckpt.restore_optimizer_state(model, optimizer, r_meta["optimizer"], state.accum)
-                logger.info("resumed optimizer state (%d leaves)", len(r_meta["optimizer"]))
-            else:
-                logger.warning("checkpoint has no optimizer state; AdamW moments and the LR "
-                               "schedule restart from step 0")
-            logger.info("resumed from %s (epoch %d, step %d)", path, start_epoch, state.step)
+    if resumed is not None:
+        path, r_model, r_bank, r_names, r_meta = resumed
+        resumed = None
+        load_resumed_weights(model, r_model, args)
+        del r_model
+        r_bank = _bank_for(classnames, dict(zip(r_names, r_bank)) if r_bank is not None
+                           else {})
+        if r_bank is not None:
+            state.memory_bank = r_bank.to(device)
+            state.prototypes = state.memory_bank.clone()
+        start_epoch = int(r_meta.get("epoch", 0))
+        state.step = int(r_meta.get("step", start_epoch * pipeline.steps_per_epoch))
+        if "optimizer" in r_meta:
+            ckpt.restore_optimizer_state(model, optimizer, r_meta["optimizer"], state.accum)
+            logger.info("resumed optimizer state (%d leaves)", len(r_meta["optimizer"]))
         else:
-            logger.info("no checkpoint to resume from in %s", checkpoint_dir)
+            logger.warning("checkpoint has no optimizer state; AdamW moments and the LR "
+                           "schedule restart from step 0")
+        logger.info("resumed from %s (epoch %d, step %d)", path, start_epoch, state.step)
 
     loop_cfg = loop_mod.LoopConfig(
         epochs=args.epochs, checkpoint_dir=checkpoint_dir, name=name,
@@ -502,7 +588,10 @@ def main(argv=None) -> int:
         save_most_recent=args.save_most_recent,
         delete_previous_checkpoint=args.delete_previous_checkpoint,
         eval_batch_size=args.eval_batch_size, method=args.method, lr_schedule=schedule,
-        text_packing=args.text_packing, **routes)
+        text_packing=args.text_packing,
+        profile_dir=os.path.join(log_dir, "trace") if args.profile else None,
+        profile_start_step=args.profile_start_step, profile_num_steps=args.profile_num_steps,
+        **routes)
     imagenet_val_dataset = val_pairs_dataset = None
     if args.imagenet_val:
         imagenet_val_dataset = ImageFolderDataset(args.imagenet_val,
@@ -512,10 +601,25 @@ def main(argv=None) -> int:
         val_pairs_dataset = CsvDataset(args.val_data, img_key=args.csv_img_key,
                                        caption_key=args.csv_caption_key, sep=args.csv_separator,
                                        image_size=cfg.vision.image_size)
+    writers = make_writers(args.report_to, args.logs, name, True,
+                           wandb_project=args.wandb_project_name, wandb_notes=args.wandb_notes,
+                           # reference main.py:451: resume='auto' when resuming from latest
+                           wandb_resume="auto" if args.resume == "latest" else None,
+                           config=vars(args))
+    remote_sync = None
+    if args.remote_sync:
+        remote_sync = RemoteSync(log_dir, os.path.join(args.remote_sync, name),
+                                 frequency_s=args.remote_sync_frequency,
+                                 protocol=args.remote_sync_protocol).start()
+        logger.info("remote sync -> %s every %ds", args.remote_sync, args.remote_sync_frequency)
     loop_mod.train(state, step_fn, pipeline, loop_cfg, classnames, val_dataset=val_dataset,
                    start_epoch=start_epoch, seed=args.seed, tokenizer=tokenizer,
                    templates=templates, val_pairs_dataset=val_pairs_dataset,
-                   imagenet_val_dataset=imagenet_val_dataset)
+                   imagenet_val_dataset=imagenet_val_dataset, writers=writers)
+    for w in writers:
+        w.close()
+    if remote_sync is not None:
+        remote_sync.final_sync()
     return 0
 
 

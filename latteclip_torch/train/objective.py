@@ -1,11 +1,15 @@
-"""Contrastive objective and confidence weights (port of
+"""Contrastive objectives and confidence weights (port of
 ``latteclip_tpu/train/objective.py``: ``cross_entropy_with_int_labels``,
-``clip_loss``, ``text_confidence_weights``).
+``clip_loss``, ``distill_clip_loss``, ``_sigmoid_pair_loss``,
+``siglip_full_loss``, ``text_confidence_weights``).
 
 ``clip_loss`` is the reference ``ClipLoss``: symmetric cross-entropy over
 ``scale * img @ text.T`` with diagonal targets, log-softmax in float32.
 ``text_confidence_weights`` is ``compute_text_weights``: the top1 - top2
-margin of ``text @ prototypes.T``, detached.
+margin of ``text @ prototypes.T``, detached. ``distill_clip_loss`` and
+``siglip_full_loss`` are the FLYP trainer's ``--distill-*`` and ``--siglip``
+objectives; JAX's ``siglip_ring_loss`` exchanges text blocks over a mesh
+axis and waits for multi-GPU data parallel (ROADMAP.md, section 1, item 5).
 """
 from __future__ import annotations
 
@@ -31,3 +35,42 @@ def text_confidence_weights(text_features: torch.Tensor, prototypes: torch.Tenso
     """Top1 - top2 margin of ``text_features @ prototypes.T``, detached."""
     top2 = torch.topk(text_features.detach() @ prototypes.T, 2, dim=-1).values
     return top2[:, 0] - top2[:, 1]
+
+
+def distill_clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                      logit_scale: torch.Tensor, teacher_image_features: torch.Tensor,
+                      teacher_text_features: torch.Tensor,
+                      teacher_logit_scale: torch.Tensor) -> torch.Tensor:
+    """Soft-target distillation (reference ``DistillClipLoss``): the
+    cross-entropy of the student's logit distributions against the frozen
+    teacher's, image to text and text to image, in float32."""
+
+    def dist_loss(teacher_logits, student_logits):
+        t = torch.softmax(teacher_logits.float(), dim=1)
+        return -(t * F.log_softmax(student_logits.float(), dim=1)).sum(dim=1).mean()
+
+    student = logit_scale * image_features @ text_features.T
+    teacher = teacher_logit_scale * teacher_image_features @ teacher_text_features.T
+    return 0.5 * (dist_loss(teacher, student) + dist_loss(teacher.T, student.T))
+
+
+def sigmoid_pair_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                      logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                      negative_only: bool = False) -> torch.Tensor:
+    """Sum over every (image, text) pair of ``-log sigmoid(target * logit)``
+    divided by the number of images; the target is +1 on the diagonal and -1
+    elsewhere, or -1 everywhere with ``negative_only`` (JAX
+    ``_sigmoid_pair_loss``)."""
+    logits = logit_scale * image_features @ text_features.T + logit_bias
+    n, m = logits.shape
+    targets = -torch.ones(n, m, dtype=torch.float32, device=logits.device)
+    if not negative_only:
+        targets = targets + 2.0 * torch.eye(n, m, dtype=torch.float32, device=logits.device)
+    return -F.logsigmoid(targets * logits).sum() / n
+
+
+def siglip_full_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                     logit_scale: torch.Tensor, logit_bias: torch.Tensor) -> torch.Tensor:
+    """The SigLIP loss over the whole batch (reference ``SigLipLoss`` on one
+    device): :func:`sigmoid_pair_loss` over every pair."""
+    return sigmoid_pair_loss(image_features, text_features, logit_scale, logit_bias)

@@ -125,6 +125,13 @@ def _text(name: str) -> bool:
 
 
 _TOWER = {"visual": _visual, "text": _text}
+
+
+def tower_parameters(model: nn.Module, tower: str) -> List[nn.Parameter]:
+    """The parameters of ``tower`` (``"visual"`` or ``"text"``): those of the
+    JAX package's parameter subtree of that name."""
+    return [p for name, p in model.named_parameters() if _TOWER[tower](name)]
+
 # the reference's lock groups by tower (transformer.py:435-466): the head
 # (embeddings and pre-norm) and the post group that travels with the last
 # block; blocks are "<prefix><i>."; the projection is what remains

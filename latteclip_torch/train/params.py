@@ -348,9 +348,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     # profiling (TPU counterpart of the reference's --trace / --torchcompile /
     # profiler.py tooling: model.py:762-775, main.py:463-465, profiler.py:82-122)
     p.add_argument("--profile", action="store_true", default=False,
-                   help="capture a jax.profiler device trace of a few warm "
-                        "train steps into <logs>/<name>/trace (view with "
-                        "TensorBoard's profile plugin / xprof or Perfetto)")
+                   help="capture a torch.profiler trace (host and device) of a "
+                        "few warm train steps into <logs>/<name>/trace as a "
+                        "Chrome trace (view with Perfetto or TensorBoard's "
+                        "profile plugin)")
     p.add_argument("--profile-start-step", type=int, default=3,
                    help="first global step inside the trace window (after "
                         "compile + pipeline warmup)")

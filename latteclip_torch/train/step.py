@@ -1,6 +1,8 @@
-"""The LatteCLIP v2 train step (port of ``latteclip_tpu/train/step.py``:
+"""The train steps (port of ``latteclip_tpu/train/step.py``:
 ``LatteHParams``, ``_fuse``, ``fuse_text_streams``, ``latteclip_loss_fn``,
-``update_memory_bank``, ``make_train_step``).
+``update_memory_bank``, ``make_train_step``; the legacy v1 trainer
+``v1_loss_fn``, ``v1_update_memory_bank``, ``make_v1_step``; the FLYP
+baseline ``flyp_loss_fn``, ``make_flyp_step``).
 
 One step, as the reference's ``train_one_epoch_v2`` inner loop
 (``src/training/train.py:358-565``) and the JAX step run it:
@@ -28,6 +30,15 @@ images are canvases and the random resized crop runs in the step. The update
 (:func:`apply_gradients`) accumulates, clips and steps as the JAX package's
 optax chain does (:mod:`latteclip_torch.train.optim`). The CoCa-only
 ``zero_update_subtrees`` comes with the CoCa tower (ROADMAP.md, section 1).
+
+The other trainers of the JAX CLI: ``--gamma`` selects the legacy v1 step
+(the reference's ``train_one_epoch``: a detached template anchor, only the
+image tower and the logit scale train, the gamma bank update), and
+``--method flyp|flyp_gt`` the FLYP step (``train_one_epoch_original_clip``:
+InfoNCE against the padded template of each sample's pseudo-label or
+ground-truth label, with ``--siglip`` the sigmoid loss and with
+``--distill-*`` a frozen teacher's soft targets). Neither encodes captions.
+FLYP's CoCa branch comes with the CoCa tower.
 """
 from __future__ import annotations
 
@@ -39,8 +50,13 @@ import torch
 from latteclip_torch.data import transforms as T
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.layers import l2_normalize
-from latteclip_torch.train.objective import clip_loss, text_confidence_weights
-from latteclip_torch.train.optim import clip_by_global_norm_
+from latteclip_torch.train.objective import (
+    clip_loss,
+    distill_clip_loss,
+    siglip_full_loss,
+    text_confidence_weights,
+)
+from latteclip_torch.train.optim import clip_by_global_norm_, tower_parameters
 from latteclip_torch.train.state import TrainState
 
 LOG100 = 4.6051702  # ln(100), reference train.py:563-565
@@ -111,6 +127,21 @@ def fuse_text_streams(label_f, label_zs_f, per_img_f, per_grp_f,
 def _to_device(batch: Dict, keys: Sequence[str], device) -> Tuple[torch.Tensor, ...]:
     """The batch's arrays on ``device``; a tensor already there is used as is."""
     return tuple(torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in keys)
+
+
+def _step_images(cfg, hp: LatteHParams, aug: T.AugConfig, batch: Dict,
+                 generator: Optional[torch.Generator], dev) -> torch.Tensor:
+    """The batch's uint8 images (or canvases with ``crop_boxes``) on ``dev``,
+    augmented when ``hp.augment`` and normalized, as every trainer starts."""
+    mean, std = T.model_mean_std(cfg)
+    images_u8 = _to_device(batch, ("images",), dev)[0]
+    if not hp.augment:
+        return T.normalize_images(images_u8, mean=mean, std=std)
+    boxes = batch.get("crop_boxes")
+    if boxes is not None:
+        boxes = _to_device(batch, ("crop_boxes",), dev)[0]
+    return T.train_augment_normalize(images_u8, generator, aug, mean=mean, std=std, boxes=boxes,
+                                     size=cfg.vision.image_size)
 
 
 def latteclip_loss_fn(
@@ -278,19 +309,9 @@ def make_train_step(
     packed = None
     if template_packed is not None:
         packed = tuple(torch.as_tensor(a).to(dev) for a in template_packed)
-    mean, std = T.model_mean_std(cfg)
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
-        images_u8 = _to_device(batch, ("images",), dev)[0]
-        if hp.augment:
-            boxes = batch.get("crop_boxes")
-            if boxes is not None:
-                boxes = _to_device(batch, ("crop_boxes",), dev)[0]
-            images = T.train_augment_normalize(images_u8, generator, aug, mean=mean, std=std,
-                                               boxes=boxes, size=cfg.vision.image_size)
-        else:
-            images = T.normalize_images(images_u8, mean=mean, std=std)
-
+        images = _step_images(cfg, hp, aug, batch, generator, dev)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = latteclip_loss_fn(state.model, hp, batch, images, state.memory_bank,
                                       state.prototypes, table, packed, attention=attention,
@@ -305,5 +326,176 @@ def make_train_step(
         state.step += 1
         return {k: aux[k] for k in ("loss", "contrastive_loss", "zeroshot", "logit_scale",
                                     "pseudo_agreement")}
+
+    return step_fn
+
+
+# -- the legacy v1 trainer (reference train_one_epoch): the --gamma path ------
+
+def v1_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torch.Tensor,
+               memory_bank: torch.Tensor, template_table: torch.Tensor, *,
+               attention: str = "kernel",
+               ln_linear: str = "unfused") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of the reference's legacy ``train_one_epoch`` (JAX
+    ``v1_loss_fn``): symmetric InfoNCE between the image features and the
+    detached anchor of each sample's zero-shot pseudo-label. The anchor is
+    ``normalize(bank) + alpha * (template - normalize(bank))`` over the
+    gathered bank rows when their sum over the whole batch is not 0 (one
+    test for the batch, as the reference's ``membank.sum() != 0``), else the
+    template feature. The text tower runs without autograd, so only the
+    image tower and ``logit_scale`` get gradients and no attention backward
+    runs on the text. ``aux`` holds the un-normalized anchor and the detached
+    image features that :func:`v1_update_memory_bank` mixes."""
+    dev = images.device
+    zs_preds = _to_device(batch, ("zs_preds",), dev)[0].long()
+    routes = {"attention": attention, "ln_linear": ln_linear}
+    image_features = clip_mod.encode_image(model, images, normalize=True, remat=hp.vision_remat,
+                                           **routes)
+    logit_scale = model.logit_scale.exp()
+    with torch.no_grad():
+        class_text_feats = clip_mod.encode_text(model, template_table, normalize=True,
+                                                remat=hp.text_remat, **routes)
+        label_f = class_text_feats[zs_preds]
+        bank_rows = memory_bank[zs_preds]
+        bank_norm = l2_normalize(bank_rows)
+        anchored = torch.where(bank_rows.sum() != 0.0,
+                               bank_norm + hp.alpha * (label_f - bank_norm), label_f)
+    loss = clip_loss(image_features, l2_normalize(anchored), logit_scale)
+    aux = {"loss": loss.detach(), "contrastive_loss": loss.detach(),
+           "logit_scale": logit_scale.detach(), "zs_preds": zs_preds, "anchored": anchored,
+           "image_features": image_features.detach()}
+    return loss, aux
+
+
+@torch.no_grad()
+def v1_update_memory_bank(memory_bank: torch.Tensor, zs_preds: torch.Tensor,
+                          anchored: torch.Tensor, image_features: torch.Tensor,
+                          gamma: float) -> torch.Tensor:
+    """The gamma momentum-prototype update of v1 (JAX
+    ``v1_update_memory_bank``): each sample mixes its un-normalized anchor
+    with its image feature, ``anchored * (1 - gamma) + image * gamma``; each
+    class seen in the batch takes the mean of its samples' mixes, not
+    renormalized; the other rows keep theirs."""
+    C = memory_bank.shape[0]
+    ids = zs_preds.long()
+    feats = (anchored * (1.0 - gamma) + image_features * gamma).float()
+    sums = torch.zeros(C, feats.shape[1], dtype=torch.float32, device=feats.device)
+    sums.index_add_(0, ids, feats)
+    counts = torch.bincount(ids, minlength=C).float()
+    return torch.where((counts > 0)[:, None], sums / counts.clamp_min(1.0)[:, None], memory_bank)
+
+
+def make_v1_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, gamma: float,
+                 aug: Optional[T.AugConfig] = None, *, attention: str = "kernel",
+                 ln_linear: str = "unfused"):
+    """Build the legacy-v1 step ``(state, batch, generator) -> metrics``
+    (JAX ``make_v1_step``): augment, :func:`v1_loss_fn`, backward, the
+    update of :func:`apply_gradients`, the logit-scale clamp and
+    :func:`v1_update_memory_bank`. JAX zeroes the text subtree's updates
+    after the optimizer: the text parameters stay as they were while their
+    AdamW moments still see the zero gradients and the count advances.
+    Here the text parameters are copied before the update and written back
+    after it, which gives the same, since torch's AdamW would otherwise
+    apply weight decay to them and move them where their moments are not 0."""
+    aug = aug or T.AugConfig()
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    table = torch.as_tensor(template_table).to(dev)
+    text_params = tower_parameters(model, "text")
+
+    def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
+        images = _step_images(cfg, hp, aug, batch, generator, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = v1_loss_fn(state.model, hp, batch, images, state.memory_bank, table,
+                               attention=attention, ln_linear=ln_linear)
+        loss.backward()
+        with torch.no_grad():
+            kept = [p.detach().clone() for p in text_params]
+        apply_gradients(state)
+        with torch.no_grad():
+            torch._foreach_copy_(text_params, kept)
+            state.model.logit_scale.clamp_(0.0, LOG100)
+        state.memory_bank = v1_update_memory_bank(state.memory_bank, aux["zs_preds"],
+                                                  aux["anchored"], aux["image_features"], gamma)
+        state.step += 1
+        return {k: aux[k] for k in ("loss", "contrastive_loss", "logit_scale")}
+
+    return step_fn
+
+
+# -- the FLYP baseline (reference train_one_epoch_original_clip) --------------
+
+DEFAULT_LOGIT_BIAS = -10.0  # the reference SigLIP configs' init_logit_bias
+
+
+def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torch.Tensor,
+                 template_table: torch.Tensor, use_gt: bool, use_siglip: bool = False,
+                 teacher: Optional[clip_mod.CLIP] = None, *, attention: str = "kernel",
+                 ln_linear: str = "unfused") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """FLYP's loss (JAX ``flyp_loss_fn``): InfoNCE, or with ``use_siglip``
+    the SigLIP loss with ``model.logit_bias`` (-10 where the model has
+    none), between the image features and the template feature of each
+    sample's label, ``gt_labels`` with ``use_gt`` else ``zs_preds``. The C
+    templates run once, padded, and their rows are gathered by label; a
+    label of -1 gathers the last row, as JAX's indexing does. With a
+    ``teacher`` (a frozen CLIP run without autograd on the same images and
+    templates, its own logit scale) :func:`distill_clip_loss` joins the
+    loss as ``distill_loss``."""
+    dev = images.device
+    labels = _to_device(batch, ("gt_labels" if use_gt else "zs_preds",), dev)[0].long()
+    routes = {"attention": attention, "ln_linear": ln_linear}
+    image_features = clip_mod.encode_image(model, images, normalize=True, remat=hp.vision_remat,
+                                           **routes)
+    class_text_feats = clip_mod.encode_text(model, template_table, normalize=True,
+                                            remat=hp.text_remat, **routes)
+    text_features = class_text_feats[labels]
+    logit_scale = model.logit_scale.exp()
+    if use_siglip:
+        bias = getattr(model, "logit_bias", None)
+        if bias is None:
+            bias = torch.tensor(DEFAULT_LOGIT_BIAS, device=dev)
+        loss = siglip_full_loss(image_features, text_features, logit_scale, bias)
+    else:
+        loss = clip_loss(image_features, text_features, logit_scale)
+    metrics = {"contrastive_loss": loss.detach(), "logit_scale": logit_scale.detach()}
+    if teacher is not None:
+        with torch.no_grad():
+            t_img = clip_mod.encode_image(teacher, images, normalize=True, **routes)
+            t_txt = clip_mod.encode_text(teacher, template_table, normalize=True, **routes)[labels]
+            t_scale = teacher.logit_scale.exp()
+        d_loss = distill_clip_loss(image_features, text_features, logit_scale, t_img, t_txt,
+                                   t_scale)
+        loss = loss + d_loss
+        metrics["distill_loss"] = d_loss.detach()
+    metrics["loss"] = loss.detach()
+    return loss, metrics
+
+
+def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_gt: bool = False,
+                   aug: Optional[T.AugConfig] = None, use_siglip: bool = False,
+                   teacher: Optional[clip_mod.CLIP] = None, *, attention: str = "kernel",
+                   ln_linear: str = "unfused"):
+    """Build the FLYP step ``(state, batch, generator) -> metrics`` (JAX
+    ``make_flyp_step``): augment, :func:`flyp_loss_fn`, backward, the update
+    of :func:`apply_gradients` and the logit-scale clamp; the memory bank
+    is carried unchanged. ``teacher`` is put in eval mode and frozen."""
+    aug = aug or T.AugConfig()
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    table = torch.as_tensor(template_table).to(dev)
+    if teacher is not None:
+        teacher.eval().requires_grad_(False)
+
+    def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
+        images = _step_images(cfg, hp, aug, batch, generator, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = flyp_loss_fn(state.model, hp, batch, images, table, use_gt, use_siglip,
+                                     teacher, attention=attention, ln_linear=ln_linear)
+        loss.backward()
+        apply_gradients(state)
+        with torch.no_grad():
+            state.model.logit_scale.clamp_(0.0, LOG100)
+        state.step += 1
+        return metrics
 
     return step_fn

@@ -26,8 +26,12 @@
   in both mains to the same eval record, and without PyYAML the port
   refuses it with a ``SystemExit`` that names the package;
 * every flag whose feature is not ported is refused with a ``SystemExit``
-  naming the ROADMAP item, as is the JAX switch ``LATTECLIP_TEXT_XLA_ATTN=1``,
-  and the default ``--device cuda`` raises where CUDA is absent.
+  naming the ROADMAP item, as is the JAX switch ``LATTECLIP_TEXT_XLA_ATTN=1``;
+  the trainer flags the JAX CLI refuses (``--siglip`` with ``--method ours``,
+  one distill flag without the other, ``--imagenet-v2``) are refused by both
+  mains with JAX's message; and the default ``--device cuda`` raises where
+  CUDA is absent. The other trainers' runs are in
+  tests/test_torch_trainers_cli.py.
 """
 import glob
 import json
@@ -134,19 +138,26 @@ def _checkpoint(run_dir, epoch):
     return {k: v for k, v in sd.items() if k not in bank}, bank, obj
 
 
-def _assert_checkpoints_agree(a_dir, b_dir, start, epoch=2):
+def _assert_checkpoints_agree(a_dir, b_dir, start, epoch=2, frozen=lambda k: False,
+                              cos_gap=DELTA_COS_GAP):
+    """Both runs' ``epoch_<epoch>.pt`` agree (module docstring); the tensors
+    ``frozen`` names stay bit-equal to ``start`` in both, the others moved in
+    the same direction within ``cos_gap``."""
     a, a_bank, a_obj = _checkpoint(a_dir, epoch)
     b, b_bank, b_obj = _checkpoint(b_dir, epoch)
     assert sorted(a) == sorted(b) and sorted(a_bank) == sorted(b_bank)
     assert a_obj["epoch"] == b_obj["epoch"] == epoch and a_obj["step"] == b_obj["step"] == STEPS
     assert sorted(a_obj["optimizer"]) == sorted(b_obj["optimizer"])
     for k in a:
+        if frozen(k):
+            assert torch.equal(a[k], start[k]) and torch.equal(b[k], start[k]), k
+            continue
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=0, atol=2 * LR * STEPS,
                                    err_msg=k)
         da = (a[k].double() - start[k].double()).flatten()
         db = (b[k].double() - start[k].double()).flatten()
         assert da.norm() > 0 and db.norm() > 0, k
-        assert 1 - float(da @ db / (da.norm() * db.norm())) <= DELTA_COS_GAP, k
+        assert 1 - float(da @ db / (da.norm() * db.norm())) <= cos_gap, k
     for k in a_bank:
         cos = float(torch.nn.functional.cosine_similarity(a_bank[k], b_bank[k], dim=0))
         assert cos >= 0.9999, k
@@ -215,10 +226,7 @@ def test_eval_only_equals_jax(runs, tmp_path):
 
 
 REFUSED = {
-    "method": ["--method", "flyp"], "gamma": ["--gamma", "0.5"], "siglip": ["--siglip"],
-    "distill": ["--distill-model", "ViT-B-32", "--distill-pretrained", "x"],
-    "report_to": ["--report-to", "tensorboard"], "remote_sync": ["--remote-sync", "x"],
-    "profile": ["--profile"], "model_parallelism": ["--model-parallelism", "2"],
+    "model_parallelism": ["--model-parallelism", "2"],
     "native_jpeg": ["--use-native-jpeg"], "coca": ["--model", "coca_ViT-B-32"],
 }
 
@@ -227,6 +235,26 @@ REFUSED = {
 def test_unported_flags_are_refused(case, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md, section 1, item [56]"):
         torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu", *REFUSED[case]])
+
+
+JAX_REFUSES = {
+    "siglip_with_ours": ["--siglip"],
+    "distill_model_alone": ["--method", "flyp", "--distill-model", "ViT-tiny-test"],
+    "distill_pretrained_alone": ["--method", "flyp", "--distill-pretrained", "x.pt"],
+    "imagenet_v2": ["--imagenet-v2", "x"],
+}
+
+
+@pytest.mark.parametrize("case", list(JAX_REFUSES))
+def test_jax_refusals_are_refused_alike(case, tmp_path):
+    """The trainer flags the JAX CLI refuses stop both mains with its message."""
+    messages = []
+    for main, extra in ((jax_main.main, []), (torch_main.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main([*COMMON, "--logs", str(tmp_path / str(len(messages))), *JAX_REFUSES[case],
+                  *extra])
+        messages.append(str(e.value))
+    assert messages[0] == messages[1] and "ROADMAP" not in messages[0]
 
 
 def test_text_xla_attention_switch_is_refused(tmp_path, monkeypatch):
