@@ -235,7 +235,39 @@ Phases, each raising on failure:
    names and their SEG template argument), the synced directory hold
    epoch_1.pt, and the resume restore logit_bias at -10 with zero moments
    beside the restored ones; a trainers_cli JSON line;
-11. report: one JSON line of kernels, nvidia-smi's line, and the final line
+11. towers: the timm-trunk and ResNet vision towers, bf16, seed-0 weights.
+   (a) EVA02-B-16 (vision 12 x 768 at L=197, rope applied to the packed
+   qkv before K1, SwiGLU 2048 with its sub-LayerNorm; text 12 x 512)
+   trained as phase 6b's step (phase_train_b16), batch 512, captions and
+   templates packed at 128, colour augment on: 10 timed steps with exactly
+   12 flash_fwd, 12 flash_bwd, 24 flash_fwd_seg and 24 flash_bwd_seg a
+   step, a profiled step, agreement with the plain route on 64 images at
+   phase 6's bounds, a train_eva02 line; then the same rematerialised
+   (train_eva02_remat: the same launches, a lower peak, the first step's
+   loss equal). (b) EVA02-B-16 served (serve_whole_rows: the 1000-row
+   classifier's 12 K1, 12 K1 an eval batch of 256) at phase 5b's bounds,
+   a slice_eva02 line. (c) RN50 (ModifiedResNet [3, 4, 6, 3] x 64 on
+   cuDNN, BatchNorm from float32 running statistics) trained the same way:
+   no vision launch, 24 K2 and 24 K4 a step, every BatchNorm statistic
+   bit-equal after the steps, a train_rn50 line; served with no vision
+   launch, a slice_rn50 line. (d) The CLI in process, one epoch of 2 steps
+   at batch 512 on the synthetic fixture with --text-packing 128: --model
+   EVA02-B-16, and --model RN50 --lock-image; each step launches as (a)
+   and (c); epoch_1.pt holds exactly the model's timm and OpenCLIP keys;
+   under --lock-image every visual.* tensor and BatchNorm statistic is
+   bit-equal to the seed-0 start; a towers_cli line. (e) A geometry line
+   each (geometry_check) for EVA02-L-14, EVA02-L-14-336, EVA02-E-14 and
+   EVA01-g-14 (their heads of 112 and 88 on the plain route, run at 8 and
+   10 of their 64 and 40 vision layers, the cut printed), ViT-medium at
+   256 tokens without a class token, convnext_base, RN50x4 (288 px, text
+   10 heads of 64), Swin-B and ViT-relpos-medium: 64 images and 64 text
+   rows against the plain route, exact launches (no vision launch but for
+   the EVA02-L towers and ViT-medium), features at cosine >= 0.999 and
+   prototype top-1 on >= 99% of rows. Phase 3 carries these towers' new
+   kernel shapes: K1 at [64, 256, 8 x 3 x 64] and [1000, 77, 10 x 3 x 64],
+   K2 and K4 at packed 640-wide text [64, 128, 10 x 3 x 64], K3 at
+   [64, 256, 8 x 3 x 64];
+12. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -254,6 +286,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -702,6 +735,15 @@ def phase_kernels(train, tiled_lib):
         ("classifier in_proj", 1000, 77, text.width, 3 * text.width),
         ("classifier c_fc", 1000, 77, text.width, mlp_t),
     ]
+    # the towers' rows (phase 11): ViT-medium's 256 tokens without a class
+    # token, and the text towers 640 wide (10 heads of 64: RN50x4, the wide
+    # ConvNeXts, Swin) padded and packed
+    text640 = random_segments(rng, 64, PACK_LEN)
+    cases += [("flash_fwd", 64, 256, 8, 64, False, None),
+              ("flash_fwd", 1000, 77, 10, 64, True, None),
+              ("flash_fwd_seg", 64, PACK_LEN, 10, 64, True, text640)]
+    bwd_cases += [("flash_bwd", 64, 256, 8, 64, False, None),
+                  ("flash_bwd_seg", 64, PACK_LEN, 10, 64, True, text640)]
     records = [kernel_case(n, B, L, H, D, c, s, timer, gen) for n, B, L, H, D, c, s in cases]
     records += [bwd_case(n, B, L, H, D, c, s, timer, gen, tiled_lib)
                 for n, B, L, H, D, c, s in bwd_cases]
@@ -1282,13 +1324,16 @@ def phase_slice_b16(smi: str):
     return serve_whole_rows(smi, "ViT-B-16", 197, "slice_b16", "eval_b16")
 
 
-def serve_whole_rows(smi: str, name: str, seq_len: int, label: str, profile_label: str):
+def serve_whole_rows(smi: str, name: str, seq_len: Optional[int], label: str,
+                     profile_label: str):
     """The serving requests at a model whose vision rows (``seq_len``
-    tokens) are too long to pair-pack. The counters are set to 0 just
-    before the requests and read just after (exactly one flash_fwd launch a
-    layer: the classifier build's text tower at L=77, then the vision tower
-    on five eval batches and the prototype request's batch), and again
-    around the eval alone (one a vision layer and batch, no flash_fwd_seg).
+    tokens, None for a tower without tokens) are too long to pair-pack. The
+    counters are set to 0 just before the requests and read just after
+    (exactly one flash_fwd launch a layer: the classifier build's text tower
+    at L=77, then the vision tower on five eval batches and the prototype
+    request's batch, where its attention runs on the kernels,
+    :func:`vision_kernel_layers`), and again around the eval alone (one a
+    vision layer and batch, no flash_fwd_seg).
     Features and classifier columns must agree with the plain route at
     cosine >= 0.999, prototype top-1 on >= 99% of rows; a torch.profiler
     trace of the eval gives its device busy ms, idle share and device ms by
@@ -1300,8 +1345,9 @@ def serve_whole_rows(smi: str, name: str, seq_len: int, label: str, profile_labe
     inputs = serving_inputs(name)
     cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
     classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
-    if cfg.vision.seq_len != seq_len:
+    if seq_len is not None and cfg.vision.seq_len != seq_len:
         raise RuntimeError(f"{name} vision rows of {cfg.vision.seq_len} tokens, expected {seq_len}")
+    vision_layers = vision_kernel_layers(cfg)
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1313,8 +1359,8 @@ def serve_whole_rows(smi: str, name: str, seq_len: int, label: str, profile_labe
     eval_launches = read_counts()
     log(f"{label} kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}")
     vision_runs = len(batches) + 1  # the eval's batches, then the prototype request's
-    for window, got, n in (("requests", launches, cfg.text.layers + cfg.vision.layers * vision_runs),
-                           ("eval", eval_launches, cfg.vision.layers * len(batches))):
+    for window, got, n in (("requests", launches, cfg.text.layers + vision_layers * vision_runs),
+                           ("eval", eval_launches, vision_layers * len(batches))):
         want = {**dict.fromkeys(got, 0), "flash_fwd": n}
         if got != want:
             raise RuntimeError(f"{name} {window} launched {got}, expected {want}")
@@ -1648,23 +1694,29 @@ def phase_train(smi: str, train: dict):
 
 # -- phase 6b: the ViT-B/16 train step -----------------------------------------
 
-def phase_train_b16(smi: str, train: dict):
+def phase_train_b16(smi: str, train: dict, name: str = "ViT-B-16", label: str = "b16",
+                    seq_len: Optional[int] = 197, remat: bool = True):
     """The LatteCLIP v2 step at ViT-B/16 (vision 12 x 768 at 224 px / patch
     16, L=197), packed text at 128: no vision pair packs at 197 tokens, so
     every vision layer runs K1 and K3 on whole rows of 197 tokens, the
     backward in its resident_pair long-row form. The counters are set to 0 just
     before the 10 timed steps and read just after; exactly one flash_fwd and
-    one flash_bwd a vision layer and step, one flash_fwd_seg and one
-    flash_bwd_seg a text layer, stream (captions, templates) and step."""
+    one flash_bwd a vision layer and step (where the tower's attention runs
+    on the kernels, :func:`vision_kernel_layers`), one flash_fwd_seg and one
+    flash_bwd_seg a text layer, stream (captions, templates) and step. Every
+    buffer (a ResNet's BatchNorm statistics) must stay bit-equal over the
+    steps. Phase 11 runs the same for the ``name`` EVA02-B-16 and RN50 (its
+    lines labelled ``label``); ``remat`` then runs the step rematerialised
+    too."""
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
     from latteclip_torch.data.packing import PackRowBucketer
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.train import optim, state as St, step as S
 
-    cfg = get_model_config("ViT-B-16")
-    if cfg.vision.seq_len != 197:
-        raise RuntimeError(f"ViT-B/16 vision rows of {cfg.vision.seq_len} tokens, expected 197")
+    cfg = get_model_config(name)
+    if seq_len is not None and cfg.vision.seq_len != seq_len:
+        raise RuntimeError(f"{name} vision rows of {cfg.vision.seq_len} tokens, expected {seq_len}")
     tok, classes, templates = train["tok"], train["classes"], train["templates"]
     table, tpl = train["table"], train["tpl"]
     rng = np.random.default_rng(16)
@@ -1672,25 +1724,29 @@ def phase_train_b16(smi: str, train: dict):
     batches = [train_batch(rng, TRAIN_BATCH_B16, cfg.vision.image_size, len(classes),
                            tok.eot_token_id, bucket, PACK_LEN) for _ in range(2)]
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     bank = St.init_memory_bank(model, tok, classes, templates)
     state = St.create_train_state(
         model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
     step_fn = S.make_train_step(model, S.LatteHParams(text_packing=True), table, T.AugConfig(),
                                 template_packed=tpl)
-    n, vision_sites, text_sites = TRAIN_STEPS, cfg.vision.layers, 2 * cfg.text.layers
+    n, vision_sites, text_sites = TRAIN_STEPS, vision_kernel_layers(cfg), 2 * cfg.text.layers
     _, warm_losses = timed_steps(step_fn, state, batches, gen, 1)
     torch.cuda.reset_peak_memory_stats()
     ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train kernels packed_b16: {json.dumps(launches)}")
+    log(f"train kernels packed_{label}: {json.dumps(launches)}")
     want = {**dict.fromkeys(launches, 0), "flash_fwd": n * vision_sites, "flash_bwd": n * vision_sites,
             "flash_fwd_seg": n * text_sites, "flash_bwd_seg": n * text_sites}
     if launches != want:
-        raise RuntimeError(f"packed_b16 steps launched {launches}, expected {want}")
-    check_state(state, warm_losses + losses, "packed_b16 route")
+        raise RuntimeError(f"packed_{label} steps launched {launches}, expected {want}")
+    check_state(state, warm_losses + losses, f"packed_{label} route")
+    moved = [k for k, b in model.named_buffers() if not torch.equal(b, buffers[k])]
+    if moved:
+        raise RuntimeError(f"packed_{label} steps changed the buffers {moved[:4]}")
     profile = device_profile(lambda: step_fn(state, batches[0], gen))
-    log("profile train_step_packed_b16 " + json.dumps(profile))
+    log(f"profile train_step_packed_{label} " + json.dumps(profile))
 
     # kernel route against plain route from one copied state, augment off
     del batches
@@ -1718,19 +1774,23 @@ def phase_train_b16(smi: str, train: dict):
         "device_ms_by_kind": profile["device_ms_by_kind"],
         "logit_scale": float(state.model.logit_scale.detach()), "agreement": agreement, "card": smi,
     }
-    log("train_b16 " + json.dumps(report))
+    if buffers:
+        report["buffers_bit_equal"] = len(buffers)
+    log(f"train_{label} " + json.dumps(report))
     if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
             or agreement["bank_row_cos_min"] < 0.999):
-        raise RuntimeError(f"ViT-B/16 kernel and plain routes disagree: {agreement}")
+        raise RuntimeError(f"{name} kernel and plain routes disagree: {agreement}")
     del model, state, step_fn
     torch.cuda.empty_cache()
+    if not remat:
+        return launches
     remat_launches = phase_train_b16_remat(smi, train, cfg, launches, peak,
-                                           profile["device_busy_ms"])
+                                           profile["device_busy_ms"], label)
     return {k: launches[k] + remat_launches[k] for k in launches}
 
 
 def phase_train_b16_remat(smi: str, train: dict, cfg, packed_launches: dict, packed_peak: int,
-                          packed_busy_ms: float):
+                          packed_busy_ms: float, label: str = "b16"):
     """packed_b16_remat: the ViT-B/16 step with both towers rematerialised,
     from fresh seed-0 weights. Its 10 counted steps must launch exactly what
     packed_b16's did (no attention forward runs again in the backward) and
@@ -1772,26 +1832,26 @@ def phase_train_b16_remat(smi: str, train: dict, cfg, packed_launches: dict, pac
     torch.cuda.reset_peak_memory_stats()
     ips, losses, launches = counted_steps(step_fn, state, batches, gen, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train kernels packed_b16_remat: {json.dumps(launches)}")
-    check_state(state, warm_losses + losses, "packed_b16_remat route")
+    log(f"train kernels packed_{label}_remat: {json.dumps(launches)}")
+    check_state(state, warm_losses + losses, f"packed_{label}_remat route")
     profile = device_profile(lambda: step_fn(state, batches[0], gen))
-    log("profile train_step_packed_b16_remat " + json.dumps(profile))
+    log(f"profile train_step_packed_{label}_remat " + json.dumps(profile))
     report = {
         "model": cfg.name, "batch": TRAIN_BATCH_B16, "steps": TRAIN_STEPS, "remat": "both towers",
         "images_per_s": ips, "losses": losses, "launches": launches,
-        "max_memory_allocated": peak, "max_memory_allocated_packed_b16": packed_peak,
+        "max_memory_allocated": peak, f"max_memory_allocated_packed_{label}": packed_peak,
         "device_busy_ms_per_step": profile["device_busy_ms"],
-        "device_busy_ms_per_step_packed_b16": packed_busy_ms,
+        f"device_busy_ms_per_step_packed_{label}": packed_busy_ms,
         "device_idle_share": profile["device_idle_share"],
         "device_ms_by_kind": profile["device_ms_by_kind"],
         "first_step": first_step, "first_step_loss_equal": first_step_equal,
         "card": smi,
     }
-    log("train_b16_remat " + json.dumps(report))
+    log(f"train_{label}_remat " + json.dumps(report))
     if launches != packed_launches:
-        raise RuntimeError(f"packed_b16_remat launched {launches}, packed_b16 {packed_launches}")
+        raise RuntimeError(f"packed_{label}_remat launched {launches}, packed_{label} {packed_launches}")
     if peak >= packed_peak:
-        raise RuntimeError(f"packed_b16_remat peaked at {peak} bytes, packed_b16 at {packed_peak}")
+        raise RuntimeError(f"packed_{label}_remat peaked at {peak} bytes, packed_{label} at {packed_peak}")
     if first_step["loss_rel_diff"] > 1e-6 or first_step["grad_cos"] < 0.9999:
         raise RuntimeError(f"remat and no remat disagree on the first step: {first_step}")
     return launches
@@ -2530,7 +2590,23 @@ def text_rows(rng: np.random.Generator, cfg, n: int) -> np.ndarray:
     return rows
 
 
-def geometry_check(smi: str, name: str) -> dict:
+def vision_kernel_layers(cfg) -> int:
+    """flash_fwd launches of one vision forward on whole rows: one a layer
+    where the tower's attention runs on the kernels (the native ViT and
+    EVA02 at head widths 64 or 128, as JAX's routing rule), none for the
+    other towers (ModifiedResNet, ConvNeXt, Swin, ViT-relpos) and heads of
+    other widths."""
+    from latteclip_torch.config import Eva02VisionConfig, VisionConfig
+    from latteclip_torch.kernels import kernel_route
+
+    v = cfg.vision
+    if not isinstance(v, (VisionConfig, Eva02VisionConfig)):
+        return 0
+    return v.layers if kernel_route(3 * v.width, v.heads, torch.bfloat16,
+                                    torch.device("cuda")) else 0
+
+
+def geometry_check(smi: str, name: str, depth: Optional[int] = None) -> dict:
     """One model of GEOMETRIES at full width and depth, seed-0 weights:
     GEOMETRY_IMAGES seeded images (one exemplar per class with pixel noise)
     and as many seeded text rows through the kernel route and the plain
@@ -2539,13 +2615,17 @@ def geometry_check(smi: str, name: str) -> dict:
     heads are 64 or 128 wide and nothing at all otherwise (JAX's routing
     rule), the text tower once a layer. Image and text features agree row
     by row at cosine >= 0.999 and prototype top-1 (the exemplars' plain
-    features as the bank) on >= 99% of rows."""
+    features as the bank) on >= 99% of rows. ``depth`` cuts the vision
+    tower to that many layers (its widths stay), printed in the line."""
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
-    from latteclip_torch.kernels import attention as A, kernel_route
+    from latteclip_torch.kernels import attention as A
     from latteclip_torch.models import clip as clip_mod
 
     cfg = get_model_config(name)
+    full_depth = getattr(cfg.vision, "layers", None)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=depth))
     v = cfg.vision
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     rng = np.random.default_rng(9)
@@ -2555,7 +2635,8 @@ def geometry_check(smi: str, name: str) -> dict:
     x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
     ex = T.normalize_images(torch.from_numpy(exemplars).cuda(), mean, std)
     tokens = torch.from_numpy(text_rows(rng, cfg, GEOMETRY_IMAGES)).long().cuda()
-    vision_kernel = kernel_route(3 * v.width, v.heads, torch.bfloat16, torch.device("cuda"))
+    vision_layers = vision_kernel_layers(cfg)
+    vision_kernel = vision_layers > 0
     with torch.no_grad():
         bank = clip_mod.encode_image(model, ex, normalize=True, attention="plain")
         feats, counts, ms = {}, {}, {}
@@ -2581,7 +2662,7 @@ def geometry_check(smi: str, name: str) -> dict:
     proto = bank.T
     want = {
         "image": {**dict.fromkeys(counts["image"], 0),
-                  **({"flash_fwd": v.layers} if vision_kernel else {})},
+                  **({"flash_fwd": vision_layers} if vision_kernel else {})},
         "text": {**dict.fromkeys(counts["text"], 0), "flash_fwd": cfg.text.layers},
     }
     plan = None
@@ -2590,8 +2671,10 @@ def geometry_check(smi: str, name: str) -> dict:
                             torch.cuda.get_device_properties(0).multi_processor_count)
         plan = {"form": p.form, "warps": p.warps, "ctas_per_bh": p.splits}
     rec = {
-        "model": name, "images": GEOMETRY_IMAGES, "vision_tokens": v.seq_len,
-        "vision_head_width": v.head_width, "vision_route": "kernel" if vision_kernel else "plain",
+        "model": name, "images": GEOMETRY_IMAGES, "vision_tower": type(v).__name__,
+        "vision_tokens": getattr(v, "seq_len", None), "vision_head_width": getattr(v, "head_width", None),
+        **({"vision_layers": depth, "vision_layers_full": full_depth} if depth is not None else {}),
+        "vision_route": "kernel" if vision_kernel else "plain",
         "long_row_plan": plan, "text_tokens": cfg.text.context_length,
         "text_causal": not cfg.text.no_causal_mask, "launches": counts,
         "image_cos_min": float(F.cosine_similarity(ik, ip, dim=-1).min()),
@@ -2960,6 +3043,112 @@ def phase_trainers(smi: str, train: dict) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 11: the timm-trunk and ResNet vision towers --------------------------
+
+TOWER_GEOMETRIES = ("EVA02-L-14", "EVA02-L-14-336", "EVA02-E-14", "EVA01-g-14",
+                    "vit_medium_patch16_gap_256", "convnext_base", "RN50x4",
+                    "swin_base_patch4_window7_224", "vit_relpos_medium_patch16_cls_224")
+# vision layers run of the two largest towers (64 and 40 at full depth)
+TOWER_GEOMETRY_DEPTH = {"EVA02-E-14": 8, "EVA01-g-14": 10}
+TOWER_CLI_ARGS = ["--dataset-type", "synthetic", "--batch-size", str(CLI_BATCH), "--lr", "1e-5",
+                  "--warmup", "1", "--epochs", "1", "--text-packing", str(PACK_LEN),
+                  "--no-save-most-recent"]
+
+
+def phase_towers_cli(smi: str) -> dict:
+    """(d) The CLI in process at batch 512, one epoch of 2 steps on the
+    synthetic fixture, captions packed at 128: --model EVA02-B-16, and
+    --model RN50 --lock-image. Every step launches what the step of
+    phase_train_b16 launches (12 flash_fwd and 12 flash_bwd for EVA02's
+    vision, none for the ResNet's; 24 flash_fwd_seg and 24 flash_bwd_seg);
+    epoch_1.pt holds exactly the model's timm/OpenCLIP keys and the memory
+    bank; under --lock-image every visual.* tensor, BatchNorm's statistics
+    included, is bit-equal to the seed-0 start."""
+    import tempfile
+
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.models import clip as clip_mod
+
+    messages = _Messages()
+    logging.getLogger("latteclip_torch").addHandler(messages)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_towers_")
+    old_tempdir, tempfile.tempdir = tempfile.tempdir, workdir
+    before = read_counts()
+    report, bad = {}, []
+    try:
+        for name, extra in (("EVA02-B-16", []), ("RN50", ["--lock-image"])):
+            cfg = get_model_config(name)
+            vl, tl = vision_kernel_layers(cfg), 2 * cfg.text.layers
+            messages.lines.clear()
+            logs = os.path.join(workdir, name)
+            t0 = time.perf_counter()
+            steps = run_trainer_cli([*TOWER_CLI_ARGS, "--model", name, "--logs", logs,
+                                     "--name", name, *extra],
+                                    {"flash_fwd": vl, "flash_bwd": vl, "flash_fwd_seg": tl,
+                                     "flash_bwd_seg": tl})
+            lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+            losses = [float(m.group(7)) for m in lines]
+            sd = torch.load(os.path.join(logs, name, "checkpoints", "epoch_1.pt"),
+                            map_location="cpu", weights_only=True)["state_dict"]
+            start = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg,
+                                              device="cpu").state_dict()
+            keys = {k for k in sd if not k.startswith("memory_bank.")}
+            rec = {"seconds": time.perf_counter() - t0, "steps": len(steps),
+                   "launches_per_step": steps[0], "losses": losses,
+                   "images_per_s": float(lines[-1].group(5)) if lines else None,
+                   "checkpoint_keys": len(keys),
+                   "bank_rows": sum(k.startswith("memory_bank.") for k in sd)}
+            if keys != set(start):
+                bad.append(f"{name}: epoch_1.pt keys differ from the model's: "
+                           f"{sorted(keys ^ set(start))[:4]}")
+            if not losses or not all(np.isfinite(losses)):
+                bad.append(f"{name}: losses {losses}")
+            if "--lock-image" in extra:
+                visual = [k for k in start if k.startswith("visual.")]
+                moved = [k for k in visual if not torch.equal(sd[k], start[k])]
+                rec["locked_visual_bit_equal"] = len(visual) - len(moved)
+                if moved:
+                    bad.append(f"{name} --lock-image moved {moved[:4]}")
+            report[name] = rec
+            del sd, start
+            shutil.rmtree(logs, ignore_errors=True)
+        after = read_counts()
+        report["card"] = smi
+        log("towers_cli " + json.dumps(report))
+        if bad:
+            raise RuntimeError("towers through the CLI: " + "; ".join(bad))
+        return {k: after[k] - before[k] for k in after}
+    finally:
+        tempfile.tempdir = old_tempdir
+        logging.getLogger("latteclip_torch").removeHandler(messages)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_towers(smi: str, train: dict) -> dict:
+    """Phase 11: (a) EVA02-B-16 trained (phase_train_b16: 12 K1 and 12 K3 a
+    step at [512, 197, 12 x 3 x 64], rope applied before K1, then
+    rematerialised), (b) served (serve_whole_rows: 12 K1 a batch of 256);
+    (c) RN50 trained (no vision launch, BatchNorm statistics bit-equal) and
+    served; (d) the CLI on both (phase_towers_cli); (e) the TOWER_GEOMETRIES
+    (geometry_check, E-14 and g-14 at TOWER_GEOMETRY_DEPTH). Returns the
+    launches of these paths."""
+    totals: dict = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        torch.cuda.empty_cache()
+
+    add(phase_train_b16(smi, train, "EVA02-B-16", "eva02"))
+    add(serve_whole_rows(smi, "EVA02-B-16", 197, "slice_eva02", "eval_eva02"))
+    add(phase_train_b16(smi, train, "RN50", "rn50", seq_len=None, remat=False))
+    add(serve_whole_rows(smi, "RN50", None, "slice_rn50", "eval_rn50"))
+    add(phase_towers_cli(smi))
+    for name in TOWER_GEOMETRIES:
+        add(geometry_check(smi, name, TOWER_GEOMETRY_DEPTH.get(name)))
+    return totals
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -3037,6 +3226,8 @@ def main() -> int:
     family_launches = phase_vit_family(smi, train)
     torch.cuda.empty_cache()
     trainer_launches_total = phase_trainers(smi, train)
+    torch.cuda.empty_cache()
+    tower_launches = phase_towers(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -3046,7 +3237,8 @@ def main() -> int:
             "launches": sum(w.get(name, 0) for w in (slice_launches, b16_launches, train_launches,
                                                      b16_train_launches, lab_launches,
                                                      cli_launches, offline_launches,
-                                                     family_launches, trainer_launches_total)),
+                                                     family_launches, trainer_launches_total,
+                                                     tower_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,13 +1,17 @@
 """Model architecture configuration and JSON registry.
 
 Port of ``latteclip_tpu/core/config.py`` for the towers this package has:
-the native ViT vision tower and the native CLIP text tower, with every option
-of theirs that a ``ViT-*`` config sets (class token or none, ``ln_pre`` or
-none, token, average or MAP pooling, LayerScale, sin-cos positions, patch
-dropout, tanh GELU, the SigLIP logit bias, text pooling at the EOT token,
-the first or the last column, with or without the causal mask). The JSON
-files in ``model_configs/`` are byte-identical copies of the reference
-package's.
+the native ViT vision tower with every option a ``ViT-*`` config sets (class
+token or none, ``ln_pre`` or none, token, average or MAP pooling,
+LayerScale, sin-cos positions, patch dropout, tanh GELU, the SigLIP logit
+bias) and the timm trunks expressed on it (EVA01's giant, ViT-medium with
+average pooling); the EVA02, ModifiedResNet, ConvNeXt, Swin and
+ViT-relpos towers; and the native CLIP text tower (pooling at the EOT
+token, the first or the last column, with or without the causal mask). The
+trunk tables (``EVA02_TRUNKS``, ``EVA_TRUNKS``, ``TIMM_VIT_TRUNKS``,
+``CONVNEXT_TRUNKS``, ``SWIN_TRUNKS``, ``RELPOS_TRUNKS``) are the JAX
+package's. The JSON files in ``model_configs/`` are byte-identical copies of
+the reference package's.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ from typing import Any, Dict, Tuple
 _CONFIG_DIR = Path(__file__).resolve().parent / "model_configs"
 
 _LATER_SLICE = (
-    "is not ported yet: latteclip_torch has the native ViT and native text "
-    "towers only; the other towers and options come in the port's last slice "
+    "is not ported yet: latteclip_torch has the native CLIP text tower and the "
+    "ViT, EVA, ModifiedResNet, ConvNeXt, Swin and ViT-relpos vision towers; "
+    "CoCa and the HF text towers come in the port's last slice "
     "(ROADMAP.md, section 1, item 6)"
 )
 
@@ -41,6 +46,10 @@ class VisionConfig:
     pos_embed_type: str = "learnable"  # 'learnable' | 'sin_cos_2d'
     ls_init_value: float = None     # LayerScale init (None = no LayerScale)
     ln_eps: float = 1e-5
+    # the timm trunk a config reaches this tower through (EVA01's giant,
+    # ViT-medium): timm's checkpoint layout (visual.trunk.*), a biased patch
+    # conv, and EVA's biased head projection
+    timm_trunk: str = ""
 
     @property
     def heads(self) -> int:
@@ -54,6 +63,184 @@ class VisionConfig:
     def seq_len(self) -> int:
         """Token count, with the class token where the tower has one."""
         return self.grid * self.grid + (0 if self.no_cls_token else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetVisionConfig:
+    """OpenAI's ModifiedResNet: ``layers`` blocks per stage; the feature
+    width is ``width * 32``."""
+
+    layers: Tuple[int, ...] = (3, 4, 6, 3)
+    width: int = 64
+    image_size: int = 224
+    head_width: int = 64
+
+    @property
+    def embed_width(self) -> int:
+        return self.width * 32
+
+    @property
+    def heads(self) -> int:
+        return self.embed_width // self.head_width
+
+
+# timm ConvNeXt trunks: (blocks per stage, width per stage)
+CONVNEXT_TRUNKS: Dict[str, Any] = {
+    "convnext_tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "convnext_small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "convnext_base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "convnext_large": ((3, 3, 27, 3), (192, 384, 768, 1536)),
+    "convnext_xlarge": ((3, 3, 27, 3), (256, 512, 1024, 2048)),
+    "convnext_xxlarge": ((3, 4, 30, 3), (384, 768, 1536, 3072)),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvNeXtVisionConfig:
+    """A timm ConvNeXt trunk (average pool, head LayerNorm) and OpenCLIP's
+    ``timm_proj`` head: ``linear``, ``mlp`` or ``none``."""
+
+    trunk: str = "convnext_base"
+    image_size: int = 224
+    proj: str = "linear"
+    drop_path: float = 0.0          # timm_drop_path (stochastic depth ramp)
+    ls_init_value: float = 1e-6     # LayerScale gamma at init
+    ln_eps: float = 1e-6
+
+    @property
+    def depths(self) -> Tuple[int, ...]:
+        return CONVNEXT_TRUNKS[self.trunk][0]
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        return CONVNEXT_TRUNKS[self.trunk][1]
+
+    @property
+    def embed_width(self) -> int:
+        return self.dims[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Eva02VisionConfig:
+    """EVA-02's TrV trunk (timm ``eva02_*_clip_*``): 2-D rope, SwiGLU with a
+    sub-LayerNorm, an inner attention LayerNorm; or, for the enormous tower,
+    post-norm blocks with a plain MLP and no rope."""
+
+    trunk: str = "eva02_base_patch16_clip_224"
+    image_size: int = 224
+    patch_size: int = 16
+    width: int = 768
+    layers: int = 12
+    head_width: int = 64
+    swiglu_hidden: int = 2048
+    swiglu: bool = True
+    use_rope: bool = True
+    inner_attn_norm: bool = True
+    post_norm: bool = False
+    qkv_fused: bool = True          # fused qkv with q/v bias (B, E); L splits q/k/v
+    ref_feat_shape: int = 16        # the rope's reference grid
+    rope_temperature: float = 10000.0
+    ln_eps: float = 1e-6
+
+    @property
+    def heads(self) -> int:
+        return self.width // self.head_width
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1
+
+
+SWIN_TRUNKS: Dict[str, Dict[str, Any]] = {
+    "swin_base_patch4_window7_224": dict(
+        embed_dim=128, depths=(2, 2, 18, 2), heads=(4, 8, 16, 32),
+        window=7, patch_size=4, mlp_ratio=4.0,
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinVisionConfig:
+    """A timm Swin trunk: windowed attention with a relative-position bias."""
+
+    trunk: str = "swin_base_patch4_window7_224"
+    image_size: int = 224
+    ln_eps: float = 1e-5
+
+    @property
+    def embed_width(self) -> int:
+        t = SWIN_TRUNKS[self.trunk]
+        return t["embed_dim"] * 2 ** (len(t["depths"]) - 1)
+
+
+RELPOS_TRUNKS: Dict[str, Dict[str, Any]] = {
+    "vit_relpos_medium_patch16_cls_224": dict(
+        width=512, layers=12, heads=8, patch_size=16, mlp_ratio=4.0,
+        rel_pos_hidden=256, init_values=1e-6,
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RelPosVisionConfig:
+    """timm's VisionTransformerRelPos: a rel-pos MLP bias in every block and
+    no absolute position embedding."""
+
+    trunk: str = "vit_relpos_medium_patch16_cls_224"
+    image_size: int = 224
+    ln_eps: float = 1e-6
+
+    @property
+    def embed_width(self) -> int:
+        return RELPOS_TRUNKS[self.trunk]["width"]
+
+
+# EVA02-CLIP trunks (EVA-02 arXiv 2303.11331 Table 2; EVA-CLIP arXiv
+# 2303.15389 Table 1); the enormous tower is EVA-CLIP's pre-TrV giant
+EVA02_TRUNKS: Dict[str, Dict[str, Any]] = {
+    "eva02_base_patch16_clip_224": dict(
+        patch_size=16, width=768, layers=12, head_width=64,
+        swiglu_hidden=2048, ref_feat_shape=16,
+    ),
+    "eva02_large_patch14_clip_224": dict(
+        patch_size=14, width=1024, layers=24, head_width=64,
+        swiglu_hidden=2730, ref_feat_shape=16, qkv_fused=False,
+    ),
+    "eva02_large_patch14_clip_336": dict(
+        patch_size=14, width=1024, layers=24, head_width=64,
+        swiglu_hidden=2730, ref_feat_shape=16, qkv_fused=False,
+    ),
+    "eva02_enormous_patch14_clip_224": dict(
+        patch_size=14, width=1792, layers=64, head_width=112,
+        swiglu_hidden=15360, swiglu=False, use_rope=False,
+        inner_attn_norm=False, post_norm=True,
+    ),
+}
+
+# timm Eva trunks that are plain pre-norm ViTs, on the native tower
+EVA_TRUNKS: Dict[str, Dict[str, Any]] = {
+    "eva_giant_patch14_224": dict(
+        width=1408, layers=40, head_width=88, mlp_ratio=6144 / 1408,
+        patch_size=14,
+    ),
+}
+
+# timm plain-ViT trunks on the native tower: ViT-medium without a class
+# token, average pooled, LayerNorm after the pool, no pre-LN
+TIMM_VIT_TRUNKS: Dict[str, Dict[str, Any]] = {
+    "vit_medium_patch16_gap_256": dict(
+        width=512, layers=12, head_width=64, mlp_ratio=4.0, patch_size=16,
+        no_cls_token=True, pool_type="avg", final_ln_after_pool=True,
+        no_ln_pre=True, ln_eps=1e-6,
+    ),
+}
+
+TOWER_CONFIGS = (VisionConfig, ResNetVisionConfig, ConvNeXtVisionConfig, Eva02VisionConfig,
+                 SwinVisionConfig, RelPosVisionConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +263,7 @@ class TextConfig:
 class CLIPConfig:
     name: str
     embed_dim: int
-    vision: VisionConfig
+    vision: Any                     # one of TOWER_CONFIGS
     text: TextConfig
     quick_gelu: bool = False
     gelu_tanh: bool = False         # tanh-approximate GELU (SigLIP towers)
@@ -100,10 +287,6 @@ def _refuse_other_towers(name: str, raw: Dict[str, Any], vision: Dict[str, Any],
     """NotImplementedError for the towers and options of ROADMAP item 6."""
     if "multimodal_cfg" in raw:
         raise NotImplementedError(f"{name}: the CoCa model {_LATER_SLICE}")
-    if isinstance(vision.get("layers"), (list, tuple)):
-        raise NotImplementedError(f"{name}: the ModifiedResNet tower {_LATER_SLICE}")
-    if vision.get("timm_model_name"):
-        raise NotImplementedError(f"{name}: vision_cfg.timm_model_name {_LATER_SLICE}")
     if vision.get("attentional_pool"):
         raise NotImplementedError(f"{name}: the attentional pool (CoCa) {_LATER_SLICE}")
     if text.get("hf_model_name"):
@@ -116,6 +299,43 @@ def _refuse_other_towers(name: str, raw: Dict[str, Any], vision: Dict[str, Any],
         value = sub.get(key.split(".")[1])
         if value is not None and value not in allowed:
             raise NotImplementedError(f"{name}: {key}={value!r} {_LATER_SLICE}")
+
+
+def vision_config(raw: Dict[str, Any]):
+    """The vision tower's config from ``vision_cfg``, by JAX's dispatch:
+    a timm trunk name selects EVA01 (native tower), EVA02, ViT-relpos, Swin,
+    a timm plain ViT (native tower) or ConvNeXt; a per-stage layer list
+    the ModifiedResNet; else the native ViT."""
+    timm_name = raw.get("timm_model_name")
+    size = int(raw.get("image_size", 224))
+    if timm_name in EVA_TRUNKS:
+        # timm_pool 'token' is 'tok'; timm_proj null is the trunk's biased head
+        return VisionConfig(image_size=size, no_ln_pre=True, pool_type="tok",
+                            timm_trunk=timm_name, ln_eps=1e-6, **EVA_TRUNKS[timm_name])
+    if timm_name in EVA02_TRUNKS:
+        return Eva02VisionConfig(trunk=timm_name, image_size=size, **EVA02_TRUNKS[timm_name])
+    if timm_name is not None and timm_name.startswith("vit_relpos"):
+        if timm_name not in RELPOS_TRUNKS:
+            raise ValueError(f"unknown vit_relpos trunk '{timm_name}'")
+        return RelPosVisionConfig(trunk=timm_name, image_size=size)
+    if timm_name is not None and timm_name.startswith("swin"):
+        if timm_name not in SWIN_TRUNKS:
+            raise ValueError(f"unknown swin trunk '{timm_name}'")
+        return SwinVisionConfig(trunk=timm_name, image_size=size)
+    if timm_name in TIMM_VIT_TRUNKS:
+        return VisionConfig(image_size=size, timm_trunk=timm_name, **TIMM_VIT_TRUNKS[timm_name])
+    if timm_name is not None:
+        if timm_name not in CONVNEXT_TRUNKS:
+            raise ValueError(f"timm vision trunk '{timm_name}' has no native implementation")
+        return ConvNeXtVisionConfig(
+            trunk=timm_name, image_size=size,
+            proj=str(raw.get("timm_proj", "linear") or "none"),
+            drop_path=float(raw.get("timm_drop_path") or 0.0))
+    if isinstance(raw.get("layers"), (list, tuple)):
+        fields = _filter_fields(ResNetVisionConfig, raw)
+        fields["layers"] = tuple(fields["layers"])
+        return ResNetVisionConfig(**fields)
+    return VisionConfig(**_filter_fields(VisionConfig, raw))
 
 
 def config_from_dict(name: str, raw: Dict[str, Any]) -> CLIPConfig:
@@ -144,7 +364,7 @@ def config_from_dict(name: str, raw: Dict[str, Any]) -> CLIPConfig:
     return CLIPConfig(
         name=name,
         embed_dim=int(raw["embed_dim"]),
-        vision=VisionConfig(**_filter_fields(VisionConfig, vision_raw)),
+        vision=vision_config(vision_raw),
         text=TextConfig(**_filter_fields(TextConfig, text_raw)),
         quick_gelu=bool(raw.get("quick_gelu", False)) or name.endswith("-quickgelu"),
         **kwargs,

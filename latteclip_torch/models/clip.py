@@ -1,8 +1,14 @@
 """CLIP model: module, seeded init and the encode functions.
 
 Port of ``latteclip_tpu/models/clip.py`` (``init_clip_params``,
-``encode_image``, ``encode_text``, ``encode_text_packed``) for the native ViT
-and text towers. The
+``encode_image``, ``encode_text``, ``encode_text_packed``) for the native
+text tower and every vision tower of the JAX package but CoCa's: the native
+ViT (with its timm trunks, :class:`~latteclip_torch.models.vit.
+TimmVisionTransformer`), EVA02, ModifiedResNet, ConvNeXt, Swin and
+ViT-relpos, chosen by the type of ``cfg.vision``. The vision towers other
+than the native ViT carry the names of JAX's ``params_to_pt_state_dict``
+(timm's ``visual.trunk.*``, OpenCLIP's ``visual.head.*`` and ModifiedResNet
+layout). The
 module's state dict has OpenCLIP's layout (``visual.*``,
 ``transformer.resblocks.{i}.*``, ``token_embedding.weight``,
 ``positional_embedding``, ``ln_final.*``, ``text_projection``,
@@ -15,17 +21,43 @@ bias (``latteclip.text.text_projection_b``, from a checkpoint that has one).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from latteclip_torch.config import CLIPConfig
+from latteclip_torch.config import (
+    CLIPConfig,
+    ConvNeXtVisionConfig,
+    Eva02VisionConfig,
+    RelPosVisionConfig,
+    ResNetVisionConfig,
+    SwinVisionConfig,
+    VisionConfig,
+)
 from latteclip_torch.device import resolve_device
-from latteclip_torch.models import layers
+from latteclip_torch.models import convnext, eva02, layers, resnet, swin, vit, vit_relpos
 from latteclip_torch.models.text import text_forward, text_forward_packed
 from latteclip_torch.models.pos_embed import sincos_2d
 from latteclip_torch.models.vit import MapHead, VisionTransformer, vit_forward
+
+# vision config type -> (tower module, its init rule)
+_TOWERS = {
+    ResNetVisionConfig: (resnet.ModifiedResNet, resnet.init_rule),
+    ConvNeXtVisionConfig: (convnext.ConvNeXtTower, convnext.init_rule),
+    Eva02VisionConfig: (eva02.Eva02VisionTower, eva02.init_rule),
+    SwinVisionConfig: (swin.SwinTower, swin.init_rule),
+    RelPosVisionConfig: (vit_relpos.RelPosTower, vit_relpos.init_rule),
+}
+
+
+def vision_tower(v, embed_dim: int) -> nn.Module:
+    """The vision tower module of the config ``v``."""
+    if isinstance(v, VisionConfig):
+        cls = vit.TimmVisionTransformer if v.timm_trunk else VisionTransformer
+        return cls(v, embed_dim)
+    return _TOWERS[type(v)][0](v, embed_dim)
 
 
 class CLIP(nn.Module):
@@ -36,7 +68,7 @@ class CLIP(nn.Module):
         super().__init__()
         t, v = cfg.text, cfg.vision
         self.cfg = cfg
-        self.visual = VisionTransformer(v, cfg.embed_dim)
+        self.visual = vision_tower(v, cfg.embed_dim)
         self.transformer = layers.Transformer(t.width, t.layers, t.heads, t.mlp_ratio, t.ln_eps,
                                               layer_scale=t.ls_init_value is not None)
         self.token_embedding = nn.Embedding(t.vocab_size, t.width)
@@ -46,9 +78,10 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(float(cfg.init_logit_scale)))
         if cfg.init_logit_bias is not None:
             self.logit_bias = nn.Parameter(torch.tensor(float(cfg.init_logit_bias)))
-        if v.pool_type == "map" or text_projection_b:
+        map_pool = isinstance(v, VisionConfig) and v.pool_type == "map"
+        if map_pool or text_projection_b:
             self.latteclip = nn.Module()  # the JAX package's own checkpoint namespace
-            if v.pool_type == "map":
+            if map_pool:
                 self.latteclip.visual = nn.Module()
                 self.latteclip.visual.map_head = MapHead(v.width, int(v.width * v.mlp_ratio))
             if text_projection_b:
@@ -87,7 +120,12 @@ def _init_rule(name: str, cfg: CLIPConfig):
     init_vit_params and init_map_head_params, models/text.py::
     init_text_params, models/clip.py::init_clip_params)."""
     visual = name.startswith(("visual.", "latteclip.visual."))
-    tower = cfg.vision if visual else cfg.text
+    v = cfg.vision
+    if visual and not isinstance(v, VisionConfig):
+        return _TOWERS[type(v)][1](name, v, cfg.embed_dim)
+    if visual and v.timm_trunk:
+        return vit.timm_init_rule(name, v, cfg.embed_dim)
+    tower = v if visual else cfg.text
     D, L = tower.width, tower.layers
     scale = D ** -0.5
     proj_std = scale * (2 * L) ** -0.5
@@ -124,7 +162,11 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
     """A CLIP module with seeded random weights (float32) on ``device``.
 
     Normals come from ``generator`` (a CPU ``torch.Generator``) in the
-    module's parameter order, so a seed gives the same weights on any device."""
+    module's parameter order, so a seed gives the same weights on any device:
+    N(0, std^2), He's N(0, 2 / fan_in) for the ModifiedResNet's convolutions,
+    or N(0, std^2) truncated at two standard deviations (ConvNeXt's) drawn
+    by the inverse CDF. Buffers (BatchNorm's statistics) keep their
+    identity values."""
     dev = resolve_device(device)
     model = CLIP(cfg)
     with torch.no_grad():
@@ -135,8 +177,14 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
             elif kind == "sincos":
                 v = cfg.vision
                 p.copy_(torch.from_numpy(sincos_2d(v.width, v.grid, not v.no_cls_token)))
+            elif kind == "trunc_normal":
+                lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+                u = lo + (1.0 - 2.0 * lo) * torch.rand(p.shape, generator=generator,
+                                                       dtype=torch.float64)
+                p.copy_((math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * value).float())
             else:
-                p.copy_(torch.randn(p.shape, generator=generator) * value)
+                std = (2.0 / p[0].numel()) ** 0.5 if kind == "he_normal" else value
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
     return model.to(dev)
 
 
@@ -148,12 +196,27 @@ def encode_image(model: CLIP, images: torch.Tensor, *, normalize: bool = False,
     ``attention`` (``kernels.ATTENTION_CHOICES``) and ``ln_linear``
     (``"unfused"`` or ``"fused"``) select the kernel routes; ``remat``
     rematerialises each block in the backward; ``train`` applies the
-    config's patch dropout, drawn from ``generator``."""
-    cfg = model.cfg
-    feats = vit_forward(model.visual, images, dtype=model.compute_dtype,
-                        quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh,
-                        map_head=model.map_head, attention=attention, pack_pairs=pack_pairs,
-                        ln_linear=ln_linear, remat=remat, train=train, generator=generator)
+    config's patch dropout (ConvNeXt's drop-path), drawn from ``generator``.
+    Each tower takes what its JAX forward takes: EVA02 the attention route
+    and remat, Swin and ViT-relpos remat, ModifiedResNet none of them."""
+    cfg, v, dtype = model.cfg, model.cfg.vision, model.compute_dtype
+    if isinstance(v, VisionConfig):
+        feats = vit_forward(model.visual, images, dtype=dtype,
+                            quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh,
+                            map_head=model.map_head, attention=attention, pack_pairs=pack_pairs,
+                            ln_linear=ln_linear, remat=remat, train=train, generator=generator)
+    elif isinstance(v, Eva02VisionConfig):
+        feats = eva02.eva02_forward(model.visual, images, dtype=dtype, attention=attention,
+                                    remat=remat)
+    elif isinstance(v, ResNetVisionConfig):
+        feats = resnet.resnet_forward(model.visual, images, dtype=dtype)
+    elif isinstance(v, ConvNeXtVisionConfig):
+        feats = convnext.convnext_forward(model.visual, images, dtype=dtype, remat=remat,
+                                          train=train, generator=generator)
+    elif isinstance(v, SwinVisionConfig):
+        feats = swin.swin_forward(model.visual, images, dtype=dtype, remat=remat)
+    else:
+        feats = vit_relpos.relpos_forward(model.visual, images, dtype=dtype, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats
 
 

@@ -78,6 +78,27 @@ class Attention(nn.Module):
         self.out_proj = nn.Linear(width, width)
 
 
+class EvaAttention(nn.Module):
+    """The parameters of an EVA attention (timm's ``q_bias``/``v_bias`` or
+    ``q_proj``/``v_proj`` biases, set by the tower) and ``k_bias``, the key
+    slice of the JAX package's packed in-projection bias. timm keeps that
+    slice at zero; JAX's tree holds it as a parameter that trains, and its
+    checkpoints drop it. So does this module: ``k_bias`` trains, stays out of
+    the state dict, and loads as zeros from a state dict without it."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.k_bias = nn.Parameter(torch.zeros(width))
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        destination.pop(prefix + "k_bias", None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.setdefault(prefix + "k_bias", torch.zeros_like(self.k_bias))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
 class Mlp(nn.Module):
     def __init__(self, width: int, hidden: int):
         super().__init__()
@@ -116,23 +137,40 @@ class ResidualAttentionBlock(nn.Module):
         """``ln_linear`` routes the two LayerNorm -> projection pairs
         (``fused.ln_linear``); ``attention`` the attention (``kernels``);
         ``residuals`` records or replays its output under remat."""
-        qkv = fused.ln_linear(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
-                              self.attn.in_proj_bias, dtype, self.ln_1.eps, ln_linear)
-        if seg_ids is not None:
-            a = attention_core_qkv_segmented(qkv, self.attn.heads, seg_ids, causal, attention,
-                                             residuals)
-        else:
-            a = attention_core_qkv(qkv, self.attn.heads, causal, attention, residuals)
-        a = dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias, dtype)
-        if self.ls_1 is not None:
-            a = a * self.ls_1.gamma.to(dtype)
-        x = x + a
-        h = act(fused.ln_linear(x, self.ln_2.weight, self.ln_2.bias, self.mlp.c_fc.weight,
-                                self.mlp.c_fc.bias, dtype, self.ln_2.eps, ln_linear))
-        h = dense(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, dtype)
-        if self.ls_2 is not None:
-            h = h * self.ls_2.gamma.to(dtype)
-        return x + h
+        return pre_norm_block(
+            x, self.ln_1, self.attn.in_proj_weight, self.attn.in_proj_bias, self.attn.heads,
+            self.attn.out_proj, self.ln_2, self.mlp.c_fc, self.mlp.c_proj,
+            self.ls_1.gamma if self.ls_1 is not None else None,
+            self.ls_2.gamma if self.ls_2 is not None else None,
+            causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
+            ln_linear=ln_linear, residuals=residuals)
+
+
+def pre_norm_block(x: torch.Tensor, ln_1: nn.LayerNorm, in_w: torch.Tensor,
+                   in_b: torch.Tensor, heads: int, out_proj: nn.Linear, ln_2: nn.LayerNorm,
+                   fc: nn.Linear, proj: nn.Linear, ls_1: Optional[torch.Tensor],
+                   ls_2: Optional[torch.Tensor], *, causal: bool, act, dtype: torch.dtype,
+                   seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
+                   ln_linear: str = "unfused",
+                   residuals: Optional[AttentionResiduals] = None) -> torch.Tensor:
+    """JAX's ``residual_block`` on one block's parts, whatever their names
+    (OpenCLIP's or timm's): ``x + ls_1 * attn(ln_1(x))``, then
+    ``+ ls_2 * mlp(ln_2(.))``."""
+    qkv = fused.ln_linear(x, ln_1.weight, ln_1.bias, in_w, in_b, dtype, ln_1.eps, ln_linear)
+    if seg_ids is not None:
+        a = attention_core_qkv_segmented(qkv, heads, seg_ids, causal, attention, residuals)
+    else:
+        a = attention_core_qkv(qkv, heads, causal, attention, residuals)
+    a = dense(a, out_proj.weight, out_proj.bias, dtype)
+    if ls_1 is not None:
+        a = a * ls_1.to(dtype)
+    x = x + a
+    h = act(fused.ln_linear(x, ln_2.weight, ln_2.bias, fc.weight, fc.bias, dtype, ln_2.eps,
+                            ln_linear))
+    h = dense(h, proj.weight, proj.bias, dtype)
+    if ls_2 is not None:
+        h = h * ls_2.to(dtype)
+    return x + h
 
 
 class _BlockRemat(torch.autograd.Function):
@@ -174,12 +212,18 @@ class Transformer(nn.Module):
     def forward(self, x: torch.Tensor, *, causal: bool, act, dtype: torch.dtype,
                 seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
                 ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
-        kwargs = dict(causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
-                      ln_linear=ln_linear)
-        remat = remat and torch.is_grad_enabled()
-        for block in self.resblocks:
-            if remat:
-                x = _BlockRemat.apply(x, block, kwargs, *block.parameters())
-            else:
-                x = block(x, **kwargs)
-        return x
+        return run_blocks(self.resblocks, x, remat, causal=causal, act=act, dtype=dtype,
+                          seg_ids=seg_ids, attention=attention, ln_linear=ln_linear)
+
+
+def run_blocks(blocks, x: torch.Tensor, remat: bool = False, **kwargs) -> torch.Tensor:
+    """Run ``blocks`` in order on ``x``, each called as ``block(x, **kwargs)``
+    (and ``residuals=`` under remat, :class:`_BlockRemat`); ``remat`` only
+    where autograd records."""
+    remat = remat and torch.is_grad_enabled()
+    for block in blocks:
+        if remat:
+            x = _BlockRemat.apply(x, block, kwargs, *block.parameters())
+        else:
+            x = block(x, **kwargs)
+    return x

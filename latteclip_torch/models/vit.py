@@ -10,6 +10,13 @@ the JAX tower's pooling orders: the big_vision MAP head after ``ln_post``
 CLIPA), or ``ln_post`` then token or average pooling (OpenCLIP's
 ``VisionTransformer``); last the projection, where the tower has one.
 
+The timm trunks the JAX package runs on this tower (EVA01's giant,
+``vit_medium_patch16_gap_256``) are :class:`TimmVisionTransformer`, the same
+computation under timm's parameter names (``visual.trunk.*``, OpenCLIP's
+``visual.head.proj`` for ViT-medium's unbiased projection): a biased patch
+conv, EVA's q/v biases (with the k bias JAX trains but does not save) and
+its biased head.
+
 Pair-packing: at ViT-B/32's L=50, two images share one row of 100 tokens
 and the segment-masked kernel keeps each image to itself, with exactly the
 same attention math. The port packs only when that kernel will run (a bf16
@@ -31,7 +38,9 @@ from latteclip_torch.models import layers
 class VisionTransformer(nn.Module):
     """Parameters under OpenCLIP's ``visual.*`` names. ``ln_pre`` stays a
     parameter under ``no_ln_pre`` (unused), as in the JAX parameter tree;
-    a SigLIP tower's MAP head lives outside ``visual`` (:class:`MapHead`)."""
+    a SigLIP tower's MAP head lives outside ``visual`` (:class:`MapHead`).
+    :func:`vit_forward` reads a tower through the accessors below, which
+    :class:`TimmVisionTransformer` also has."""
 
     def __init__(self, cfg: VisionConfig, embed_dim: int):
         super().__init__()
@@ -47,6 +56,115 @@ class VisionTransformer(nn.Module):
         self.ln_post = layers.LayerNorm(D, eps=cfg.ln_eps)
         if has_proj(cfg, embed_dim):
             self.proj = nn.Parameter(torch.empty(D, embed_dim))
+
+    def patch_embed(self):
+        return self.conv1.weight, None
+
+    def cls_pos(self):
+        return getattr(self, "class_embedding", None), self.positional_embedding
+
+    @property
+    def blocks(self):
+        return self.transformer.resblocks
+
+    def projection(self):
+        """(weight [E, D], bias) of the projection, or None."""
+        return (self.proj.t(), None) if hasattr(self, "proj") else None
+
+
+class TimmBlock(nn.Module):
+    """timm's pre-norm ViT block (``norm1``, ``attn.qkv``, ``attn.proj``,
+    ``norm2``, ``mlp.fc1``, ``mlp.fc2``); with ``qv_bias`` the qkv
+    projection has EVA's separate ``q_bias`` and ``v_bias`` and the k bias
+    JAX trains but does not save (:class:`layers.EvaAttention`)."""
+
+    def __init__(self, width: int, heads: int, hidden: int, eps: float, qv_bias: bool):
+        super().__init__()
+        self.heads = heads
+        self.norm1 = layers.LayerNorm(width, eps=eps)
+        self.attn = layers.EvaAttention(width) if qv_bias else nn.Module()
+        self.attn.qkv = nn.Linear(width, 3 * width, bias=not qv_bias)
+        if qv_bias:
+            self.attn.q_bias = nn.Parameter(torch.empty(width))
+            self.attn.v_bias = nn.Parameter(torch.empty(width))
+        self.attn.proj = nn.Linear(width, width)
+        self.norm2 = layers.LayerNorm(width, eps=eps)
+        self.mlp = nn.Module()
+        self.mlp.fc1 = nn.Linear(width, hidden)
+        self.mlp.fc2 = nn.Linear(hidden, width)
+
+    def forward(self, x, **kwargs):
+        a = self.attn
+        in_b = a.qkv.bias if a.qkv.bias is not None else torch.cat([a.q_bias, a.k_bias, a.v_bias])
+        return layers.pre_norm_block(x, self.norm1, a.qkv.weight, in_b, self.heads, a.proj,
+                                     self.norm2, self.mlp.fc1, self.mlp.fc2, None, None, **kwargs)
+
+
+def timm_init_rule(name: str, cfg: VisionConfig, embed_dim: int):
+    """JAX ``init_vit_params``'s rule for one parameter of a timm trunk."""
+    D = cfg.width
+    scale = D ** -0.5
+    proj_std = scale * (2 * cfg.layers) ** -0.5
+    leaf = name.rsplit(".", 1)[-1]
+    if "norm" in name:
+        return ("const", 1.0 if leaf == "weight" else 0.0)
+    if leaf.endswith("bias"):
+        return ("const", 0.0)
+    if name.endswith(("attn.proj.weight", "mlp.fc2.weight")):
+        return ("normal", proj_std)
+    if name.endswith("mlp.fc1.weight"):
+        return ("normal", (2 * D) ** -0.5)
+    return ("normal", scale)  # patch conv, class token, positions, qkv, head
+
+
+class TimmVisionTransformer(nn.Module):
+    """A timm ViT trunk on the native tower's computation, under timm's
+    names: ``trunk.patch_embed.proj`` (biased), ``trunk.cls_token`` and
+    ``trunk.pos_embed`` ``[1, L, D]``, ``trunk.blocks``, then EVA's
+    ``trunk.norm`` and biased ``trunk.head``, or ViT-medium's
+    ``trunk.fc_norm`` after the pool and OpenCLIP's unbiased
+    ``head.proj``. Neither trunk has ``ln_pre``."""
+
+    def __init__(self, cfg: VisionConfig, embed_dim: int):
+        super().__init__()
+        D, P = cfg.width, cfg.patch_size
+        self.cfg = cfg
+        eva = cfg.timm_trunk.startswith("eva")
+        self.trunk = nn.Module()
+        self.trunk.patch_embed = nn.Module()
+        self.trunk.patch_embed.proj = nn.Conv2d(3, D, kernel_size=P, stride=P)
+        if not cfg.no_cls_token:
+            self.trunk.cls_token = nn.Parameter(torch.empty(1, 1, D))
+        self.trunk.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, D))
+        self.trunk.blocks = nn.ModuleList(
+            TimmBlock(D, cfg.heads, int(D * cfg.mlp_ratio), cfg.ln_eps, qv_bias=eva)
+            for _ in range(cfg.layers))
+        if eva:
+            self.trunk.norm = layers.LayerNorm(D, eps=cfg.ln_eps)
+            self.trunk.head = nn.Linear(D, embed_dim)
+        else:
+            self.trunk.fc_norm = layers.LayerNorm(D, eps=cfg.ln_eps)
+            self.head = nn.Module()
+            self.head.proj = nn.Linear(D, embed_dim, bias=False)
+
+    def patch_embed(self):
+        return self.trunk.patch_embed.proj.weight, self.trunk.patch_embed.proj.bias
+
+    def cls_pos(self):
+        cls = getattr(self.trunk, "cls_token", None)
+        return (cls.reshape(-1) if cls is not None else None), self.trunk.pos_embed[0]
+
+    @property
+    def blocks(self):
+        return self.trunk.blocks
+
+    @property
+    def ln_post(self):
+        return self.trunk.norm if hasattr(self.trunk, "norm") else self.trunk.fc_norm
+
+    def projection(self):
+        lin = self.trunk.head if hasattr(self.trunk, "head") else self.head.proj
+        return lin.weight, lin.bias
 
 
 def has_proj(cfg: VisionConfig, embed_dim: int) -> bool:
@@ -133,7 +251,7 @@ def pack_pairs_auto(B: int, L: int, cfg: VisionConfig, dtype: torch.dtype,
 
 
 def vit_forward(
-    visual: VisionTransformer,
+    visual,
     images: torch.Tensor,
     *,
     dtype: torch.dtype = torch.bfloat16,
@@ -147,11 +265,12 @@ def vit_forward(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Images [B, H, W, 3] -> pooled features [B, embed_dim] (float32).
+    """Images [B, H, W, 3] -> pooled features [B, embed_dim] (float32), on
+    a :class:`VisionTransformer` or a :class:`TimmVisionTransformer`.
     ``attention`` and ``ln_linear`` select the routes of
-    :meth:`layers.ResidualAttentionBlock.forward`; ``remat`` rematerialises
-    each block (:class:`layers.Transformer`). ``train`` applies the config's
-    patch dropout, drawn from ``generator``; ``map_head`` is the MAP head of a
+    :func:`layers.pre_norm_block`; ``remat`` rematerialises each block
+    (:func:`layers.run_blocks`). ``train`` applies the config's patch
+    dropout, drawn from ``generator``; ``map_head`` is the MAP head of a
     tower that pools with one."""
     cfg = visual.cfg
     if cfg.no_cls_token and cfg.pool_type == "tok":
@@ -160,12 +279,13 @@ def vit_forward(
     act = layers.activation(quick_gelu, gelu_tanh)
     B = images.shape[0]
     P = cfg.patch_size
-    # conv1.weight [D, 3, P, P] -> [D, P*P*3] in patchify's (i, j, c) order
-    w = visual.conv1.weight.permute(0, 2, 3, 1).reshape(cfg.width, P * P * 3)
-    x = layers.dense(patchify(images, P), w, None, dtype)               # [B, N, D]
-    if not cfg.no_cls_token:
-        x = torch.cat([visual.class_embedding.to(dtype).expand(B, 1, cfg.width), x], dim=1)
-    pos = visual.positional_embedding
+    conv_w, conv_b = visual.patch_embed()
+    # conv weight [D, 3, P, P] -> [D, P*P*3] in patchify's (i, j, c) order
+    w = conv_w.permute(0, 2, 3, 1).reshape(cfg.width, P * P * 3)
+    x = layers.dense(patchify(images, P), w, conv_b, dtype)             # [B, N, D]
+    cls, pos = visual.cls_pos()
+    if cls is not None:
+        x = torch.cat([cls.to(dtype).expand(B, 1, cfg.width), x], dim=1)
     if cfg.pos_embed_type == "sin_cos_2d":  # a fixed embedding
         pos = pos.detach()
     x = x + pos.to(dtype)
@@ -177,18 +297,16 @@ def vit_forward(
     L = x.shape[1]
     if pack_pairs is None:
         pack_pairs = pack_pairs_auto(B, L, cfg, dtype, x.device, attention)
+    kwargs = dict(causal=False, act=act, dtype=dtype, attention=attention, ln_linear=ln_linear)
     if pack_pairs:
         if B % 2:
             raise ValueError(f"pair-packing needs an even batch, got {B}")
         seg = torch.arange(1, 3, dtype=torch.int32, device=x.device).repeat_interleave(L)
-        x = visual.transformer(
-            x.reshape(B // 2, 2 * L, cfg.width), causal=False, act=act, dtype=dtype,
-            seg_ids=seg.expand(B // 2, 2 * L), attention=attention, ln_linear=ln_linear,
-            remat=remat)
+        x = layers.run_blocks(visual.blocks, x.reshape(B // 2, 2 * L, cfg.width), remat,
+                              seg_ids=seg.expand(B // 2, 2 * L), **kwargs)
         x = x.reshape(B, L, cfg.width)
     else:
-        x = visual.transformer(x, causal=False, act=act, dtype=dtype, attention=attention,
-                               ln_linear=ln_linear, remat=remat)
+        x = layers.run_blocks(visual.blocks, x, remat, **kwargs)
 
     off = 0 if cfg.no_cls_token else 1
     if cfg.pool_type == "map":
@@ -198,6 +316,7 @@ def vit_forward(
     else:
         x = visual.ln_post(x)
         pooled = x[:, off:].mean(dim=1) if cfg.pool_type == "avg" else x[:, 0]
-    if hasattr(visual, "proj"):
-        pooled = layers.dense(pooled, visual.proj.t(), None, dtype)
+    proj = visual.projection()
+    if proj is not None:
+        pooled = layers.dense(pooled, proj[0], proj[1], dtype)
     return pooled.float()

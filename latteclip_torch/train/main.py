@@ -164,9 +164,10 @@ def build_model(args, device):
     if args.force_quick_gelu:
         changes["quick_gelu"] = True
     if args.force_image_size:
-        # the loader resizes a checkpoint's positional embedding to the new grid
-        patch = cfg.vision.patch_size
-        if args.force_image_size % patch != 0:
+        # the loader resizes a checkpoint's positional embedding to the new grid;
+        # the towers without patches (ModifiedResNet, ConvNeXt, ...) take any size
+        patch = getattr(cfg.vision, "patch_size", None)
+        if patch and args.force_image_size % patch != 0:
             raise SystemExit(f"--force-image-size {args.force_image_size} must be a multiple "
                              f"of the model's patch size ({patch})")
         changes["vision"] = dataclasses.replace(cfg.vision, image_size=args.force_image_size)

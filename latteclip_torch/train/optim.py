@@ -43,20 +43,43 @@ OpenCLIP, where the two differ:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+import re
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from latteclip_torch.config import (
+    CLIPConfig,
+    Eva02VisionConfig,
+    RelPosVisionConfig,
+    SwinVisionConfig,
+    VisionConfig,
+)
+
 Schedule = Callable[[int], float]
+
+
+# Swin's and ViT-relpos's blocks: the JAX tree keeps them as lists under a
+# key "blocks", which JAX's decay_mask takes for a stack on a layer axis, so
+# it counts one dimension less and their matrices get no weight decay there
+_LISTED_BLOCKS = re.compile(r"visual\.trunk\.(layers\.\d+\.)?blocks\.")
+# timm's leading batch axis, which the JAX tree does not have
+_TIMM_BATCH_AXES = {"visual.trunk.cls_token": 2, "visual.trunk.pos_embed": 1}
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where AdamW's weight decay applies: 2-D and
     more, and no norm, bias (``*bias``, the MAP head's ``*_b``) or logit
-    scale, as JAX's ``decay_mask`` decides on the same parameters."""
+    scale, as JAX's ``decay_mask`` decides on the same parameters: timm's
+    class token and positions without their batch axis, and the blocks of
+    a Swin or ViT-relpos tower one dimension less, as JAX counts them."""
+    listed = isinstance(getattr(model, "cfg", None), CLIPConfig) and \
+        isinstance(model.cfg.vision, (SwinVisionConfig, RelPosVisionConfig))
     return {
-        name: p.ndim >= 2 and not name.endswith("_b")
+        name: p.ndim - (1 if listed and _LISTED_BLOCKS.match(name) else 0)
+        - _TIMM_BATCH_AXES.get(name, 0) >= 2
+        and not name.endswith("_b")
         and not any(k in name for k in ("bn", "ln", "bias", "logit_scale"))
         for name, p in model.named_parameters()
     }
@@ -132,14 +155,35 @@ def tower_parameters(model: nn.Module, tower: str) -> List[nn.Parameter]:
     JAX package's parameter subtree of that name."""
     return [p for name, p in model.named_parameters() if _TOWER[tower](name)]
 
-# the reference's lock groups by tower (transformer.py:435-466): the head
-# (embeddings and pre-norm) and the post group that travels with the last
-# block; blocks are "<prefix><i>."; the projection is what remains
-_TOWER_HEAD = {"visual": ("visual.conv1.", "visual.class_embedding", "visual.positional_embedding",
-                          "visual.ln_pre."),
-               "text": ("token_embedding.", "positional_embedding")}
-_TOWER_POST = {"visual": ("visual.ln_post.", "latteclip.visual.map_head."), "text": ("ln_final.",)}
-_TOWER_BLOCKS = {"visual": "visual.transformer.resblocks.", "text": "transformer.resblocks."}
+# the reference's lock groups by tower (transformer.py:435-466): the
+# blocks ("<prefix><i>."), the head (embeddings and pre-norm) and the post
+# group that travels with the last block; the projection is what remains
+_GROUPS = {
+    "text": ("transformer.resblocks.", ("token_embedding.", "positional_embedding"),
+             ("ln_final.",)),
+    "visual": ("visual.transformer.resblocks.",
+               ("visual.conv1.", "visual.class_embedding", "visual.positional_embedding",
+                "visual.ln_pre."),
+               ("visual.ln_post.", "latteclip.visual.map_head.")),
+    "visual_timm": ("visual.trunk.blocks.",
+                    ("visual.trunk.patch_embed.", "visual.trunk.cls_token", "visual.trunk.pos_embed"),
+                    ("visual.trunk.norm.", "visual.trunk.fc_norm.")),
+}
+
+
+def _groups(model: nn.Module, tower: str) -> Tuple[str, tuple, tuple]:
+    """(blocks prefix, head prefixes, post prefixes) of ``tower``; a vision
+    tower without a stack of blocks in the JAX tree (ModifiedResNet,
+    ConvNeXt, Swin) raises JAX's ``ValueError``, as does ViT-relpos, whose
+    JAX blocks are a list that its ``mask_tower_updates`` cannot slice."""
+    if tower == "text":
+        return _GROUPS["text"]
+    v = model.cfg.vision
+    if isinstance(v, VisionConfig):
+        return _GROUPS["visual_timm" if v.timm_trunk else "visual"]
+    if isinstance(v, Eva02VisionConfig):
+        return _GROUPS["visual_timm"]
+    return None
 
 
 def trainable_mask(model: nn.Module, *, lock_image: bool = False,
@@ -162,7 +206,13 @@ def mask_tower_updates(model: nn.Module, tower: str, unlocked_groups: int) -> Di
     last ``unlocked_groups - 1`` blocks, the post group from 2, the head
     only once every group is unlocked, the projection always; names outside
     the tower keep their updates."""
-    prefix = _TOWER_BLOCKS[tower]
+    groups = _groups(model, tower)
+    if groups is None:
+        raise ValueError(
+            f"partial unlocking (unlocked_groups={unlocked_groups}) is "
+            f"only supported for transformer towers; the {tower!r} tower "
+            "has no 'blocks' stack (use full locking instead)")
+    prefix, head, post = groups
     num_layers = len({n[len(prefix):].split(".", 1)[0]
                       for n, _ in model.named_parameters() if n.startswith(prefix)})
     keep = unlock_groups_vector(num_layers, max(unlocked_groups - 1, 0))
@@ -172,9 +222,9 @@ def mask_tower_updates(model: nn.Module, tower: str, unlocked_groups: int) -> Di
             out[name] = True
         elif name.startswith(prefix):
             out[name] = keep[int(name[len(prefix):].split(".", 1)[0])]
-        elif name.startswith(_TOWER_HEAD[tower]):
+        elif name.startswith(head):
             out[name] = unlocked_groups >= num_layers + 2
-        elif name.startswith(_TOWER_POST[tower]):
+        elif name.startswith(post):
             out[name] = unlocked_groups >= 2
         else:  # the projection and anything unmatched stay trainable, as in JAX
             out[name] = unlocked_groups >= 1

@@ -1373,3 +1373,85 @@ def test_cuda_remat_launches_each_attention_forward_once(packing):
     assert runs[True][3] == runs[False][3]
     assert runs[True][0] == runs[False][0]
     assert float(torch.nn.functional.cosine_similarity(runs[True][1], runs[False][1], dim=0)) >= 0.9999
+
+
+def _tower_model(vision: dict, seed: int = 0):
+    """A two-layer tower of ``vision`` with a one-layer text tower, seeded."""
+    from latteclip_torch.config import config_from_dict
+    from latteclip_torch.models import clip as clip_mod
+
+    cfg = config_from_dict("tower", {
+        "embed_dim": 64, "vision_cfg": vision,
+        "text_cfg": {"context_length": 16, "vocab_size": 100, "width": 64, "heads": 1, "layers": 1}})
+    return clip_mod.init_clip_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_eva02_tower_rope_before_kernels_matches_plain_route(monkeypatch):
+    """EVA02-B's blocks at 224 px / patch 16 (L = 197, two heads of 64,
+    rope applied to the packed qkv before K1), bf16 on the card: the kernel
+    route launches K1 once a layer forward and K3 once a layer backward;
+    features agree with the plain route at cosine >= 0.999 row by row and
+    the gradient at cosine >= 0.99 (phase 6's bounds)."""
+    _need_cuda()
+    from latteclip_torch import config as C
+    from latteclip_torch.models import clip as clip_mod
+
+    monkeypatch.setitem(C.EVA02_TRUNKS, "eva02_gpu_test", dict(
+        patch_size=16, width=128, layers=2, head_width=64, swiglu_hidden=256, ref_feat_shape=16))
+    model = _tower_model({"image_size": 224, "timm_model_name": "eva02_gpu_test"})
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((8, 224, 224, 3)).astype(np.float32)).cuda()
+    target = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32)).cuda()
+    feats, grads = {}, {}
+    for route in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        A.reset_launch_counts()
+        f = clip_mod.encode_image(model, x, attention=route)
+        (f * target).sum().backward()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in A.launch_counts.items() if v}
+        assert counts == ({"flash_fwd": 2, "flash_bwd": 2} if route == "kernel" else {}), counts
+        feats[route] = f.detach()
+        grads[route] = torch.cat([p.grad.flatten().float() for p in model.visual.parameters()])
+    cos = torch.nn.functional.cosine_similarity(feats["kernel"], feats["plain"], dim=-1)
+    assert float(cos.min()) >= 0.999
+    assert float(torch.nn.functional.cosine_similarity(grads["kernel"], grads["plain"], dim=0)) >= 0.99
+
+
+@pytest.mark.gpu
+def test_cuda_resnet_tower_matches_float32_and_keeps_its_statistics():
+    """The ModifiedResNet in bf16 on the card (cuDNN convolutions, float32
+    BatchNorm from running statistics) against the same model in float32:
+    features at cosine >= 0.999 row by row, no attention launch, and after a
+    backward and an SGD step every BatchNorm statistic bit-equal to its
+    start."""
+    _need_cuda()
+    import copy
+    import dataclasses
+
+    from latteclip_torch.models import clip as clip_mod
+
+    model = _tower_model({"image_size": 224, "layers": [1, 2, 1, 1], "width": 16})
+    with torch.no_grad():
+        for name, b in model.visual.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=torch.Generator().manual_seed(len(name)))
+                    .to(b.device) + (0.5 if name.endswith("var") else -0.5))
+    start = {k: b.clone() for k, b in model.named_buffers()}
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((8, 224, 224, 3))
+                         .astype(np.float32)).cuda()
+    A.reset_launch_counts()
+    f = clip_mod.encode_image(model, x, normalize=True)
+    f.square().sum().backward()
+    torch.optim.SGD(model.parameters(), lr=1e-2).step()
+    assert not any(A.launch_counts.values())
+    for k, b in model.named_buffers():
+        assert torch.equal(b, start[k]), k
+    reference = copy.deepcopy(model)
+    reference.cfg = dataclasses.replace(model.cfg, compute_dtype="float32")
+    with torch.no_grad():
+        ours = clip_mod.encode_image(model, x, normalize=True)
+        ref = clip_mod.encode_image(reference, x, normalize=True)
+    assert model.compute_dtype == torch.bfloat16 and ours.dtype == torch.float32
+    cos = torch.nn.functional.cosine_similarity(ours, ref, dim=-1)
+    assert float(cos.min()) >= 0.999

@@ -85,9 +85,9 @@ def test_config_matches_jax_and_refuses_other_towers():
         assert (t.text.width, t.text.heads, t.text.layers, t.text.context_length) == \
                (j.text.width, j.text.heads, j.text.layers, j.text.context_length)
     with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config.config_from_dict("x", {"embed_dim": 8, "vision_cfg": {"timm_model_name": "convnext_base"}})
+        torch_config.config_from_dict("x", {"embed_dim": 8, "multimodal_cfg": {"width": 8}})
     with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config.config_from_dict("x", {"embed_dim": 8, "vision_cfg": {"layers": [3, 4, 6, 3]}})
+        torch_config.config_from_dict("x", {"embed_dim": 8, "text_cfg": {"hf_model_name": "roberta-base"}})
 
 
 @pytest.mark.parametrize("raw", [

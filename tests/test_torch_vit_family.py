@@ -1,8 +1,9 @@
 """The port's native ViT family against latteclip_tpu: every ``ViT-*`` config,
 the tower options those configs set, and the pieces that come with them.
 
-* every ``ViT-*.json`` of the JAX package parses in the port to JAX's fields
-  (the port's copy byte-identical to JAX's file);
+* every ``ViT-*.json`` of the JAX package, and every config of the towers of
+  tests/test_torch_towers.py, parses in the port to JAX's fields (the port's
+  copy byte-identical to JAX's file);
 * five tiny configs (two layers, widths 128), one per family of options:
   LayerScale in both towers (ViT-M-16-alt-like), CLIPA-like (no ``ln_pre``,
   average pool then LayerNorm, text pooled at the last column with no causal
@@ -25,7 +26,7 @@ the tower options those configs set, and the pieces that come with them.
   of tests/test_torch_train_step.py (losses 1e-5, parameters and bank 2e-5);
 * the pretrained registry: the same table, the same file names, the same
   refusals, and ``build_model``'s per-tag overrides equal to JAX's for every
-  (ViT model, tag) pair;
+  (model, tag) pair of the ViT, RN, ConvNeXt and EVA configs;
 * the dependency-free sentencepiece tokenizer on the toy model of
   tests/test_tokenizer.py, and ``get_tokenizer_for_config``'s refusals;
 * patch dropout keeps the same tokens on both sides from the same scores.
@@ -73,8 +74,10 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_CONFIGS = os.path.join(REPO, "latteclip_tpu", "core", "model_configs")
+# the native ViTs, and the timm-trunk and ResNet towers (tests/test_torch_towers.py)
 VIT_NAMES = sorted(f[:-len(".json")] for f in os.listdir(JAX_CONFIGS)
-                   if f.startswith("ViT-") and f.endswith(".json"))
+                   if f.startswith(("ViT-", "RN", "convnext_", "EVA", "swin_", "vit_relpos_",
+                                    "vit_medium_")) and f.endswith(".json"))
 REL_TOL = 1e-4
 VOCAB, CTX, EOT = 500, 16, 499
 
@@ -159,8 +162,10 @@ def test_every_vit_config_parses_as_jax(name):
             assert td["hf_tokenizer_name"]
     top = [f.name for f in dataclasses.fields(t) if f.name not in ("vision", "text")]
     assert {k: getattr(t, k) for k in top} == {k: getattr(j, k) for k in top}
-    assert (t.vision.seq_len, t.vision.heads, t.vision.grid) == \
-        (j.vision.seq_len, j.vision.heads, j.vision.grid)
+    assert type(t.vision).__name__ == type(j.vision).__name__
+    for prop in ("seq_len", "heads", "grid", "embed_width", "depths", "dims"):
+        if hasattr(type(t.vision), prop):
+            assert getattr(t.vision, prop) == getattr(j.vision, prop), prop
 
 
 @pytest.mark.parametrize("name", list(TINY))
@@ -355,7 +360,7 @@ def test_pretrained_registry_equals_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("model", sorted({m for m, _ in jax_pretrained.list_pretrained()
-                                          if m.startswith("ViT-")}))
+                                          if m.startswith(("ViT-", "RN", "convnext_", "EVA"))}))
 def test_pretrained_tag_overrides_equal_jax(model, tmp_path, monkeypatch):
     """``build_model`` with a tag, the checkpoint loaders stubbed: the config's
     QuickGELU, mean, std and resize mode equal JAX's (after its
