@@ -267,7 +267,41 @@ Phases, each raising on failure:
    kernel shapes: K1 at [64, 256, 8 x 3 x 64] and [1000, 77, 10 x 3 x 64],
    K2 and K4 at packed 640-wide text [64, 128, 10 x 3 x 64], K3 at
    [64, 256, 8 x 3 x 64];
-12. report: one JSON line of kernels, nvidia-smi's line, and the final line
+12. coca_hf: CoCa and the HF text towers, bf16, seed-0 weights; their
+   text towers, CoCa's decoder and attentional pool attend on plain torch
+   (no TPU kernel is behind them), their ViT trunks on K1-K4. (a)
+   coca_ViT-B-32's v2 step at batch 512, 47 classes, captions padded at
+   CoCa's context of 76 (packing is refused for a class-token tower), the
+   colour augment on: warm-up and 10 timed steps with exactly 12
+   flash_fwd_seg and 12 flash_bwd_seg a step (the vision pairs) and nothing
+   else, the caption decoder bit-equal after the steps, a profiled step,
+   peak memory, and the kernel route against the plain one on 64 images at
+   phase 6's bounds: a coca_train line; (b) its FLYP step on CoCaLoss
+   (caption 2, contrastive 1) at batch 512, the same checks but the
+   decoder's and the bank's, a coca_flyp line; (c) roberta-ViT-B-32's v2
+   step (quick GELU vision, a RoBERTa-base text tower on seeded ids: pad 1,
+   positions from 2, phase 6's lengths), as (a), a roberta_train line;
+   (d) both served (the 1000-row classifier, 1279 eval images from pinned
+   memory: 12 K2 a batch of 256 and 12 K1 for the 255, 12 K2 for the
+   prototype request; features at cosine >= 0.999 and prototype top-1 on
+   >= 99% against the plain route, a profiled eval), CoCa's greedy captions
+   (16 at 30 tokens) and one grouped beam search at JAX's defaults timed,
+   the greedy captions equal to the plain route's on >= 90% of tokens:
+   coca_serve and roberta_serve lines; (e) the CLI in process with --model
+   coca_ViT-B-32, --method ours and --method flyp, batch 512, 2 epochs on
+   phase 7's fixture (ours as one epoch and --resume latest for the
+   second): 12 K2 and 12 K4 a step, 12 K2 an eval, the moments restored bit
+   for bit, the decoder bit-equal under ours and moved under flyp, the
+   checkpoint's keys the model's: a coca_cli line; each part's seconds on a
+   coca_hf_seconds line; (f) a geometry line each for coca_ViT-L-14
+   (K1 at 257 tokens, then one training step with its 24 K3 against the
+   plain route, a coca_l14_train line), coca_roberta-ViT-B-32,
+   xlm-roberta-base-ViT-B-32, mt5-base-ViT-B-32, nllb-clip-base,
+   nllb-clip-base-siglip (576 tokens, the MAP head) and, cut to 8 vision
+   and 6 text layers (the cut printed), xlm-roberta-large-ViT-H-14,
+   mt5-xl-ViT-H-14 and nllb-clip-large (vision heads 80 wide: the plain
+   route);
+13. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -1146,7 +1180,8 @@ def device_profile(fn) -> dict:
 
 def serving_inputs(name: str) -> dict:
     """A serving phase's model (full width and depth, random weights from
-    seed 0), tokenizer, the ImageNet classes and templates, the seeded eval
+    seed 0), tokenizer (for an HF text tower :class:`SeededHFTokenizer`),
+    the ImageNet classes and templates, the seeded eval
     batches (4 x 256 + 255 images) and memory bank, after a warm-up of both
     routes (cuBLAS heuristics, allocator), neither timed nor counted."""
     from latteclip_torch.config import get_model_config
@@ -1156,9 +1191,13 @@ def serving_inputs(name: str) -> dict:
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.models.tokenizer import get_tokenizer
 
+    from latteclip_torch.models.hf_text import HFTextConfig
+
     cfg = get_model_config(name)
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
-    tok = get_tokenizer()
+    # an HF tower's ids are seeded (no HF tokenizer on the card); CoCa's context is 76
+    tok = SeededHFTokenizer(cfg) if isinstance(cfg.text, HFTextConfig) else \
+        get_tokenizer(cfg.text.context_length)
     classnames, templates = imagenet_classnames(), get_templates("imagenet")
     rng = np.random.default_rng(0)
     exemplars = exemplar_images(rng, len(classnames), cfg.vision.image_size)
@@ -2578,10 +2617,22 @@ def phase_vit_l_train(smi: str, train: dict):
 
 def text_rows(rng: np.random.Generator, cfg, n: int) -> np.ndarray:
     """Seeded token rows for a text tower: CLIP-vocabulary captions
-    (lognormal lengths, EOT the highest id, zero padding), or for another
-    vocabulary (SigLIP's) ids from 2 up with the sentencepiece tokenizer's
-    layout, eos then padding both id 1."""
+    (lognormal lengths, EOT the highest id, zero padding); for an HF tower
+    its tokenizer's layout at those lengths (:func:`roberta_rows`, or T5's
+    pieces, ``</s>`` and zero padding); for another vocabulary (SigLIP's)
+    ids from 2 up with the sentencepiece tokenizer's layout, eos then
+    padding both id 1."""
+    from latteclip_torch.models.hf_text import HFTextConfig
+
     t = cfg.text
+    if isinstance(t, HFTextConfig):
+        lengths = caption_lengths(rng, n, t.context_length)
+        if t.model_type != "mt5":  # RoBERTa's, XLM-R's and NLLB's layout
+            return roberta_rows(rng, lengths, t.context_length, t.vocab_size)
+        rows = np.zeros((n, t.context_length), np.int32)   # T5: pieces, </s> (1), pad 0
+        for i, ln in enumerate(lengths):
+            rows[i, :ln - 1], rows[i, ln - 1] = rng.integers(2, t.vocab_size, ln - 1), 1
+        return rows
     if t.vocab_size == 49408:
         return caption_rows(rng, caption_lengths(rng, n, t.context_length), 49407)[:, :t.context_length]
     rows = np.ones((n, t.context_length), np.int32)
@@ -2606,7 +2657,8 @@ def vision_kernel_layers(cfg) -> int:
                                     torch.device("cuda")) else 0
 
 
-def geometry_check(smi: str, name: str, depth: Optional[int] = None) -> dict:
+def geometry_check(smi: str, name: str, depth: Optional[int] = None,
+                   text_depth: Optional[int] = None) -> dict:
     """One model of GEOMETRIES at full width and depth, seed-0 weights:
     GEOMETRY_IMAGES seeded images (one exemplar per class with pixel noise)
     and as many seeded text rows through the kernel route and the plain
@@ -2616,17 +2668,28 @@ def geometry_check(smi: str, name: str, depth: Optional[int] = None) -> dict:
     rule), the text tower once a layer. Image and text features agree row
     by row at cosine >= 0.999 and prototype top-1 (the exemplars' plain
     features as the bank) on >= 99% of rows. ``depth`` cuts the vision
-    tower to that many layers (its widths stay), printed in the line."""
+    tower to that many layers (its widths stay) and ``text_depth`` the text
+    tower, printed in the line. Rows of at most 64 tokens run in pairs
+    (flash_fwd_seg); a text tower on plain torch (CoCa's, an HF tower)
+    launches nothing."""
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
     from latteclip_torch.kernels import attention as A
     from latteclip_torch.models import clip as clip_mod
 
+    from latteclip_torch.config import CoCaConfig
+    from latteclip_torch.models.hf_text import HFTextConfig
+
     cfg = get_model_config(name)
     full_depth = getattr(cfg.vision, "layers", None)
+    full_text_depth = cfg.text.layers
     if depth is not None:
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=depth))
+    if text_depth is not None:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, layers=text_depth))
     v = cfg.vision
+    pairs = getattr(v, "seq_len", 0) * 2 <= 128 and GEOMETRY_IMAGES % 2 == 0
+    text_kernel = not (isinstance(cfg, CoCaConfig) or isinstance(cfg.text, HFTextConfig))
     model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     rng = np.random.default_rng(9)
     exemplars = exemplar_images(rng, GEOMETRY_IMAGES, v.image_size)
@@ -2662,11 +2725,13 @@ def geometry_check(smi: str, name: str, depth: Optional[int] = None) -> dict:
     proto = bank.T
     want = {
         "image": {**dict.fromkeys(counts["image"], 0),
-                  **({"flash_fwd": vision_layers} if vision_kernel else {})},
-        "text": {**dict.fromkeys(counts["text"], 0), "flash_fwd": cfg.text.layers},
+                  **({"flash_fwd_seg" if pairs else "flash_fwd": vision_layers}
+                     if vision_kernel else {})},
+        "text": {**dict.fromkeys(counts["text"], 0),
+                 **({"flash_fwd": cfg.text.layers} if text_kernel else {})},
     }
     plan = None
-    if vision_kernel:
+    if vision_kernel and v.seq_len > 128:
         p = A.long_row_plan(GEOMETRY_IMAGES, v.seq_len, v.heads, v.head_width, False,
                             torch.cuda.get_device_properties(0).multi_processor_count)
         plan = {"form": p.form, "warps": p.warps, "ctas_per_bh": p.splits}
@@ -2674,9 +2739,14 @@ def geometry_check(smi: str, name: str, depth: Optional[int] = None) -> dict:
         "model": name, "images": GEOMETRY_IMAGES, "vision_tower": type(v).__name__,
         "vision_tokens": getattr(v, "seq_len", None), "vision_head_width": getattr(v, "head_width", None),
         **({"vision_layers": depth, "vision_layers_full": full_depth} if depth is not None else {}),
-        "vision_route": "kernel" if vision_kernel else "plain",
+        **({"text_layers": text_depth, "text_layers_full": full_text_depth}
+           if text_depth is not None else {}),
+        "vision_route": ("pairs" if pairs else "kernel") if vision_kernel else "plain",
+        "text_tower": type(cfg.text).__name__ if isinstance(cfg.text, HFTextConfig) else
+        ("coca" if isinstance(cfg, CoCaConfig) else "clip"),
+        "text_route": "kernel" if text_kernel else "plain",
         "long_row_plan": plan, "text_tokens": cfg.text.context_length,
-        "text_causal": not cfg.text.no_causal_mask, "launches": counts,
+        "text_causal": not getattr(cfg.text, "no_causal_mask", True), "launches": counts,
         "image_cos_min": float(F.cosine_similarity(ik, ip, dim=-1).min()),
         "text_cos_min": float(F.cosine_similarity(tk, tp, dim=-1).min()),
         "top1_agree_prototype": float(((ik @ proto).argmax(-1) == (ip @ proto).argmax(-1))
@@ -3149,6 +3219,507 @@ def phase_towers(smi: str, train: dict) -> dict:
     return totals
 
 
+# -- phase 12: CoCa and the HF text towers ---------------------------------------
+
+COCA_MODEL, ROBERTA_MODEL = "coca_ViT-B-32", "roberta-ViT-B-32"
+COCA_BATCH, COCA_FLYP_BATCH, COCA_AGREE_BATCH = 512, 512, 64
+COCA_WEIGHTS = (2.0, 1.0)            # (caption, contrastive): the CLI's defaults
+CAPTIONS, CAPTION_LEN, BEAM_IMAGES = 16, 30, 4
+COCA_GEOMETRIES = ("coca_roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32", "mt5-base-ViT-B-32",
+                   "nllb-clip-base", "nllb-clip-base-siglip")
+# (vision layers, text layers) run of the three large configs (32 and 24 at full depth)
+HF_GEOMETRY_DEPTH = {"xlm-roberta-large-ViT-H-14": (8, 6), "mt5-xl-ViT-H-14": (8, 6),
+                     "nllb-clip-large": (8, 6)}
+COCA_CLI_ARGS = ["--dataset-type", "synthetic", "--model", COCA_MODEL, "--batch-size",
+                 str(CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--save-frequency", "2",
+                 "--zeroshot-frequency", "1", "--no-save-most-recent", "--name", "coca"]
+ROBERTA_BOS, ROBERTA_EOS, ROBERTA_PAD = 0, 2, 1
+
+
+def roberta_rows(rng: np.random.Generator, lengths: np.ndarray, ctx: int = 77,
+                 vocab: int = 50265) -> np.ndarray:
+    """Seeded RoBERTa ids: <s>, random word ids, </s>, then pad (1) to
+    ``ctx``; the tower's positions start at pad + 1 = 2."""
+    rows = np.full((len(lengths), ctx), ROBERTA_PAD, np.int32)
+    for i, ln in enumerate(np.minimum(lengths, ctx)):
+        rows[i, 0], rows[i, ln - 1] = ROBERTA_BOS, ROBERTA_EOS
+        rows[i, 1:ln - 1] = rng.integers(3, vocab, ln - 2)
+    return rows
+
+
+class SeededHFTokenizer:
+    """The stand-in for an HF tokenizer on the card, which has neither
+    ``transformers`` nor vocabulary files: each text maps to RoBERTa-layout
+    ids seeded by its CRC32, the same ids for the same text."""
+
+    def __init__(self, cfg):
+        self.ctx, self.vocab = cfg.text.context_length, cfg.text.vocab_size
+
+    def __call__(self, texts):
+        import zlib
+
+        texts = [texts] if isinstance(texts, str) else list(texts)
+        return np.concatenate([
+            roberta_rows(np.random.default_rng(zlib.crc32(t.encode())),
+                         np.array([len(t.split()) + 2]), self.ctx, self.vocab)
+            for t in texts])
+
+
+def coca_captions(rows: torch.Tensor, ctx: int, eot: int) -> torch.Tensor:
+    """Phase 6's padded captions cut to CoCa's context, EOT kept where the
+    cut took it."""
+    out = rows[:, :ctx].clone()
+    cut = (rows[:, ctx:] != 0).any(dim=1)
+    out[cut, ctx - 1] = eot
+    return out
+
+
+def coca_hf_inputs(name: str, train: dict, batch: int) -> dict:
+    """Seed-0 weights of ``name`` on the card, its template table for phase
+    6's 47 classes, the bank (the templates' features) and two batches:
+    phase 6's images and pseudo-labels with its captions cut to CoCa's
+    context, or for an HF tower seeded RoBERTa ids of phase 6's lengths."""
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.hf_text import HFTextConfig
+    from latteclip_torch.models.tokenizer import get_tokenizer
+    from latteclip_torch.train import state as St
+
+    cfg = get_model_config(name)
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(12)
+    hf = isinstance(cfg.text, HFTextConfig)
+    tok = SeededHFTokenizer(cfg) if hf else get_tokenizer(cfg.text.context_length)
+    table = St.build_template_table(tok, train["classes"], train["templates"])
+    batches = []
+    for b in train["batches"]:
+        out = {"images": b["images"][:batch], "zs_preds": b["zs_preds"][:batch]}
+        for key in ("per_image_tokens", "per_group_tokens"):
+            if hf:
+                rows = roberta_rows(rng, caption_lengths(rng, batch), cfg.text.context_length,
+                                    cfg.text.vocab_size)
+                out[key] = torch.from_numpy(rows).cuda()
+            else:
+                out[key] = coca_captions(b[key][:batch], cfg.text.context_length,
+                                         train["tok"].eot_token_id)
+        batches.append(out)
+    with torch.no_grad():
+        bank = clip_mod.encode_text(model, torch.from_numpy(table).cuda(), normalize=True)
+    return {"cfg": cfg, "model": model, "tok": tok, "table": table, "batches": batches,
+            "bank": bank}
+
+
+def loss_gradients(model, loss_fn):
+    """(loss, flattened gradient of the parameters that get one, aux) of one
+    forward and backward."""
+    model.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(model)
+    loss.backward()
+    grad = torch.cat([p.grad.flatten().float() for p in model.parameters() if p.grad is not None])
+    return float(loss.detach()), grad, aux
+
+
+def coca_hf_train(smi: str, train: dict, name: str, label: str, flyp: bool = False) -> dict:
+    """(a)-(c): the v2 step (``flyp``: FLYP on CoCaLoss) at full width and
+    depth, bf16, seed-0 weights, the colour augment on. Warm-up and
+    TRAIN_STEPS timed steps between a reset and a read of the counters:
+    exactly one flash_fwd_seg and one flash_bwd_seg a vision layer and step
+    (the pairs at [B/2, 100, 12 x 64]) and nothing else, the text tower and
+    the decoder attending on plain torch; losses finite, logit_scale in
+    [0, ln 100]; under the v2 step the bank rows unit-norm and the decoder
+    bit-equal to its start. A profiled step, peak memory; from one copied
+    state and one batch of COCA_AGREE_BATCH with augment off, the kernel
+    route against the plain one: loss within 1e-2 relative, gradient cosine
+    >= 0.99, (v2) bank rows cosine >= 0.999."""
+    from latteclip_torch.config import CoCaConfig
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.train import optim, state as St, step as S
+
+    batch = COCA_FLYP_BATCH if flyp else COCA_BATCH
+    inputs = coca_hf_inputs(name, train, batch)
+    cfg, model, table, batches = (inputs[k] for k in ("cfg", "model", "table", "batches"))
+    coca = isinstance(cfg, CoCaConfig)
+    decoder = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n.startswith("text_decoder.")}
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)),
+        inputs["bank"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if flyp:
+        step_fn = S.make_flyp_step(model, S.LatteHParams(), table, aug=T.AugConfig(),
+                                   coca_weights=COCA_WEIGHTS)
+    else:
+        step_fn = S.make_train_step(model, S.LatteHParams(text_packing=False), table,
+                                    T.AugConfig(),
+                                    zero_update_subtrees=("text_decoder",) if coca else ())
+    n, layers = TRAIN_STEPS, cfg.vision.layers
+    _, warm_losses = timed_steps(step_fn, state, batches, gen, 1)
+    torch.cuda.reset_peak_memory_stats()
+    ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"coca_hf kernels {label}: {json.dumps(launches)}")
+    want = {**dict.fromkeys(launches, 0), "flash_fwd_seg": n * layers, "flash_bwd_seg": n * layers}
+    bad = []
+    if launches != want:
+        bad.append(f"steps launched {launches}, expected {want}")
+    scale = float(state.model.logit_scale.detach())
+    if not all(np.isfinite(warm_losses + losses)) or not 0.0 <= scale <= LOG100:
+        bad.append(f"losses {warm_losses + losses}, logit_scale {scale}")
+    if not flyp and float((state.memory_bank.norm(dim=1) - 1).abs().max()) > 1e-3:
+        bad.append("bank rows not unit-norm")
+    moved = [k for k, p in model.named_parameters()
+             if k in decoder and not torch.equal(p.detach(), decoder[k])]
+    if not flyp and moved:
+        bad.append(f"the v2 step moved the decoder: {moved[:4]}")
+    profile = device_profile(lambda: step_fn(state, batches[0], gen))
+    log(f"profile coca_hf_step_{label} " + json.dumps(profile))
+
+    # kernel route against the plain one, from one copied state, augment off
+    hp = S.LatteHParams(augment=False, text_packing=False)
+    small = {k: v[:COCA_AGREE_BATCH] for k, v in batches[1].items()}
+    images = T.normalize_images(small["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    runs = {}
+    for attention in ("kernel", "plain"):
+        if flyp:
+            def fn(m, attention=attention):
+                return S.flyp_loss_fn(m, hp, small, images, table_t, False,
+                                      coca_weights=COCA_WEIGHTS, attention=attention)
+        else:
+            def fn(m, attention=attention):
+                return S.latteclip_loss_fn(m, hp, small, images, state.memory_bank,
+                                           state.prototypes, table_t, None, attention=attention)
+        loss, grad, aux = loss_gradients(copy.deepcopy(model), fn)
+        bank = None if flyp else S.update_memory_bank(
+            state.memory_bank, aux["preds"], aux["zs_preds"], aux["text_final"],
+            aux["text_final_zs"])
+        runs[attention] = (loss, grad, bank)
+        del grad
+    (lk, gk, bk), (lp, gp, bp) = runs["kernel"], runs["plain"]
+    agreement = {"batch": COCA_AGREE_BATCH, "loss_kernel": lk, "loss_plain": lp,
+                 "loss_rel_diff": abs(lk - lp) / abs(lp),
+                 "grad_cos": float(F.cosine_similarity(gk, gp, dim=0))}
+    if not flyp:
+        agreement["bank_row_cos_min"] = float(F.cosine_similarity(bk, bp, dim=1).min())
+    del runs, gk, gp
+    report = {
+        "model": cfg.name, "step": "flyp_cocaloss" if flyp else "v2", "batch": batch,
+        "classes": len(train["classes"]), "steps": n, "images_per_s": ips, "losses": losses,
+        "launches": launches, "max_memory_allocated": peak,
+        "device_busy_ms_per_step": profile["device_busy_ms"],
+        "device_idle_share": profile["device_idle_share"],
+        "device_ms_by_kind": profile["device_ms_by_kind"], "logit_scale": scale,
+        "agreement": agreement, "card": smi,
+    }
+    if coca:
+        report["coca_weights" if flyp else "decoder_bit_equal"] = (
+            list(COCA_WEIGHTS) if flyp else len(decoder) - len(moved))
+    log(f"{label} " + json.dumps(report))
+    if (agreement["loss_rel_diff"] > 1e-2 or agreement["grad_cos"] < 0.99
+            or agreement.get("bank_row_cos_min", 1.0) < 0.999):
+        bad.append(f"kernel and plain routes disagree: {agreement}")
+    if bad:
+        raise RuntimeError(f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def coca_hf_serve(smi: str, name: str, label: str) -> dict:
+    """(d) Serving at full width and depth, seed-0 weights: the 1000-row
+    classifier build (plain text attention: no launch), then the eval of
+    1279 images (four batches of 256 from pinned memory in pairs, 12 K2
+    each, and one of 255 on whole rows of 50, 12 K1) and the prototype
+    request (12 K2), between a reset and a read of the counters. Features
+    at cosine >= 0.999 with the plain route on every row, prototype top-1
+    on >= 99%; a profiled eval (device busy ms, idle share). For CoCa also
+    greedy ``generate`` of CAPTIONS captions at CAPTION_LEN tokens and one
+    ``generate_beamsearch`` at JAX's defaults on BEAM_IMAGES images, timed,
+    the greedy captions held against the plain route on >= 90% of tokens."""
+    from latteclip_torch.config import CoCaConfig, get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod, coca as coca_mod
+    from latteclip_torch.models.hf_text import HFTextConfig
+    from latteclip_torch.models.tokenizer import get_tokenizer
+
+    inputs = serving_inputs(name)
+    cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
+    classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fast = run_requests(model, tok, classnames, templates, batches, bank, "kernel")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.vision.layers
+    want = {**dict.fromkeys(launches, 0), "flash_fwd_seg": layers * (len(batches) - 1 + 1),
+            "flash_fwd": layers}
+    reset_counts()
+    slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
+    plain_launches = read_counts()
+    profile = device_profile(lambda: zs.run_zero_shot_eval(model, fast["classifier"], batches))
+    log(f"profile coca_hf_eval_{label} " + json.dumps(profile))
+    proto = zs.prototype_classifier(bank)
+    cos_min, agree_n, rows = 1.0, 0, 0
+    with torch.no_grad():
+        for _ids, images, _labels, valid in batches:
+            x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
+            fk = clip_mod.encode_image(model, x, normalize=True, attention="kernel")[:valid]
+            fp = clip_mod.encode_image(model, x, normalize=True, attention="plain")[:valid]
+            if fk.shape != (valid, cfg.embed_dim) or not torch.isfinite(fk).all():
+                raise RuntimeError(f"{name}: bad image features {tuple(fk.shape)}")
+            cos_min = min(cos_min, float(F.cosine_similarity(fk, fp, dim=-1).min()))
+            agree_n += int(((fk @ proto).argmax(-1) == (fp @ proto).argmax(-1)).sum())
+            rows += valid
+    clf = fast["classifier"]
+    report = {
+        "model": name, "rows": rows, "feature_cos_min": cos_min,
+        "top1_agree_prototype": agree_n / rows,
+        "classifier_cos_min": float(F.cosine_similarity(clf, slow["classifier"], dim=0).min()),
+        "classifier_build_s": fast["classifier_build_s"],
+        "classifier_build_s_plain": slow["classifier_build_s"],
+        "eval_images_per_s": fast["images_per_s"], "eval_images_per_s_plain": slow["images_per_s"],
+        "eval_device_busy_ms": profile["device_busy_ms"],
+        "eval_device_idle_share": profile["device_idle_share"],
+        "eval_device_ms_by_kind": profile["device_ms_by_kind"],
+        "metrics": fast["metrics"], "launches": launches, "max_memory_allocated": peak,
+    }
+    if isinstance(cfg.text, HFTextConfig):
+        report["tokenizer"] = "seeded RoBERTa ids (no HF tokenizer files on the card)"
+    bad = []
+    if launches != want:
+        bad.append(f"requests launched {launches}, expected {want}")
+    if any(plain_launches.values()):
+        bad.append(f"plain requests launched {plain_launches}")
+    if clf.shape != (cfg.embed_dim, len(classnames)) or not torch.isfinite(clf).all():
+        bad.append(f"bad classifier {tuple(clf.shape)}")
+    if cos_min < 0.999 or agree_n / rows < 0.99:
+        bad.append(f"features disagree with the plain route: cos {cos_min}, "
+                   f"top-1 {agree_n / rows}")
+    if isinstance(cfg, CoCaConfig):
+        eot = get_tokenizer().eot_token_id
+        x = T.normalize_images(torch.from_numpy(batches[0][1][:CAPTIONS]).cuda(), mean, std)
+        coca_mod.generate(model, x[:2], seq_len=4)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caps = coca_mod.generate(model, x, seq_len=CAPTION_LEN)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        caps_plain = coca_mod.generate(model, x, seq_len=CAPTION_LEN, attention="plain")
+        t0 = time.perf_counter()
+        beams = coca_mod.generate_beamsearch(model, x[:BEAM_IMAGES])
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        generated = int((caps[:, 1:CAPTION_LEN] != cfg.pad_id).sum())
+        same = float((caps[:, :CAPTION_LEN] == caps_plain[:, :CAPTION_LEN]).mean())
+        report["generate"] = {
+            "captions": CAPTIONS, "seq_len": CAPTION_LEN, "greedy_s": greedy_s,
+            "greedy_tokens": generated, "greedy_tokens_per_s": generated / greedy_s,
+            "greedy_token_agreement_plain": same,
+            "ended_with_eot": int((caps == eot).any(axis=1).sum()),
+            "beam_images": BEAM_IMAGES, "beam_s": beam_s,
+            "beam_tokens_per_s": int((beams[:, 1:CAPTION_LEN] != cfg.pad_id).sum()) / beam_s,
+            "beam_defaults": {"num_beams": 6, "num_beam_groups": 3, "min_seq_len": 5,
+                              "seq_len": 30},
+        }
+        if caps.shape != (CAPTIONS, cfg.text.context_length) or beams.shape[0] != BEAM_IMAGES:
+            bad.append(f"bad generations {caps.shape} {beams.shape}")
+        if same < 0.9:
+            bad.append(f"greedy captions agree with the plain route on {same:.3f} of tokens")
+    report["card"] = smi
+    log(f"{label} " + json.dumps(report))
+    if bad:
+        raise RuntimeError(f"{label}: " + "; ".join(bad))
+    return launches
+
+
+def coca_cli(smi: str) -> dict:
+    """(e) The CLI in process on the card with --model coca_ViT-B-32, batch
+    512, on phase 7's synthetic fixture, 2 epochs of 2 steps with an eval
+    each and the last epoch's checkpoint: --method ours as one epoch and
+    --resume latest for the second (:func:`coca_cli_resume`), --method flyp
+    in one run. Every step launches 12 flash_fwd_seg and 12 flash_bwd_seg,
+    every eval 12 flash_fwd_seg (32 images in pairs), the bank init nothing;
+    epoch_2.pt holds exactly the model's keys, text_decoder.* among them,
+    and the decoder stays bit-equal to its seed-0 start under ours and moves
+    under flyp."""
+    import tempfile
+
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.models import clip as clip_mod
+
+    messages = _Messages()
+    logging.getLogger("latteclip_torch").addHandler(messages)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_coca_")
+    old_tempdir, tempfile.tempdir = tempfile.tempdir, workdir
+    cfg = get_model_config(COCA_MODEL)
+    layers = cfg.vision.layers
+    per_step, per_eval = {"flash_fwd_seg": layers, "flash_bwd_seg": layers}, {"flash_fwd_seg": layers}
+    start = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg,
+                                      device="cpu").state_dict()
+    before = read_counts()
+    report, bad = {}, []
+    try:
+        for method in ("ours", "flyp"):
+            logs = os.path.join(workdir, method)
+            ckpt_dir = os.path.join(logs, "coca", "checkpoints")
+            messages.lines.clear()
+            steps, evals, inits, timings = [], [], [], []
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            epochs = 1 if method == "ours" else 2
+            run_cli([*COCA_CLI_ARGS, "--method", method, "--epochs", str(epochs), "--logs", logs],
+                    steps, evals, inits, timings)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+            losses = [float(m.group(7)) for m in lines]
+            rec = {"seconds": seconds, "steps": len(steps), "evals": len(evals),
+                   "losses": losses,
+                   "images_per_s": float(lines[-1].group(5)) if lines else None,
+                   "launches_per_step": steps[:1], "eval_launches": evals[:1],
+                   "bank_init_launches": inits, "max_memory_allocated": peak}
+            report[method] = rec
+            if len(steps) != 2 * epochs or any(d != per_step for d in steps):
+                bad.append(f"{method}: step launches {steps}, expected {2 * epochs} x {per_step}")
+            if any(d != per_eval for d in evals) or inits not in ([], [{}]):
+                bad.append(f"{method}: eval launches {evals}, bank init {inits}")
+            if not losses or not all(np.isfinite(losses)):
+                bad.append(f"{method}: losses {losses}")
+            if method == "ours":  # the second epoch resumed from epoch_1.pt
+                rec.update(coca_cli_resume(logs, messages, per_step, per_eval, bad))
+            last = "epoch_2.pt"
+            sd = torch.load(os.path.join(ckpt_dir, last), map_location="cpu",
+                            weights_only=True)["state_dict"]
+            keys = {k for k in sd if not k.startswith("memory_bank.")}
+            decoder = [k for k in start if k.startswith("text_decoder.")]
+            moved = [k for k in decoder if not torch.equal(sd[k], start[k])]
+            rec.update({"checkpoint_keys": len(keys), "decoder_keys": len(decoder),
+                        "decoder_moved": len(moved),
+                        "checkpoint_bytes": os.path.getsize(os.path.join(ckpt_dir, last))})
+            if keys != set(start) or not decoder:
+                bad.append(f"{method}: checkpoint keys differ: {sorted(keys ^ set(start))[:4]}")
+            if method == "ours" and moved:
+                bad.append(f"ours moved the decoder: {moved[:4]}")
+            if method == "flyp" and not moved:
+                bad.append("flyp left the decoder as it was")
+            del sd
+            shutil.rmtree(logs, ignore_errors=True)
+        after = read_counts()
+        report["card"] = smi
+        log("coca_cli " + json.dumps(report))
+        if bad:
+            raise RuntimeError("CoCa through the CLI: " + "; ".join(bad))
+        return {k: after[k] - before[k] for k in after}
+    finally:
+        tempfile.tempdir = old_tempdir
+        logging.getLogger("latteclip_torch").removeHandler(messages)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def coca_cli_resume(logs: str, messages, per_step: dict, per_eval: dict, bad: list) -> dict:
+    """``--resume latest`` of the one-epoch run in ``logs`` for its second
+    epoch: it must start at epoch 1, step 2, restore the saved moments bit
+    for bit and launch as the first run did."""
+    from latteclip_torch import checkpoint as ckpt
+
+    restored = []
+
+    def checked_restore(orig):
+        def wrapper(model, optimizer, saved_entry, accum=None):
+            orig(model, optimizer, saved_entry, accum)
+            again = ckpt.optimizer_state(model, optimizer, accum)
+            restored.append(sorted(again) == sorted(saved_entry) and all(
+                torch.equal(again[k], saved_entry[k]) for k in saved_entry))
+        return wrapper
+
+    messages.lines.clear()
+    steps, evals = [], []
+    undo = _patch(ckpt, "restore_optimizer_state", checked_restore)
+    try:
+        run_cli([*COCA_CLI_ARGS, "--method", "ours", "--epochs", "2", "--logs", logs,
+                 "--resume", "latest"], steps, evals, [], [])
+    finally:
+        undo()
+    resumed = next(m for m in (_RESUMED.search(x) for x in messages.lines) if m)
+    losses = [float(m.group(7)) for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+    rec = {"resumed_at": [int(resumed.group(1)), int(resumed.group(2))],
+           "moments_restored": restored, "resumed_losses": losses}
+    if len(steps) != 2 or any(d != per_step for d in steps) or any(d != per_eval for d in evals):
+        bad.append(f"resume: step launches {steps}, eval launches {evals}")
+    if rec["resumed_at"] != [1, 2] or restored != [True] or not all(np.isfinite(losses)):
+        bad.append(f"resume: {rec}")
+    return rec
+
+
+def coca_l14_train_check(smi: str, train: dict) -> dict:
+    """(f) coca_ViT-L-14's one training step against the plain route: the
+    v2 loss and backward on COCA_AGREE_BATCH images (whole rows of 257
+    tokens: 24 K1 and 24 K3), from seed-0 weights, augment off: loss within
+    1e-2 relative, gradient cosine >= 0.99."""
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.train import step as S
+
+    inputs = coca_hf_inputs("coca_ViT-L-14", train, COCA_AGREE_BATCH)
+    cfg, model, table, batch = (inputs[k] for k in ("cfg", "model", "table", "batches"))
+    batch, bank = batch[0], inputs["bank"]
+    hp = S.LatteHParams(augment=False, text_packing=False)
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    runs, counts = {}, {}
+    for attention in ("kernel", "plain"):
+        reset_counts()
+        runs[attention] = loss_gradients(model, lambda m, a=attention: S.latteclip_loss_fn(
+            m, hp, batch, images, bank, bank, table_t, None, attention=a))[:2]
+        torch.cuda.synchronize()
+        counts[attention] = read_counts()
+    (lk, gk), (lp, gp) = runs["kernel"], runs["plain"]
+    layers = cfg.vision.layers
+    want = {**dict.fromkeys(counts["kernel"], 0), "flash_fwd": layers, "flash_bwd": layers}
+    rec = {"model": cfg.name, "images": COCA_AGREE_BATCH, "vision_tokens": cfg.vision.seq_len,
+           "launches": counts["kernel"], "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_diff": abs(lk - lp) / abs(lp),
+           "grad_cos": float(F.cosine_similarity(gk, gp, dim=0)), "card": smi}
+    log("coca_l14_train " + json.dumps(rec))
+    if counts["kernel"] != want or any(counts["plain"].values()):
+        raise RuntimeError(f"coca_ViT-L-14 step launched {counts}, expected {want}")
+    if rec["loss_rel_diff"] > 1e-2 or rec["grad_cos"] < 0.99:
+        raise RuntimeError(f"coca_ViT-L-14 kernel and plain routes disagree: {rec}")
+    return counts["kernel"]
+
+
+def phase_coca_hf(smi: str, train: dict) -> dict:
+    """Phase 12: (a) coca_ViT-B-32's v2 step and (b) its FLYP step on
+    CoCaLoss (coca_hf_train), (c) roberta-ViT-B-32's v2 step, (d) both
+    served (coca_hf_serve, CoCa's captions too), (e) the CLI on CoCa
+    (coca_cli), (f) coca_ViT-L-14 served (geometry_check) and trained one
+    step (coca_l14_train_check) and the other CoCa and HF-tower configs'
+    geometries, the three large ones at HF_GEOMETRY_DEPTH. Returns the
+    launches of these paths."""
+    totals: dict = {}
+    seconds: dict = {}
+
+    def add(part, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        for k, n in fn(*args, **kwargs).items():
+            totals[k] = totals.get(k, 0) + n
+        torch.cuda.empty_cache()
+        seconds[part] = time.perf_counter() - t0
+
+    add("a", coca_hf_train, smi, train, COCA_MODEL, "coca_train")
+    add("b", coca_hf_train, smi, train, COCA_MODEL, "coca_flyp", flyp=True)
+    add("c", coca_hf_train, smi, train, ROBERTA_MODEL, "roberta_train")
+    add("d_coca", coca_hf_serve, smi, COCA_MODEL, "coca_serve")
+    add("d_roberta", coca_hf_serve, smi, ROBERTA_MODEL, "roberta_serve")
+    add("e", coca_cli, smi)
+    add("f_coca_l14", geometry_check, smi, "coca_ViT-L-14")
+    add("f_coca_l14_train", coca_l14_train_check, smi, train)
+    for name in COCA_GEOMETRIES:
+        add(f"f_{name}", geometry_check, smi, name)
+    for name, (vision, text) in HF_GEOMETRY_DEPTH.items():
+        add(f"f_{name}", geometry_check, smi, name, vision, text)
+    log("coca_hf_seconds " + json.dumps(seconds))
+    return totals
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -3228,6 +3799,8 @@ def main() -> int:
     trainer_launches_total = phase_trainers(smi, train)
     torch.cuda.empty_cache()
     tower_launches = phase_towers(smi, train)
+    torch.cuda.empty_cache()
+    coca_launches = phase_coca_hf(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -3238,7 +3811,7 @@ def main() -> int:
                                                      b16_train_launches, lab_launches,
                                                      cli_launches, offline_launches,
                                                      family_launches, trainer_launches_total,
-                                                     tower_launches)),
+                                                     tower_launches, coca_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

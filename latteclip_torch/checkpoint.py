@@ -20,7 +20,12 @@
   EVA02, ViT-medium, ConvNeXt, Swin and ViT-relpos, with OpenCLIP's
   ``visual.head.*``; OpenCLIP's ModifiedResNet keys with BatchNorm's running
   statistics), EVA02's q/k channels permuted back from JAX's rotate-half
-  order to timm's. :func:`jax_params_from_state_dict` is its inverse.
+  order to timm's; an HF text tower under ``text.transformer.*`` (HF's own
+  names, BERT, T5 or M2M style) with its projection at
+  ``text.proj[.N].weight``; and a CoCa model in the layout of JAX's
+  ``coca_params_to_state_dict`` (``text.*`` beside ``text_decoder.*``, the
+  attentional pool at ``visual.attn_pool.*``).
+  :func:`jax_params_from_state_dict` is its inverse.
 * :func:`resize_vision_pos_embed` resizes a vision positional embedding to
   another grid (``--force-image-size``, or a checkpoint of another image
   size), as ``load_clip_pt`` does on loading.
@@ -51,6 +56,7 @@ from latteclip_torch.config import (
     RELPOS_TRUNKS,
     SWIN_TRUNKS,
     CLIPConfig,
+    CoCaConfig,
     ConvNeXtVisionConfig,
     Eva02VisionConfig,
     RelPosVisionConfig,
@@ -60,7 +66,14 @@ from latteclip_torch.config import (
 )
 from latteclip_torch.data.transforms import crop_weights
 from latteclip_torch.device import resolve_device
-from latteclip_torch.models.clip import CLIP
+from latteclip_torch.models.clip import CLIP, build_model
+from latteclip_torch.models.hf_text import (
+    HFTextConfig,
+    export_hf_state_dict,
+    import_hf_state_dict,
+    proj_from_state_dict,
+    proj_to_state_dict,
+)
 
 # JAX stacked block key -> (OpenCLIP suffix, transpose [in, out] -> [out, in])
 _BLOCK_KEYS = {
@@ -78,6 +91,16 @@ _BLOCK_KEYS = {
     "c_proj_b": ("mlp.c_proj.bias", False),
 }
 _LS_KEYS = {"ls_1_gamma": ("ls_1.gamma", False), "ls_2_gamma": ("ls_2.gamma", False)}
+# CoCa's cross-attention blocks: the image tokens' LayerNorm
+_CROSS_EXTRA = {"ln_1_kv_scale": ("ln_1_kv.weight", False), "ln_1_kv_bias": ("ln_1_kv.bias", False)}
+_ATTN_POOL_KEYS = {
+    "query": "query", "q_proj_w": "attn.q_proj_weight", "k_proj_w": "attn.k_proj_weight",
+    "v_proj_w": "attn.v_proj_weight", "in_proj_b": "attn.in_proj_bias",
+    "out_proj_w": "attn.out_proj.weight", "out_proj_b": "attn.out_proj.bias",
+    "ln_q_scale": "ln_q.weight", "ln_q_bias": "ln_q.bias",
+    "ln_k_scale": "ln_k.weight", "ln_k_bias": "ln_k.bias",
+}
+_HF_PREFIX = "text.transformer."
 _MAP_HEAD = "latteclip.visual.map_head."
 _TEXT_PROJECTION_B = "latteclip.text.text_projection_b"
 _VISUAL_KEYS = {
@@ -573,9 +596,11 @@ def _tower_converters(v):
             RelPosVisionConfig: (_relpos_to_sd, _relpos_from_sd)}[type(v)]
 
 
-def _normalize_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
-    """Strip DDP (``module.``) and CustomCLIP (``clip_model.``) prefixes and
-    fold a separate-tower ``text.*`` layout back into the fused one."""
+def _normalize_state_dict(sd: Dict[str, Any], fold_text: bool = True) -> Dict[str, Any]:
+    """Strip DDP (``module.``) and CustomCLIP (``clip_model.``) prefixes and,
+    with ``fold_text``, fold a separate-tower ``text.*`` layout back into the
+    fused one (never a CoCa file's, whose ``text.*`` sits beside
+    ``text_decoder.*``)."""
     if any(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items() if k.startswith("module.")}
     if any(k.startswith("clip_model.") for k in sd):
@@ -587,24 +612,105 @@ def _normalize_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
                     k.startswith(p) for p in ("visual.", "transformer.", "image_adapter.")):
                 out.setdefault(k, v)
         sd = {k: v for k, v in out.items() if not k.startswith("image_adapter.")}
-    if (any(k.startswith("text.") for k in sd) and "text_projection" not in sd
+    if (fold_text and any(k.startswith("text.") for k in sd) and "text_projection" not in sd
             and not any(k.startswith("text_decoder.") for k in sd)):
         sd = {(k[len("text."):] if k.startswith("text.") else k): v for k, v in sd.items()}
     return sd
 
 
-def _unstack_blocks(blocks: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+def _unstack_blocks(blocks: Dict[str, np.ndarray], prefix: str, stem: str = "resblocks",
+                    extra: Optional[Mapping] = None) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
-    unknown = set(blocks) - set(_BLOCK_KEYS) - set(_LS_KEYS)
+    keys = {**_BLOCK_KEYS, **_LS_KEYS, **(extra or {})}
+    unknown = set(blocks) - set(keys)
     if unknown:
         raise NotImplementedError(f"block parameters {sorted(unknown)} are not ported")
-    for ours, (suffix, transpose) in {**_BLOCK_KEYS, **_LS_KEYS}.items():
+    for ours, (suffix, transpose) in keys.items():
         if ours not in blocks:
             continue
         arr = np.asarray(blocks[ours], dtype=np.float32)
         for i in range(arr.shape[0]):
-            out[f"{prefix}resblocks.{i}.{suffix}"] = arr[i].T if transpose else arr[i]
+            out[f"{prefix}{stem}.{i}.{suffix}"] = arr[i].T if transpose else arr[i]
     return out
+
+
+def _vit_to_sd(v, cfg) -> Dict[str, np.ndarray]:
+    """The native ViT's keys (``visual.*``), with CoCa's attentional pool."""
+    P, D = cfg.patch_size, cfg.width
+    sd = {"visual.conv1.weight": _patch_to_conv(v["patch_kernel"], P, D)}
+    sd.update({name: v[k] for k, name in _VISUAL_KEYS.items() if k in v})
+    sd.update(_unstack_blocks(v["blocks"], "visual.transformer."))
+    sd.update({_MAP_HEAD + k: a for k, a in v.get("map_head", {}).items()})
+    sd.update({"visual.attn_pool." + theirs: v["attn_pool"][ours]
+               for ours, theirs in _ATTN_POOL_KEYS.items() if "attn_pool" in v})
+    return sd
+
+
+def _vit_from_sd(sd, cfg) -> Dict[str, np.ndarray]:
+    P, D = cfg.patch_size, cfg.width
+    visual = {k: sd[name] for k, name in _VISUAL_KEYS.items() if name in sd}
+    visual["patch_kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(P * P * 3, D)
+    visual["blocks"] = _stack_blocks(sd, "visual.transformer.resblocks.")
+    map_head = {k[len(_MAP_HEAD):]: a for k, a in sd.items() if k.startswith(_MAP_HEAD)}
+    if map_head:
+        visual["map_head"] = map_head
+    if "visual.attn_pool.query" in sd:
+        visual["attn_pool"] = {ours: sd["visual.attn_pool." + theirs]
+                               for ours, theirs in _ATTN_POOL_KEYS.items()}
+    return visual
+
+
+def _hf_text_to_sd(t, cfg: HFTextConfig) -> Dict[str, np.ndarray]:
+    sd = {_HF_PREFIX + k: a for k, a in export_hf_state_dict(t, cfg).items()}
+    sd.update(proj_to_state_dict(t, "text."))
+    return sd
+
+
+def _hf_text_from_sd(sd, cfg: HFTextConfig) -> Dict[str, np.ndarray]:
+    text = import_hf_state_dict({k[len(_HF_PREFIX):]: a for k, a in sd.items()
+                                 if k.startswith(_HF_PREFIX)}, cfg)
+    text.update(proj_from_state_dict(sd, "text."))
+    return text
+
+
+_COCA_TEXT_KEYS = {
+    "token_embedding": "text.token_embedding.weight", "cls_emb": "text.cls_emb",
+    "pos_embed": "text.positional_embedding", "ln_final_scale": "text.ln_final.weight",
+    "ln_final_bias": "text.ln_final.bias", "text_projection": "text.text_projection",
+}
+_DECODER_KEYS = {"ln_final_scale": "text_decoder.ln_final.weight",
+                 "ln_final_bias": "text_decoder.ln_final.bias",
+                 "text_projection": "text_decoder.text_projection"}
+
+
+def _coca_to_sd(params, cfg) -> Dict[str, np.ndarray]:
+    """JAX ``coca_params_to_state_dict`` (without the memory bank)."""
+    t, d = params["text"], params["text_decoder"]
+    sd = {"logit_scale": np.asarray(params["logit_scale"], np.float32).reshape(())}
+    sd.update(_vit_to_sd(params["visual"], cfg.vision))
+    if isinstance(cfg.text, HFTextConfig):
+        sd.update(_hf_text_to_sd(t, cfg.text))
+    else:
+        sd.update({name: t[k] for k, name in _COCA_TEXT_KEYS.items()})
+        sd.update(_unstack_blocks(t["blocks"], "text.transformer."))
+    sd.update(_unstack_blocks(d["blocks"], "text_decoder."))
+    sd.update(_unstack_blocks(d["cross"], "text_decoder.", "cross_attn", _CROSS_EXTRA))
+    sd.update({name: d[k] for k, name in _DECODER_KEYS.items()})
+    return sd
+
+
+def _coca_from_sd(sd, cfg) -> Dict[str, Any]:
+    """JAX ``coca_state_dict_to_params``."""
+    if isinstance(cfg.text, HFTextConfig):
+        text = _hf_text_from_sd(sd, cfg.text)
+    else:
+        text = {k: sd[name] for k, name in _COCA_TEXT_KEYS.items()}
+        text["blocks"] = _stack_blocks(sd, "text.transformer.resblocks.")
+    decoder = {k: sd[name] for k, name in _DECODER_KEYS.items()}
+    decoder["blocks"] = _stack_blocks(sd, "text_decoder.resblocks.")
+    decoder["cross"] = _stack_blocks(sd, "text_decoder.cross_attn.", _CROSS_EXTRA)
+    return {"visual": _vit_from_sd(sd, cfg.vision), "text": text, "text_decoder": decoder,
+            "logit_scale": sd["logit_scale"].reshape(())}
 
 
 def state_dict_from_jax_params(params: Dict[str, Any], cfg: CLIPConfig, *,
@@ -613,11 +719,16 @@ def state_dict_from_jax_params(params: Dict[str, Any], cfg: CLIPConfig, *,
     ``k_bias`` adds EVA's trained k bias, which a checkpoint leaves out
     (:class:`~latteclip_torch.models.layers.EvaAttention`), under its
     parameter name."""
+    if isinstance(cfg, CoCaConfig):
+        return OrderedDict((k, torch.from_numpy(np.array(a, dtype=np.float32, order="C")))
+                           for k, a in _coca_to_sd(params, cfg).items())
     v, t = params["visual"], params["text"]
+    hf = isinstance(cfg.text, HFTextConfig)
     convert = _tower_converters(cfg.vision)
     visual_keys = set() if convert else \
         set(v) - set(_VISUAL_KEYS) - {"patch_kernel", "blocks", "map_head"}
-    extra = visual_keys | (set(t) - set(_TEXT_KEYS) - {"blocks", "text_projection_b"}) | \
+    text_keys = set() if hf else set(t) - set(_TEXT_KEYS) - {"blocks", "text_projection_b"}
+    extra = visual_keys | text_keys | \
         (set(params) - {"visual", "text", "logit_scale", "logit_bias"})
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to towers not ported yet")
@@ -625,14 +736,12 @@ def state_dict_from_jax_params(params: Dict[str, Any], cfg: CLIPConfig, *,
     if convert:
         sd.update(convert[0](v, cfg.vision, k_bias=k_bias))
     else:
-        P, D = cfg.vision.patch_size, cfg.vision.width
-        sd["visual.conv1.weight"] = np.asarray(v["patch_kernel"], np.float32) \
-            .reshape(P, P, 3, D).transpose(3, 2, 0, 1)
-        sd.update({name: v[k] for k, name in _VISUAL_KEYS.items() if k in v})
-        sd.update(_unstack_blocks(v["blocks"], "visual.transformer."))
-        sd.update({_MAP_HEAD + k: a for k, a in v.get("map_head", {}).items()})
-    sd.update({name: t[k] for k, name in _TEXT_KEYS.items()})
-    sd.update(_unstack_blocks(t["blocks"], "transformer."))
+        sd.update(_vit_to_sd(v, cfg.vision))
+    if hf:
+        sd.update(_hf_text_to_sd(t, cfg.text))
+    else:
+        sd.update({name: t[k] for k, name in _TEXT_KEYS.items()})
+        sd.update(_unstack_blocks(t["blocks"], "transformer."))
     if "text_projection_b" in t:
         sd[_TEXT_PROJECTION_B] = t["text_projection_b"]
     if "logit_bias" in params:
@@ -733,7 +842,8 @@ def load_clip_pt(path: str, cfg: CLIPConfig, device="cuda"
     if isinstance(obj, dict) and "state_dict" in obj:
         meta = {k: v for k, v in obj.items() if k != "state_dict"}
         obj = obj["state_dict"]
-    sd = _normalize_state_dict(dict(obj))
+    hf = isinstance(cfg.text, HFTextConfig)
+    sd = _normalize_state_dict(dict(obj), fold_text=not hf)
     classnames = [k[len("memory_bank."):] for k in sd if k.startswith("memory_bank.")]
     bank = None
     if classnames:
@@ -750,14 +860,37 @@ def load_clip_pt(path: str, cfg: CLIPConfig, device="cuda"
     bias = float(torch.as_tensor(sd["logit_bias"])) if "logit_bias" in sd else None
     if bias != cfg.init_logit_bias:
         cfg = dataclasses.replace(cfg, init_logit_bias=bias)
-    model = CLIP(cfg, text_projection_b=_TEXT_PROJECTION_B in sd)
+    kwargs = {}
+    if hf:
+        sd, kwargs["hf_pooler"] = _hf_text_keys(sd, cfg.text)
+    if not isinstance(cfg, CoCaConfig):
+        kwargs["text_projection_b"] = _TEXT_PROJECTION_B in sd
+    model = build_model(cfg, **kwargs)
     model.load_state_dict(sd, strict=True)
     return model.to(dev), bank, classnames, meta
 
 
-def _stack_blocks(sd: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+def _hf_text_keys(sd: Dict[str, Any], cfg: HFTextConfig) -> Tuple[Dict[str, Any], bool]:
+    """An HF tower's keys as JAX reads them (``import_hf_state_dict``, then
+    written back): the prefixes of a live ``AutoModel`` stripped, the keys
+    JAX leaves out dropped (``position_ids``, a pooler head the tower does
+    not pool with, an encoder-decoder's decoder), a folded layout
+    (``transformer.*``, ``proj.*``) put back under ``text.``; and whether
+    the tower keeps BERT's pooler head."""
+    if not any(k.startswith(_HF_PREFIX) for k in sd):
+        sd = {("text." + k if k.startswith(("transformer.", "proj.")) else k): v
+              for k, v in sd.items()}
+    tree = import_hf_state_dict({k[len(_HF_PREFIX):]: v for k, v in sd.items()
+                                 if k.startswith(_HF_PREFIX)}, cfg)
+    out = {k: v for k, v in sd.items() if not k.startswith(_HF_PREFIX)}
+    out.update({_HF_PREFIX + k: torch.from_numpy(a) for k, a in export_hf_state_dict(tree, cfg).items()})
+    return out, "pooler_w" in tree
+
+
+def _stack_blocks(sd: Mapping[str, np.ndarray], prefix: str,
+                  extra: Optional[Mapping] = None) -> Dict[str, np.ndarray]:
     layers = len({k[len(prefix):].split(".", 1)[0] for k in sd if k.startswith(prefix)})
-    keys = {**_BLOCK_KEYS, **(_LS_KEYS if f"{prefix}0.ls_1.gamma" in sd else {})}
+    keys = {**_BLOCK_KEYS, **(_LS_KEYS if f"{prefix}0.ls_1.gamma" in sd else {}), **(extra or {})}
     out = {}
     for ours, (suffix, transpose) in keys.items():
         arrs = [sd[f"{prefix}{i}.{suffix}"] for i in range(layers)]
@@ -770,19 +903,15 @@ def jax_params_from_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig) -> Dict[s
     package's parameter tree of float32 numpy arrays: blocks stacked on a
     layer axis, weights ``[in, out]``, the patch kernel ``[P*P*3, D]``."""
     sd = {k: np.asarray(torch.as_tensor(v).detach().float().cpu()) for k, v in sd.items()}
+    if isinstance(cfg, CoCaConfig):
+        return _coca_from_sd(sd, cfg)
     convert = _tower_converters(cfg.vision)
-    if convert:
-        visual = convert[1](sd, cfg.vision)
+    visual = convert[1](sd, cfg.vision) if convert else _vit_from_sd(sd, cfg.vision)
+    if isinstance(cfg.text, HFTextConfig):
+        text = _hf_text_from_sd(sd, cfg.text)
     else:
-        P, D = cfg.vision.patch_size, cfg.vision.width
-        visual = {k: sd[name] for k, name in _VISUAL_KEYS.items() if name in sd}
-        visual["patch_kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(P * P * 3, D)
-        visual["blocks"] = _stack_blocks(sd, "visual.transformer.resblocks.")
-        map_head = {k[len(_MAP_HEAD):]: a for k, a in sd.items() if k.startswith(_MAP_HEAD)}
-        if map_head:
-            visual["map_head"] = map_head
-    text = {k: sd[name] for k, name in _TEXT_KEYS.items()}
-    text["blocks"] = _stack_blocks(sd, "transformer.resblocks.")
+        text = {k: sd[name] for k, name in _TEXT_KEYS.items()}
+        text["blocks"] = _stack_blocks(sd, "transformer.resblocks.")
     if _TEXT_PROJECTION_B in sd:
         text["text_projection_b"] = sd[_TEXT_PROJECTION_B]
     params = {"visual": visual, "text": text, "logit_scale": sd["logit_scale"].reshape(())}

@@ -1,13 +1,15 @@
 """Model architecture configuration and JSON registry.
 
-Port of ``latteclip_tpu/core/config.py`` for the towers this package has:
-the native ViT vision tower with every option a ``ViT-*`` config sets (class
-token or none, ``ln_pre`` or none, token, average or MAP pooling,
-LayerScale, sin-cos positions, patch dropout, tanh GELU, the SigLIP logit
-bias) and the timm trunks expressed on it (EVA01's giant, ViT-medium with
-average pooling); the EVA02, ModifiedResNet, ConvNeXt, Swin and
-ViT-relpos towers; and the native CLIP text tower (pooling at the EOT
-token, the first or the last column, with or without the causal mask). The
+Port of ``latteclip_tpu/core/config.py``: the native ViT vision tower with
+every option a config sets (class token or none, ``ln_pre`` or none, token,
+average, MAP or CoCa's attentional pooling, LayerScale, sin-cos positions,
+patch dropout, tanh GELU, the SigLIP logit bias) and the timm trunks
+expressed on it (EVA01's giant, ViT-medium with average pooling); the EVA02,
+ModifiedResNet, ConvNeXt, Swin and ViT-relpos towers; the native CLIP text
+tower (pooling at the EOT token, the first or the last column, with or
+without the causal mask, CoCa's class token); the HF-architecture text
+towers (``hf_model_name``: :class:`~latteclip_torch.models.hf_text.
+HFTextConfig`); and CoCa (``multimodal_cfg``: :class:`CoCaConfig`). The
 trunk tables (``EVA02_TRUNKS``, ``EVA_TRUNKS``, ``TIMM_VIT_TRUNKS``,
 ``CONVNEXT_TRUNKS``, ``SWIN_TRUNKS``, ``RELPOS_TRUNKS``) are the JAX
 package's. The JSON files in ``model_configs/`` are byte-identical copies of
@@ -23,10 +25,8 @@ from typing import Any, Dict, Tuple
 _CONFIG_DIR = Path(__file__).resolve().parent / "model_configs"
 
 _LATER_SLICE = (
-    "is not ported yet: latteclip_torch has the native CLIP text tower and the "
-    "ViT, EVA, ModifiedResNet, ConvNeXt, Swin and ViT-relpos vision towers; "
-    "CoCa and the HF text towers come in the port's last slice "
-    "(ROADMAP.md, section 1, item 6)"
+    "is not ported yet: latteclip_torch has the towers, pools and options of "
+    "the JAX package's configs (ROADMAP.md, section 1, item 6)"
 )
 
 
@@ -44,6 +44,9 @@ class VisionConfig:
     no_cls_token: bool = False      # SigLIP towers have no class token
     patch_dropout: float = 0.0      # train-time patch dropout probability
     pos_embed_type: str = "learnable"  # 'learnable' | 'sin_cos_2d'
+    attentional_pool: bool = False  # CoCa's learned-query pooling head
+    attn_pooler_queries: int = 256
+    attn_pooler_heads: int = 8
     ls_init_value: float = None     # LayerScale init (None = no LayerScale)
     ln_eps: float = 1e-5
     # the timm trunk a config reaches this tower through (EVA01's giant,
@@ -253,10 +256,12 @@ class TextConfig:
     mlp_ratio: float = 4.0
     pool_type: str = "argmax"       # 'argmax' (EOT) | 'first' | 'last'
     no_causal_mask: bool = False
+    embed_cls: bool = False         # CoCa: a class token after the text
     ls_init_value: float = None     # LayerScale init (None = no LayerScale)
     ln_eps: float = 1e-5
     # a non-CLIP vocabulary on the native tower (CLIPA: bert-base-uncased)
     hf_tokenizer_name: str = ""
+    strip_sep_token: bool = False   # tokenizer_kwargs.strip_sep_token (CLIPA)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,22 +282,36 @@ class CLIPConfig:
     compute_dtype: str = "bfloat16"
 
 
+@dataclasses.dataclass(frozen=True)
+class CoCaConfig:
+    """CoCa: the contrastive towers and a multimodal caption decoder, whose
+    width, heads, layers and vocabulary ``multimodal`` holds as a
+    :class:`TextConfig` (JAX ``CoCaConfig``)."""
+
+    name: str
+    embed_dim: int
+    vision: VisionConfig
+    text: Any                       # TextConfig (embed_cls) or HFTextConfig
+    multimodal: TextConfig
+    quick_gelu: bool = False
+    init_logit_scale: float = 2.6592600369
+    compute_dtype: str = "bfloat16"
+    pad_id: int = 0
+    image_mean: tuple = None
+    image_std: tuple = None
+    resize_mode: str = "shortest"
+    # CLIPConfig's fields that a CoCa config never sets
+    init_logit_bias = None
+    gelu_tanh = False
+
+
 def _filter_fields(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in d.items() if k in names}
 
 
-def _refuse_other_towers(name: str, raw: Dict[str, Any], vision: Dict[str, Any],
-                         text: Dict[str, Any]) -> None:
-    """NotImplementedError for the towers and options of ROADMAP item 6."""
-    if "multimodal_cfg" in raw:
-        raise NotImplementedError(f"{name}: the CoCa model {_LATER_SLICE}")
-    if vision.get("attentional_pool"):
-        raise NotImplementedError(f"{name}: the attentional pool (CoCa) {_LATER_SLICE}")
-    if text.get("hf_model_name"):
-        raise NotImplementedError(f"{name}: the HF text tower {_LATER_SLICE}")
-    if text.get("embed_cls"):
-        raise NotImplementedError(f"{name}: text_cfg.embed_cls (CoCa) {_LATER_SLICE}")
+def _refuse_unknown_options(name: str, vision: Dict[str, Any], text: Dict[str, Any]) -> None:
+    """NotImplementedError for a pool or position type no JAX tower has."""
     for key, sub, allowed in (("vision_cfg.pool_type", vision, ("tok", "avg", "map")),
                               ("vision_cfg.pos_embed_type", vision, ("learnable", "sin_cos_2d")),
                               ("text_cfg.pool_type", text, ("argmax", "first", "last"))):
@@ -341,11 +360,26 @@ def vision_config(raw: Dict[str, Any]):
 def config_from_dict(name: str, raw: Dict[str, Any]) -> CLIPConfig:
     vision_raw = dict(raw.get("vision_cfg", {}))
     text_raw = dict(raw.get("text_cfg", {}))
-    _refuse_other_towers(name, raw, vision_raw, text_raw)
+    _refuse_unknown_options(name, vision_raw, text_raw)
     for sub in (vision_raw, text_raw):
         nk = sub.get("norm_kwargs")
         if isinstance(nk, dict) and "eps" in nk and "ln_eps" not in sub:
             sub["ln_eps"] = float(nk["eps"])
+    if "hf_model_name" in text_raw:
+        from latteclip_torch.models.hf_text import hf_text_config
+
+        text = hf_text_config(text_raw)
+    else:
+        tk = text_raw.get("tokenizer_kwargs")
+        if isinstance(tk, dict) and tk.get("strip_sep_token") and "strip_sep_token" not in text_raw:
+            text_raw["strip_sep_token"] = True
+        text = TextConfig(**_filter_fields(TextConfig, text_raw))
+    quick_gelu = bool(raw.get("quick_gelu", False)) or name.endswith("-quickgelu")
+    if "multimodal_cfg" in raw:
+        return CoCaConfig(name=name, embed_dim=int(raw["embed_dim"]),
+                          vision=vision_config(vision_raw), text=text,
+                          multimodal=TextConfig(**_filter_fields(TextConfig, raw["multimodal_cfg"])),
+                          quick_gelu=quick_gelu)
     kwargs = {}
     if raw.get("init_logit_bias") is not None:
         kwargs["init_logit_bias"] = float(raw["init_logit_bias"])
@@ -365,8 +399,8 @@ def config_from_dict(name: str, raw: Dict[str, Any]) -> CLIPConfig:
         name=name,
         embed_dim=int(raw["embed_dim"]),
         vision=vision_config(vision_raw),
-        text=TextConfig(**_filter_fields(TextConfig, text_raw)),
-        quick_gelu=bool(raw.get("quick_gelu", False)) or name.endswith("-quickgelu"),
+        text=text,
+        quick_gelu=quick_gelu,
         **kwargs,
     )
 
@@ -375,7 +409,9 @@ def list_models() -> Tuple[str, ...]:
     return tuple(sorted(p.stem for p in _CONFIG_DIR.glob("*.json")))
 
 
-def get_model_config(name: str) -> CLIPConfig:
+def get_model_config(name: str):
+    """The named config: a :class:`CLIPConfig`, or a :class:`CoCaConfig`
+    where the JSON has ``multimodal_cfg``."""
     path = _CONFIG_DIR / f"{name}.json"
     if not path.exists():
         raise ValueError(f"unknown model config '{name}'; available: {list_models()}")

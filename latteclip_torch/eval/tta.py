@@ -63,6 +63,12 @@ def build_prompt_context(model: clip_mod.CLIP, tokenizer: ClipTokenizer,
     """PromptLearner's init (model.py:1014-1047): the context vectors are
     the token embeddings of ``ctx_init`` (which sets ``n_ctx``); the class
     prompts hold 'X' placeholders where the context goes."""
+    if not hasattr(model, "token_embedding"):
+        # JAX's prompt path reads params["text"] as the native tower: an HF
+        # tower's tree fails there, CoCa's runs without its class token
+        raise NotImplementedError(
+            f"{model.cfg.name}: test-time prompt tuning needs the native CLIP text tower "
+            "(ROADMAP.md, section 1, item 6)")
     init_words = ctx_init.replace("_", " ").split()
     n_ctx = len(init_words) if ctx_init else n_ctx
     prefix = " ".join(["X"] * n_ctx)

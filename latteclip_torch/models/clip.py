@@ -1,11 +1,15 @@
 """CLIP model: module, seeded init and the encode functions.
 
 Port of ``latteclip_tpu/models/clip.py`` (``init_clip_params``,
-``encode_image``, ``encode_text``, ``encode_text_packed``) for the native
-text tower and every vision tower of the JAX package but CoCa's: the native
-ViT (with its timm trunks, :class:`~latteclip_torch.models.vit.
-TimmVisionTransformer`), EVA02, ModifiedResNet, ConvNeXt, Swin and
-ViT-relpos, chosen by the type of ``cfg.vision``. The vision towers other
+``encode_image``, ``encode_text``, ``encode_text_packed``) for every tower of
+the JAX package: the native ViT (with its timm trunks, :class:`~latteclip_torch.
+models.vit.TimmVisionTransformer`), EVA02, ModifiedResNet, ConvNeXt, Swin and
+ViT-relpos, chosen by the type of ``cfg.vision``; the native text tower or
+an HF-architecture one (:class:`~latteclip_torch.models.hf_text.HFTextTower`
+under ``text.*``, the reference's CustomTextCLIP layout, chosen by the type
+of ``cfg.text``); and CoCa (:class:`~latteclip_torch.models.coca.CoCa`, for a
+:class:`~latteclip_torch.config.CoCaConfig`), which :func:`init_clip_params`
+seeds and the encoders serve like a CLIP. The vision towers other
 than the native ViT carry the names of JAX's ``params_to_pt_state_dict``
 (timm's ``visual.trunk.*``, OpenCLIP's ``visual.head.*`` and ModifiedResNet
 layout). The
@@ -29,6 +33,7 @@ from torch import nn
 
 from latteclip_torch.config import (
     CLIPConfig,
+    CoCaConfig,
     ConvNeXtVisionConfig,
     Eva02VisionConfig,
     RelPosVisionConfig,
@@ -37,7 +42,8 @@ from latteclip_torch.config import (
     VisionConfig,
 )
 from latteclip_torch.device import resolve_device
-from latteclip_torch.models import convnext, eva02, layers, resnet, swin, vit, vit_relpos
+from latteclip_torch.models import coca, convnext, eva02, hf_text, layers, resnet, swin, vit, vit_relpos
+from latteclip_torch.models.hf_text import HFTextConfig, HFTextTower
 from latteclip_torch.models.text import text_forward, text_forward_packed
 from latteclip_torch.models.pos_embed import sincos_2d
 from latteclip_torch.models.vit import MapHead, VisionTransformer, vit_forward
@@ -62,19 +68,24 @@ def vision_tower(v, embed_dim: int) -> nn.Module:
 
 class CLIP(nn.Module):
     """``text_projection_b`` adds the text projection's bias, which no config
-    sets: the JAX package has it only from a checkpoint."""
+    sets: the JAX package has it only from a checkpoint. An HF text tower
+    sits under ``text`` (``hf_pooler``: :class:`HFTextTower`'s ``pooler``)."""
 
-    def __init__(self, cfg: CLIPConfig, *, text_projection_b: bool = False):
+    def __init__(self, cfg: CLIPConfig, *, text_projection_b: bool = False,
+                 hf_pooler: Optional[bool] = None):
         super().__init__()
         t, v = cfg.text, cfg.vision
         self.cfg = cfg
         self.visual = vision_tower(v, cfg.embed_dim)
-        self.transformer = layers.Transformer(t.width, t.layers, t.heads, t.mlp_ratio, t.ln_eps,
-                                              layer_scale=t.ls_init_value is not None)
-        self.token_embedding = nn.Embedding(t.vocab_size, t.width)
-        self.positional_embedding = nn.Parameter(torch.empty(t.context_length, t.width))
-        self.ln_final = layers.LayerNorm(t.width, eps=t.ln_eps)
-        self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
+        if isinstance(t, HFTextConfig):
+            self.text = HFTextTower(t, cfg.embed_dim, pooler=hf_pooler)
+        else:
+            self.transformer = layers.Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
+                                                  t.ln_eps, layer_scale=t.ls_init_value is not None)
+            self.token_embedding = nn.Embedding(t.vocab_size, t.width)
+            self.positional_embedding = nn.Parameter(torch.empty(t.context_length, t.width))
+            self.ln_final = layers.LayerNorm(t.width, eps=t.ln_eps)
+            self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(float(cfg.init_logit_scale)))
         if cfg.init_logit_bias is not None:
             self.logit_bias = nn.Parameter(torch.tensor(float(cfg.init_logit_bias)))
@@ -114,18 +125,40 @@ def add_logit_bias(model: CLIP, value: float) -> CLIP:
     return model
 
 
+def build_model(cfg, **kwargs) -> nn.Module:
+    """The module of ``cfg``, unseeded: :class:`CLIP`, or :class:`CoCa` for
+    a :class:`CoCaConfig`."""
+    return coca.CoCa(cfg, **kwargs) if isinstance(cfg, CoCaConfig) else CLIP(cfg, **kwargs)
+
+
 def _init_rule(name: str, cfg: CLIPConfig):
     """("normal", std), ("const", value) or ("sincos", None) for one
     parameter, following the JAX package's init (models/vit.py::
-    init_vit_params and init_map_head_params, models/text.py::
-    init_text_params, models/clip.py::init_clip_params)."""
+    init_vit_params, init_attn_pool_params and init_map_head_params,
+    models/text.py::init_text_params, models/hf_text.py::
+    init_hf_text_params, models/coca.py::init_coca_params,
+    models/clip.py::init_clip_params)."""
     visual = name.startswith(("visual.", "latteclip.visual."))
     v = cfg.vision
     if visual and not isinstance(v, VisionConfig):
         return _TOWERS[type(v)][1](name, v, cfg.embed_dim)
     if visual and v.timm_trunk:
         return vit.timm_init_rule(name, v, cfg.embed_dim)
+    if name.startswith("visual.attn_pool."):
+        if name.endswith("query"):
+            return ("normal", 1.0)
+        if ".ln_" in name:
+            return ("const", 1.0 if name.endswith("weight") else 0.0)
+        return ("const", 0.0) if name.endswith("bias") else ("normal", cfg.embed_dim ** -0.5)
     tower = v if visual else cfg.text
+    if name.startswith("text.") and isinstance(cfg.text, HFTextConfig):
+        return hf_text.init_rule(name[len("text."):], cfg.text)
+    if name.startswith("text_decoder."):
+        tower, name = cfg.multimodal, name[len("text_decoder."):]
+    elif name.startswith("text."):  # CoCa's class-token text tower
+        name = name[len("text."):]
+        if name in ("cls_emb", "positional_embedding"):
+            return ("normal", 0.01)
     D, L = tower.width, tower.layers
     scale = D ** -0.5
     proj_std = scale * (2 * L) ** -0.5
@@ -159,7 +192,8 @@ def _init_rule(name: str, cfg: CLIPConfig):
 
 
 def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cuda") -> CLIP:
-    """A CLIP module with seeded random weights (float32) on ``device``.
+    """A CLIP (or CoCa) module with seeded random weights (float32) on
+    ``device``.
 
     Normals come from ``generator`` (a CPU ``torch.Generator``) in the
     module's parameter order, so a seed gives the same weights on any device:
@@ -168,7 +202,7 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
     by the inverse CDF. Buffers (BatchNorm's statistics) keep their
     identity values."""
     dev = resolve_device(device)
-    model = CLIP(cfg)
+    model = build_model(cfg)
     with torch.no_grad():
         for name, p in model.named_parameters():
             kind, value = _init_rule(name, cfg)
@@ -184,7 +218,7 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, *, device="cud
                 p.copy_((math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * value).float())
             else:
                 std = (2.0 / p[0].numel()) ** 0.5 if kind == "he_normal" else value
-                p.copy_(torch.randn(p.shape, generator=generator) * std)
+                p.copy_(torch.randn(p.shape, generator=generator).mul_(std))
     return model.to(dev)
 
 
@@ -223,11 +257,20 @@ def encode_image(model: CLIP, images: torch.Tensor, *, normalize: bool = False,
 def encode_text(model: CLIP, tokens: torch.Tensor, *, normalize: bool = False,
                 attention: str = "kernel", ln_linear: str = "unfused",
                 remat: bool = False) -> torch.Tensor:
-    """Token ids [B, ctx] -> features [B, embed_dim] (float32)."""
+    """Token ids [B, ctx] -> features [B, embed_dim] (float32). CoCa pools at
+    its class token (never at the argmax id) and an HF tower with its own
+    pooler; both attend on plain torch, so ``attention`` and ``ln_linear``
+    select nothing there (and CoCa's text tower takes no ``remat``, as in
+    JAX)."""
     cfg = model.cfg
-    feats = text_forward(model, tokens, dtype=model.compute_dtype,
-                         quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh, attention=attention,
-                         ln_linear=ln_linear, remat=remat)
+    if isinstance(cfg, CoCaConfig):
+        feats = coca.encode_text_tokens(model, tokens, dtype=model.compute_dtype)[0]
+    elif isinstance(cfg.text, HFTextConfig):
+        feats = model.text(tokens, dtype=model.compute_dtype, remat=remat)
+    else:
+        feats = text_forward(model, tokens, dtype=model.compute_dtype,
+                             quick_gelu=cfg.quick_gelu, gelu_tanh=cfg.gelu_tanh,
+                             attention=attention, ln_linear=ln_linear, remat=remat)
     return layers.l2_normalize(feats) if normalize else feats
 
 
@@ -236,8 +279,11 @@ def encode_text_packed(model: CLIP, tokens: torch.Tensor, positions: torch.Tenso
                        normalize: bool = False, attention: str = "kernel",
                        ln_linear: str = "unfused", remat: bool = False) -> torch.Tensor:
     """Rows packed by :mod:`latteclip_torch.data.packing` -> features
-    [N, embed_dim] (float32), as :func:`encode_text` gives on the padded rows."""
+    [N, embed_dim] (float32), as :func:`encode_text` gives on the padded rows
+    (the native argmax tower only, as in JAX)."""
     cfg = model.cfg
+    if isinstance(cfg.text, HFTextConfig) or getattr(cfg.text, "embed_cls", False):
+        raise NotImplementedError("packed text encode supports the native CLIP text tower only")
     feats = text_forward_packed(model, tokens, positions, seg_ids, eot_row, eot_col,
                                 dtype=model.compute_dtype, quick_gelu=cfg.quick_gelu,
                                 gelu_tanh=cfg.gelu_tanh, attention=attention,

@@ -58,6 +58,64 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return F.normalize(x.float(), dim=dim, eps=eps).to(x.dtype)
 
 
+NEG_INF = -1e9  # the additive mask value of the JAX package's masked attention
+
+
+def _softmax(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The float32 softmax of :func:`plain_attention` on q already scaled
+    and rounded."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        logits.add_(bias.float())
+    return torch.softmax(logits, dim=-1)
+
+
+class _PlainAttention(torch.autograd.Function):
+    """:func:`plain_attention` whose backward recomputes the softmax from q,
+    k and v (kept in ``dtype``) instead of keeping its float32 logits,
+    softmax and copies alive between the passes; the gradient is autograd's
+    of the same ops, casts included (the probabilities' cotangent rounded to
+    ``dtype``, as JAX's transpose of the cast gives it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, dtype):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.dtype = dtype
+        probs = _softmax(q, k, bias).to(dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        p = _softmax(q, k, bias)
+        probs = p.to(ctx.dtype)
+        dout = dout.float()
+        dprobs = torch.einsum("bqhd,bkhd->bhqk", dout, v.float()).to(ctx.dtype).float()
+        dv = torch.einsum("bhqk,bqhd->bkhd", probs.float(), dout).to(v.dtype)
+        dlogits = p * (dprobs - (dprobs * p).sum(dim=-1, keepdim=True))
+        dq = torch.einsum("bhqk,bkhd->bqhd", dlogits, k.float()).to(q.dtype)
+        dk = torch.einsum("bhqk,bqhd->bkhd", dlogits, q.float()).to(k.dtype)
+        dbias = dlogits.sum_to_size(bias.shape).to(bias.dtype) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, dtype: torch.dtype,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """JAX's ``xla_attention``, in plain torch: q [B, Lq, H, d], k and v
+    [B, Lk, H, d] -> [B, Lq, H, d] in ``dtype``. q times ``scale`` (default
+    d^-1/2) is rounded to ``dtype``; the logits are float32 products of the
+    ``dtype`` operands, plus ``bias`` (float32, broadcast to [B, H, Lq, Lk]:
+    padding, causal or relative-position terms, a learned one for T5); the
+    softmax is float32, rounded to ``dtype`` before the float32 products
+    with v. CoCa's masked and cross attention, its attentional pool and the
+    HF towers run here, as JAX runs them on XLA. The backward recomputes
+    the softmax (:class:`_PlainAttention`)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _PlainAttention.apply((q * scale).to(dtype), k.to(dtype), v.to(dtype), bias, dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with float32 statistics (OpenCLIP's LayerNormFp32)."""
 

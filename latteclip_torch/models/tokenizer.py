@@ -10,10 +10,12 @@ and pad/truncate rules (zero padding, EOT forced on truncation). Output is an
 
 Also ``canonicalize_text``, ``MiniSentencePiece`` (the dependency-free
 sentencepiece ``.model`` reader and unigram Viterbi encoder),
-``SigLipTokenizer`` on it, and ``get_tokenizer_for_config``, which picks a
-model's tokenizer as JAX does and, like JAX, never substitutes another
-vocabulary: an HF vocabulary (CLIPA's) or a SigLIP vocabulary that is not on
-disk raises.
+``SigLipTokenizer`` on it, ``HFTokenizerWrapper`` (an HF ``AutoTokenizer``
+from local files, called as the CLIP tokenizer is; ``transformers`` is
+imported when one is built, never at import), and
+``get_tokenizer_for_config``, which picks a model's tokenizer as JAX does and,
+like JAX, never substitutes another vocabulary: an HF vocabulary (the HF text
+towers', CLIPA's) or a SigLIP vocabulary that is not on disk raises.
 """
 from __future__ import annotations
 
@@ -333,24 +335,72 @@ class SigLipTokenizer:
         return out
 
 
+class HFTokenizerWrapper:
+    """An HF tokenizer with the CLIP tokenizer's calling convention (JAX
+    ``HFTokenizerWrapper``, the reference's ``HFTokenizer``): the text
+    cleaned (``clean`` "whitespace" or "lower"), then ids padded to
+    ``max_length`` and truncated, int32; ``strip_sep_token`` (CLIPA) turns
+    ``[SEP]`` into 0 so that 'last' pooling sees the final word."""
+
+    def __init__(self, name: str, context_length: int = DEFAULT_CONTEXT_LENGTH,
+                 clean: str = "whitespace", strip_sep_token: bool = False):
+        from transformers import AutoTokenizer
+
+        self.tokenizer = AutoTokenizer.from_pretrained(name)
+        self.context_length = context_length
+        self.clean_mode = clean
+        self.strip_sep_token = strip_sep_token
+
+    def __call__(self, texts: Union[str, Sequence[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        if self.clean_mode not in ("whitespace", "lower"):
+            raise ValueError(f"unknown clean mode: {self.clean_mode}")
+        texts = [_WS_RE.sub(" ", _basic_clean(t)).strip() for t in texts]
+        if self.clean_mode == "lower":
+            texts = [t.lower() for t in texts]
+        enc = self.tokenizer(list(texts), return_tensors="np",
+                             max_length=context_length or self.context_length,
+                             padding="max_length", truncation=True)
+        ids = enc["input_ids"].astype(np.int32)
+        if self.strip_sep_token:
+            ids = np.where(ids == self.tokenizer.sep_token_id, 0, ids)
+        return ids
+
+
+def _hf_tokenizer(cfg, name: str, missing: str, **kwargs) -> HFTokenizerWrapper:
+    """``HFTokenizerWrapper(name)``, or JAX's RuntimeError where it cannot
+    be built (``transformers`` absent, files not on disk)."""
+    try:
+        return HFTokenizerWrapper(name, **kwargs)
+    except Exception as e:
+        raise RuntimeError(
+            f"model {cfg.name!r} needs the HF tokenizer {name!r}; it is "
+            "not available locally (no network egress). Fetch its files "
+            f"and {missing}, or pre-tokenize inputs.") from e
+
+
 def get_tokenizer_for_config(cfg):
-    """The model's tokenizer (JAX ``get_tokenizer_for_config``): CLIP BPE for
+    """The model's tokenizer (JAX ``get_tokenizer_for_config``): an HF
+    tokenizer for an HF text tower (its ``tokenizer_name``) and for a native
+    tower with an HF vocabulary (CLIPA's ``hf_tokenizer_name``), CLIP BPE for
     the CLIP vocabulary, SigLIP's sentencepiece for the others, from
-    ``$LATTECLIP_SIGLIP_VOCAB`` (a local ``.model`` path). An HF vocabulary
-    (``hf_tokenizer_name``, CLIPA) is not ported and raises, with JAX's words
-    where its files are not on disk."""
+    ``$LATTECLIP_SIGLIP_VOCAB`` (a local ``.model`` path). A tokenizer that
+    cannot be built raises with JAX's words; none falls back to another
+    vocabulary."""
+    from latteclip_torch.models.hf_text import HFTextConfig
+
     text = cfg.text
+    if isinstance(text, HFTextConfig):
+        return _hf_tokenizer(cfg, text.tokenizer_name or text.model_name,
+                             "pass a local path via the model JSON's hf_tokenizer_name",
+                             context_length=text.context_length)
     if text.hf_tokenizer_name:
-        name = text.hf_tokenizer_name
-        if not os.path.exists(name):
-            raise RuntimeError(
-                f"model {cfg.name!r} needs the HF tokenizer {name!r}; it is "
-                "not available locally (no network egress). Fetch its files "
-                "and point hf_tokenizer_name at the local path, or "
-                "pre-tokenize inputs.")
-        raise NotImplementedError(
-            f"model {cfg.name!r}: HF tokenizers ({name!r}) are not ported to latteclip_torch "
-            "yet (ROADMAP.md, section 1, item 6); pre-tokenize inputs")
+        return _hf_tokenizer(cfg, text.hf_tokenizer_name,
+                             "point hf_tokenizer_name at the local path",
+                             context_length=text.context_length,
+                             strip_sep_token=text.strip_sep_token)
     if text.vocab_size == 49408:
         return get_tokenizer(text.context_length)
     name = os.environ.get("LATTECLIP_SIGLIP_VOCAB", "mc4" if text.vocab_size >= 200000 else "c4-en")

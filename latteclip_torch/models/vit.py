@@ -53,9 +53,13 @@ class VisionTransformer(nn.Module):
         self.ln_pre = layers.LayerNorm(D, eps=cfg.ln_eps)
         self.transformer = layers.Transformer(D, cfg.layers, cfg.heads, cfg.mlp_ratio, cfg.ln_eps,
                                               layer_scale=cfg.ls_init_value is not None)
-        self.ln_post = layers.LayerNorm(D, eps=cfg.ln_eps)
+        # CoCa's attentional pool maps the tokens to embed_dim before ln_post
+        pool_dim = embed_dim if cfg.attentional_pool else D
+        if cfg.attentional_pool:
+            self.attn_pool = AttentionalPooler(embed_dim, D, cfg.attn_pooler_queries)
+        self.ln_post = layers.LayerNorm(pool_dim, eps=cfg.ln_eps)
         if has_proj(cfg, embed_dim):
-            self.proj = nn.Parameter(torch.empty(D, embed_dim))
+            self.proj = nn.Parameter(torch.empty(pool_dim, embed_dim))
 
     def patch_embed(self):
         return self.conv1.weight, None
@@ -170,7 +174,50 @@ class TimmVisionTransformer(nn.Module):
 def has_proj(cfg: VisionConfig, embed_dim: int) -> bool:
     """A MAP-pooled tower whose width is the embedding's has no projection
     (big_vision: the head is the pool)."""
-    return not (cfg.pool_type == "map" and cfg.width == embed_dim)
+    pool_dim = embed_dim if cfg.attentional_pool else cfg.width
+    return not (cfg.pool_type == "map" and pool_dim == embed_dim)
+
+
+class AttentionalPooler(nn.Module):
+    """CoCa's attentional pool (JAX ``init_attn_pool_params``): learned
+    queries [Q, d_model] attend over the tokens [B, L, context_dim] through
+    ``nn.MultiheadAttention``'s parameters with ``kdim = vdim =
+    context_dim`` (separate ``q_proj_weight``, ``k_proj_weight``,
+    ``v_proj_weight``, ``[out, in]``, one ``in_proj_bias``), with the
+    queries LayerNormed by ``ln_q`` and the tokens by ``ln_k``."""
+
+    def __init__(self, d_model: int, context_dim: int, n_queries: int):
+        super().__init__()
+        self.query = nn.Parameter(torch.empty(n_queries, d_model))
+        self.attn = nn.Module()
+        self.attn.q_proj_weight = nn.Parameter(torch.empty(d_model, d_model))
+        self.attn.k_proj_weight = nn.Parameter(torch.empty(d_model, context_dim))
+        self.attn.v_proj_weight = nn.Parameter(torch.empty(d_model, context_dim))
+        self.attn.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
+        self.attn.out_proj = nn.Linear(d_model, d_model)
+        self.ln_q = layers.LayerNorm(d_model)
+        self.ln_k = layers.LayerNorm(context_dim)
+
+
+def attentional_pool(x: torch.Tensor, pool: AttentionalPooler, num_heads: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Tokens [B, L, C] -> [B, Q, d_model] (JAX ``attentional_pool``): the
+    cross-attention is plain torch (:func:`layers.plain_attention`), as JAX
+    runs it on XLA."""
+    B = x.shape[0]
+    keys = pool.ln_k(x.to(dtype))
+    queries = pool.ln_q(pool.query)                                     # float32
+    a = pool.attn
+    bq, bk, bv = a.in_proj_bias.chunk(3)
+    q = layers.dense(queries, a.q_proj_weight, bq, dtype)               # [Q, D]
+    k = layers.dense(keys, a.k_proj_weight, bk, dtype)                  # [B, L, D]
+    v = layers.dense(keys, a.v_proj_weight, bv, dtype)
+    Q, D = q.shape
+    hd = D // num_heads
+    qh = q.reshape(1, Q, num_heads, hd).expand(B, Q, num_heads, hd)
+    out = layers.plain_attention(qh, k.reshape(B, -1, num_heads, hd),
+                                 v.reshape(B, -1, num_heads, hd), dtype=dtype)
+    return layers.dense(out.reshape(B, Q, D), a.out_proj.weight, a.out_proj.bias, dtype)
 
 
 class MapHead(nn.Module):
@@ -264,16 +311,19 @@ def vit_forward(
     remat: bool = False,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
+    output_tokens: bool = False,
+):
     """Images [B, H, W, 3] -> pooled features [B, embed_dim] (float32), on
     a :class:`VisionTransformer` or a :class:`TimmVisionTransformer`.
     ``attention`` and ``ln_linear`` select the routes of
     :func:`layers.pre_norm_block`; ``remat`` rematerialises each block
     (:func:`layers.run_blocks`). ``train`` applies the config's patch
     dropout, drawn from ``generator``; ``map_head`` is the MAP head of a
-    tower that pools with one."""
+    tower that pools with one. ``output_tokens`` returns ``(pooled,
+    tokens)``, the token embeddings CoCa's decoder reads: after an
+    attentional pool and ``ln_post`` the queries but the first."""
     cfg = visual.cfg
-    if cfg.no_cls_token and cfg.pool_type == "tok":
+    if cfg.no_cls_token and cfg.pool_type == "tok" and not cfg.attentional_pool:
         raise ValueError("pool_type='tok' needs a class token; this config sets "
                          "no_cls_token — use pool_type 'map' or 'avg'")
     act = layers.activation(quick_gelu, gelu_tanh)
@@ -310,13 +360,21 @@ def vit_forward(
 
     off = 0 if cfg.no_cls_token else 1
     if cfg.pool_type == "map":
-        pooled = siglip_map_head(visual.ln_post(x), map_head, cfg.heads, dtype, cfg.ln_eps)
+        x = visual.ln_post(x)
+        tokens = x
+        pooled = siglip_map_head(x, map_head, cfg.heads, dtype, cfg.ln_eps)
+    elif cfg.attentional_pool:
+        x = visual.ln_post(attentional_pool(x, visual.attn_pool, cfg.attn_pooler_heads, dtype))
+        tokens = x[:, 1:]
+        pooled = tokens.mean(dim=1) if cfg.pool_type == "avg" else x[:, 0]
     elif cfg.final_ln_after_pool:
-        pooled = visual.ln_post(x[:, off:].mean(dim=1) if cfg.pool_type == "avg" else x[:, 0])
+        tokens = x[:, off:]
+        pooled = visual.ln_post(tokens.mean(dim=1) if cfg.pool_type == "avg" else x[:, 0])
     else:
         x = visual.ln_post(x)
-        pooled = x[:, off:].mean(dim=1) if cfg.pool_type == "avg" else x[:, 0]
+        tokens = x[:, off:]
+        pooled = tokens.mean(dim=1) if cfg.pool_type == "avg" else x[:, 0]
     proj = visual.projection()
     if proj is not None:
         pooled = layers.dense(pooled, proj[0], proj[1], dtype)
-    return pooled.float()
+    return (pooled.float(), tokens) if output_tokens else pooled.float()

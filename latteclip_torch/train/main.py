@@ -29,7 +29,11 @@ a resume) and ``--distill-model`` with ``--distill-pretrained`` a frozen
 teacher. The pipeline packs captions (``--text-packing``) for the v2 step
 only. ``--report-to tensorboard|wandb`` logs the steps and evals,
 ``--profile`` traces a window of steps, ``--remote-sync`` mirrors the run's
-directory, and ``--resume`` reads an ``s3://`` path through it.
+directory, and ``--resume`` reads an ``s3://`` path through it. A CoCa model
+(``--model coca_*``) trains with the v2 step, its caption decoder kept as
+it was, or with FLYP on CoCaLoss (``--coca-caption-loss-weight``,
+``--coca-contrastive-loss-weight``); an HF text tower trains as any text
+tower, from HF-tokenized ids (its tokenizer files must be on disk).
 
 The model runs on ``--device`` (``cuda`` by default: the Hopper kernels; it
 raises without a CUDA device). The JAX package's kernel switches
@@ -37,10 +41,11 @@ raises without a CUDA device). The JAX package's kernel switches
 ``LATTECLIP_FUSED_LN`` select the same routes here (``attention=`` and
 ``ln_linear=``); its ``LATTECLIP_TEXT_XLA_ATTN`` is refused. Flags whose
 feature the port does not have yet (``--use-native-jpeg``,
-``--model-parallelism`` above 1) and the towers it does not have are refused
-with a ``SystemExit`` that names the ROADMAP item; the flags JAX refuses are
-refused with its messages; the GPU/infra flags the JAX package ignores with
-a warning are ignored with the same warning.
+``--model-parallelism`` above 1) are refused with a ``SystemExit`` that
+names the ROADMAP item; the flags JAX refuses are refused with its messages
+(``--text-packing`` with an HF or class-token text tower, ``--gamma``,
+``--siglip`` or a teacher with CoCa among them); the GPU/infra flags the JAX
+package ignores with a warning are ignored with the same warning.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ import torch
 
 from latteclip_torch import checkpoint as ckpt
 from latteclip_torch import pretrained
-from latteclip_torch.config import get_model_config
+from latteclip_torch.config import CoCaConfig, get_model_config
 from latteclip_torch.data import synthetic
 from latteclip_torch.data.eval_dataset import FlatFileDataset
 from latteclip_torch.data.folder_dataset import CsvDataset, ImageFolderDataset
@@ -73,6 +78,7 @@ from latteclip_torch.eval.features import extract_features
 from latteclip_torch.eval.group_weights import extract_group_weights
 from latteclip_torch.eval.tta import TTAConfig, evaluate_tta
 from latteclip_torch.models import clip as clip_mod
+from latteclip_torch.models.hf_text import HFTextConfig
 from latteclip_torch.models.tokenizer import get_tokenizer_for_config
 from latteclip_torch.obs.file_sync import RemoteSync, pt_load_path
 from latteclip_torch.obs.meters import append_results_jsonl
@@ -245,6 +251,9 @@ def resolve_preprocess_path(args) -> str:
 def run_tta(args, model, tokenizer, dataset, device, routes) -> None:
     """``--tta`` / ``--method tpt|rlcf``: test-time adaptation over
     ``dataset``, logged as ``TTA eval: {...}``."""
+    if not hasattr(model, "token_embedding"):
+        raise SystemExit(f"--model {args.model}: test-time prompt tuning needs the native CLIP "
+                         f"text tower; CoCa and the HF towers are not ported there ({_ITEM_6})")
     tta_cfg = TTAConfig(n_views=args.tta_n_views, selection_p=args.selection_p,
                         tta_steps=args.tta_step, lr=args.lr)
     reward_model = None
@@ -312,10 +321,24 @@ def _bank_for(classnames, bank_by_class) -> Optional[torch.Tensor]:
     return None
 
 
-def refuse_trainer_flags(args) -> None:
-    """The trainer flags JAX's CLI refuses, with its messages: ``--siglip``
-    with the LatteCLIP step (v2 or v1), and one of the two distill flags
-    without the other on the FLYP step."""
+def refuse_text_packing(args, cfg) -> None:
+    """JAX's refusal of ``--text-packing`` for a text tower the packer cannot
+    serve (an HF tower, a pool other than the EOT's, CoCa's class token)."""
+    if args.text_packing and (isinstance(cfg.text, HFTextConfig)
+                              or cfg.text.pool_type != "argmax" or cfg.text.embed_cls):
+        raise SystemExit("--text-packing supports the native argmax-pool CLIP text tower only "
+                         "(HF towers and cls-token pooling pack differently)")
+
+
+def refuse_trainer_flags(args, cfg) -> None:
+    """The trainer flags JAX's CLI refuses, with its messages: ``--gamma``
+    with CoCa, ``--siglip`` with the LatteCLIP step (v2 or v1), one of the
+    two distill flags without the other on the FLYP step, and ``--siglip``
+    or a teacher with CoCa."""
+    coca = isinstance(cfg, CoCaConfig)
+    if coca and args.gamma:
+        raise SystemExit("--gamma (legacy v1 trainer) does not support CoCa models; use "
+                         "--method ours or flyp")
     if args.method == "ours":
         if args.siglip:
             raise SystemExit("--siglip applies to the contrastive baseline paths (--method "
@@ -323,6 +346,9 @@ def refuse_trainer_flags(args) -> None:
     elif (args.distill_model is None) != (args.distill_pretrained is None):
         raise SystemExit("--distill-model and --distill-pretrained must be given together "
                          "(reference main.py:213-219)")
+    elif coca and (args.siglip or args.distill_model is not None):
+        raise SystemExit("--siglip / --distill-model do not compose with CoCa models (reference "
+                         "create_loss dispatches CoCa first, factory.py:325-341)")
 
 
 def load_teacher(args, device) -> Optional[clip_mod.CLIP]:
@@ -339,8 +365,9 @@ def load_teacher(args, device) -> Optional[clip_mod.CLIP]:
 
 def make_step(args, model, hp: LatteHParams, table, aug: AugConfig, teacher, routes: dict):
     """The step of the trainer the flags select (JAX main's dispatch): the
-    v1 step for ``ours`` with ``--gamma``, the v2 step for ``ours``, else
-    the FLYP step."""
+    v1 step for ``ours`` with ``--gamma``, the v2 step for ``ours`` (a CoCa
+    decoder's parameters kept), else the FLYP step (CoCaLoss on CoCa)."""
+    coca = isinstance(model.cfg, CoCaConfig)
     if args.method == "ours" and args.gamma:
         logger.info("gamma=%g: using the legacy v1 momentum-prototype trainer (reference "
                     "train_one_epoch; detached text anchor, EMA bank mix of image features)",
@@ -353,10 +380,16 @@ def make_step(args, model, hp: LatteHParams, table, aug: AugConfig, teacher, rou
             logger.info("text packing: captions -> [R, %d] segment-masked rows; templates "
                         "packed to [%d, %d] (from [%d, %d])", args.text_packing,
                         template_packed.tokens.shape[0], args.text_packing, *table.shape)
+        # the v2 objective never touches CoCa's caption decoder
         return make_train_step(model, hp, table, aug=aug, template_packed=template_packed,
-                               **routes)
+                               zero_update_subtrees=("text_decoder",) if coca else (), **routes)
+    coca_weights = None
+    if coca:
+        coca_weights = (args.coca_caption_loss_weight, args.coca_contrastive_loss_weight)
+        logger.info("CoCa fine-tune: CoCaLoss caption_w=%g clip_w=%g", *coca_weights)
     return make_flyp_step(model, hp, table, use_gt=args.method == "flyp_gt", aug=aug,
-                          use_siglip=args.siglip, teacher=teacher, **routes)
+                          use_siglip=args.siglip, teacher=teacher, coca_weights=coca_weights,
+                          **routes)
 
 
 @torch.no_grad()
@@ -500,6 +533,7 @@ def main(argv=None) -> int:
         logger.info("group weights written to %s", args.extract_group_weight_path)
         return 0
 
+    refuse_text_packing(args, cfg)
     v2 = args.method == "ours" and not args.gamma
     if args.text_packing and not v2:
         logger.info("--text-packing with method=%s/gamma=%s: the trainer has no caption streams "
@@ -518,7 +552,7 @@ def main(argv=None) -> int:
     total_steps = pipeline.steps_per_epoch * args.epochs
 
     # ---- the trainer's parameters: the resumed weights, logit_bias, teacher --
-    refuse_trainer_flags(args)
+    refuse_trainer_flags(args, cfg)
     resumed = None
     if args.resume:
         path = (loop_mod.find_latest_checkpoint(checkpoint_dir) if args.resume == "latest"

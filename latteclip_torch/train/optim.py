@@ -57,6 +57,8 @@ from latteclip_torch.config import (
     VisionConfig,
 )
 
+from latteclip_torch.models.hf_text import HFTextConfig
+
 Schedule = Callable[[int], float]
 
 
@@ -144,7 +146,9 @@ def _visual(name: str) -> bool:
 
 
 def _text(name: str) -> bool:
-    return not _visual(name) and name not in ("logit_scale", "logit_bias")
+    """The JAX tree's ``text`` subtree: not CoCa's ``text_decoder``."""
+    return not _visual(name) and name not in ("logit_scale", "logit_bias") \
+        and not name.startswith("text_decoder.")
 
 
 _TOWER = {"visual": _visual, "text": _text}
@@ -164,7 +168,10 @@ _GROUPS = {
     "visual": ("visual.transformer.resblocks.",
                ("visual.conv1.", "visual.class_embedding", "visual.positional_embedding",
                 "visual.ln_pre."),
-               ("visual.ln_post.", "latteclip.visual.map_head.")),
+               ("visual.ln_post.", "latteclip.visual.map_head.", "visual.attn_pool.")),
+    "coca_text": ("text.transformer.resblocks.", ("text.token_embedding.",
+                                                  "text.positional_embedding"),
+                  ("text.ln_final.", "text.cls_emb")),
     "visual_timm": ("visual.trunk.blocks.",
                     ("visual.trunk.patch_embed.", "visual.trunk.cls_token", "visual.trunk.pos_embed"),
                     ("visual.trunk.norm.", "visual.trunk.fc_norm.")),
@@ -177,7 +184,13 @@ def _groups(model: nn.Module, tower: str) -> Tuple[str, tuple, tuple]:
     ConvNeXt, Swin) raises JAX's ``ValueError``, as does ViT-relpos, whose
     JAX blocks are a list that its ``mask_tower_updates`` cannot slice."""
     if tower == "text":
-        return _GROUPS["text"]
+        t = model.cfg.text
+        if isinstance(t, HFTextConfig):
+            # an HF tower's stack; its other leaves (embeddings, norms, the
+            # projection) sit in no group of JAX's and stay trainable
+            stem = {"mt5": "block.", "m2m_100": "layers."}.get(t.model_type, "encoder.layer.")
+            return "text.transformer." + stem, (), ()
+        return _GROUPS["coca_text" if getattr(t, "embed_cls", False) else "text"]
     v = model.cfg.vision
     if isinstance(v, VisionConfig):
         return _GROUPS["visual_timm" if v.timm_trunk else "visual"]
@@ -220,7 +233,8 @@ def mask_tower_updates(model: nn.Module, tower: str, unlocked_groups: int) -> Di
     for name, _ in model.named_parameters():
         if not _TOWER[tower](name):
             out[name] = True
-        elif name.startswith(prefix):
+        elif name.startswith(prefix) and "relative_attention_bias" not in name:
+            # (T5's relative bias, held by block 0 here, is a top-level leaf in JAX)
             out[name] = keep[int(name[len(prefix):].split(".", 1)[0])]
         elif name.startswith(head):
             out[name] = unlocked_groups >= num_layers + 2

@@ -28,8 +28,10 @@ padded ``[C + 2B, ctx]`` text forward, rows zero-padded to a multiple of 8,
 where JAX does (captions not packed). With ``batch["crop_boxes"]`` the
 images are canvases and the random resized crop runs in the step. The update
 (:func:`apply_gradients`) accumulates, clips and steps as the JAX package's
-optax chain does (:mod:`latteclip_torch.train.optim`). The CoCa-only
-``zero_update_subtrees`` comes with the CoCa tower (ROADMAP.md, section 1).
+optax chain does (:mod:`latteclip_torch.train.optim`).
+``zero_update_subtrees`` keeps the parameters under those names (CoCa's
+``text_decoder``, which the v2 objective never reads) as they were, as JAX
+zeroes their updates after AdamW: their moments see zero gradients.
 
 The other trainers of the JAX CLI: ``--gamma`` selects the legacy v1 step
 (the reference's ``train_one_epoch``: a detached template anchor, only the
@@ -38,7 +40,8 @@ image tower and the logit scale train, the gamma bank update), and
 InfoNCE against the padded template of each sample's pseudo-label or
 ground-truth label, with ``--siglip`` the sigmoid loss and with
 ``--distill-*`` a frozen teacher's soft targets). Neither encodes captions.
-FLYP's CoCa branch comes with the CoCa tower.
+On a CoCa model FLYP takes CoCaLoss (``coca_weights``): the full forward on
+each sample's template, InfoNCE plus the caption loss of the decoder.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import torch
 
 from latteclip_torch.data import transforms as T
 from latteclip_torch.models import clip as clip_mod
+from latteclip_torch.models import coca as coca_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.train.objective import (
     clip_loss,
@@ -286,6 +290,7 @@ def make_train_step(
     *,
     attention: str = "kernel",
     ln_linear: str = "unfused",
+    zero_update_subtrees: Sequence[str] = (),
 ):
     """Build the step ``(state, batch, generator) -> metrics``, which
     updates ``state`` in place: augment, forward, backward, the update of
@@ -300,8 +305,10 @@ def make_train_step(
     ``template_packed``: the packed template table (a ``PackedText``) for
     ``hp.text_packing``. ``generator`` draws the augment (a
     ``torch.Generator`` on the model's device). ``attention`` and
-    ``ln_linear`` select the towers' kernel routes. Metrics are 0-d tensors
-    on the device."""
+    ``ln_linear`` select the towers' kernel routes. The parameters under
+    each of ``zero_update_subtrees`` (a top-level module name) are written
+    back after the update, as in :func:`make_v1_step`. Metrics are 0-d
+    tensors on the device."""
     aug = aug or T.AugConfig()
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -309,6 +316,8 @@ def make_train_step(
     packed = None
     if template_packed is not None:
         packed = tuple(torch.as_tensor(a).to(dev) for a in template_packed)
+    frozen = [p for name, p in model.named_parameters()
+              if name.split(".", 1)[0] in zero_update_subtrees]
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
         images = _step_images(cfg, hp, aug, batch, generator, dev)
@@ -317,8 +326,12 @@ def make_train_step(
                                       state.prototypes, table, packed, attention=attention,
                                       ln_linear=ln_linear)
         loss.backward()
+        with torch.no_grad():
+            kept = [p.detach().clone() for p in frozen]
         apply_gradients(state)
         with torch.no_grad():
+            if frozen:
+                torch._foreach_copy_(frozen, kept)
             state.model.logit_scale.clamp_(0.0, LOG100)
 
         state.memory_bank = update_memory_bank(state.memory_bank, aux["preds"], aux["zs_preds"],
@@ -431,7 +444,8 @@ DEFAULT_LOGIT_BIAS = -10.0  # the reference SigLIP configs' init_logit_bias
 def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torch.Tensor,
                  template_table: torch.Tensor, use_gt: bool, use_siglip: bool = False,
                  teacher: Optional[clip_mod.CLIP] = None, *, attention: str = "kernel",
-                 ln_linear: str = "unfused") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 ln_linear: str = "unfused", coca_weights: Optional[Tuple[float, float]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """FLYP's loss (JAX ``flyp_loss_fn``): InfoNCE, or with ``use_siglip``
     the SigLIP loss with ``model.logit_bias`` (-10 where the model has
     none), between the image features and the template feature of each
@@ -440,9 +454,21 @@ def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: to
     label of -1 gathers the last row, as JAX's indexing does. With a
     ``teacher`` (a frozen CLIP run without autograd on the same images and
     templates, its own logit scale) :func:`distill_clip_loss` joins the
-    loss as ``distill_loss``."""
+    loss as ``distill_loss``. ``coca_weights`` ``(caption_w, clip_w)``, on a
+    CoCa model: CoCaLoss on the full forward (the decoder cross-attends each
+    sample's own image tokens) over each sample's template row, as JAX's
+    CoCa branch."""
     dev = images.device
     labels = _to_device(batch, ("gt_labels" if use_gt else "zs_preds",), dev)[0].long()
+    if coca_weights is not None:
+        caption_w, clip_w = coca_weights
+        out = coca_mod.coca_forward(model, images, template_table[labels], attention=attention)
+        losses = coca_mod.coca_loss(out, caption_loss_weight=caption_w, clip_loss_weight=clip_w,
+                                    pad_id=model.cfg.pad_id)
+        loss = losses["contrastive_loss"] + losses["caption_loss"]
+        return loss, {"loss": loss.detach(), "contrastive_loss": losses["contrastive_loss"].detach(),
+                      "caption_loss": losses["caption_loss"].detach(),
+                      "logit_scale": out["logit_scale"].detach()}
     routes = {"attention": attention, "ln_linear": ln_linear}
     image_features = clip_mod.encode_image(model, images, normalize=True, remat=hp.vision_remat,
                                            **routes)
@@ -474,7 +500,7 @@ def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: to
 def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_gt: bool = False,
                    aug: Optional[T.AugConfig] = None, use_siglip: bool = False,
                    teacher: Optional[clip_mod.CLIP] = None, *, attention: str = "kernel",
-                   ln_linear: str = "unfused"):
+                   ln_linear: str = "unfused", coca_weights: Optional[Tuple[float, float]] = None):
     """Build the FLYP step ``(state, batch, generator) -> metrics`` (JAX
     ``make_flyp_step``): augment, :func:`flyp_loss_fn`, backward, the update
     of :func:`apply_gradients` and the logit-scale clamp; the memory bank
@@ -490,7 +516,8 @@ def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_g
         images = _step_images(cfg, hp, aug, batch, generator, dev)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = flyp_loss_fn(state.model, hp, batch, images, table, use_gt, use_siglip,
-                                     teacher, attention=attention, ln_linear=ln_linear)
+                                     teacher, attention=attention, ln_linear=ln_linear,
+                                     coca_weights=coca_weights)
         loss.backward()
         apply_gradients(state)
         with torch.no_grad():

@@ -227,7 +227,7 @@ def test_eval_only_equals_jax(runs, tmp_path):
 
 REFUSED = {
     "model_parallelism": ["--model-parallelism", "2"],
-    "native_jpeg": ["--use-native-jpeg"], "coca": ["--model", "coca_ViT-B-32"],
+    "native_jpeg": ["--use-native-jpeg"],
 }
 
 

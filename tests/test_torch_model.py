@@ -24,7 +24,7 @@ from latteclip_tpu.core import checkpoint as jax_ckpt
 from latteclip_tpu.core import config as jax_config
 from latteclip_tpu.models import clip as jax_clip
 from latteclip_torch import config as torch_config
-from latteclip_torch.checkpoint import state_dict_from_jax_params
+from latteclip_torch.checkpoint import load_clip_pt, state_dict_from_jax_params
 from latteclip_torch.models import clip as torch_clip
 
 torch.set_num_threads(1)
@@ -63,10 +63,16 @@ def _shared(name, compute_dtype):
 
 VIT_JSONS = sorted(f for f in os.listdir(os.path.join(REPO, "latteclip_tpu", "core", "model_configs"))
                    if f.startswith("ViT-") and f.endswith(".json"))
+# CoCa's and the HF text towers' configs
+COCA_HF_JSONS = [f"{n}.json" for n in (
+    "coca_ViT-B-32", "coca_ViT-L-14", "coca_base", "coca_tiny-test", "coca_roberta-ViT-B-32",
+    "roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32", "xlm-roberta-large-ViT-H-14",
+    "mt5-base-ViT-B-32", "mt5-xl-ViT-H-14", "nllb-clip-base", "nllb-clip-large",
+    "nllb-clip-base-siglip", "nllb-clip-large-siglip")]
 
 
 @pytest.mark.parametrize("rel", [
-    *(f"model_configs/{f}" for f in VIT_JSONS), "assets/clip_bpe_merges.txt.gz",
+    *(f"model_configs/{f}" for f in VIT_JSONS + COCA_HF_JSONS), "assets/clip_bpe_merges.txt.gz",
     "assets/imagenet_classnames.json", "assets/openai_imagenet_templates.json",
 ])
 def test_data_copies_are_byte_identical(rel):
@@ -84,10 +90,19 @@ def test_config_matches_jax_and_refuses_other_towers():
                 j.vision.heads, j.vision.seq_len)
         assert (t.text.width, t.text.heads, t.text.layers, t.text.context_length) == \
                (j.text.width, j.text.heads, j.text.layers, j.text.context_length)
+    # multimodal_cfg (CoCa) and hf_model_name (an HF text tower) parse to JAX's fields
+    for raw in ({"embed_dim": 8, "multimodal_cfg": {"width": 8}},
+                {"embed_dim": 8, "text_cfg": {"hf_model_name": "roberta-base"}}):
+        j, t = jax_config.config_from_dict("x", raw), torch_config.config_from_dict("x", raw)
+        assert type(t).__name__ == type(j).__name__
+        td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
+        for sub in ("text", "multimodal"):  # the port's TextConfig has no pad_id (JAX's: 0)
+            if sub in td and "pad_id" not in td[sub]:
+                assert jd[sub].pop("pad_id") == 0
+        assert td == jd
+    # a still-unported item (ROADMAP.md item 6): big_vision .npz checkpoints
     with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config.config_from_dict("x", {"embed_dim": 8, "multimodal_cfg": {"width": 8}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config.config_from_dict("x", {"embed_dim": 8, "text_cfg": {"hf_model_name": "roberta-base"}})
+        load_clip_pt("weights.npz", torch_config.get_model_config("ViT-B-32"), device="cpu")
 
 
 @pytest.mark.parametrize("raw", [
