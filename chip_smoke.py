@@ -301,7 +301,27 @@ Phases, each raising on failure:
    and 6 text layers (the cut printed), xlm-roberta-large-ViT-H-14,
    mt5-xl-ViT-H-14 and nllb-clip-large (vision heads 80 wide: the plain
    route);
-13. report: one JSON line of kernels, nvidia-smi's line, and the final line
+13. rest, bf16, seed-0 weights: (a) int8 serving on ViT-B/32 and ViT-L/14
+   (replace_linear, the default include: 48 and 72 weights): the serving
+   requests (1000-class template classifier, the 1279-image eval from
+   pinned memory, the prototype request) on the bf16 model and its int8
+   twin, each with images/s, a profiled eval (busy ms, idle share, ms by
+   kind, the int8 GEMM apart), peak memory and launches (equal); image
+   rows and classifier columns against bf16 at cosine >= 0.99, prototype
+   top-1 agreement reported (rest_int8 lines); (b) LATTECLIP_TEXT_XLA_ATTN=1
+   on the padded ViT-B/32 step at batch 512: no K1/K3, K2 = K4 = 12 a step,
+   loss within 1e-2 and gradient cosine >= 0.99 against the kernel route,
+   busy ms of both (rest_xla_switch); (c) the offline pipeline from a raw
+   47-class CoOp-layout dataset at DTD's image sizes: to_webdataset,
+   create_tarfiles, the pseudo-labels (K1, K2), per-image and per-group
+   captions (EchoCaptioner), the CLI for 2 epochs with --use-native-jpeg
+   and without (--host-resize): seconds a stage, images/s, decode counts,
+   and no PIL decode of a JPEG where the native decoder built
+   (rest_offline); (d) a seeded big_vision .npz with ViT-B-16-SigLIP's keys
+   at full width through load_clip_pt, 1279 images served (K1 at 196
+   tokens, features against plain at cosine >= 0.999), save_for_hf and the
+   folder's .bin and .safetensors reloaded bit-equal (rest_npz_hf);
+14. report: one JSON line of kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -1133,6 +1153,10 @@ def run_requests(model, tok, classnames, templates, batches, bank, attention):
     }
 
 
+# cuBLASLt's int8 kernels (torch._int_mm) name their operand types: s8, i8, imma
+_INT8_GEMM = re.compile(r"s8|i8|int8|imma")
+
+
 def device_profile(fn) -> dict:
     """Host-clock time of fn() and the device's busy time within it, from a
     torch.profiler trace: the union of the device intervals, their sum by
@@ -1155,11 +1179,13 @@ def device_profile(fn) -> dict:
             continue
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name.lower()
+        gemm = any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas", "imma"))
         kind = ("attention fwd" if "flash_fwd" in name else
                 "attention bwd" if "flash_bwd" in name else
                 "ln_linear" if "ln_linear" in name else
                 "memcpy" if "memcpy" in name or "memset" in name else
-                "gemm" if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")) else "other")
+                "int8 gemm" if gemm and _INT8_GEMM.search(name) else
+                "gemm" if gemm else "other")
         us = ev.time_range.elapsed_us()
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
         by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3
@@ -3720,6 +3746,465 @@ def phase_coca_hf(smi: str, train: dict) -> dict:
     return totals
 
 
+# -- phase 13: the rest: int8 serving, the XLA switch, the offline jobs, .npz and HF ---
+
+INT8_MODELS = ("ViT-B-32", "ViT-L-14")
+REST_PER_CLASS = (4, 1, 1)      # train, val, test images a class of the raw dataset
+REST_BATCH = 128                # the raw dataset's train batch (235 images: 2 steps an epoch)
+SIGLIP_MODEL = "ViT-B-16-SigLIP"
+
+
+def int8_serving(smi: str, name: str) -> dict:
+    """(a) The serving requests (the 1000-class template classifier, the
+    1279-image eval from pinned memory, the prototype request) on the bf16
+    model and on its int8 twin (replace_linear, default include): images/s,
+    a profiled eval each (busy ms, idle share, ms by kind with the int8
+    GEMM apart), peak memory, launches (equal), image-row and
+    classifier-column cosines against bf16 (>= 0.99) and prototype top-1
+    agreement (reported)."""
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.quantize import replace_linear
+
+    inputs = serving_inputs(name)
+    cfg, model, tok, batches, bank = (inputs[k] for k in ("cfg", "model", "tok", "batches", "bank"))
+    classnames, templates, mean, std = (inputs[k] for k in ("classnames", "templates", "mean", "std"))
+    t0 = time.perf_counter()
+    qmodel, count = replace_linear(copy.deepcopy(model))
+    quantize_s = time.perf_counter() - t0
+    want_count = 2 * (cfg.vision.layers + cfg.text.layers)
+    run_requests(qmodel, tok, classnames, templates, [batches[0], batches[-1]], bank, "kernel")
+    runs = {}
+    for label, m in (("bf16", model), ("int8", qmodel)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r = run_requests(m, tok, classnames, templates, batches, bank, "kernel")
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: zs.run_zero_shot_eval(m, r["classifier"], batches))
+        log(f"profile eval_{label}_{name} " + json.dumps(prof))
+        runs[label] = {"requests": r, "launches": launches, "max_memory_allocated": peak,
+                       "weight_bytes": sum(t.numel() * t.element_size() for t in
+                                           list(m.parameters()) + list(m.buffers())),
+                       "profile": prof}
+    proto = zs.prototype_classifier(bank)
+    cos_min, agree_top1, rows = 1.0, 0, 0
+    with torch.no_grad():
+        for _ids, images, _labels, valid in batches:
+            x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
+            fb = clip_mod.encode_image(model, x, normalize=True)[:valid]
+            fq = clip_mod.encode_image(qmodel, x, normalize=True)[:valid]
+            if not torch.isfinite(fq).all():
+                raise RuntimeError(f"{name} int8 features are not finite")
+            cos_min = min(cos_min, float(F.cosine_similarity(fq.float(), fb.float(), dim=-1).min()))
+            agree_top1 += int(((fq @ proto).argmax(-1) == (fb @ proto).argmax(-1)).sum())
+            rows += valid
+    cb, cq = runs["bf16"]["requests"]["classifier"], runs["int8"]["requests"]["classifier"]
+    clf_cos = float(F.cosine_similarity(cq.float(), cb.float(), dim=0).min())
+    rec = {"model": name, "replaced": count, "replaced_expected": want_count,
+           "quantize_s": quantize_s, "rows": rows, "image_row_cos_min": cos_min,
+           "classifier_col_cos_min": clf_cos, "prototype_top1_agree": agree_top1 / rows,
+           "prototype_request_top1_agree": float(
+               (runs["int8"]["requests"]["proto_logits"].argmax(-1)
+                == runs["bf16"]["requests"]["proto_logits"].argmax(-1)).float().mean()),
+           "card": smi}
+    for label, r in runs.items():
+        rec[label] = {
+            "eval_images_per_s": r["requests"]["images_per_s"],
+            "classifier_build_s": r["requests"]["classifier_build_s"],
+            "eval_device_busy_ms": r["profile"]["device_busy_ms"],
+            "eval_device_idle_share": r["profile"]["device_idle_share"],
+            "eval_device_ms_by_kind": r["profile"]["device_ms_by_kind"],
+            "max_memory_allocated": r["max_memory_allocated"], "weight_bytes": r["weight_bytes"],
+            "launches": r["launches"], "metrics": r["requests"]["metrics"]}
+    log("rest_int8 " + json.dumps(rec))
+    if count != want_count:
+        raise RuntimeError(f"{name}: replace_linear replaced {count} weights, expected {want_count}")
+    if runs["int8"]["launches"] != runs["bf16"]["launches"]:
+        raise RuntimeError(f"{name}: int8 launched {runs['int8']['launches']}, bf16 "
+                           f"{runs['bf16']['launches']}")
+    if cos_min < 0.99 or clf_cos < 0.99:
+        raise RuntimeError(f"{name}: int8 against bf16: image rows {cos_min}, columns {clf_cos}")
+    del qmodel, inputs, model
+    torch.cuda.empty_cache()
+    return runs["int8"]["launches"]
+
+
+def xla_switch_train(smi: str, train: dict) -> dict:
+    """(b) LATTECLIP_TEXT_XLA_ATTN=1 on the padded ViT-B/32 step at batch
+    512: TRAIN_STEPS counted steps launch no K1/K3 (the text's whole rows
+    of 77 tokens take the plain attention) and K2 = K4 = 12 a step (the
+    vision pairs, segmented); a profiled step beside the kernel route's;
+    loss within 1e-2 relative and gradient cosine >= 0.99 against the
+    kernel route from one state and batch, augment off."""
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.train import optim, state as St, step as S
+
+    cfg, tok, classes, templates = train["cfg"], train["tok"], train["classes"], train["templates"]
+    table, batches = train["table"], train["batches"]
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bank = St.init_memory_bank(model, tok, classes, templates)
+    state = St.create_train_state(
+        model, optim.make_optimizer(model, optim.make_schedule("const", 1e-5, warmup=0)), bank)
+    step = S.make_train_step(model, S.LatteHParams(text_packing=False), table, T.AugConfig())
+    hp = S.LatteHParams(augment=False, text_packing=False)
+    batch = batches[1]
+    images = T.normalize_images(batch["images"], *T.model_mean_std(cfg))
+    table_t = torch.from_numpy(table).cuda()
+    n, layers = TRAIN_STEPS, cfg.vision.layers
+    rec = {"model": cfg.name, "batch": TRAIN_BATCH, "steps": n, "card": smi}
+    routes = (("kernel", "0"), ("xla_switch", "1"))
+    for route, switch in routes:
+        os.environ["LATTECLIP_TEXT_XLA_ATTN"] = switch
+        try:
+            timed_steps(step, state, batches, gen, 1)
+            ips, losses, launches = counted_steps(step, state, batches, gen, n)
+            prof = device_profile(lambda: step(state, batches[0], gen))
+            log(f"profile train_step_padded_{route} " + json.dumps(prof))
+        finally:
+            os.environ.pop("LATTECLIP_TEXT_XLA_ATTN", None)
+        check_state(state, losses, f"padded {route}")
+        rec[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
+                      "device_busy_ms_per_step": prof["device_busy_ms"],
+                      "device_idle_share": prof["device_idle_share"],
+                      "device_ms_by_kind": prof["device_ms_by_kind"]}
+    grads, grad_launches, text = {}, {}, {}
+    for route, switch in routes:  # both from the state the steps left, counted
+        os.environ["LATTECLIP_TEXT_XLA_ATTN"] = switch
+        try:
+            reset_counts()
+            grads[route] = route_gradients(copy.deepcopy(model), hp, batch, images, state,
+                                           table_t, None, "kernel")
+            grad_launches[route] = {k: v for k, v in read_counts().items() if v}
+            with torch.no_grad():
+                text[route] = clip_mod.encode_text(model, table_t)
+        finally:
+            os.environ.pop("LATTECLIP_TEXT_XLA_ATTN", None)
+    rec["agreement"] = agree(grads["xla_switch"], grads["kernel"])
+    rec["agreement"]["launches"] = grad_launches
+    rec["agreement"]["template_features_max_abs_diff"] = float(
+        (text["xla_switch"].float() - text["kernel"].float()).abs().max())
+    log("rest_xla_switch " + json.dumps(rec))
+    got = rec["xla_switch"]["launches"]
+    want = {**dict.fromkeys(got, 0), "flash_fwd_seg": n * layers, "flash_bwd_seg": n * layers}
+    if got != want:
+        raise RuntimeError(f"XLA switch steps launched {got}, expected {want}")
+    if "flash_fwd" in grad_launches["xla_switch"] or "flash_fwd" not in grad_launches["kernel"]:
+        raise RuntimeError(f"the gradient comparison's routes launched {grad_launches}")
+    a = rec["agreement"]
+    if a["loss_rel_diff"] > 1e-2 or a["grad_cos"] < 0.99:
+        raise RuntimeError(f"XLA switch and kernel route disagree: {a}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {k: rec["kernel"]["launches"][k] + got[k] for k in got}
+
+
+def raw_coop_dataset(root: str, rng: np.random.Generator) -> int:
+    """A CoOp-layout DTD: images/<class>/<class>_NNNN.jpg at DTD's source
+    sizes (300 to 640 px a side), split_zhou_DescribableTextures.json with
+    REST_PER_CLASS train, val and test images of each of the 47 classes;
+    each class an 8 x 8 grid of its colours with noise. Returns the count."""
+    from PIL import Image
+
+    split, n = {"train": [], "val": [], "test": []}, 0
+    cells = rng.integers(0, 256, (len(DTD_CLASSES), 8, 8, 3), dtype=np.uint8)
+    for c, cname in enumerate(DTD_CLASSES):
+        os.makedirs(os.path.join(root, "images", cname))
+        for part, count in zip(("train", "val", "test"), REST_PER_CLASS):
+            for _ in range(count):
+                w, h = (int(v) for v in rng.integers(300, 641, 2))
+                img = Image.fromarray(cells[c]).resize((w, h), Image.NEAREST)
+                arr = np.asarray(img).astype(np.int16) + rng.integers(-12, 13, (h, w, 3))
+                rel = f"{cname}/{cname}_{n:04d}.jpg"
+                Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                    os.path.join(root, "images", rel), quality=90)
+                split[part].append([rel, c, cname])
+                n += 1
+    with open(os.path.join(root, "split_zhou_DescribableTextures.json"), "w") as f:
+        json.dump(split, f)
+    return n
+
+
+def offline_pipeline(smi: str, workdir: str) -> dict:
+    """(c) LatteCLIP's data pipeline from a raw dataset: the CoOp-layout DTD
+    of :func:`raw_coop_dataset` -> to_webdataset -> create_tarfiles -> the
+    pseudo-labels (the CLI's --extract-features-path at ViT-B/32, K1 and
+    K2) -> per-image and per-group captions (EchoCaptioner) -> the CLI for
+    2 epochs on the result with --host-resize, with --use-native-jpeg and
+    without: seconds a stage, the CLI's images/s, the decode counts. A run
+    with --use-native-jpeg on a machine where the decoder builds must decode
+    no JPEG through PIL."""
+    import pickle
+
+    from latteclip_torch.native import build_status
+    from latteclip_torch.preprocess import captions, create_tarfiles, to_webdataset
+
+    rec, secs = {"model": "ViT-B-32", "batch": REST_BATCH, "card": smi}, {}
+    src, pre = os.path.join(workdir, "dtd"), os.path.join(workdir, "dtd_preprocess")
+    t0 = time.perf_counter()
+    rec["images"] = raw_coop_dataset(src, np.random.default_rng(13))
+    secs["synthesise"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["split_counts"] = to_webdataset.convert("dtd", src, pre)
+    secs["to_webdataset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = create_tarfiles.pack(os.path.join(pre, "webdataset", "train"),
+                                  os.path.join(pre, "train_tar"), items_per_tar=100)
+    secs["create_tarfiles"] = time.perf_counter() - t0
+    n_train = rec["split_counts"]["train"]
+    feat_dir = os.path.join(workdir, "features")
+    t0 = time.perf_counter()
+    rec["pseudo_label_launches"] = run_main([
+        "--model", "ViT-B-32", "--batch-size", str(REST_BATCH), "--eval-preprocess-path", pre,
+        "--zeroshot-eval-data", "dtd", "--extract-features-path", feat_dir,
+        "--logs", os.path.join(workdir, "logs"), "--name", "pseudo_labels"])
+    secs["pseudo_labels"] = time.perf_counter() - t0
+    pkl = os.path.join(feat_dir, "clip_features_train.pkl")
+    with open(pkl, "rb") as f:
+        labels = pickle.load(f)
+    t0 = time.perf_counter()
+    n_img = captions.extract_per_image_captions(
+        shards, pkl, os.path.join(pre, "captions_per_image"), captions.EchoCaptioner(),
+        captions.PER_IMAGE_PROMPTS["dtd"])
+    secs["captions_per_image"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_grp = captions.extract_group_captions(
+        shards, pkl, os.path.join(pre, "captions_per_group"), captions.EchoCaptioner(),
+        captions.GROUP_PROMPTS["dtd"], split_dir=os.path.join(pre, "webdataset", "train"))
+    secs["captions_per_group"] = time.perf_counter() - t0
+    rec.update(shards=len(shards), pseudo_labels=len(labels), captions_per_image=n_img,
+               captions_per_group=n_grp, native_decoder=build_status())
+    train_args = [
+        "--model", "ViT-B-32", "--batch-size", str(REST_BATCH), "--epochs", "2", "--lr", "1e-5",
+        "--warmup", "1", "--train-data",
+        os.path.join(pre, "train_tar", f"{{00000..{len(shards) - 1:05d}}}.tar"),
+        "--train-num-samples", str(n_train), "--clip-prediction-path", pkl,
+        "--generated-captions-path", os.path.join(pre, "captions_per_image"),
+        "--generated-common-captions-path", os.path.join(pre, "captions_per_group"),
+        "--eval-preprocess-path", pre, "--zeroshot-eval-data", "dtd", "--host-resize",
+        "--save-frequency", "0", "--no-save-most-recent", "--logs", os.path.join(workdir, "logs")]
+    messages = _Messages()
+    logger = logging.getLogger("latteclip_torch")
+    logger.addHandler(messages)
+    try:
+        for label, extra in (("native_jpeg", ["--use-native-jpeg"]), ("pil", [])):
+            messages.lines.clear()
+            t0 = time.perf_counter()
+            launches = run_main([*train_args, "--name", f"cli_{label}", *extra])
+            secs[f"cli_{label}"] = time.perf_counter() - t0
+            lines = [m for m in (_TRAIN_LINE.search(x) for x in messages.lines) if m]
+            decodes = [json.loads(x.split("train decodes: ", 1)[1]) for x in messages.lines
+                       if x.startswith("train decodes: ")]
+            rec[f"cli_{label}"] = {
+                "steps": len(lines), "images_per_s": [float(m.group(5)) for m in lines],
+                "losses": [float(m.group(7)) for m in lines], "launches": launches,
+                "decodes": decodes[0] if decodes else None}
+    finally:
+        logger.removeHandler(messages)
+    rec["seconds"] = secs
+    log("rest_offline " + json.dumps(rec))
+    if len(labels) != n_train or n_img != n_train or n_grp != n_train:
+        raise RuntimeError(f"offline pipeline: {len(labels)} pseudo-labels, {n_img} and {n_grp} "
+                           f"captions for {n_train} train images")
+    if not rec["pseudo_label_launches"].get("flash_fwd") or \
+            not rec["pseudo_label_launches"].get("flash_fwd_seg"):
+        raise RuntimeError(f"pseudo-labels launched {rec['pseudo_label_launches']}")
+    for label in ("native_jpeg", "pil"):
+        r = rec[f"cli_{label}"]
+        if r["steps"] < 2 or not all(np.isfinite(r["losses"])) or r["decodes"] is None:
+            raise RuntimeError(f"offline pipeline CLI {label}: {r}")
+    native, pil = rec["cli_native_jpeg"]["decodes"], rec["cli_pil"]["decodes"]
+    if pil["native"] or not pil["pil"]:
+        raise RuntimeError(f"the PIL run decoded {pil}")
+    if rec["native_decoder"]["loaded"] and (native["pil"] or not native["native"]):
+        raise RuntimeError(f"--use-native-jpeg decoded JPEGs through PIL: {native}")
+    runs = (rec["pseudo_label_launches"], rec["cli_native_jpeg"]["launches"],
+            rec["cli_pil"]["launches"])
+    return {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+
+
+def write_siglip_npz(path: str, cfg, rng: np.random.Generator) -> None:
+    """A seeded big_vision checkpoint with ViT-B-16-SigLIP's keys and shapes:
+    kernels N(0, 1/fan_in), LayerNorm scales 1 and biases 0 plus noise."""
+    v, t = cfg.vision, cfg.text
+    D, H, mlp, tD = v.width, v.heads, int(v.width * v.mlp_ratio), t.width
+    s = {}
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+
+    def ln(prefix, d):
+        s[prefix + "scale"] = 1 + normal((d,), 0.05)
+        s[prefix + "bias"] = normal((d,), 0.05)
+
+    def mha(prefix, d, h):
+        for n in ("query", "key", "value"):
+            s[f"{prefix}{n}/kernel"] = normal((d, h, d // h), d ** -0.5)
+            s[f"{prefix}{n}/bias"] = normal((h, d // h), 0.02)
+        s[f"{prefix}out/kernel"] = normal((h, d // h, d), d ** -0.5)
+        s[f"{prefix}out/bias"] = normal((d,), 0.02)
+
+    def mlp_block(prefix, d, hidden):
+        s[prefix + "Dense_0/kernel"] = normal((d, hidden), d ** -0.5)
+        s[prefix + "Dense_0/bias"] = normal((hidden,), 0.02)
+        s[prefix + "Dense_1/kernel"] = normal((hidden, d), hidden ** -0.5)
+        s[prefix + "Dense_1/bias"] = normal((d,), 0.02)
+
+    def blocks(prefix, n, d, h, hidden):
+        for i in range(n):
+            b = f"{prefix}encoderblock_{i}/"
+            ln(b + "LayerNorm_0/", d)
+            ln(b + "LayerNorm_1/", d)
+            mha(b + "MultiHeadDotProductAttention_0/", d, h)
+            mlp_block(b + "MlpBlock_0/", d, hidden)
+
+    P, grid = v.patch_size, v.image_size // v.patch_size
+    s["params/img/embedding/kernel"] = normal((P, P, 3, D), (3 * P * P) ** -0.5)
+    s["params/img/embedding/bias"] = normal((D,), 0.02)
+    s["params/img/pos_embedding"] = normal((1, grid * grid, D), 0.02)
+    blocks("params/img/Transformer/", v.layers, D, H, mlp)
+    ln("params/img/Transformer/encoder_norm/", D)
+    s["params/img/MAPHead_0/probe"] = normal((1, 1, D), 0.02)
+    ln("params/img/MAPHead_0/LayerNorm_0/", D)
+    mha("params/img/MAPHead_0/MultiHeadDotProductAttention_0/", D, H)
+    mlp_block("params/img/MAPHead_0/MlpBlock_0/", D, mlp)
+    s["params/txt/Embed_0/embedding"] = normal((t.vocab_size, tD), 0.02)
+    s["params/txt/pos_embedding"] = normal((1, t.context_length, tD), 0.01)
+    blocks("params/txt/Encoder_0/", t.layers, tD, t.heads, int(tD * t.mlp_ratio))
+    ln("params/txt/Encoder_0/encoder_norm/", tD)
+    s["params/txt/head/kernel"] = normal((tD, cfg.embed_dim), tD ** -0.5)
+    s["params/txt/head/bias"] = normal((cfg.embed_dim,), 0.02)
+    s["params/t"] = np.asarray([np.log(10.0)], np.float32)
+    s["params/b"] = np.asarray([-10.0], np.float32)
+    np.savez(path, **s)
+
+
+def siglip_npz_and_export(smi: str, workdir: str) -> dict:
+    """(d) A seeded .npz with ViT-B-16-SigLIP's keys at full width and depth
+    through load_clip_pt; 1279 images served on the kernel route (prototype
+    classifier from the exemplars' plain-route features): images/s, launches
+    (K1 once a vision layer and batch at 196 tokens), features against the
+    plain route (cosine >= 0.999); then save_for_hf, and the folder's .bin
+    and .safetensors loaded back give bit-equal features."""
+    from latteclip_torch import hf_hub
+    from latteclip_torch.checkpoint import load_clip_pt
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.eval import zero_shot as zs
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.tokenizer import get_tokenizer
+
+    cfg = get_model_config(SIGLIP_MODEL)
+    path = os.path.join(workdir, "siglip_b16.npz")
+    secs = {}
+    t0 = time.perf_counter()
+    write_siglip_npz(path, cfg, np.random.default_rng(0))
+    secs["write_npz"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, bank0, classnames, meta = load_clip_pt(path, cfg, device="cuda")
+    torch.cuda.synchronize()
+    secs["load_npz"] = time.perf_counter() - t0
+    mean, std = T.model_mean_std(model.cfg)
+    rng = np.random.default_rng(0)
+    exemplars = exemplar_images(rng, 1000, cfg.vision.image_size)
+    batches = seeded_batches(rng, exemplars, (EVAL_BATCH,) * 4 + (EVAL_BATCH - 1,))
+    with torch.no_grad():
+        bank = torch.cat([clip_mod.encode_image(model, T.normalize_images(
+            torch.from_numpy(e).cuda(), mean, std), attention="plain")
+            for e in np.array_split(exemplars, 4)])
+    proto = zs.prototype_classifier(bank)
+    zs.run_zero_shot_eval(model, proto, batches[:1])  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = zs.run_zero_shot_eval(model, proto, batches)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_counts()
+    prof = device_profile(lambda: zs.run_zero_shot_eval(model, proto, batches))
+    log(f"profile eval_{SIGLIP_MODEL} " + json.dumps(prof))
+    cos_min, rows = 1.0, 0
+    x0 = T.normalize_images(torch.from_numpy(batches[0][1]).cuda(), mean, std)
+    with torch.no_grad():
+        for _ids, images, _labels, valid in batches:
+            x = T.normalize_images(torch.from_numpy(images).cuda(), mean, std)
+            fk = clip_mod.encode_image(model, x, normalize=True)[:valid]
+            fp = clip_mod.encode_image(model, x, normalize=True, attention="plain")[:valid]
+            cos_min = min(cos_min, float(F.cosine_similarity(fk.float(), fp.float(), dim=-1).min()))
+            rows += valid
+        want_feats = clip_mod.encode_image(model, x0)
+    folder = os.path.join(workdir, "hf_siglip")
+    t0 = time.perf_counter()
+    hf_hub.save_for_hf(model, get_tokenizer(), hf_hub.raw_model_config(SIGLIP_MODEL), folder)
+    secs["save_for_hf"] = time.perf_counter() - t0
+    reload = {}
+    for fname in (hf_hub.HF_WEIGHTS_NAME, hf_hub.HF_SAFE_WEIGHTS_NAME):
+        m2 = load_clip_pt(os.path.join(folder, fname), cfg, device="cuda")[0]
+        with torch.no_grad():
+            reload[fname] = bool(torch.equal(clip_mod.encode_image(m2, x0), want_feats))
+        del m2
+    rec = {"model": SIGLIP_MODEL, "rows": rows, "eval_images_per_s": rows / eval_s,
+           "launches": launches, "metrics": metrics, "feature_cos_min": cos_min,
+           "eval_device_busy_ms": prof["device_busy_ms"],
+           "eval_device_idle_share": prof["device_idle_share"],
+           "eval_device_ms_by_kind": prof["device_ms_by_kind"],
+           "logit_bias": float(model.logit_bias.detach()), "bank": bank0 is not None,
+           "classnames": len(classnames), "reloaded_bit_equal": reload,
+           "folder": sorted(os.listdir(folder)), "seconds": secs, "card": smi}
+    log("rest_npz_hf " + json.dumps(rec))
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": cfg.vision.layers * len(batches)}
+    if launches != want:
+        raise RuntimeError(f"{SIGLIP_MODEL} eval launched {launches}, expected {want}")
+    if cos_min < 0.999:
+        raise RuntimeError(f"{SIGLIP_MODEL} kernel and plain features: cosine {cos_min}")
+    if not all(reload.values()) or bank0 is not None or classnames:
+        raise RuntimeError(f"{SIGLIP_MODEL} .npz load or HF folder reload: {rec}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rest(smi: str, train: dict) -> dict:
+    """Phase 13: (a) int8 serving on ViT-B/32 and ViT-L/14, (b) the XLA
+    text-attention switch on the padded train step, (c) the offline
+    pipeline from a raw dataset, (d) the SigLIP .npz importer and the HF
+    folder. Returns the launches of the paths driven."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    totals: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    seconds = {}
+    for name in INT8_MODELS:
+        t0 = time.perf_counter()
+        add(int8_serving(smi, name))
+        seconds[f"int8_{name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add(xla_switch_train(smi, train))
+    seconds["xla_switch"] = time.perf_counter() - t0
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        t0 = time.perf_counter()
+        add(offline_pipeline(smi, workdir))
+        seconds["offline_pipeline"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add(siglip_npz_and_export(smi, workdir))
+        seconds["npz_hf"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("rest_seconds " + json.dumps(seconds))
+    return totals
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -3801,6 +4286,8 @@ def main() -> int:
     tower_launches = phase_towers(smi, train)
     torch.cuda.empty_cache()
     coca_launches = phase_coca_hf(smi, train)
+    torch.cuda.empty_cache()
+    rest_launches = phase_rest(smi, train)
 
     kernels = []
     for name in SOURCES:
@@ -3811,7 +4298,8 @@ def main() -> int:
                                                      b16_train_launches, lab_launches,
                                                      cli_launches, offline_launches,
                                                      family_launches, trainer_launches_total,
-                                                     tower_launches, coca_launches)),
+                                                     tower_launches, coca_launches,
+                                                     rest_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -638,6 +638,8 @@ def _vit_to_sd(v, cfg) -> Dict[str, np.ndarray]:
     """The native ViT's keys (``visual.*``), with CoCa's attentional pool."""
     P, D = cfg.patch_size, cfg.width
     sd = {"visual.conv1.weight": _patch_to_conv(v["patch_kernel"], P, D)}
+    if "patch_bias" in v:
+        sd["visual.conv1.bias"] = v["patch_bias"]
     sd.update({name: v[k] for k, name in _VISUAL_KEYS.items() if k in v})
     sd.update(_unstack_blocks(v["blocks"], "visual.transformer."))
     sd.update({_MAP_HEAD + k: a for k, a in v.get("map_head", {}).items()})
@@ -650,6 +652,8 @@ def _vit_from_sd(sd, cfg) -> Dict[str, np.ndarray]:
     P, D = cfg.patch_size, cfg.width
     visual = {k: sd[name] for k, name in _VISUAL_KEYS.items() if name in sd}
     visual["patch_kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(P * P * 3, D)
+    if "visual.conv1.bias" in sd:
+        visual["patch_bias"] = sd["visual.conv1.bias"]
     visual["blocks"] = _stack_blocks(sd, "visual.transformer.resblocks.")
     map_head = {k[len(_MAP_HEAD):]: a for k, a in sd.items() if k.startswith(_MAP_HEAD)}
     if map_head:
@@ -726,7 +730,7 @@ def state_dict_from_jax_params(params: Dict[str, Any], cfg: CLIPConfig, *,
     hf = isinstance(cfg.text, HFTextConfig)
     convert = _tower_converters(cfg.vision)
     visual_keys = set() if convert else \
-        set(v) - set(_VISUAL_KEYS) - {"patch_kernel", "blocks", "map_head"}
+        set(v) - set(_VISUAL_KEYS) - {"patch_kernel", "patch_bias", "blocks", "map_head"}
     text_keys = set() if hf else set(t) - set(_TEXT_KEYS) - {"blocks", "text_projection_b"}
     extra = visual_keys | text_keys | \
         (set(params) - {"visual", "text", "logit_scale", "logit_bias"})
@@ -826,12 +830,14 @@ def load_clip_pt(path: str, cfg: CLIPConfig, device="cuda"
     embedding (a timm trunk's ``pos_embed`` too) is resized to ``cfg``'s
     grid, the model has
     ``text_projection_b`` and ``logit_bias`` where the file does (the
-    returned model's config takes the file's logit bias)."""
+    returned model's config takes the file's logit bias). A big_vision
+    ``.npz`` (SigLIP) reads through :mod:`latteclip_torch.big_vision`."""
     dev = resolve_device(device)
-    if path.endswith(".npz"):
-        raise NotImplementedError(f"{path}: big_vision .npz checkpoints are not ported to "
-                                  "latteclip_torch yet (ROADMAP.md, section 1, item 6)")
-    if path.endswith(".safetensors"):
+    if path.endswith(".npz"):  # big_vision (SigLIP): no bank, no classnames, as in JAX
+        from latteclip_torch.big_vision import load_big_vision_npz
+
+        obj = load_big_vision_npz(path, cfg)
+    elif path.endswith(".safetensors"):
         obj = load_safetensors(path)
     elif _is_torchscript_zip(path):  # OpenAI's original checkpoints (RN50, ...)
         obj = {k: v.float() for k, v in torch.jit.load(path, map_location="cpu").state_dict().items()
@@ -865,6 +871,7 @@ def load_clip_pt(path: str, cfg: CLIPConfig, device="cuda"
         sd, kwargs["hf_pooler"] = _hf_text_keys(sd, cfg.text)
     if not isinstance(cfg, CoCaConfig):
         kwargs["text_projection_b"] = _TEXT_PROJECTION_B in sd
+        kwargs["patch_bias"] = "visual.conv1.bias" in sd
     model = build_model(cfg, **kwargs)
     model.load_state_dict(sd, strict=True)
     return model.to(dev), bank, classnames, meta
@@ -1044,6 +1051,24 @@ def restore_optimizer_state(model: CLIP, optimizer, saved: Mapping[str, Any], ac
                 g.copy_(acc[name].reshape(p.shape))
 
 
+def state_dict_with_bank(model: CLIP, memory_bank: Optional[torch.Tensor] = None,
+                         classnames: Optional[Sequence[str]] = None) -> "OrderedDict[str, torch.Tensor]":
+    """The model's float32 state dict on the host, then ``memory_bank.<class>``
+    rows. An int8 model (``models/quantize.py``) is refused: it serves only."""
+    from latteclip_torch.models.quantize import is_quantized
+
+    if is_quantized(model):
+        raise ValueError("an int8 model is not saved: save the float model it came from")
+    sd = OrderedDict((k, v.detach().float().cpu().contiguous())
+                     for k, v in model.state_dict().items())
+    if memory_bank is not None:
+        if classnames is None or len(classnames) != len(memory_bank):
+            raise ValueError("memory_bank needs one class name per row")
+        for cname, row in zip(classnames, torch.as_tensor(memory_bank).detach().float().cpu()):
+            sd[f"memory_bank.{cname}"] = row.clone()
+    return sd
+
+
 def save_clip_pt(path: str, model: CLIP, *, epoch: Optional[int] = None,
                  name: Optional[str] = None, memory_bank: Optional[torch.Tensor] = None,
                  classnames: Optional[Sequence[str]] = None,
@@ -1052,14 +1077,7 @@ def save_clip_pt(path: str, model: CLIP, *, epoch: Optional[int] = None,
     """Write a training checkpoint in OpenCLIP's layout (module docstring)
     to ``path + ".tmp"``, then ``os.replace`` it onto ``path``.
     ``optimizer`` is :func:`optimizer_state`'s dict."""
-    sd = OrderedDict((k, v.detach().float().cpu().contiguous())
-                     for k, v in model.state_dict().items())
-    if memory_bank is not None:
-        if classnames is None or len(classnames) != len(memory_bank):
-            raise ValueError("memory_bank needs one class name per row")
-        for cname, row in zip(classnames, memory_bank.detach().float().cpu()):
-            sd[f"memory_bank.{cname}"] = row.clone()
-    obj: Dict[str, Any] = {"state_dict": sd}
+    obj: Dict[str, Any] = {"state_dict": state_dict_with_bank(model, memory_bank, classnames)}
     if epoch is not None:
         obj["epoch"] = epoch
     if name is not None:

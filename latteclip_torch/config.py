@@ -25,8 +25,8 @@ from typing import Any, Dict, Tuple
 _CONFIG_DIR = Path(__file__).resolve().parent / "model_configs"
 
 _LATER_SLICE = (
-    "is not ported yet: latteclip_torch has the towers, pools and options of "
-    "the JAX package's configs (ROADMAP.md, section 1, item 6)"
+    "is no option of a JAX package tower: latteclip_torch has every tower, pool "
+    "and option of the JAX package's configs, and no other"
 )
 
 

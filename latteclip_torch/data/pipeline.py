@@ -31,8 +31,12 @@ Batch dict fields (numpy, or tensors on the device after :func:`prefetch`):
   ``gt_labels``   int32  [B] ground-truth ids (diagnostics)
   ``cap_*``       the packed caption arrays under ``text_packing_len``
 
-The native JPEG decode (``use_native_jpeg``) is not ported: the
-configuration refuses it (ROADMAP.md, section 1).
+With ``use_native_jpeg`` a JPEG sample is decoded, cropped and resized in
+one pass by :mod:`latteclip_torch.native` (its crop box drawn as PIL's;
+no decode cache), as JAX does; where the decoder does not build, or fails
+on a file, the sample takes the PIL decode. ``TrainPipeline.decode_counts``
+counts the native decodes, the PIL decodes and the decode-cache hits, so a
+run can tell which decoder it used.
 """
 from __future__ import annotations
 
@@ -251,7 +255,7 @@ class PipelineConfig:
     # skip JPEG decode entirely (the host-side bottleneck). Capped in bytes;
     # 0 disables.
     decode_cache_bytes: int = 4 * 1024**3
-    # the JAX package's native fused JPEG decode; not ported, refused
+    # JPEGs through the native fused decode + crop + resize (latteclip_torch.native)
     use_native_jpeg: bool = False
     # --dataset-resampled: per-epoch shard sampling WITH replacement
     # (reference ResampledShards2, data.py:311-365,520); optional per-shard
@@ -333,9 +337,8 @@ class TrainPipeline:
         self._decode_cache_used = 0
         self._shard_cache: Dict[str, List[dict]] = {}
         self._shard_cache_used = 0
-        if cfg.use_native_jpeg:
-            raise ValueError("use_native_jpeg is not ported (ROADMAP.md, section 1, item 6): "
-                             "the PIL decode is the rule")
+        self.decode_counts = {"native": 0, "pil": 0, "cached": 0}
+        self._count_lock = threading.Lock()
         self._pack_bucketer = None
         if cfg.text_packing_len:
             if cfg.host_count > 1 and cfg.text_packing_rows is None:
@@ -398,12 +401,29 @@ class TrainPipeline:
             return None
         if self.cfg.ondevice_resize:
             return self._assemble_ondevice(raw, image_id, img_bytes, rng)
+        if self.cfg.use_native_jpeg and img_bytes and ("jpg" in raw or "jpeg" in raw):
+            from latteclip_torch.native import load_fastjpeg
+
+            fj = load_fastjpeg()
+            if fj is not None:
+                try:
+                    w, h = fj.probe(img_bytes)
+                    left, top, cw, ch = T.random_crop_box(w, h, rng, self.cfg.crop_scale)
+                    out = fj.decode_crop_resize(img_bytes, left, top, cw, ch, self.cfg.image_size)
+                    arr = np.frombuffer(out, np.uint8).reshape(
+                        self.cfg.image_size, self.cfg.image_size, 3)
+                    self._count("native")
+                    return self._finish_sample(raw, image_id, arr, rng)
+                except ValueError as e:
+                    logger.warning("native decode failed for %s: %s", image_id, e)
         try:
             cached = self._decode_cache.get(image_id)
             if cached is not None:
                 img = Image.fromarray(cached)
+                self._count("cached")
             else:
                 img = T.load_rgb(io.BytesIO(img_bytes))
+                self._count("pil")
                 if self.cfg.decode_cache_bytes:
                     arr_full = np.asarray(img, dtype=np.uint8)
                     if self._decode_cache_used + arr_full.nbytes <= self.cfg.decode_cache_bytes:
@@ -416,6 +436,10 @@ class TrainPipeline:
             return None
         return self._finish_sample(raw, image_id, arr, rng)
 
+    def _count(self, kind: str) -> None:
+        with self._count_lock:
+            self.decode_counts[kind] += 1
+
     def _assemble_ondevice(self, raw, image_id, img_bytes, rng) -> Optional[dict]:
         """Canvas + crop-box sample for the on-device resize path."""
         CV = self.cfg.canvas_size
@@ -423,6 +447,7 @@ class TrainPipeline:
             entry = self._decode_cache.get(image_id)
             if entry is None:
                 img = T.load_rgb(io.BytesIO(img_bytes))
+                self._count("pil")
                 w, h = img.size
                 f = min(1.0, CV / max(w, h))
                 sw, sh = max(1, round(w * f)), max(1, round(h * f))
@@ -445,6 +470,8 @@ class TrainPipeline:
                 ):
                     self._decode_cache[image_id] = entry
                     self._decode_cache_used += canvas.nbytes
+            else:
+                self._count("cached")
             canvas, sw, sh, w, h = entry
         except Exception as e:  # tolerant decode, reference data.py:208-211
             logger.warning("decode failed for %s: %s", image_id, e)

@@ -68,7 +68,8 @@ def build_prompt_context(model: clip_mod.CLIP, tokenizer: ClipTokenizer,
         # tower's tree fails there, CoCa's runs without its class token
         raise NotImplementedError(
             f"{model.cfg.name}: test-time prompt tuning needs the native CLIP text tower "
-            "(ROADMAP.md, section 1, item 6)")
+            "(the JAX package's prompt path fails on an HF tower and drops CoCa's class "
+            "token; ROADMAP.md, section 3)")
     init_words = ctx_init.replace("_", " ").split()
     n_ctx = len(init_words) if ctx_init else n_ctx
     prefix = " ".join(["X"] * n_ctx)

@@ -23,14 +23,23 @@ those routes run the whole-row kernels, as JAX does, and segmented sites
 always run the segment-masked kernels. JAX's two switches together break its
 backward (the block-diagonal forward's lse2 layout meets the head-split
 backward), a combination one ``attention`` value cannot express.
+
+``LATTECLIP_TEXT_XLA_ATTN=1`` sends every whole-row site of fewer than 128
+tokens, on any route, to the counterpart of JAX's ``xla_attention``
+(:func:`latteclip_torch.models.layers.plain_attention`, float32 logits and
+softmax, its own backward), as JAX's ``attention_core_qkv`` does: padded
+text at L=77, and vision rows that are not pair-packed. Segmented sites keep
+their kernels.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from latteclip_torch.kernels.attention import (
+    NEG_INF,
     BLOCKDIAG_MAX_LEN,
     BLOCKDIAG_MAX_WIDTH,
     KERNEL_HEAD_DIMS,
@@ -72,6 +81,25 @@ def whole_row_route(attention: str, seq_len: int, num_heads: int, head_dim: int)
     return attention
 
 
+def short_rows_on_xla(seq_len: int) -> bool:
+    """JAX's ``LATTECLIP_TEXT_XLA_ATTN=1`` rule: whole rows under 128 tokens
+    take the plain attention."""
+    return os.environ.get("LATTECLIP_TEXT_XLA_ATTN", "0") == "1" and seq_len < 128
+
+
+def xla_attention_qkv(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
+    """JAX's ``xla_attention`` on the packed projection ``[B, L, 3*H*D]``."""
+    from latteclip_torch.models.layers import plain_attention  # layers imports this module
+
+    B, L, HD3 = qkv.shape
+    q, k, v = (t.reshape(B, L, num_heads, HD3 // 3 // num_heads) for t in qkv.chunk(3, dim=-1))
+    bias = None
+    if causal:
+        i = torch.arange(L, device=qkv.device)
+        bias = torch.where(i[None, :] > i[:, None], NEG_INF, 0.0).float()
+    return plain_attention(q, k, v, dtype=qkv.dtype, bias=bias).reshape(B, L, HD3 // 3)
+
+
 def _apply(fn, residuals, *args) -> torch.Tensor:
     return residuals.attend(fn, *args) if residuals is not None else fn.apply(*args)[0]
 
@@ -84,6 +112,8 @@ def attention_core_qkv(qkv: torch.Tensor, num_heads: int, causal: bool = False,
     rematerialised block; the plain route recomputes instead."""
     _, L, HD3 = qkv.shape
     on_kernel = kernel_route(HD3, num_heads, qkv.dtype, qkv.device, attention)
+    if short_rows_on_xla(L):
+        return xla_attention_qkv(qkv, num_heads, causal)
     route = whole_row_route(attention, L, num_heads, HD3 // 3 // num_heads)
     if on_kernel:
         return _apply(_WHOLE_ROW[route], residuals, qkv.contiguous(), num_heads, causal)

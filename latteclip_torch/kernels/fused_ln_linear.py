@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from latteclip_torch.device import sm_count
 from latteclip_torch.kernels.attention import MAX_SMEM
+from latteclip_torch.models.quantize import Int8Weight, int8_dense
 
 LN_EPS = 1e-5
 LN_LINEAR_CHOICES = ("unfused", "fused")
@@ -53,7 +54,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
           dtype: torch.dtype) -> torch.Tensor:
     """``x @ weight.T`` emitted in ``dtype``; the bias is added in ``dtype``
-    after the product, as the JAX package does."""
+    after the product, as the JAX package does. A quantised weight
+    (:class:`~latteclip_torch.models.quantize.Int8Weight`) takes the int8
+    product, as JAX's ``dense`` does on its ``{"int8", "scale"}`` dict."""
+    if isinstance(weight, Int8Weight):
+        return int8_dense(x, weight, bias, dtype)
     y = F.linear(x.to(dtype), weight.to(dtype))
     if bias is not None:
         y = y + bias.to(dtype)
@@ -238,10 +243,13 @@ def ln_linear(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: torch.
     """``LN(x) -> linear`` in ``dtype``: ``route="fused"`` takes the fused
     kernel (its plain version on the CPU) where JAX's ``ln_linear`` would,
     i.e. at eps 1e-5 on ``x [B, L, D]`` whose shape passes
-    :func:`fused_route`; everything else is ``dense(layer_norm(x))``."""
+    :func:`fused_route`; everything else is ``dense(layer_norm(x))``, a
+    quantised ``w`` too (JAX ``ln_linear``'s ``not isinstance(w, dict)``:
+    never K8)."""
     if route not in LN_LINEAR_CHOICES:
         raise ValueError(f"ln_linear must be one of {LN_LINEAR_CHOICES}, got {route!r}")
     if (route == "fused" and eps == LN_EPS and x.dim() == 3
+            and not isinstance(w, Int8Weight)
             and fused_route(*x.shape, w.shape[0])):
         return FusedLnLinear.apply(x.to(dtype).contiguous(), ln_w, ln_b, w, wb, eps)
     return dense(layer_norm(x, ln_w, ln_b, eps), w, wb, dtype)

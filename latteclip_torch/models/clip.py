@@ -68,15 +68,19 @@ def vision_tower(v, embed_dim: int) -> nn.Module:
 
 class CLIP(nn.Module):
     """``text_projection_b`` adds the text projection's bias, which no config
-    sets: the JAX package has it only from a checkpoint. An HF text tower
+    sets: the JAX package has it only from a checkpoint; ``patch_bias``
+    likewise the native tower's ``visual.conv1.bias`` (JAX ``patch_bias``,
+    from a big_vision ``.npz``). An HF text tower
     sits under ``text`` (``hf_pooler``: :class:`HFTextTower`'s ``pooler``)."""
 
     def __init__(self, cfg: CLIPConfig, *, text_projection_b: bool = False,
-                 hf_pooler: Optional[bool] = None):
+                 hf_pooler: Optional[bool] = None, patch_bias: bool = False):
         super().__init__()
         t, v = cfg.text, cfg.vision
         self.cfg = cfg
         self.visual = vision_tower(v, cfg.embed_dim)
+        if patch_bias:  # a big_vision checkpoint's biased patch embedding
+            self.visual.conv1.bias = nn.Parameter(torch.empty(v.width))
         if isinstance(t, HFTextConfig):
             self.text = HFTextTower(t, cfg.embed_dim, pooler=hf_pooler)
         else:

@@ -62,7 +62,7 @@ class VisionTransformer(nn.Module):
             self.proj = nn.Parameter(torch.empty(pool_dim, embed_dim))
 
     def patch_embed(self):
-        return self.conv1.weight, None
+        return self.conv1.weight, self.conv1.bias
 
     def cls_pos(self):
         return getattr(self, "class_embedding", None), self.positional_embedding

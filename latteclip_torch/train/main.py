@@ -39,10 +39,14 @@ The model runs on ``--device`` (``cuda`` by default: the Hopper kernels; it
 raises without a CUDA device). The JAX package's kernel switches
 ``LATTECLIP_ATTN_HEADSPLIT``, ``LATTECLIP_ATTN_BLOCKDIAG`` and
 ``LATTECLIP_FUSED_LN`` select the same routes here (``attention=`` and
-``ln_linear=``); its ``LATTECLIP_TEXT_XLA_ATTN`` is refused. Flags whose
-feature the port does not have yet (``--use-native-jpeg``,
-``--model-parallelism`` above 1) are refused with a ``SystemExit`` that
-names the ROADMAP item; the flags JAX refuses are refused with its messages
+``ln_linear=``), and ``LATTECLIP_TEXT_XLA_ATTN=1`` sends whole rows under
+128 tokens to the plain attention (:mod:`latteclip_torch.kernels`).
+``--use-native-jpeg --host-resize`` decodes train JPEGs with the C decoder
+of :mod:`latteclip_torch.native` (the build logged once at start; PIL where
+it does not build, and under the default on-device resize, as in JAX; the
+decode counts logged at the end). ``--model-parallelism`` above 1 is
+refused with a ``SystemExit`` that names the ROADMAP item; the flags JAX
+refuses are refused with its messages
 (``--text-packing`` with an HF or class-token text tower, ``--gamma``,
 ``--siglip`` or a teacher with CoCa among them); the GPU/infra flags the JAX
 package ignores with a warning are ignored with the same warning.
@@ -50,6 +54,7 @@ package ignores with a warning are ignored with the same warning.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import sys
@@ -102,7 +107,6 @@ from latteclip_torch.train.step import (
 logger = logging.getLogger("latteclip_torch")
 
 _ITEM_5 = "ROADMAP.md, section 1, item 5 (multi-GPU data parallel)"
-_ITEM_6 = "ROADMAP.md, section 1, item 6 (the rest)"
 
 _WARN_IGNORED_FLAGS = (
     # GPU/infra flags accepted for reference-script compat (params.py)
@@ -124,8 +128,6 @@ def setup_logging(log_path: Optional[str] = None):
 def refuse_unported(args) -> None:
     """SystemExit for every flag whose feature the port does not have yet
     (the towers it lacks are refused by :func:`model_config`)."""
-    if args.use_native_jpeg:
-        raise SystemExit(f"--use-native-jpeg: not ported to latteclip_torch yet ({_ITEM_6})")
     if args.model_parallelism > 1:
         raise SystemExit(f"--model-parallelism {args.model_parallelism}: not ported to "
                          f"latteclip_torch yet ({_ITEM_5})")
@@ -133,9 +135,6 @@ def refuse_unported(args) -> None:
 
 def kernel_routes() -> dict:
     """The towers' routes from the JAX package's environment switches."""
-    if os.environ.get("LATTECLIP_TEXT_XLA_ATTN", "0") == "1":
-        raise SystemExit("LATTECLIP_TEXT_XLA_ATTN=1 (whole-row sites under 128 tokens on the "
-                         f"plain attention): not ported to latteclip_torch yet ({_ITEM_6})")
     on = {k: os.environ.get(k, "0") == "1"
           for k in ("LATTECLIP_ATTN_HEADSPLIT", "LATTECLIP_ATTN_BLOCKDIAG", "LATTECLIP_FUSED_LN")}
     if on["LATTECLIP_ATTN_HEADSPLIT"] and on["LATTECLIP_ATTN_BLOCKDIAG"]:
@@ -153,7 +152,7 @@ def model_config(flag: str, name: str):
     try:
         return get_model_config(name)
     except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"{flag} {name}: {e} ({_ITEM_6})") from e
+        raise SystemExit(f"{flag} {name}: {e}") from e
 
 
 def build_model(args, device):
@@ -253,7 +252,8 @@ def run_tta(args, model, tokenizer, dataset, device, routes) -> None:
     ``dataset``, logged as ``TTA eval: {...}``."""
     if not hasattr(model, "token_embedding"):
         raise SystemExit(f"--model {args.model}: test-time prompt tuning needs the native CLIP "
-                         f"text tower; CoCa and the HF towers are not ported there ({_ITEM_6})")
+                         "text tower (the JAX package's prompt path fails on an HF tower and "
+                         "drops CoCa's class token; ROADMAP.md, section 3)")
     tta_cfg = TTAConfig(n_views=args.tta_n_views, selection_p=args.selection_p,
                         tta_steps=args.tta_step, lr=args.lr)
     reward_model = None
@@ -540,6 +540,16 @@ def main(argv=None) -> int:
                     "to pack; packing the eval classifier template encodes only", args.method,
                     args.gamma)
     aug = build_aug_config(args.aug_cfg)
+    if args.use_native_jpeg:
+        from latteclip_torch.native import build_status
+
+        st = build_status()
+        logger.info("--use-native-jpeg: %s", f"fastjpeg loaded from {st['path']} in "
+                    f"{st['seconds']:.2f} s" if st["loaded"] else
+                    f"fastjpeg did not build ({st['error']}): JPEGs decode with PIL")
+        if args.ondevice_resize:  # the JAX pipeline's precedence
+            logger.info("--use-native-jpeg with the on-device resize: the canvases decode "
+                        "with PIL, as in the JAX package; --host-resize takes the native decode")
     pipeline = TrainPipeline(data, PipelineConfig(
         batch_size=args.batch_size, image_size=cfg.vision.image_size, seed=args.seed,
         num_threads=args.workers, raw_cache_bytes=args.raw_cache_mb * 1024**2,
@@ -548,7 +558,7 @@ def main(argv=None) -> int:
         upsampling_factors=parse_upsampling(args),
         text_packing_len=args.text_packing if v2 else 0,
         text_packing_rows=args.text_packing_rows,
-        pin_memory=device.type == "cuda"), num_samples)
+        use_native_jpeg=args.use_native_jpeg, pin_memory=device.type == "cuda"), num_samples)
     total_steps = pipeline.steps_per_epoch * args.epochs
 
     # ---- the trainer's parameters: the resumed weights, logit_bias, teacher --
@@ -651,6 +661,7 @@ def main(argv=None) -> int:
                    start_epoch=start_epoch, seed=args.seed, tokenizer=tokenizer,
                    templates=templates, val_pairs_dataset=val_pairs_dataset,
                    imagenet_val_dataset=imagenet_val_dataset, writers=writers)
+    logger.info("train decodes: %s", json.dumps(pipeline.decode_counts))
     for w in writers:
         w.close()
     if remote_sync is not None:

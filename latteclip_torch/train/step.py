@@ -54,6 +54,7 @@ from latteclip_torch.data import transforms as T
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models import coca as coca_mod
 from latteclip_torch.models.layers import l2_normalize
+from latteclip_torch.models.quantize import refuse_training
 from latteclip_torch.train.objective import (
     clip_loss,
     distill_clip_loss,
@@ -309,6 +310,7 @@ def make_train_step(
     each of ``zero_update_subtrees`` (a top-level module name) are written
     back after the update, as in :func:`make_v1_step`. Metrics are 0-d
     tensors on the device."""
+    refuse_training(model)
     aug = aug or T.AugConfig()
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -410,6 +412,7 @@ def make_v1_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, gamma: 
     Here the text parameters are copied before the update and written back
     after it, which gives the same, since torch's AdamW would otherwise
     apply weight decay to them and move them where their moments are not 0."""
+    refuse_training(model)
     aug = aug or T.AugConfig()
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -505,6 +508,7 @@ def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_g
     ``make_flyp_step``): augment, :func:`flyp_loss_fn`, backward, the update
     of :func:`apply_gradients` and the logit-scale clamp; the memory bank
     is carried unchanged. ``teacher`` is put in eval mode and frozen."""
+    refuse_training(model)
     aug = aug or T.AugConfig()
     cfg = model.cfg
     dev = next(model.parameters()).device

@@ -227,13 +227,12 @@ def test_eval_only_equals_jax(runs, tmp_path):
 
 REFUSED = {
     "model_parallelism": ["--model-parallelism", "2"],
-    "native_jpeg": ["--use-native-jpeg"],
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_flags_are_refused(case, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md, section 1, item [56]"):
+    with pytest.raises(SystemExit, match="ROADMAP.md, section 1, item 5"):
         torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu", *REFUSED[case]])
 
 
@@ -257,10 +256,41 @@ def test_jax_refusals_are_refused_alike(case, tmp_path):
     assert messages[0] == messages[1] and "ROADMAP" not in messages[0]
 
 
-def test_text_xla_attention_switch_is_refused(tmp_path, monkeypatch):
+def _both_mains(runs, tmp_path, *extra):
+    pre = ["--pretrained", runs["pretrained"], *extra]
+    return (_run(torch_main.main, str(tmp_path / "torch"), *pre, "--device", "cpu"),
+            _run(jax_main.main, str(tmp_path / "jax"), *pre))
+
+
+def test_cli_runs_with_native_jpeg(runs, tmp_path):
+    """``--use-native-jpeg --host-resize`` (the on-device resize, on by
+    default, takes precedence in both packages): both mains train alike on
+    the fixture's JPEGs; the port logs the decoder's build once and decodes
+    every JPEG natively."""
+    ours, theirs = _both_mains(runs, tmp_path, "--use-native-jpeg", "--host-resize")
+    _assert_logs_agree(ours, theirs, expect_steps=4)
+    _assert_checkpoints_agree(ours, theirs, runs["start"])
+    log = open(os.path.join(ours, "out.log")).read()
+    assert log.count("--use-native-jpeg: fastjpeg loaded from") == 1
+    counts = json.loads(re.search(r"train decodes: (\{.*\})", log).group(1))
+    assert counts["native"] > 0 and counts["pil"] == 0
+
+
+def test_text_xla_attention_switch_trains_like_jax(runs, tmp_path, monkeypatch):
+    """``LATTECLIP_TEXT_XLA_ATTN=1``: both mains under the switch train
+    alike, and the port's whole-row sites (text at 77 tokens, vision rows)
+    ran the plain attention of the switch."""
+    from latteclip_torch import kernels
+
     monkeypatch.setenv("LATTECLIP_TEXT_XLA_ATTN", "1")
-    with pytest.raises(SystemExit, match="LATTECLIP_TEXT_XLA_ATTN.*ROADMAP.md, section 1, item 6"):
-        torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu"])
+    calls = []
+    real = kernels.xla_attention_qkv
+    monkeypatch.setattr(kernels, "xla_attention_qkv",
+                        lambda qkv, *a: calls.append(qkv.shape[1]) or real(qkv, *a))
+    ours, theirs = _both_mains(runs, tmp_path)
+    _assert_logs_agree(ours, theirs, expect_steps=4)
+    _assert_checkpoints_agree(ours, theirs, runs["start"])
+    assert 77 in calls and all(n < 128 for n in calls)
 
 
 def _eval_config(tmp_path, root):

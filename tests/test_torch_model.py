@@ -100,8 +100,8 @@ def test_config_matches_jax_and_refuses_other_towers():
             if sub in td and "pad_id" not in td[sub]:
                 assert jd[sub].pop("pad_id") == 0
         assert td == jd
-    # a still-unported item (ROADMAP.md item 6): big_vision .npz checkpoints
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # a big_vision .npz goes to its importer (tests/test_torch_big_vision.py)
+    with pytest.raises(FileNotFoundError, match="weights.npz"):
         load_clip_pt("weights.npz", torch_config.get_model_config("ViT-B-32"), device="cpu")
 
 

@@ -14,7 +14,6 @@ the comparisons are exact (bit-equal arrays, equal lists, equal bytes):
 * ``FlatFileDataset`` and ``iter_batches`` (padded final batch, ``valid``);
 * ``prefetch`` raises a producer's error in the consumer.
 """
-import dataclasses
 import os
 import tarfile
 
@@ -172,10 +171,3 @@ def test_prefetch_raises_producer_errors():
     assert next(it)["x"].shape == (2,)
     with pytest.raises(OSError, match="shard vanished"):
         next(it)
-
-
-def test_native_jpeg_is_refused(root):
-    data, _ = _data(pipeline, get_tokenizer(), root)
-    cfg = dataclasses.replace(pipeline.PipelineConfig(), use_native_jpeg=True)
-    with pytest.raises(ValueError, match="not ported"):
-        pipeline.TrainPipeline(data, cfg, num_samples=8)
