@@ -204,9 +204,10 @@ Phases, each raising on failure:
    long_row_plan printed), ViT-B-16-SigLIP (no class token, the MAP head,
    text non-causal at 64 tokens from seeded ids) and ViT-H-14-quickgelu
    (vision heads 80 wide: the plain route, zero vision launches asserted;
-   its text tower on K1): 64 images and 64 text rows each against the plain
-   route, features at cosine >= 0.999 row by row, prototype top-1 on >= 99%
-   of rows, exact launches; a geometry line each;
+   its text tower on K1), GEOMETRY_DEPTH (4) layers a tower since PR 17:
+   64 images and 64 text rows each against the plain route, features at
+   cosine >= 0.999 row by row, prototype top-1 on >= 99% of rows, exact
+   launches; a geometry line each;
 10. trainers: the JAX CLI's other trainers at ViT-B/32 full width and
    depth, bf16, seed-0 weights, with a seed-1 ViT-B/32 teacher written by
    the port's save_clip_pt. (a) The steps at batch 512, 47 classes, the
@@ -225,7 +226,7 @@ Phases, each raising on failure:
    augment off the kernel route against the plain attention: loss within
    1e-2 relative, gradient cosine >= 0.99, v1's bank rows cosine >= 0.999;
    a trainers JSON line. (b) The CLI in process, 1 epoch of 2 steps at
-   batch 512 on the synthetic fixture: --method flyp --report-to
+   batch 256 (512 before PR 17) on the synthetic fixture: --method flyp --report-to
    tensorboard --profile (step 0) --remote-sync <local dir>; --method
    flyp_gt --siglip; the same resumed from the flyp run's plain epoch_1.pt
    (--epochs 2); --gamma 0.5; --method flyp --distill-model ViT-B-32
@@ -251,14 +252,14 @@ Phases, each raising on failure:
    no vision launch, 24 K2 and 24 K4 a step, every BatchNorm statistic
    bit-equal after the steps, a train_rn50 line; served with no vision
    launch, a slice_rn50 line. (d) The CLI in process, one epoch of 2 steps
-   at batch 512 on the synthetic fixture with --text-packing 128: --model
+   at batch 256 (512 before PR 17) on the synthetic fixture with
+   --text-packing 128: --model
    EVA02-B-16, and --model RN50 --lock-image; each step launches as (a)
    and (c); epoch_1.pt holds exactly the model's timm and OpenCLIP keys;
    under --lock-image every visual.* tensor and BatchNorm statistic is
    bit-equal to the seed-0 start; a towers_cli line. (e) A geometry line
    each (geometry_check) for EVA02-L-14, EVA02-L-14-336, EVA02-E-14 and
-   EVA01-g-14 (their heads of 112 and 88 on the plain route, run at 8 and
-   10 of their 64 and 40 vision layers, the cut printed), ViT-medium at
+   EVA01-g-14 (their heads of 112 and 88 on the plain route), ViT-medium at
    256 tokens without a class token, convnext_base, RN50x4 (288 px, text
    10 heads of 64), Swin-B and ViT-relpos-medium: 64 images and 64 text
    rows against the plain route, exact launches (no vision launch but for
@@ -288,19 +289,20 @@ Phases, each raising on failure:
    (16 at 30 tokens) and one grouped beam search at JAX's defaults timed,
    the greedy captions equal to the plain route's on >= 90% of tokens:
    coca_serve and roberta_serve lines; (e) the CLI in process with --model
-   coca_ViT-B-32, --method ours and --method flyp, batch 512, 2 epochs on
-   phase 7's fixture (ours as one epoch and --resume latest for the
-   second): 12 K2 and 12 K4 a step, 12 K2 an eval, the moments restored bit
+   coca_ViT-B-32, --method ours and --method flyp, batch 256 (512 before
+   PR 17), 2 epochs on the synthetic fixture of 512 train images (ours as
+   one epoch and --resume latest for the second): 12 K2 and 12 K4 a step, 12 K2 an eval, the moments restored bit
    for bit, the decoder bit-equal under ours and moved under flyp, the
    checkpoint's keys the model's: a coca_cli line; each part's seconds on a
    coca_hf_seconds line; (f) a geometry line each for coca_ViT-L-14
    (K1 at 257 tokens, then one training step with its 24 K3 against the
    plain route, a coca_l14_train line), coca_roberta-ViT-B-32,
    xlm-roberta-base-ViT-B-32, mt5-base-ViT-B-32, nllb-clip-base,
-   nllb-clip-base-siglip (576 tokens, the MAP head) and, cut to 8 vision
-   and 6 text layers (the cut printed), xlm-roberta-large-ViT-H-14,
+   nllb-clip-base-siglip (576 tokens, the MAP head), xlm-roberta-large-ViT-H-14,
    mt5-xl-ViT-H-14 and nllb-clip-large (vision heads 80 wide: the plain
-   route);
+   route). Since PR 17 every geometry line (phases 9, 11, 12) runs
+   GEOMETRY_DEPTH = 4 layers a tower at the config's widths, the cut
+   printed;
 13. rest, bf16, seed-0 weights: (a) int8 serving on ViT-B/32 and ViT-L/14
    (replace_linear, the default include: 48 and 72 weights): the serving
    requests (1000-class template classifier, the 1279-image eval from
@@ -321,7 +323,34 @@ Phases, each raising on failure:
    at full width through load_clip_pt, 1279 images served (K1 at 196
    tokens, features against plain at cosine >= 0.999), save_for_hf and the
    folder's .bin and .safetensors reloaded bit-equal (rest_npz_hf);
-14. report: one JSON line of kernels, nvidia-smi's line, and the final line
+14. dist: data and tensor parallelism (latteclip_torch.mesh), bf16, seed-0
+   ViT-B/32. (a) One rank joined through NCCL (torchrun's environment, world
+   1) runs phase 6's packed step at batch 512 on a mesh: its first step
+   against the same step without a process group from the same seed and
+   batch (loss equal to 1e-6 relative, every parameter and the bank within
+   two learning rates), then warm-up and 10 counted steps with exactly 36 K2
+   and 36 K4 a step, a profiled step (NCCL's kernels apart), images/s and
+   peak memory: a dist_world1 line. (b) Two gloo ranks sharing cuda:0
+   (NCCL refuses two ranks on one device) through
+   latteclip_torch.tools.multihost_smoke, 256 images each, captions packed
+   at 128, two steps and eval: the ranks' losses, parameter and bank
+   checksums and eval bit-equal, the first step against one process on the
+   512 at phase 6's bounds, each rank's 36 K2 and 36 K4 a step; a dist_dp2
+   line, its times in seconds (two processes on one card). (c) The same at
+   --model-parallelism 2 with the fused LayerNorm -> linear route, then
+   the checkpoint gathered and written by rank 0, a resume on both ranks
+   and one more step: each rank holds half of every c_fc, K8 runs on the
+   shard ([768 -> 1536] vision, [512 -> 1024] text; 72 a step), the first
+   step holds JAX's tensor-parallel bounds (loss 5e-3, bank 1e-3, every
+   parameter 2e-4), the resumed loss equals the continuation's and rank 0's
+   checkpoint reloads in one process with equal features: a dist_tp2
+   line. The collectives gloo refuses on CUDA tensors run through
+   host memory (DIST_STAGED, printed). (d) The CLI under torchrun
+   --nproc_per_node 1 (NCCL) at batch 64, run beside (b) and (c): 2
+   epochs, then --resume latest for a third, from epoch 2 step 4; a
+   dist_cli line; each part's seconds on a dist_seconds line;
+15. report: a phase_seconds line (each phase's seconds), one JSON line of
+   kernels, nvidia-smi's line, and the final line
    {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is absent or the package is missing.
@@ -1180,7 +1209,8 @@ def device_profile(fn) -> dict:
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name.lower()
         gemm = any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas", "imma"))
-        kind = ("attention fwd" if "flash_fwd" in name else
+        kind = ("nccl" if "nccl" in name else
+                "attention fwd" if "flash_fwd" in name else
                 "attention bwd" if "flash_bwd" in name else
                 "ln_linear" if "ln_linear" in name else
                 "memcpy" if "memcpy" in name or "memset" in name else
@@ -1925,6 +1955,10 @@ def phase_train_b16_remat(smi: str, train: dict, cfg, packed_launches: dict, pac
 # -- phase 7: the training entry point -----------------------------------------
 
 CLI_MODEL, CLI_BATCH = "ViT-B-32", 512
+# the CLI runs of phases 10-12 at a smaller batch than phase 7's (512 before
+# PR 17): their host work (the fixture, the decode, the checkpoints) kept
+# the command under 1200 s once phase 14 joined it (PERF.md section 4)
+SIDE_CLI_BATCH = 256
 CLI_ARGS = ["--dataset-type", "synthetic", "--model", CLI_MODEL, "--batch-size", str(CLI_BATCH),
             "--lr", "1e-5", "--warmup", "1", "--save-frequency", "1", "--zeroshot-frequency", "1",
             "--no-save-most-recent", "--name", "cli"]
@@ -2562,6 +2596,11 @@ VIT_L, VIT_L_BATCH, VIT_L_AGREE_BATCH = "ViT-L-14", 512, 64
 # the MAP head with non-causal text; vision heads 80 wide (the plain route)
 GEOMETRIES = ("ViT-L-14-336", "ViT-B-16-SigLIP", "ViT-H-14-quickgelu")
 GEOMETRY_IMAGES = 64
+# layers a tower of every geometry_check (its widths, heads and tokens as
+# the config's): since PR 17, when phase 14 joined the 1200 s command;
+# until then full depth but EVA02-E (8 of 64), EVA01-g (10 of 40) and the
+# H-14 HF CLIPs (8 of 32 vision, 6 of 24 text)
+GEOMETRY_DEPTH = 4
 
 
 def phase_vit_l_train(smi: str, train: dict):
@@ -2683,9 +2722,9 @@ def vision_kernel_layers(cfg) -> int:
                                     torch.device("cuda")) else 0
 
 
-def geometry_check(smi: str, name: str, depth: Optional[int] = None,
-                   text_depth: Optional[int] = None) -> dict:
-    """One model of GEOMETRIES at full width and depth, seed-0 weights:
+def geometry_check(smi: str, name: str) -> dict:
+    """One model of GEOMETRIES at full width, GEOMETRY_DEPTH layers a tower
+    (and a CoCa decoder, which the check does not run), seed-0 weights:
     GEOMETRY_IMAGES seeded images (one exemplar per class with pixel noise)
     and as many seeded text rows through the kernel route and the plain
     one, the counters set to 0 just before each kernel-route call and read
@@ -2693,9 +2732,8 @@ def geometry_check(smi: str, name: str, depth: Optional[int] = None,
     heads are 64 or 128 wide and nothing at all otherwise (JAX's routing
     rule), the text tower once a layer. Image and text features agree row
     by row at cosine >= 0.999 and prototype top-1 (the exemplars' plain
-    features as the bank) on >= 99% of rows. ``depth`` cuts the vision
-    tower to that many layers (its widths stay) and ``text_depth`` the text
-    tower, printed in the line. Rows of at most 64 tokens run in pairs
+    features as the bank) on >= 99% of rows. The cut is printed in the
+    line. Rows of at most 64 tokens run in pairs
     (flash_fwd_seg); a text tower on plain torch (CoCa's, an HF tower)
     launches nothing."""
     from latteclip_torch.config import get_model_config
@@ -2709,10 +2747,16 @@ def geometry_check(smi: str, name: str, depth: Optional[int] = None,
     cfg = get_model_config(name)
     full_depth = getattr(cfg.vision, "layers", None)
     full_text_depth = cfg.text.layers
-    if depth is not None:
+    depth = text_depth = None
+    if isinstance(full_depth, int) and full_depth > GEOMETRY_DEPTH:  # not a stage tuple
+        depth = GEOMETRY_DEPTH
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=depth))
-    if text_depth is not None:
+    if full_text_depth > GEOMETRY_DEPTH:
+        text_depth = GEOMETRY_DEPTH
         cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, layers=text_depth))
+    if isinstance(cfg, CoCaConfig):
+        cfg = dataclasses.replace(cfg, multimodal=dataclasses.replace(
+            cfg.multimodal, layers=min(cfg.multimodal.layers, GEOMETRY_DEPTH)))
     v = cfg.vision
     pairs = getattr(v, "seq_len", 0) * 2 <= 128 and GEOMETRY_IMAGES % 2 == 0
     text_kernel = not (isinstance(cfg, CoCaConfig) or isinstance(cfg.text, HFTextConfig))
@@ -2811,7 +2855,7 @@ def phase_vit_family(smi: str, train: dict) -> dict:
 TRAINERS = ("flyp", "flyp_gt", "flyp_siglip", "v1", "flyp_teacher")
 V1_GAMMA = 0.5
 TRAINER_CLI_ARGS = ["--dataset-type", "synthetic", "--model", CLI_MODEL, "--batch-size",
-                    str(CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--epochs", "1",
+                    str(SIDE_CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--epochs", "1",
                     "--no-save-most-recent"]
 # an attention kernel's name and template arguments, demangled or mangled
 # (Itanium: Li64E an int, Lb1E a bool); the first bool is SEG
@@ -2999,8 +3043,8 @@ def run_trainer_cli(argv, per_step) -> list:
 
 
 def phase_trainers_cli(smi: str, teacher_path: str) -> dict:
-    """(b) The CLI at ViT-B/32, batch 512, 1 epoch of 2 steps on the
-    synthetic fixture: --method flyp with --report-to tensorboard, --profile
+    """(b) The CLI at ViT-B/32, batch SIDE_CLI_BATCH, 1 epoch of 2 steps on
+    the synthetic fixture: --method flyp with --report-to tensorboard, --profile
     (step 0) and --remote-sync to a local directory; --method flyp_gt
     --siglip, then the same resumed from the flyp run's plain epoch_1.pt;
     --gamma 0.5; --method flyp with a ViT-B/32 teacher. Every step's
@@ -3090,7 +3134,7 @@ def phase_trainers_cli(smi: str, teacher_path: str) -> dict:
         undo = _patch(ckpt, "restore_optimizer_state", checked_restore)
         try:
             resume_dir, _ = run("siglip_resume", "flyp_siglip", "--method", "flyp_gt", "--siglip",
-                                "--epochs", "2", "--resume",
+                                "--epochs", "2", "--save-frequency", "0", "--resume",
                                 os.path.join(flyp_dir, "checkpoints", "epoch_1.pt"))
         finally:
             undo()
@@ -3101,10 +3145,12 @@ def phase_trainers_cli(smi: str, teacher_path: str) -> dict:
         shutil.rmtree(os.path.dirname(resume_dir), ignore_errors=True)
         shutil.rmtree(os.path.dirname(flyp_dir), ignore_errors=True)
 
-        gamma_dir, _ = run("gamma", "v1", "--gamma", str(V1_GAMMA))
+        # the runs whose checkpoint nothing reads write none (PR 17: seconds)
+        gamma_dir, _ = run("gamma", "v1", "--gamma", str(V1_GAMMA), "--save-frequency", "0")
         shutil.rmtree(os.path.dirname(gamma_dir), ignore_errors=True)
         teacher_dir, _ = run("teacher", "flyp_teacher", "--method", "flyp", "--distill-model",
-                             CLI_MODEL, "--distill-pretrained", teacher_path)
+                             CLI_MODEL, "--distill-pretrained", teacher_path,
+                             "--save-frequency", "0")
         shutil.rmtree(os.path.dirname(teacher_dir), ignore_errors=True)
         after = read_counts()
         report["card"] = smi
@@ -3144,16 +3190,14 @@ def phase_trainers(smi: str, train: dict) -> dict:
 TOWER_GEOMETRIES = ("EVA02-L-14", "EVA02-L-14-336", "EVA02-E-14", "EVA01-g-14",
                     "vit_medium_patch16_gap_256", "convnext_base", "RN50x4",
                     "swin_base_patch4_window7_224", "vit_relpos_medium_patch16_cls_224")
-# vision layers run of the two largest towers (64 and 40 at full depth)
-TOWER_GEOMETRY_DEPTH = {"EVA02-E-14": 8, "EVA01-g-14": 10}
-TOWER_CLI_ARGS = ["--dataset-type", "synthetic", "--batch-size", str(CLI_BATCH), "--lr", "1e-5",
+TOWER_CLI_ARGS = ["--dataset-type", "synthetic", "--batch-size", str(SIDE_CLI_BATCH), "--lr", "1e-5",
                   "--warmup", "1", "--epochs", "1", "--text-packing", str(PACK_LEN),
                   "--no-save-most-recent"]
 
 
 def phase_towers_cli(smi: str) -> dict:
-    """(d) The CLI in process at batch 512, one epoch of 2 steps on the
-    synthetic fixture, captions packed at 128: --model EVA02-B-16, and
+    """(d) The CLI in process at batch SIDE_CLI_BATCH, one epoch of 2 steps
+    on the synthetic fixture, captions packed at 128: --model EVA02-B-16, and
     --model RN50 --lock-image. Every step launches what the step of
     phase_train_b16 launches (12 flash_fwd and 12 flash_bwd for EVA02's
     vision, none for the ResNet's; 24 flash_fwd_seg and 24 flash_bwd_seg);
@@ -3226,8 +3270,8 @@ def phase_towers(smi: str, train: dict) -> dict:
     rematerialised), (b) served (serve_whole_rows: 12 K1 a batch of 256);
     (c) RN50 trained (no vision launch, BatchNorm statistics bit-equal) and
     served; (d) the CLI on both (phase_towers_cli); (e) the TOWER_GEOMETRIES
-    (geometry_check, E-14 and g-14 at TOWER_GEOMETRY_DEPTH). Returns the
-    launches of these paths."""
+    (geometry_check, GEOMETRY_DEPTH layers a tower). Returns the launches of
+    these paths."""
     totals: dict = {}
 
     def add(launches):
@@ -3241,7 +3285,7 @@ def phase_towers(smi: str, train: dict) -> dict:
     add(serve_whole_rows(smi, "RN50", None, "slice_rn50", "eval_rn50"))
     add(phase_towers_cli(smi))
     for name in TOWER_GEOMETRIES:
-        add(geometry_check(smi, name, TOWER_GEOMETRY_DEPTH.get(name)))
+        add(geometry_check(smi, name))
     return totals
 
 
@@ -3252,12 +3296,10 @@ COCA_BATCH, COCA_FLYP_BATCH, COCA_AGREE_BATCH = 512, 512, 64
 COCA_WEIGHTS = (2.0, 1.0)            # (caption, contrastive): the CLI's defaults
 CAPTIONS, CAPTION_LEN, BEAM_IMAGES = 16, 30, 4
 COCA_GEOMETRIES = ("coca_roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32", "mt5-base-ViT-B-32",
-                   "nllb-clip-base", "nllb-clip-base-siglip")
-# (vision layers, text layers) run of the three large configs (32 and 24 at full depth)
-HF_GEOMETRY_DEPTH = {"xlm-roberta-large-ViT-H-14": (8, 6), "mt5-xl-ViT-H-14": (8, 6),
-                     "nllb-clip-large": (8, 6)}
+                   "nllb-clip-base", "nllb-clip-base-siglip", "xlm-roberta-large-ViT-H-14",
+                   "mt5-xl-ViT-H-14", "nllb-clip-large")
 COCA_CLI_ARGS = ["--dataset-type", "synthetic", "--model", COCA_MODEL, "--batch-size",
-                 str(CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--save-frequency", "2",
+                 str(SIDE_CLI_BATCH), "--lr", "1e-5", "--warmup", "1", "--save-frequency", "2",
                  "--zeroshot-frequency", "1", "--no-save-most-recent", "--name", "coca"]
 ROBERTA_BOS, ROBERTA_EOS, ROBERTA_PAD = 0, 2, 1
 
@@ -3559,7 +3601,8 @@ def coca_hf_serve(smi: str, name: str, label: str) -> dict:
 
 def coca_cli(smi: str) -> dict:
     """(e) The CLI in process on the card with --model coca_ViT-B-32, batch
-    512, on phase 7's synthetic fixture, 2 epochs of 2 steps with an eval
+    SIDE_CLI_BATCH (256) on the synthetic fixture it writes (512 train
+    images), 2 epochs of 2 steps with an eval
     each and the last epoch's checkpoint: --method ours as one epoch and
     --resume latest for the second (:func:`coca_cli_resume`), --method flyp
     in one run. Every step launches 12 flash_fwd_seg and 12 flash_bwd_seg,
@@ -3718,8 +3761,8 @@ def phase_coca_hf(smi: str, train: dict) -> dict:
     served (coca_hf_serve, CoCa's captions too), (e) the CLI on CoCa
     (coca_cli), (f) coca_ViT-L-14 served (geometry_check) and trained one
     step (coca_l14_train_check) and the other CoCa and HF-tower configs'
-    geometries, the three large ones at HF_GEOMETRY_DEPTH. Returns the
-    launches of these paths."""
+    geometries (GEOMETRY_DEPTH layers a tower). Returns the launches of
+    these paths."""
     totals: dict = {}
     seconds: dict = {}
 
@@ -3740,8 +3783,6 @@ def phase_coca_hf(smi: str, train: dict) -> dict:
     add("f_coca_l14_train", coca_l14_train_check, smi, train)
     for name in COCA_GEOMETRIES:
         add(f"f_{name}", geometry_check, smi, name)
-    for name, (vision, text) in HF_GEOMETRY_DEPTH.items():
-        add(f"f_{name}", geometry_check, smi, name, vision, text)
     log("coca_hf_seconds " + json.dumps(seconds))
     return totals
 
@@ -4205,6 +4246,251 @@ def phase_rest(smi: str, train: dict) -> dict:
     return totals
 
 
+# -- phase 14: data and tensor parallelism across ranks ------------------------
+
+DIST_RANK_BATCH, DIST_RANK_STEPS = 256, 2   # (b), (c): each of two ranks on cuda:0
+# gloo on CUDA tensors in the card's torch (latteclip_torch.tools.multihost_smoke.
+# probe_gloo_cuda, PERF.md section 6): all_reduce, all_gather and broadcast
+# run; send/recv fails in the TCP transport ("writev ... Bad address"), so the
+# shared-card parts stage it through host memory (the v2 step sends nothing)
+DIST_STAGED = ("send_recv",)
+DIST_CLI_ARGS = ["--dataset-type", "synthetic", "--model", "ViT-B-32", "--batch-size", "64",
+                 "--lr", "1e-5", "--warmup", "1", "--no-save-most-recent", "--name", "dist"]
+_DIST_LAUNCHES = re.compile(r"^dist_cli_launches (\{.*\})$", re.M)
+
+
+def dist_world1(smi: str, train: dict) -> dict:
+    """(a) One rank joined by NCCL (torchrun's environment, world 1): the
+    packed ViT-B/32 step of phase 6 on a mesh, its first step against the
+    same step without a process group from the same seed and batch, then
+    warm-up and TRAIN_STEPS counted steps (36 K2 and 36 K4 a step, nothing
+    else) and a profiled step, NCCL's kernels apart."""
+    import torch.distributed as dist
+
+    from latteclip_torch import mesh as M
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.tools.multihost_smoke import free_port
+    from latteclip_torch.train import optim, state as St, step as S
+
+    cfg, tok, classes, templates = train["cfg"], train["tok"], train["classes"], train["templates"]
+    table, tpl, batches, n = train["table"], train["tpl"], train["batches"], TRAIN_STEPS
+    lr = 1e-5
+
+    def fresh(mesh):
+        model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+        st = St.create_train_state(
+            model, optim.make_optimizer(model, optim.make_schedule("const", lr, warmup=0)),
+            St.init_memory_bank(model, tok, classes, templates))
+        if mesh is not None:
+            M.shard_train_state(st, mesh)
+        return st, S.make_train_step(model, S.LatteHParams(text_packing=True), table,
+                                     T.AugConfig(), template_packed=tpl)
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        M.initialize_distributed("cuda")
+        backend = dist.get_backend()
+        st, step_fn = fresh(None)
+        loss_plain = float(step_fn(st, batches[0], torch.Generator(device="cuda").manual_seed(0))["loss"])
+        plain = [p.detach().clone() for p in st.model.parameters()] + [st.memory_bank.clone()]
+        del st, step_fn
+        st, step_fn = fresh(M.make_mesh(1))
+        loss_mesh = float(step_fn(st, batches[0], torch.Generator(device="cuda").manual_seed(0))["loss"])
+        first = {"loss_mesh": loss_mesh, "loss_plain": loss_plain,
+                 "loss_abs_diff": abs(loss_mesh - loss_plain),
+                 "param_max_abs_diff": max(float((p.detach() - q).abs().max()) for p, q in
+                                           zip(st.model.parameters(), plain)),
+                 "bank_max_abs_diff": float((st.memory_bank - plain[-1]).abs().max())}
+        del plain
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        _, warm = timed_steps(step_fn, st, batches, gen, 2)
+        torch.cuda.reset_peak_memory_stats()
+        ips, losses, launches = counted_steps(step_fn, st, batches, gen, n)
+        peak = torch.cuda.max_memory_allocated()
+        profile = device_profile(lambda: step_fn(st, batches[0], gen))
+        check_state(st, warm + losses, "dist world 1")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sites = cfg.vision.layers + 2 * cfg.text.layers
+    want = {**dict.fromkeys(launches, 0), "flash_fwd_seg": n * sites, "flash_bwd_seg": n * sites}
+    report = {"backend": backend, "world": 1, "model": cfg.name, "batch": TRAIN_BATCH,
+              "steps": n, "images_per_s": ips, "losses": losses, "launches": launches,
+              "max_memory_allocated": peak, "first_step": first, "profile": profile, "card": smi}
+    log("dist_world1 " + json.dumps(report))
+    if backend != "nccl" or launches != want:
+        raise RuntimeError(f"world 1: backend {backend}, launches {launches}, expected {want}")
+    # the same step without a group: the forward (the loss) alike; the update
+    # within two learning rates of AdamW's (K3/K4's sums may reorder)
+    if first["loss_abs_diff"] > 1e-6 * abs(loss_plain) or first["param_max_abs_diff"] > 2 * lr:
+        raise RuntimeError(f"world 1 against no process group: {first}")
+    return launches
+
+
+def dist_shared_card(smi: str, label: str, tp: int, ln_linear: str, resume: bool) -> dict:
+    """(b), (c) Two gloo ranks sharing cuda:0 through the port's
+    multihost_smoke at ViT-B/32, DIST_RANK_BATCH images each, captions packed
+    at 128: the tool's checks (ranks bit-equal; the first step against one
+    process on the 512 at phase 6's bounds, under ``tp`` 2 JAX's; with
+    ``resume`` the resume equal to the continuation and rank 0's checkpoint
+    reloaded with equal features), each rank's launches (36 K2 and 36 K4 a
+    step; with the fused route 72 K8, the c_fc shard's among them). Returns
+    the ranks' launches."""
+    from latteclip_torch.tools import multihost_smoke as smoke
+
+    cfg = smoke.SmokeConfig(model="ViT-B-32", batch_size=DIST_RANK_BATCH, steps=DIST_RANK_STEPS,
+                            tp=tp, classes=47, text_packing=PACK_LEN, ln_linear=ln_linear,
+                            resume=resume, stage=DIST_STAGED)
+    torch.cuda.empty_cache()
+    rep = smoke.run(cfg, 2, "cuda", "gloo", True, timeout_s=600)
+    rep["card"] = smi
+    log(f"dist_{label} " + json.dumps(rep))
+    mcfg = smoke.model_config(cfg)
+    sites = mcfg.vision.layers + 2 * mcfg.text.layers
+    want = {"flash_fwd_seg": cfg.steps * sites, "flash_bwd_seg": cfg.steps * sites}
+    if ln_linear == "fused":
+        want["ln_linear"] = 2 * cfg.steps * sites
+    hidden = int(mcfg.vision.width * mcfg.vision.mlp_ratio)
+    bad = list(rep["failures"])
+    bad += [f"rank {r['rank']} launched {r['launches']}, expected {want}"
+            for r in rep["ranks"] if r["launches"] != want]
+    bad += [f"rank {r['rank']} holds {r['c_fc_rows']} c_fc rows of {hidden}"
+            for r in rep["ranks"] if r["c_fc_rows"] * tp != hidden]
+    if bad:
+        raise RuntimeError(f"dist {label}: " + "; ".join(bad))
+    return {k: sum(r["launches"][k] for r in rep["ranks"]) for k in want}
+
+
+def dist_cli_rank(argv) -> int:
+    """A rank of part (d) (``chip_smoke.py --dist-cli <args>`` under
+    torchrun): the training CLI for 2 epochs, then again with ``--resume
+    latest`` for a third (which saves nothing), in the process group this
+    rank joins once (each ``main`` keeps a group it did not create); the
+    launch counters are set
+    to 0 just before and read just after both, printed as a
+    dist_cli_launches line."""
+    import torch.distributed as dist
+
+    from latteclip_torch import mesh as M
+    from latteclip_torch.kernels import build
+    from latteclip_torch.train import main as train_main
+
+    build.load_all()
+    M.initialize_distributed("cuda")
+    try:
+        reset_counts()
+        rc = (train_main.main([*argv, "--epochs", "2", "--save-frequency", "2"])
+              or train_main.main([*argv, "--epochs", "3", "--resume", "latest",
+                                  "--save-frequency", "0"]))
+        print("dist_cli_launches " + json.dumps(read_counts()), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return rc
+
+
+def dist_cli_start() -> dict:
+    """(d) Start the CLI under ``torchrun --nproc_per_node 1`` (NCCL) at
+    ViT-B/32, batch 64, on the synthetic fixture: 2 epochs, then ``--resume
+    latest`` for a third (:func:`dist_cli_rank`), its output in files of a
+    scratch directory whose ``./logs`` holds the runs (torchrun takes
+    ``--logs`` for its ``--logs-specs``). :func:`dist_cli_finish` waits."""
+    import tempfile
+
+    from latteclip_torch.tools.multihost_smoke import free_port
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    out, err = (open(os.path.join(work, name), "w") for name in ("stdout", "stderr"))
+    with out, err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+             "--master_port", str(free_port()), os.path.abspath(__file__), "--dist-cli",
+             *DIST_CLI_ARGS], cwd=work, env=env, stdout=out, stderr=err)
+    return {"proc": proc, "work": work, "t0": time.perf_counter()}
+
+
+def dist_cli_finish(smi: str, run: dict) -> dict:
+    """Wait for (d) and check it: exit 0, NCCL, the resumed run at epoch 2,
+    step 4, results for epochs 1-3, epoch_2.pt written. Returns the
+    launches of both runs."""
+    work = run["work"]
+    try:
+        rc = run["proc"].wait(timeout=600)
+        seconds = time.perf_counter() - run["t0"]
+        with open(os.path.join(work, "stdout")) as f:
+            stdout = f.read()
+        m = _DIST_LAUNCHES.search(stdout)
+        if rc != 0 or not m:
+            with open(os.path.join(work, "stderr")) as f:
+                raise RuntimeError(f"torchrun: rc {rc}\n{stdout[-2000:]}\n{f.read()[-4000:]}")
+        totals = json.loads(m.group(1))
+        run_dir = os.path.join(work, "logs", "dist")
+        with open(os.path.join(run_dir, "out.log")) as f:
+            text = f.read()
+        with open(os.path.join(run_dir, "checkpoints", "results.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        files = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+        shutil.rmtree(work, ignore_errors=True)
+    resumed = _RESUMED.search(text)
+    report = {"seconds": seconds, "launches": {k: v for k, v in totals.items() if v},
+              "results_epochs": epochs, "checkpoints": files,
+              "nccl": "nccl" in text, "resumed": resumed.groups() if resumed else None,
+              "card": smi}
+    log("dist_cli " + json.dumps(report))
+    if (epochs != [1, 2, 3] or not report["nccl"] or report["resumed"] != ("2", "4")
+            or files != ["epoch_2.pt", "results.jsonl"]):
+        raise RuntimeError(f"dist cli: {report}")
+    return totals
+
+
+def phase_dist(smi: str, train: dict) -> dict:
+    """Phase 14: (a) world 1 on NCCL, alone on the card; then (d), the CLI
+    under torchrun, beside (b), two gloo ranks on cuda:0, and (c), the same
+    at --model-parallelism 2 with the fused LayerNorm -> linear route (their
+    seconds are not rates). Returns the launches of every part."""
+    t_phase = time.perf_counter()
+    totals, seconds = {}, {}
+
+    def add(name, t0, launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    add("world1", t0, dist_world1(smi, train))
+    cli = dist_cli_start()
+    try:
+        t0 = time.perf_counter()
+        add("dp2", t0, dist_shared_card(smi, "dp2", 1, "unfused", resume=False))
+        t0 = time.perf_counter()
+        add("tp2", t0, dist_shared_card(smi, "tp2", 2, "fused", resume=True))
+    except BaseException:
+        cli["proc"].kill()
+        cli["proc"].wait()
+        shutil.rmtree(cli["work"], ignore_errors=True)
+        raise
+    t0 = time.perf_counter()
+    add("cli_wait", t0, dist_cli_finish(smi, cli))
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("dist_seconds " + json.dumps({**seconds, "staged": list(DIST_STAGED)}))
+    return totals
+
+
 def ptxas_warnings(lines) -> list:
     """ptxas's warnings and advisories (a setmaxnreg ignored) and its
     performance notes and wgmma notes (a wgmma serialised, or a
@@ -4235,6 +4521,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-cli"]:   # a rank of phase 14's part (d), under torchrun
+        return dist_cli_rank(sys.argv[2:])
     from latteclip_torch.kernels import build
 
     kind = torch.cuda.get_device_name(0)
@@ -4266,28 +4554,32 @@ def main() -> int:
             log(f"    ptxas: {line}")
 
     train = train_inputs()
-    records = phase_kernels(train, tiled_lib)
-    lab_records, lab_launches = phase_lab(smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its seconds kept for the phase_seconds line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    records = timed("kernels", phase_kernels, train, tiled_lib)
+    lab_records, lab_launches = timed("lab", phase_lab, smi)
     records += lab_records
-    slice_launches = phase_slice(smi)
-    b16_launches = phase_slice_b16(smi)
-    train_launches = phase_train(smi, train)
-    torch.cuda.empty_cache()
-    b16_train_launches = phase_train_b16(smi, train)
-    torch.cuda.empty_cache()
-    cli_launches = phase_cli(smi)
-    torch.cuda.empty_cache()
-    offline_launches = phase_offline(smi)
-    torch.cuda.empty_cache()
-    family_launches = phase_vit_family(smi, train)
-    torch.cuda.empty_cache()
-    trainer_launches_total = phase_trainers(smi, train)
-    torch.cuda.empty_cache()
-    tower_launches = phase_towers(smi, train)
-    torch.cuda.empty_cache()
-    coca_launches = phase_coca_hf(smi, train)
-    torch.cuda.empty_cache()
-    rest_launches = phase_rest(smi, train)
+    slice_launches = timed("slice", phase_slice, smi)
+    b16_launches = timed("slice_b16", phase_slice_b16, smi)
+    train_launches = timed("train", phase_train, smi, train)
+    b16_train_launches = timed("train_b16", phase_train_b16, smi, train)
+    cli_launches = timed("cli", phase_cli, smi)
+    offline_launches = timed("offline", phase_offline, smi)
+    family_launches = timed("vit_family", phase_vit_family, smi, train)
+    trainer_launches_total = timed("trainers", phase_trainers, smi, train)
+    tower_launches = timed("towers", phase_towers, smi, train)
+    coca_launches = timed("coca_hf", phase_coca_hf, smi, train)
+    rest_launches = timed("rest", phase_rest, smi, train)
+    dist_launches = timed("dist", phase_dist, smi, train)
+    log("phase_seconds " + json.dumps(seconds))
 
     kernels = []
     for name in SOURCES:
@@ -4299,7 +4591,7 @@ def main() -> int:
                                                      cli_launches, offline_launches,
                                                      family_launches, trainer_launches_total,
                                                      tower_launches, coca_launches,
-                                                     rest_launches)),
+                                                     rest_launches, dist_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

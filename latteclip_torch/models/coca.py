@@ -124,8 +124,7 @@ def masked_mha(x: torch.Tensor, kv: torch.Tensor, attn, num_heads: int,
 
 
 def _mlp(x: torch.Tensor, blk, act, dtype: torch.dtype) -> torch.Tensor:
-    h = act(dense(blk.ln_2(x), blk.mlp.c_fc.weight, blk.mlp.c_fc.bias, dtype))
-    return dense(h, blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, dtype)
+    return layers.mlp(x, blk.ln_2, blk.mlp.c_fc, blk.mlp.c_proj, act, dtype, tp=blk.mlp.tp)
 
 
 def masked_block(x: torch.Tensor, blk, num_heads: int, mask, act, dtype) -> torch.Tensor:
@@ -235,21 +234,29 @@ def coca_forward(model: CoCa, images: torch.Tensor, tokens: torch.Tensor, *,
 
 
 def coca_loss(out: Dict[str, torch.Tensor], *, caption_loss_weight: float = 2.0,
-              clip_loss_weight: float = 1.0, pad_id: int = 0) -> Dict[str, torch.Tensor]:
+              clip_loss_weight: float = 1.0, pad_id: int = 0,
+              mesh=None) -> Dict[str, torch.Tensor]:
     """CoCaLoss: ``clip_loss_weight`` times InfoNCE and ``caption_loss_weight``
     times the caption cross entropy over the positions whose label is not
-    ``pad_id``."""
+    ``pad_id``; on a ``mesh`` (:mod:`latteclip_torch.mesh`) both over the
+    data group's global batch."""
+    from latteclip_torch import mesh as mesh_mod
     from latteclip_torch.train.objective import clip_loss
 
     contrastive = torch.zeros((), device=out["logits"].device)
     if clip_loss_weight:
-        contrastive = clip_loss_weight * clip_loss(out["image_features"], out["text_features"],
+        contrastive = clip_loss_weight * clip_loss(mesh_mod.gather(out["image_features"], mesh),
+                                                   mesh_mod.gather(out["text_features"], mesh),
                                                    out["logit_scale"])
     logp = torch.log_softmax(out["logits"].float(), dim=-1)
     labels = out["labels"].long()
     picked = logp.gather(-1, labels[..., None])[..., 0]
     valid = (labels != pad_id).float()
-    caption = -(picked * valid).sum() / valid.sum().clamp_min(1.0)
+    nll, count = -(picked * valid).sum(), valid.sum()
+    if mesh is not None:
+        nll = mesh_mod.data_sum(nll, mesh)
+        count = mesh.all_reduce_(count.clone(), mesh.data_group)
+    caption = nll / count.clamp_min(1.0)
     return {"contrastive_loss": contrastive, "caption_loss": caption_loss_weight * caption}
 
 

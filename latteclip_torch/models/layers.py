@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from latteclip_torch import mesh as mesh_mod
 from latteclip_torch.kernels import (
     AttentionResiduals,
     attention_core_qkv,
@@ -158,10 +159,15 @@ class EvaAttention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """A block's MLP, ``c_fc`` then ``c_proj``. ``tp`` is the mesh whose
+    model group holds its shards under tensor parallelism (set by
+    :func:`latteclip_torch.mesh.shard_train_state`), else None."""
+
     def __init__(self, width: int, hidden: int):
         super().__init__()
         self.c_fc = nn.Linear(width, hidden)
         self.c_proj = nn.Linear(hidden, width)
+        self.tp = None
 
 
 class LayerScale(nn.Module):
@@ -201,7 +207,7 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_1.gamma if self.ls_1 is not None else None,
             self.ls_2.gamma if self.ls_2 is not None else None,
             causal=causal, act=act, dtype=dtype, seg_ids=seg_ids, attention=attention,
-            ln_linear=ln_linear, residuals=residuals)
+            ln_linear=ln_linear, residuals=residuals, tp=self.mlp.tp)
 
 
 def pre_norm_block(x: torch.Tensor, ln_1: nn.LayerNorm, in_w: torch.Tensor,
@@ -210,10 +216,10 @@ def pre_norm_block(x: torch.Tensor, ln_1: nn.LayerNorm, in_w: torch.Tensor,
                    ls_2: Optional[torch.Tensor], *, causal: bool, act, dtype: torch.dtype,
                    seg_ids: Optional[torch.Tensor] = None, attention: str = "kernel",
                    ln_linear: str = "unfused",
-                   residuals: Optional[AttentionResiduals] = None) -> torch.Tensor:
+                   residuals: Optional[AttentionResiduals] = None, tp=None) -> torch.Tensor:
     """JAX's ``residual_block`` on one block's parts, whatever their names
     (OpenCLIP's or timm's): ``x + ls_1 * attn(ln_1(x))``, then
-    ``+ ls_2 * mlp(ln_2(.))``."""
+    ``+ ls_2 * mlp(ln_2(.))``; ``tp``: the MLP's mesh (:func:`mlp`)."""
     qkv = fused.ln_linear(x, ln_1.weight, ln_1.bias, in_w, in_b, dtype, ln_1.eps, ln_linear)
     if seg_ids is not None:
         a = attention_core_qkv_segmented(qkv, heads, seg_ids, causal, attention, residuals)
@@ -223,12 +229,60 @@ def pre_norm_block(x: torch.Tensor, ln_1: nn.LayerNorm, in_w: torch.Tensor,
     if ls_1 is not None:
         a = a * ls_1.to(dtype)
     x = x + a
-    h = act(fused.ln_linear(x, ln_2.weight, ln_2.bias, fc.weight, fc.bias, dtype, ln_2.eps,
-                            ln_linear))
-    h = dense(h, proj.weight, proj.bias, dtype)
+    h = mlp(x, ln_2, fc, proj, act, dtype, ln_linear, tp)
     if ls_2 is not None:
         h = h * ls_2.to(dtype)
     return x + h
+
+
+def mlp(x: torch.Tensor, ln: nn.LayerNorm, fc: nn.Linear, proj: nn.Linear, act,
+        dtype: torch.dtype, ln_linear: str = "unfused", tp=None) -> torch.Tensor:
+    """``proj(act(fc(ln(x))))`` with the LayerNorm -> ``fc`` pair on
+    ``ln_linear``'s route. Under tensor parallelism (``tp`` a mesh, ``fc``
+    and ``proj`` this rank's shards) Megatron's pair brackets it: ``x`` and
+    the LayerNorm's parameters enter through ``copy_to_model``, the partial
+    ``proj`` products (float32 products of ``dtype`` operands, not rounded)
+    are summed over the model group and rounded once, and ``proj``'s bias
+    is added after the sum: the roundings of :func:`dense` on the whole
+    product."""
+    ln_w, ln_b = ln.weight, ln.bias
+    if tp is not None:
+        x, ln_w, ln_b = mesh_mod.copy_to_model(tp, x, ln_w, ln_b)
+    h = act(fused.ln_linear(x, ln_w, ln_b, fc.weight, fc.bias, dtype, ln.eps, ln_linear))
+    if tp is None:
+        return dense(h, proj.weight, proj.bias, dtype)
+    h = mesh_mod.reduce_from_model(float32_product(h.to(dtype), proj.weight.to(dtype)), tp)
+    return h.to(dtype) + proj.bias.to(dtype)
+
+
+class _Float32Product(torch.autograd.Function):
+    """``x @ w.T`` of two CUDA tensors of one dtype, written out as the
+    tensor cores' float32 accumulator (``torch.mm(..., out_dtype=float32)``,
+    which has no derivative); the backward takes the products in the
+    operands' dtype from the cotangent rounded to it, as autograd gives
+    :func:`dense`'s."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype).reshape(-1, w.shape[0])
+        return (g @ w).reshape(x.shape), g.t() @ x.reshape(-1, x.shape[-1])
+
+
+def float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` in float32 from operands of one dtype: on CUDA the
+    tensor-core product with its float32 accumulator written out
+    (:class:`_Float32Product`), on the CPU the float32 product of the same
+    values."""
+    if not x.is_cuda or x.dtype == torch.float32:
+        return F.linear(x.float(), w.float())
+    return _Float32Product.apply(x, w)
 
 
 class _BlockRemat(torch.autograd.Function):

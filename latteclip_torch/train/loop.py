@@ -18,7 +18,17 @@ run as JAX counts them.
 
 Each step's augment draws from a ``torch.Generator`` on the model's device
 seeded with ``(seed << 32) + epoch * 100003 + i``: the number the JAX loop
-folds into ``PRNGKey(seed)``, combined with the seed.
+folds into ``PRNGKey(seed)``, combined with the seed; a rank at data index
+``d`` of a mesh adds ``d << 56``, so the ranks of one model group draw
+alike and the data ranks differently.
+
+On a mesh (``state.mesh``) every rank runs the steps, eval and the
+checkpoint's gather, in one order (JAX loop.py:87-127, :225-262): eval and
+the checkpoint run on the gathered parameters
+(:func:`latteclip_torch.mesh.gathered`) on every rank, and only rank 0 logs,
+writes ``results.jsonl``, the writers' events, the trace and the
+checkpoint files. Throughput counts the global batch (batch times the data
+size).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from latteclip_torch import mesh as mesh_mod
 from latteclip_torch.checkpoint import optimizer_state, save_clip_pt
 from latteclip_torch.data.eval_dataset import FlatFileDataset, iter_batches
 from latteclip_torch.data.pipeline import TrainPipeline, prefetch
@@ -139,9 +150,12 @@ def save_epoch_checkpoint(state: TrainState, classnames: Sequence[str], loop_cfg
                      **extra)
 
 
-def step_generator(device: torch.device, seed: int, epoch: int, i: int) -> torch.Generator:
-    """The augment's generator of step ``i`` of ``epoch`` (module docstring)."""
-    return torch.Generator(device=device).manual_seed((seed << 32) + epoch * 100003 + i)
+def step_generator(device: torch.device, seed: int, epoch: int, i: int,
+                   data_index: int = 0) -> torch.Generator:
+    """The augment's generator of step ``i`` of ``epoch`` at ``data_index``
+    (module docstring)."""
+    return torch.Generator(device=device).manual_seed(
+        (seed << 32) + epoch * 100003 + i + (data_index << 56))
 
 
 def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopConfig,
@@ -155,26 +169,29 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
     device = next(state.model.parameters()).device
     results_path = os.path.join(loop_cfg.checkpoint_dir, "results.jsonl")
     sync = torch.cuda.synchronize if device.type == "cuda" else None
+    mesh, master = state.mesh, mesh_mod.is_master(state)
+    data_size, data_index = (mesh.data_size, mesh.data_index) if mesh is not None else (1, 0)
     tracer = None
-    if loop_cfg.profile_dir:
+    if loop_cfg.profile_dir and master:
         tracer = StepTraceProfiler(loop_cfg.profile_dir, start_step=loop_cfg.profile_start_step,
                                    num_steps=loop_cfg.profile_num_steps)
     global_step = 0
     for epoch in range(start_epoch, loop_cfg.epochs):
         state.start_epoch()
         meters = DeviceMeterBank()
-        thr = Throughput(pipeline.cfg.batch_size)
+        thr = Throughput(pipeline.cfg.batch_size, data_size)
         batches = prefetch(pipeline.epoch(epoch), size=pipeline.cfg.prefetch_batches,
                            device=device)
         for i, batch in enumerate(batches):
             thr.tick_data()
             if tracer is not None:
                 tracer.on_step(global_step, sync=sync)
-            metrics = step_fn(state, batch, step_generator(device, seed, epoch, i))
+            metrics = step_fn(state, batch, step_generator(device, seed, epoch, i, data_index))
             meters.update(metrics)
             thr.tick_batch()
             global_step += 1
-            if i % loop_cfg.log_every_n_steps == 0 or i == pipeline.steps_per_epoch - 1:
+            if master and (i % loop_cfg.log_every_n_steps == 0
+                           or i == pipeline.steps_per_epoch - 1):
                 fetched = meters.fetch()
                 lr_str = (" LR: %f" % float(loop_cfg.lr_schedule(state.step - 1))
                           if loop_cfg.lr_schedule is not None else "")
@@ -198,32 +215,35 @@ def train(state: TrainState, step_fn, pipeline: TrainPipeline, loop_cfg: LoopCon
         if (val_dataset is not None and loop_cfg.zeroshot_frequency
                 and (completed % loop_cfg.zeroshot_frequency == 0
                      or completed == loop_cfg.epochs)):
-            eval_metrics = evaluate_zero_shot(
-                state, val_dataset, loop_cfg.eval_batch_size, method=loop_cfg.method,
-                tokenizer=tokenizer, classnames=classnames, templates=templates,
-                packing=loop_cfg.text_packing, attention=loop_cfg.attention,
-                ln_linear=loop_cfg.ln_linear)
             routes = {"attention": loop_cfg.attention, "ln_linear": loop_cfg.ln_linear}
-            if (val_pairs_dataset is not None and loop_cfg.val_frequency
-                    and (completed % loop_cfg.val_frequency == 0
-                         or completed == loop_cfg.epochs)):
-                eval_metrics.update(evaluate_val_pairs(
-                    state.model, val_pairs_dataset, batch_size=loop_cfg.eval_batch_size,
-                    tokenizer=tokenizer, **routes))
-            if imagenet_val_dataset is not None and tokenizer is not None:
-                eval_metrics.update(evaluate_imagenet(
-                    state, imagenet_val_dataset, loop_cfg.eval_batch_size, tokenizer,
-                    packing=loop_cfg.text_packing, **routes))
-            logger.info("Eval Epoch: %d %s", completed,
-                        {k: round(v, 4) for k, v in eval_metrics.items()})
-            append_results_jsonl(results_path, {"epoch": completed, **eval_metrics})
-            for w in writers:
-                for k, v in eval_metrics.items():
-                    w.add_scalar(f"val/{k}", float(v), completed)
-                w.flush()
+            with mesh_mod.gathered(state, moments=False):
+                eval_metrics = evaluate_zero_shot(
+                    state, val_dataset, loop_cfg.eval_batch_size, method=loop_cfg.method,
+                    tokenizer=tokenizer, classnames=classnames, templates=templates,
+                    packing=loop_cfg.text_packing, **routes)
+                if (val_pairs_dataset is not None and loop_cfg.val_frequency
+                        and (completed % loop_cfg.val_frequency == 0
+                             or completed == loop_cfg.epochs)):
+                    eval_metrics.update(evaluate_val_pairs(
+                        state.model, val_pairs_dataset, batch_size=loop_cfg.eval_batch_size,
+                        tokenizer=tokenizer, **routes))
+                if imagenet_val_dataset is not None and tokenizer is not None:
+                    eval_metrics.update(evaluate_imagenet(
+                        state, imagenet_val_dataset, loop_cfg.eval_batch_size, tokenizer,
+                        packing=loop_cfg.text_packing, **routes))
+            if master:
+                logger.info("Eval Epoch: %d %s", completed,
+                            {k: round(v, 4) for k, v in eval_metrics.items()})
+                append_results_jsonl(results_path, {"epoch": completed, **eval_metrics})
+                for w in writers:
+                    for k, v in eval_metrics.items():
+                        w.add_scalar(f"val/{k}", float(v), completed)
+                    w.flush()
         if loop_cfg.save_frequency and (completed % loop_cfg.save_frequency == 0
                                         or completed == loop_cfg.epochs):
-            save_epoch_checkpoint(state, classnames, loop_cfg, completed)
+            with mesh_mod.gathered(state):
+                if master:
+                    save_epoch_checkpoint(state, classnames, loop_cfg, completed)
     if tracer is not None:
         tracer.close(sync=sync)
     return state

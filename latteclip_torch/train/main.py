@@ -44,26 +44,39 @@ raises without a CUDA device). The JAX package's kernel switches
 ``--use-native-jpeg --host-resize`` decodes train JPEGs with the C decoder
 of :mod:`latteclip_torch.native` (the build logged once at start; PIL where
 it does not build, and under the default on-device resize, as in JAX; the
-decode counts logged at the end). ``--model-parallelism`` above 1 is
-refused with a ``SystemExit`` that names the ROADMAP item; the flags JAX
-refuses are refused with its messages
+decode counts logged at the end). The flags JAX refuses are refused with
+its messages
 (``--text-packing`` with an HF or class-token text tower, ``--gamma``,
 ``--siglip`` or a teacher with CoCa among them); the GPU/infra flags the JAX
 package ignores with a warning are ignored with the same warning.
+
+Across ranks: ``torchrun --nproc_per_node N -m latteclip_torch.train.main
+...`` (NCCL, one card a rank; gloo on the CPU), with ``--model-parallelism
+K`` for K-way tensor parallelism of the block MLPs (K divides N). Each
+rank's ``--batch-size`` is its local batch, the global batch is the data
+ranks' batches together (:mod:`latteclip_torch.mesh`); the pipeline gives
+data rank ``d`` of ``N / K`` its share of the shards (``host_index`` and
+``host_count``), packed caption rows round to ``lcm(8, N / K)`` and
+``--text-packing`` needs ``--text-packing-rows``. Only rank 0 logs to the
+file, writes ``params.txt``, the results, the writers' events and the
+checkpoints; the offline and eval-only jobs run on rank 0 alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import math
 import os
 import sys
 import tempfile
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from latteclip_torch import checkpoint as ckpt
+from latteclip_torch import mesh as mesh_mod
 from latteclip_torch import pretrained
 from latteclip_torch.config import CoCaConfig, get_model_config
 from latteclip_torch.data import synthetic
@@ -78,7 +91,6 @@ from latteclip_torch.data.pipeline import (
 )
 from latteclip_torch.data.tar_reader import expand_shard_pattern
 from latteclip_torch.data.transforms import AugConfig
-from latteclip_torch.device import resolve_device
 from latteclip_torch.eval.features import extract_features
 from latteclip_torch.eval.group_weights import extract_group_weights
 from latteclip_torch.eval.tta import TTAConfig, evaluate_tta
@@ -106,8 +118,6 @@ from latteclip_torch.train.step import (
 
 logger = logging.getLogger("latteclip_torch")
 
-_ITEM_5 = "ROADMAP.md, section 1, item 5 (multi-GPU data parallel)"
-
 _WARN_IGNORED_FLAGS = (
     # GPU/infra flags accepted for reference-script compat (params.py)
     "torchscript", "torchcompile", "trace", "horovod", "ddp_static_graph",
@@ -123,14 +133,6 @@ def setup_logging(log_path: Optional[str] = None):
         handlers.append(logging.FileHandler(log_path))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s",
                         datefmt="%Y-%m-%d,%H:%M:%S", handlers=handlers, force=True)
-
-
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose feature the port does not have yet
-    (the towers it lacks are refused by :func:`model_config`)."""
-    if args.model_parallelism > 1:
-        raise SystemExit(f"--model-parallelism {args.model_parallelism}: not ported to "
-                         f"latteclip_torch yet ({_ITEM_5})")
 
 
 def kernel_routes() -> dict:
@@ -272,12 +274,14 @@ def run_tta(args, model, tokenizer, dataset, device, routes) -> None:
     logger.info("TTA eval: %s", {k: round(float(v), 4) for k, v in metrics.items()})
 
 
-def synthetic_root(args, cfg) -> str:
+def synthetic_root(args, cfg, data_size: int = 1) -> str:
     """The synthetic fixture in a new temporary directory, as the JAX
-    package's ``_synthetic_root`` writes it."""
+    package's ``_synthetic_root`` writes it: two global batches of train
+    images (at least 64), so that each of ``data_size`` ranks gets a shard
+    of 100 where the global batch allows."""
     root = tempfile.mkdtemp(prefix="latteclip_synth_")
-    synthetic.make_full_fixture(root, num_train=max(args.batch_size * 2, 64), num_val=32,
-                                image_size=cfg.vision.image_size)
+    synthetic.make_full_fixture(root, num_train=max(args.batch_size * data_size * 2, 64),
+                                num_val=32, image_size=cfg.vision.image_size)
     return root
 
 
@@ -409,21 +413,43 @@ def load_resumed_weights(model, r_model, args) -> None:
 
 
 def main(argv=None) -> int:
+    """Parse ``argv``, join torchrun's process group where its environment
+    names one (:func:`latteclip_torch.mesh.initialize_distributed`), run,
+    and leave the group this call joined."""
     args = parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    owned = not dist.is_initialized()
+    device = mesh_mod.initialize_distributed(args.device)
+    try:
+        return run(args, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args, device: torch.device) -> int:
     routes = kernel_routes()
+    mesh = None
+    if dist.is_initialized():
+        mesh = mesh_mod.make_mesh(args.model_parallelism)
+    elif args.model_parallelism > 1:
+        raise SystemExit(f"--model-parallelism {args.model_parallelism} needs that many ranks "
+                         f"or a multiple: launch with torchrun --nproc_per_node N")
+    master = mesh_mod.is_master(mesh)
+    dp_size = mesh.data_size if mesh is not None else 1
 
     name = args.name or f"{args.model}_lr{args.lr}_b{args.batch_size}"
     log_dir = os.path.join(args.logs, name)
     checkpoint_dir = os.path.join(log_dir, "checkpoints")
-    setup_logging(os.path.join(log_dir, "out.log"))
-    logger.info("device: %s (%s)", device, torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "host CPU")
-    os.makedirs(log_dir, exist_ok=True)
-    with open(os.path.join(log_dir, "params.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k}: {getattr(args, k)}\n")
+    setup_logging(os.path.join(log_dir, "out.log") if master else None)
+    logger.info("device: %s (%s)%s", device, torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "host CPU",
+                f"; rank {mesh.rank} of {mesh.world_size}, mesh {mesh.shape}, "
+                f"{dist.get_backend()}" if mesh is not None else "")
+    if master:  # config dump, reference main.py:311-316
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "params.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k}: {getattr(args, k)}\n")
     ignored = [f for f in _WARN_IGNORED_FLAGS if getattr(args, f, None)]
     if ignored:
         logger.warning("ignoring GPU/infra flags with no counterpart here: %s",
@@ -443,10 +469,15 @@ def main(argv=None) -> int:
     tokenizer = get_tokenizer_for_config(cfg)
     synthetic_mode = args.dataset_type == "synthetic"
     if synthetic_mode:
-        preprocess_path, dataset_name = synthetic_root(args, cfg), "dtd"
+        preprocess_path, dataset_name = synthetic_root(args, cfg, dp_size), "dtd"
     else:
         preprocess_path = resolve_preprocess_path(args)
         dataset_name = args.zeroshot_eval_data or "default"
+
+    offline = (args.extract_features_path or args.tta or args.method in ("tpt", "rlcf")
+               or args.extract_group_weight_path or not (args.train_data or synthetic_mode))
+    if offline and not master:  # the offline and eval-only jobs run on rank 0
+        return 0
 
     # ---- feature-extraction mode: the pseudo-label pickle, then exit ------
     if args.extract_features_path:
@@ -552,11 +583,13 @@ def main(argv=None) -> int:
                         "with PIL, as in the JAX package; --host-resize takes the native decode")
     pipeline = TrainPipeline(data, PipelineConfig(
         batch_size=args.batch_size, image_size=cfg.vision.image_size, seed=args.seed,
+        host_index=mesh.data_index if mesh is not None else 0, host_count=dp_size,
         num_threads=args.workers, raw_cache_bytes=args.raw_cache_mb * 1024**2,
         train_with_gt_text=args.train_with_gt_text, ondevice_resize=args.ondevice_resize,
         crop_scale=(aug.scale_min, aug.scale_max), resampled=args.dataset_resampled,
         upsampling_factors=parse_upsampling(args),
         text_packing_len=args.text_packing if v2 else 0,
+        text_packing_multiple=8 * dp_size // math.gcd(8, dp_size),
         text_packing_rows=args.text_packing_rows,
         use_native_jpeg=args.use_native_jpeg, pin_memory=device.type == "cuda"), num_samples)
     total_steps = pipeline.steps_per_epoch * args.epochs
@@ -625,6 +658,12 @@ def main(argv=None) -> int:
             logger.warning("checkpoint has no optimizer state; AdamW moments and the LR "
                            "schedule restart from step 0")
         logger.info("resumed from %s (epoch %d, step %d)", path, start_epoch, state.step)
+    if mesh is not None:
+        mesh_mod.shard_train_state(state, mesh)
+        if args.model_parallelism > 1:
+            logger.info("model_parallelism=%d across %d ranks: %d MLP leaves sharded; eval and "
+                        "checkpoint all-gather them each epoch", args.model_parallelism,
+                        mesh.world_size, len(state.tp_dims))
 
     loop_cfg = loop_mod.LoopConfig(
         epochs=args.epochs, checkpoint_dir=checkpoint_dir, name=name,
@@ -646,13 +685,13 @@ def main(argv=None) -> int:
         val_pairs_dataset = CsvDataset(args.val_data, img_key=args.csv_img_key,
                                        caption_key=args.csv_caption_key, sep=args.csv_separator,
                                        image_size=cfg.vision.image_size)
-    writers = make_writers(args.report_to, args.logs, name, True,
+    writers = make_writers(args.report_to, args.logs, name, master,
                            wandb_project=args.wandb_project_name, wandb_notes=args.wandb_notes,
                            # reference main.py:451: resume='auto' when resuming from latest
                            wandb_resume="auto" if args.resume == "latest" else None,
                            config=vars(args))
     remote_sync = None
-    if args.remote_sync:
+    if args.remote_sync and master:
         remote_sync = RemoteSync(log_dir, os.path.join(args.remote_sync, name),
                                  frequency_s=args.remote_sync_frequency,
                                  protocol=args.remote_sync_protocol).start()

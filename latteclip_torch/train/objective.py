@@ -8,13 +8,18 @@
 ``text_confidence_weights`` is ``compute_text_weights``: the top1 - top2
 margin of ``text @ prototypes.T``, detached. ``distill_clip_loss`` and
 ``siglip_full_loss`` are the FLYP trainer's ``--distill-*`` and ``--siglip``
-objectives; JAX's ``siglip_ring_loss`` exchanges text blocks over a mesh
-axis and waits for multi-GPU data parallel (ROADMAP.md, section 1, item 5).
+objectives. Under data parallelism the steps call them on features
+gathered over the data group (:func:`latteclip_torch.mesh.gather`), the
+global batch, as JAX's GSPMD step does. ``siglip_ring_loss`` is JAX's ring
+form: text blocks passed round the data ranks instead of gathered; a
+library function, as in JAX, whose FLYP step takes the full form.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from latteclip_torch import mesh as mesh_mod
 
 
 def cross_entropy_with_int_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -74,3 +79,24 @@ def siglip_full_loss(image_features: torch.Tensor, text_features: torch.Tensor,
     """The SigLIP loss over the whole batch (reference ``SigLipLoss`` on one
     device): :func:`sigmoid_pair_loss` over every pair."""
     return sigmoid_pair_loss(image_features, text_features, logit_scale, logit_bias)
+
+
+def siglip_ring_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                     logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                     mesh: "mesh_mod.Mesh") -> torch.Tensor:
+    """The SigLIP loss of the data group's global batch with the text
+    blocks passed round a ring of data ranks (JAX ``siglip_ring_loss``,
+    objective.py:79-111; the reference's neighbour exchange, loss.py:
+    365-450): each rank scores its images against its own texts, then
+    against each other rank's texts as they arrive (``batch_isend_irecv``;
+    the gradients go back the other way), and the ranks' sums are averaged.
+    Equal to :func:`siglip_full_loss` on the gathered features; the
+    gradient on each rank's features is the data size times its share, as
+    :func:`latteclip_torch.mesh.gather` gives it."""
+    loss = sigmoid_pair_loss(image_features, text_features, logit_scale, logit_bias)
+    text = text_features
+    for _ in range(mesh.data_size - 1):
+        text = mesh_mod.ring_shift(text, mesh)
+        loss = loss + sigmoid_pair_loss(image_features, text, logit_scale, logit_bias,
+                                        negative_only=True)
+    return mesh_mod.data_sum(loss, mesh) / mesh.data_size

@@ -299,10 +299,20 @@ def make_optimizer(model: nn.Module, schedule: Schedule, *, beta1: float = 0.9,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float, mesh=None,
+                         sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm``: every gradient times ``max_norm /
     norm`` where the norm over all of them is at least ``max_norm``; the
-    norm is returned (a device scalar, no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    norm is returned (a device scalar, no host sync). Where ``sharded``
+    marks model-sharded gradients (on ``mesh``), their squared norms are
+    summed over the model group and the replicated ones counted once."""
+    if mesh is None or not any(sharded or ()):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    else:
+        def squares(pick: bool) -> torch.Tensor:
+            chosen = [g for g, s in zip(grads, sharded) if s == pick]
+            return torch.stack(torch._foreach_norm(chosen)).square().sum()
+
+        norm = (squares(False) + mesh.all_reduce_(squares(True), mesh.model_group)).sqrt()
     torch._foreach_mul_(list(grads), torch.where(norm < max_norm, 1.0, max_norm / norm))
     return norm

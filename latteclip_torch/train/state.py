@@ -9,12 +9,15 @@ bank (reference ``src/training/train.py:347-350``): the confidence weights
 read it all epoch while the per-step classifier and anchors read the live
 bank. It is always a copy, never an alias, since the step replaces the bank
 every step. Unlike JAX's immutable state, this one is updated in place by
-the train step.
+the train step. ``mesh`` and ``tp_dims`` place it across ranks
+(:func:`latteclip_torch.mesh.shard_train_state`): the bank, the step and
+every other leaf replicated, the MLP leaves named in ``tp_dims`` (name ->
+split dim) held as this rank's shard.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +48,8 @@ class TrainState:
     memory_bank: torch.Tensor          # [C, D] float32, L2-normalized rows
     prototypes: torch.Tensor           # [C, D] epoch-start snapshot
     accum: Optional[Accumulation] = None
+    mesh: Optional[object] = None      # latteclip_torch.mesh.Mesh, None in one process
+    tp_dims: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def start_epoch(self) -> "TrainState":
         """Snapshot the live bank into the epoch prototypes (train.py:347-350)."""

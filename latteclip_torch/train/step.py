@@ -33,6 +33,15 @@ optax chain does (:mod:`latteclip_torch.train.optim`).
 ``text_decoder``, which the v2 objective never reads) as they were, as JAX
 zeroes their updates after AdamW: their moments see zero gradients.
 
+On a mesh (``state.mesh``, :mod:`latteclip_torch.mesh`) each rank runs
+the step on its local batch with the semantics of JAX's GSPMD step on the
+global batch: the image and text features are gathered over the data
+group for the global logits, the bank's float32 segment sums and counts
+are summed over the ranks before the mean, the logged metrics are global,
+and the gradients are averaged before every :func:`apply_gradients` (the
+gather's backward leaves a rank W times its share). Each rank packs and
+pools its own captions.
+
 The other trainers of the JAX CLI: ``--gamma`` selects the legacy v1 step
 (the reference's ``train_one_epoch``: a detached template anchor, only the
 image tower and the logit scale train, the gamma bank update), and
@@ -50,6 +59,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from latteclip_torch import mesh as mesh_mod
 from latteclip_torch.data import transforms as T
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models import coca as coca_mod
@@ -161,12 +171,15 @@ def latteclip_loss_fn(
     *,
     attention: str = "kernel",
     ln_linear: str = "unfused",
+    mesh: Optional[mesh_mod.Mesh] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The v2 objective -> ``(total loss, aux)``; ``aux`` holds the
     pseudo-labels and the detached anchored text features the bank update
     reads. ``template_packed`` is the packed template table (on the device)
     for ``hp.text_packing``; without it the templates run padded.
-    ``attention`` and ``ln_linear`` select the towers' kernel routes."""
+    ``attention`` and ``ln_linear`` select the towers' kernel routes. On a
+    ``mesh`` the two InfoNCE losses take the data group's gathered
+    features."""
     dev = images.device
     zs_preds = _to_device(batch, ("zs_preds",), dev)[0].long()
     routes = {"attention": attention, "ln_linear": ln_linear}
@@ -220,9 +233,12 @@ def latteclip_loss_fn(
     text_final = anchor + hp.alpha * (text_fused - anchor)
     text_final_zs = anchor_zs + hp.alpha * (text_fused_zs - anchor_zs)
 
-    loss_ft = clip_loss(image_features, text_final, logit_scale)
-    loss_zs = clip_loss(image_features, text_final_zs, logit_scale) * hp.use_zeroshot_pseudolabel
+    image_all = mesh_mod.gather(image_features, mesh)
+    loss_ft = clip_loss(image_all, mesh_mod.gather(text_final, mesh), logit_scale)
+    loss_zs = (clip_loss(image_all, mesh_mod.gather(text_final_zs, mesh), logit_scale)
+               * hp.use_zeroshot_pseudolabel)
     total = (loss_ft + loss_zs) * hp.use_finetune_pseudolabel
+    agreement = (preds == zs_preds).float().mean()
     aux = {
         "loss": total.detach(),
         "contrastive_loss": loss_ft.detach(),
@@ -232,23 +248,38 @@ def latteclip_loss_fn(
         "text_final": text_final.detach(),
         "text_final_zs": text_final_zs.detach(),
         "logit_scale": logit_scale.detach(),
-        "pseudo_agreement": (preds == zs_preds).float().mean(),
+        "pseudo_agreement": agreement if mesh is None else mesh.mean(agreement),
     }
     return total, aux
 
 
-@torch.no_grad()
-def update_memory_bank(memory_bank: torch.Tensor, preds: torch.Tensor, zs_preds: torch.Tensor,
-                       text_final: torch.Tensor, text_final_zs: torch.Tensor) -> torch.Tensor:
-    """Segment-mean bank update over both branches (train.py:508-530): a new
-    bank whose rows of the classes seen in this batch are the renormalized
-    mean of their anchored features; the other rows are the old ones."""
-    C = memory_bank.shape[0]
-    ids = torch.cat([zs_preds, preds]).long()
-    feats = torch.cat([text_final_zs, text_final]).float()
+def _segment_sums(C: int, ids: torch.Tensor, feats: torch.Tensor,
+                  mesh: Optional[mesh_mod.Mesh]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class float32 sums of ``feats`` [N, D] and counts of ``ids`` [N];
+    on a mesh summed over every rank (a model group's K ranks hold the same
+    batch, so both come out K times the global batch's and their ratio is
+    its mean; JAX step.py:278-298 psums them over the data axis)."""
     sums = torch.zeros(C, feats.shape[1], dtype=torch.float32, device=feats.device)
     sums.index_add_(0, ids, feats)
     counts = torch.bincount(ids, minlength=C).float()
+    if mesh is None:
+        return sums, counts
+    both = mesh.all_reduce_(torch.cat([sums, counts[:, None]], dim=1))
+    return both[:, :-1], both[:, -1]
+
+
+@torch.no_grad()
+def update_memory_bank(memory_bank: torch.Tensor, preds: torch.Tensor, zs_preds: torch.Tensor,
+                       text_final: torch.Tensor, text_final_zs: torch.Tensor,
+                       mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
+    """Segment-mean bank update over both branches (train.py:508-530): a new
+    bank whose rows of the classes seen in this batch (the global batch, on
+    a ``mesh``) are the renormalized mean of their anchored features; the
+    other rows are the old ones."""
+    C = memory_bank.shape[0]
+    ids = torch.cat([zs_preds, preds]).long()
+    feats = torch.cat([text_final_zs, text_final]).float()
+    sums, counts = _segment_sums(C, ids, feats, mesh)
     updated = l2_normalize(sums / counts.clamp_min(1.0)[:, None])
     return torch.where((counts > 0)[:, None], updated, memory_bank)
 
@@ -260,10 +291,17 @@ def apply_gradients(state: TrainState) -> None:
     mean of its cycle (``acc + (g - acc) / (n + 1)``) and only the cycle's
     last call goes on, with the mean; then the global-norm clip over every
     gradient, locked towers' included, when ``grad_clip_norm`` is set, and
-    the AdamW step."""
+    the AdamW step. On a mesh every call first averages the gradients over
+    the ranks (:meth:`latteclip_torch.mesh.Mesh.sync_gradients`), as GSPMD's
+    psums run on every micro-batch, and the clip's norm counts each
+    model-sharded leaf's shards once."""
     opt, acc = state.optimizer, state.accum
-    params = list(state.model.parameters())
+    named = list(state.model.named_parameters())
+    params = [p for _, p in named]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    sharded = [name in state.tp_dims for name, _ in named]
+    if state.mesh is not None:
+        state.mesh.sync_gradients(grads, sharded)
     if acc is not None:
         n = acc.mini_step
         torch._foreach_add_(acc.grads, torch._foreach_div(torch._foreach_sub(grads, acc.grads),
@@ -278,7 +316,7 @@ def apply_gradients(state: TrainState) -> None:
         p.grad = g
     clip = getattr(opt, "grad_clip_norm", None)
     if clip is not None:
-        clip_by_global_norm_(grads, clip)
+        clip_by_global_norm_(grads, clip, state.mesh, sharded)
     opt.step()
 
 
@@ -326,7 +364,7 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = latteclip_loss_fn(state.model, hp, batch, images, state.memory_bank,
                                       state.prototypes, table, packed, attention=attention,
-                                      ln_linear=ln_linear)
+                                      ln_linear=ln_linear, mesh=state.mesh)
         loss.backward()
         with torch.no_grad():
             kept = [p.detach().clone() for p in frozen]
@@ -337,7 +375,8 @@ def make_train_step(
             state.model.logit_scale.clamp_(0.0, LOG100)
 
         state.memory_bank = update_memory_bank(state.memory_bank, aux["preds"], aux["zs_preds"],
-                                               aux["text_final"], aux["text_final_zs"])
+                                               aux["text_final"], aux["text_final_zs"],
+                                               state.mesh)
         state.step += 1
         return {k: aux[k] for k in ("loss", "contrastive_loss", "zeroshot", "logit_scale",
                                     "pseudo_agreement")}
@@ -349,8 +388,9 @@ def make_train_step(
 
 def v1_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torch.Tensor,
                memory_bank: torch.Tensor, template_table: torch.Tensor, *,
-               attention: str = "kernel",
-               ln_linear: str = "unfused") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               attention: str = "kernel", ln_linear: str = "unfused",
+               mesh: Optional[mesh_mod.Mesh] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of the reference's legacy ``train_one_epoch`` (JAX
     ``v1_loss_fn``): symmetric InfoNCE between the image features and the
     detached anchor of each sample's zero-shot pseudo-label. The anchor is
@@ -360,7 +400,9 @@ def v1_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torc
     template feature. The text tower runs without autograd, so only the
     image tower and ``logit_scale`` get gradients and no attention backward
     runs on the text. ``aux`` holds the un-normalized anchor and the detached
-    image features that :func:`v1_update_memory_bank` mixes."""
+    image features that :func:`v1_update_memory_bank` mixes. On a ``mesh``
+    the bank test sums the rows of the global batch and the loss takes the
+    gathered features."""
     dev = images.device
     zs_preds = _to_device(batch, ("zs_preds",), dev)[0].long()
     routes = {"attention": attention, "ln_linear": ln_linear}
@@ -373,9 +415,13 @@ def v1_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torc
         label_f = class_text_feats[zs_preds]
         bank_rows = memory_bank[zs_preds]
         bank_norm = l2_normalize(bank_rows)
-        anchored = torch.where(bank_rows.sum() != 0.0,
+        total = bank_rows.sum()
+        if mesh is not None:
+            total = mesh.all_reduce_(total.clone())
+        anchored = torch.where(total != 0.0,
                                bank_norm + hp.alpha * (label_f - bank_norm), label_f)
-    loss = clip_loss(image_features, l2_normalize(anchored), logit_scale)
+    loss = clip_loss(mesh_mod.gather(image_features, mesh),
+                     mesh_mod.gather(l2_normalize(anchored), mesh), logit_scale)
     aux = {"loss": loss.detach(), "contrastive_loss": loss.detach(),
            "logit_scale": logit_scale.detach(), "zs_preds": zs_preds, "anchored": anchored,
            "image_features": image_features.detach()}
@@ -385,18 +431,15 @@ def v1_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torc
 @torch.no_grad()
 def v1_update_memory_bank(memory_bank: torch.Tensor, zs_preds: torch.Tensor,
                           anchored: torch.Tensor, image_features: torch.Tensor,
-                          gamma: float) -> torch.Tensor:
+                          gamma: float, mesh: Optional[mesh_mod.Mesh] = None) -> torch.Tensor:
     """The gamma momentum-prototype update of v1 (JAX
     ``v1_update_memory_bank``): each sample mixes its un-normalized anchor
     with its image feature, ``anchored * (1 - gamma) + image * gamma``; each
-    class seen in the batch takes the mean of its samples' mixes, not
-    renormalized; the other rows keep theirs."""
+    class seen in the batch (the global batch, on a ``mesh``) takes the mean
+    of its samples' mixes, not renormalized; the other rows keep theirs."""
     C = memory_bank.shape[0]
-    ids = zs_preds.long()
     feats = (anchored * (1.0 - gamma) + image_features * gamma).float()
-    sums = torch.zeros(C, feats.shape[1], dtype=torch.float32, device=feats.device)
-    sums.index_add_(0, ids, feats)
-    counts = torch.bincount(ids, minlength=C).float()
+    sums, counts = _segment_sums(C, zs_preds.long(), feats, mesh)
     return torch.where((counts > 0)[:, None], sums / counts.clamp_min(1.0)[:, None], memory_bank)
 
 
@@ -423,7 +466,7 @@ def make_v1_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, gamma: 
         images = _step_images(cfg, hp, aug, batch, generator, dev)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = v1_loss_fn(state.model, hp, batch, images, state.memory_bank, table,
-                               attention=attention, ln_linear=ln_linear)
+                               attention=attention, ln_linear=ln_linear, mesh=state.mesh)
         loss.backward()
         with torch.no_grad():
             kept = [p.detach().clone() for p in text_params]
@@ -432,7 +475,8 @@ def make_v1_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, gamma: 
             torch._foreach_copy_(text_params, kept)
             state.model.logit_scale.clamp_(0.0, LOG100)
         state.memory_bank = v1_update_memory_bank(state.memory_bank, aux["zs_preds"],
-                                                  aux["anchored"], aux["image_features"], gamma)
+                                                  aux["anchored"], aux["image_features"], gamma,
+                                                  state.mesh)
         state.step += 1
         return {k: aux[k] for k in ("loss", "contrastive_loss", "logit_scale")}
 
@@ -447,7 +491,8 @@ DEFAULT_LOGIT_BIAS = -10.0  # the reference SigLIP configs' init_logit_bias
 def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: torch.Tensor,
                  template_table: torch.Tensor, use_gt: bool, use_siglip: bool = False,
                  teacher: Optional[clip_mod.CLIP] = None, *, attention: str = "kernel",
-                 ln_linear: str = "unfused", coca_weights: Optional[Tuple[float, float]] = None
+                 ln_linear: str = "unfused", coca_weights: Optional[Tuple[float, float]] = None,
+                 mesh: Optional[mesh_mod.Mesh] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """FLYP's loss (JAX ``flyp_loss_fn``): InfoNCE, or with ``use_siglip``
     the SigLIP loss with ``model.logit_bias`` (-10 where the model has
@@ -460,14 +505,16 @@ def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: to
     loss as ``distill_loss``. ``coca_weights`` ``(caption_w, clip_w)``, on a
     CoCa model: CoCaLoss on the full forward (the decoder cross-attends each
     sample's own image tokens) over each sample's template row, as JAX's
-    CoCa branch."""
+    CoCa branch. On a ``mesh`` every loss takes the data group's gathered
+    features (the teacher's too) and the caption loss the global batch's
+    tokens."""
     dev = images.device
     labels = _to_device(batch, ("gt_labels" if use_gt else "zs_preds",), dev)[0].long()
     if coca_weights is not None:
         caption_w, clip_w = coca_weights
         out = coca_mod.coca_forward(model, images, template_table[labels], attention=attention)
         losses = coca_mod.coca_loss(out, caption_loss_weight=caption_w, clip_loss_weight=clip_w,
-                                    pad_id=model.cfg.pad_id)
+                                    pad_id=model.cfg.pad_id, mesh=mesh)
         loss = losses["contrastive_loss"] + losses["caption_loss"]
         return loss, {"loss": loss.detach(), "contrastive_loss": losses["contrastive_loss"].detach(),
                       "caption_loss": losses["caption_loss"].detach(),
@@ -477,7 +524,8 @@ def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: to
                                            **routes)
     class_text_feats = clip_mod.encode_text(model, template_table, normalize=True,
                                             remat=hp.text_remat, **routes)
-    text_features = class_text_feats[labels]
+    image_features = mesh_mod.gather(image_features, mesh)
+    text_features = mesh_mod.gather(class_text_feats[labels], mesh)
     logit_scale = model.logit_scale.exp()
     if use_siglip:
         bias = getattr(model, "logit_bias", None)
@@ -491,6 +539,7 @@ def flyp_loss_fn(model: clip_mod.CLIP, hp: LatteHParams, batch: Dict, images: to
         with torch.no_grad():
             t_img = clip_mod.encode_image(teacher, images, normalize=True, **routes)
             t_txt = clip_mod.encode_text(teacher, template_table, normalize=True, **routes)[labels]
+            t_img, t_txt = mesh_mod.gather(t_img, mesh), mesh_mod.gather(t_txt, mesh)
             t_scale = teacher.logit_scale.exp()
         d_loss = distill_clip_loss(image_features, text_features, logit_scale, t_img, t_txt,
                                    t_scale)
@@ -521,7 +570,7 @@ def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_g
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = flyp_loss_fn(state.model, hp, batch, images, table, use_gt, use_siglip,
                                      teacher, attention=attention, ln_linear=ln_linear,
-                                     coca_weights=coca_weights)
+                                     coca_weights=coca_weights, mesh=state.mesh)
         loss.backward()
         apply_gradients(state)
         with torch.no_grad():

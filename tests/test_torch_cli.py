@@ -50,8 +50,12 @@ from latteclip_tpu.data import synthetic as jax_synthetic
 from latteclip_tpu.models import clip as jax_clip
 from latteclip_tpu.train import main as jax_main
 from latteclip_tpu.train import params as jax_params
+from latteclip_torch import checkpoint as torch_ckpt
+from latteclip_torch.tools.multihost_smoke import launch
 from latteclip_torch.train import main as torch_main
 from latteclip_torch.train import params as torch_params
+
+import test_torch_mesh_ranks as mesh_ranks
 
 torch.set_num_threads(2)
 LR, STEPS = 1e-4, 4
@@ -225,15 +229,83 @@ def test_eval_only_equals_jax(runs, tmp_path):
     assert ours == theirs and ours[0]["epoch"] == 2 and ours[0]["n"] == 20
 
 
-REFUSED = {
-    "model_parallelism": ["--model-parallelism", "2"],
-}
+def _two_ranks(tmp_path, *extra):
+    """The port's CLI on two gloo ranks (test_torch_mesh_ranks.cli_rank);
+    the run's directory."""
+    argv = [*COMMON, "--logs", str(tmp_path), "--device", "cpu", "--name", "ranks", *extra]
+    assert launch(mesh_ranks.cli_rank, 2, argv) == [0, 0]
+    return str(tmp_path / "ranks")
 
 
-@pytest.mark.parametrize("case", list(REFUSED))
-def test_unported_flags_are_refused(case, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md, section 1, item 5"):
-        torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu", *REFUSED[case]])
+@pytest.fixture(scope="module")
+def two_rank_run(tmp_path_factory):
+    """Two epochs on two ranks, then a resume to a third epoch."""
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    run_dir = _two_ranks(tmp)
+    with open(os.path.join(run_dir, "out.log")) as f:
+        first_log = f.read()
+    first_results = _results(run_dir)
+    _two_ranks(tmp, "--resume", "latest", "--epochs", "3")
+    return run_dir, first_log, first_results
+
+
+def test_two_ranks_only_rank_zero_writes(two_rank_run):
+    run_dir, log, results = two_rank_run
+    assert "rank 0 of 2" in log and "rank 1 of 2" not in log
+    assert [r["epoch"] for r in results] == [1, 2]
+    assert sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) == [
+        "epoch_1.pt", "epoch_2.pt", "epoch_3.pt", "epoch_latest.pt", "results.jsonl"]
+    steps = [s for s in _steps_of(log)]
+    # one global step an epoch: 2 x 32 samples of the 128-image fixture's 64
+    assert [s[0] for s in steps] == [0, 1]
+
+
+def _steps_of(log):
+    return [tuple(int(x) for x in m.groups()) for m in
+            re.finditer(r"Train Epoch: (\d+) \[\s*(\d+)/", log)]
+
+
+def test_two_ranks_resume_latest(two_rank_run):
+    run_dir, _, _ = two_rank_run
+    with open(os.path.join(run_dir, "out.log")) as f:
+        log = f.read()
+    assert re.search(r"resumed from .*epoch_latest\.pt \(epoch 2, step 2\)", log)
+    assert [r["epoch"] for r in _results(run_dir)] == [1, 2, 3]
+    assert [s[0] for s in _steps_of(log)] == [0, 1, 2]
+
+
+def test_two_ranks_packing_needs_rows(tmp_path):
+    with pytest.raises(RuntimeError, match="--text-packing-rows"):
+        _two_ranks(tmp_path, "--text-packing", "128")
+
+
+def test_two_ranks_model_parallelism_trains_and_reloads(tmp_path):
+    """--model-parallelism 2 on two ranks: the MLPs sharded, the checkpoint
+    gathered whole, reloading into one process with the bank."""
+    run_dir = _two_ranks(tmp_path, "--model-parallelism", "2", "--epochs", "1")
+    with open(os.path.join(run_dir, "out.log")) as f:
+        log = f.read()
+    cfg = torch_main.get_model_config("ViT-tiny-test")
+    leaves = 3 * (cfg.vision.layers + cfg.text.layers)   # c_fc weight and bias, c_proj weight
+    assert f"model_parallelism=2 across 2 ranks: {leaves} MLP leaves sharded" in log
+    model, bank, names, meta = torch_ckpt.load_clip_pt(
+        os.path.join(run_dir, "checkpoints", "epoch_1.pt"), cfg, device="cpu")
+    hidden = int(cfg.vision.width * cfg.vision.mlp_ratio)
+    assert model.visual.transformer.resblocks[0].mlp.c_fc.weight.shape[0] == hidden
+    assert bank.shape[0] == len(names) and meta["step"] == 2   # dp 1: 2 steps an epoch
+    fresh = torch_main.clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg,
+                                                 device="cpu")
+    torch_ckpt.restore_optimizer_state(fresh, torch_main.make_optimizer(
+        fresh, torch_main.make_schedule("const", LR, 0)), meta["optimizer"])
+
+
+def test_model_parallelism_needs_ranks(tmp_path, monkeypatch):
+    """--model-parallelism above 1 in one process (no torchrun environment)
+    exits naming the launch it needs."""
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(SystemExit, match="needs that many ranks"):
+        torch_main.main([*COMMON, "--logs", str(tmp_path), "--device", "cpu",
+                         "--model-parallelism", "2"])
 
 
 JAX_REFUSES = {

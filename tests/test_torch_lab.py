@@ -292,8 +292,9 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of latteclip_torch, the lab tools and lab kernels, the
-    int8, importer, export, preprocess and native modules among them, and
-    chip_smoke.py: no import of jax or latteclip_tpu."""
+    int8, importer, export, preprocess and native modules and the mesh and
+    its smoke tool among them, and chip_smoke.py: no import of jax or
+    latteclip_tpu."""
     files = sorted((ROOT / "latteclip_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"latteclip_torch/kernels/lab.py", "latteclip_torch/tools/attn_lab.py",
@@ -302,7 +303,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "latteclip_torch/big_vision.py", "latteclip_torch/hf_hub.py",
             "latteclip_torch/native/__init__.py", "latteclip_torch/preprocess/captions.py",
             "latteclip_torch/preprocess/create_tarfiles.py",
-            "latteclip_torch/preprocess/to_webdataset.py"} <= {n.replace(os.sep, "/") for n in names}
+            "latteclip_torch/preprocess/to_webdataset.py", "latteclip_torch/mesh.py",
+            "latteclip_torch/tools/multihost_smoke.py"} <= {n.replace(os.sep, "/") for n in names}
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "latteclip_tpu", "tools")]
     assert not bad, bad
