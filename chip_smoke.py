@@ -26,11 +26,15 @@ Phases, each raising on failure:
    [512, 197, 12 x 3 x 64], and the native ViT family's rows: K1 at
    ViT-L/14's [64, 257, 16 x 3 x 64], ViT-L-14-336's [64, 577, 16 x 3 x 64],
    ViT-B-16-SigLIP-512's [16, 1024, 12 x 3 x 64] and SigLIP's non-causal
-   text [64, 64, 12 x 3 x 64], K3 at [64, 257, 16 x 3 x 64] and ViT-L/14
-   training's [512, 257, 16 x 3 x 64]; forward cases of more than 128 tokens name the
+   text [64, 64, 12 x 3 x 64], K3 at [64, 257, 16 x 3 x 64], ViT-L/14
+   training's [512, 257, 16 x 3 x 64] and SigLIP-512 training's
+   [16, 1024, 12 x 3 x 64], K4 past 208 tokens non-causal ([64, 257], two
+   segments a row) and causal ([16, 577], packed segments) and K6 causal at
+   [64, 257]; forward cases of more than 128 tokens name the
    long-row kernel's form (resident or streamed), CTAs per (row, head) and
-   warps a CTA, backward ones the backward plan's form (resident_pair,
-   resident or tiled) and warps; cases of at most 128 tokens name the
+   warps a CTA, backward ones the backward plan's form (streamed, resident
+   or tiled), warps and, streamed, grid; every backward case
+   also checks that two calls are bit-equal; cases of at most 128 tokens name the
    short-row plan's form (ring or cta) and, for the ring, its warpgroups a
    CTA, CTAs an SM, stages and grid. Then the short-row plan sweep
    (latteclip_torch.tools.short_row_plans: every form of the short-row
@@ -123,7 +127,7 @@ Phases, each raising on failure:
    10 timed steps, counters set to 0 just before and read just after: no
    vision pair packs at 197 tokens, so exactly 120 flash_fwd and 120
    flash_bwd (K1/K3 at [batch, 197, 12 x 3 x 64], the backward's
-   resident_pair form) and 240 flash_fwd_seg and 240 flash_bwd_seg (text), nothing
+   streamed pair) and 240 flash_fwd_seg and 240 flash_bwd_seg (text), nothing
    else; losses finite, logit_scale in [0, ln 100], bank rows unit-norm; a
    profiled step; kernel and plain routes from one copied state on one
    64-image batch with augment off: loss within 1e-2 relative, gradient
@@ -194,8 +198,9 @@ Phases, each raising on failure:
    weights. (a) ViT-L/14 (vision 24 x 1024, L=257, no pair-packing; text 12
    x 768) trained as phase 6b's step, batch 512, captions and templates
    packed at 128, both towers rematerialised: warm-up and 10 timed steps
-   with exactly 24 flash_fwd, 24 flash_bwd (the tiled form), 24
-   flash_fwd_seg and 24 flash_bwd_seg a step; a profiled step; kernel and
+   with exactly 24 flash_fwd, 24 flash_bwd (every one the streamed pair, by
+   the backward's per-form counts), 24 flash_fwd_seg and 24 flash_bwd_seg a
+   step; a profiled step; kernel and
    plain routes on one batch of 64 with augment off at phase 6's bounds; a
    train_l14 line with images/s, device busy ms, idle share and peak memory.
    (b) ViT-L/14 serving, the requests of phase 5b (serve_whole_rows): the
@@ -518,16 +523,18 @@ def short_row_fields(B, L, H, D, segmented, bwd=False, blockdiag=False) -> dict:
 
 
 def bwd_plan_fields(B, L, H, D, segmented) -> dict:
-    """The backward plan's form ("resident_pair", "resident" or "tiled") and
-    warps a CTA of a row of more than 128 tokens on this card; nothing for
-    shorter rows, or for a tree whose backward has no plan."""
+    """The backward plan's form ("streamed", "resident", "tiled", or a
+    parent tree's "resident_pair") and warps a CTA of a row of more than 128
+    tokens on this card, and the streamed pair's grid; nothing
+    for shorter rows, or for a tree whose backward has no plan."""
     from latteclip_torch.kernels import attention as A
 
     plan_of = getattr(A, "bwd_long_row_plan", None)
     if L <= ROW_MAX or plan_of is None:
         return {}
     plan = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
-    return {"form": plan.form, "warps": plan.warps}
+    return {"form": plan.form, "warps": plan.warps,
+            **({"grid": plan.grid} if plan.form == "streamed" else {})}
 
 
 def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
@@ -652,6 +659,9 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
     torch.cuda.synchronize()
     ok, errs = grad_check(ours, ref, H, D)
     ok = ok and bool(torch.isfinite(ours.float()).all())
+    # every gradient row has one owner, so a second call gives the same bits
+    bit_equal = bool(torch.equal(ours3, kernel()))
+    ok = ok and bit_equal
     # control: the check must see the values of one 16-key block dropped
     dropped = qkv.clone()
     dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
@@ -682,7 +692,7 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         "name": name, "shape": [B, L, 3 * H * D], "heads": H, "head_dim": D, "causal": causal,
         "max_abs_err": float((ours.float() - ref.float()).abs().max()), "grad_err": errs, "ok": ok,
         "control_grad_err": control_errs, "control_rejected": not control_ok, "design": design,
-        "merge_ms": merge_ms,
+        "merge_ms": merge_ms, "bit_equal": bit_equal,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
         **bwd_plan_fields(B, L, H, D, seg is not None),
@@ -791,6 +801,11 @@ def phase_kernels(train, tiled_lib):
         ("flash_bwd_seg", 64, 100, 6, 128, False, np.tile(pair, (64, 1))),      # head_dim 128
         ("flash_bwd", 64, 257, 16, 64, False, None),       # ViT-L/14 vision
         ("flash_bwd", VIT_L_BATCH, 257, 16, 64, False, None),  # ViT-L/14 training's batch
+        ("flash_bwd", 16, 1024, 12, 64, False, None),      # ViT-B-16-SigLIP-512 training
+        # the streamed pair's other instantiations past 208 tokens: segments
+        # non-causal and causal (the head-split causal case below)
+        ("flash_bwd_seg", 64, 257, 16, 64, False, np.tile(np.repeat(np.array([1, 2], np.int32), [200, 57]), (64, 1))),
+        ("flash_bwd_seg", 16, 577, 16, 64, True, random_segments(rng, 16, 577)),
     ]
     # the head-split and block-diagonal routes at K1/K3's whole-row cases
     whole_rows = [
@@ -806,6 +821,7 @@ def phase_kernels(train, tiled_lib):
               ("flash_fwd_hs", EVAL_BATCH, 197, 12, 64, False, None)]  # the ViT-B/16 eval's batch
     cases += [("flash_fwd_bd", *c) for c in whole_rows if c[1] <= ROW_MAX]
     bwd_cases += [("flash_bwd_hs", *c) for c in [whole_rows[1], whole_rows[0], *whole_rows[2:]]]
+    bwd_cases += [("flash_bwd_hs", 64, 257, 16, 64, True, None)]  # causal, past 208 tokens
     # the padded train step's LN -> projection pairs, then the classifier build's
     mlp_v, mlp_t = int(vision.width * vision.mlp_ratio), int(text.width * text.mlp_ratio)
     ln_cases = [
@@ -1794,7 +1810,7 @@ def phase_train_b16(smi: str, train: dict, name: str = "ViT-B-16", label: str = 
     """The LatteCLIP v2 step at ViT-B/16 (vision 12 x 768 at 224 px / patch
     16, L=197), packed text at 128: no vision pair packs at 197 tokens, so
     every vision layer runs K1 and K3 on whole rows of 197 tokens, the
-    backward in its resident_pair long-row form. The counters are set to 0 just
+    backward in its streamed long-row form. The counters are set to 0 just
     before the 10 timed steps and read just after; exactly one flash_fwd and
     one flash_bwd a vision layer and step (where the tower's attention runs
     on the kernels, :func:`vision_kernel_layers`), one flash_fwd_seg and one
@@ -2609,8 +2625,9 @@ def phase_vit_l_train(smi: str, train: dict):
     packed at 128, colour augment on, AdamW 1e-5, both towers
     rematerialised: warm-up and 10 timed steps with the counters set to 0
     just before and read just after: no vision pair packs at 257 tokens, so
-    exactly 24 flash_fwd and 24 flash_bwd (the backward's tiled form) and
-    24 flash_fwd_seg and 24 flash_bwd_seg (captions, templates) a step;
+    exactly 24 flash_fwd and 24 flash_bwd (every one the backward's
+    streamed pair, by ``attention.bwd_form_counts``) and 24 flash_fwd_seg
+    and 24 flash_bwd_seg (captions, templates) a step;
     losses finite, logit_scale in [0, ln 100], bank rows unit-norm; a
     profiled step; kernel and plain routes from one copied state on one
     batch of VIT_L_AGREE_BATCH with augment off: loss within 1e-2 relative,
@@ -2618,6 +2635,7 @@ def phase_vit_l_train(smi: str, train: dict):
     from latteclip_torch.config import get_model_config
     from latteclip_torch.data import transforms as T
     from latteclip_torch.data.packing import PackRowBucketer
+    from latteclip_torch.kernels import attention as A
     from latteclip_torch.models import clip as clip_mod
     from latteclip_torch.train import optim, state as St, step as S
 
@@ -2643,12 +2661,16 @@ def phase_vit_l_train(smi: str, train: dict):
     torch.cuda.reset_peak_memory_stats()
     ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train kernels packed_l14_remat: {json.dumps(launches)}")
+    forms = dict(A.bwd_form_counts)  # set to 0 with the launch counts
+    log(f"train kernels packed_l14_remat: {json.dumps(launches)}; backward forms {json.dumps(forms)}")
     want = {**dict.fromkeys(launches, 0), "flash_fwd": n * vision_sites,
             "flash_bwd": n * vision_sites, "flash_fwd_seg": n * text_sites,
             "flash_bwd_seg": n * text_sites}
     if launches != want:
         raise RuntimeError(f"packed_l14_remat steps launched {launches}, expected {want}")
+    want_forms = {**dict.fromkeys(forms, 0), "streamed": n * vision_sites}
+    if forms != want_forms:
+        raise RuntimeError(f"packed_l14_remat's long-row backwards took {forms}, expected {want_forms}")
     check_state(state, warm_losses + losses, "packed_l14_remat route")
     profile = device_profile(lambda: step_fn(state, batches[0], gen))
     log("profile train_step_packed_l14_remat " + json.dumps(profile))

@@ -30,9 +30,10 @@ kernels (persistent CTAs fed by a TMA ring) under :func:`short_row_plan` and
 :func:`bwd_short_row_plan` (form, consumer warpgroups, CTAs an SM, ring
 stages, grid). Rows of more than 128 tokens take the forward's long-row
 kernel under the launch plan of :func:`long_row_plan` (form, warps a CTA,
-CTAs per (row, head)), and the backward's row kernel or its tiled pair under
-:func:`bwd_long_row_plan` (form, warps a CTA). All are computed here so that
-the CPU tests hold them.
+CTAs per (row, head)), and the backward's row kernel, its streamed pair or
+its tiled pair under :func:`bwd_long_row_plan` (form, warps a CTA, the
+streamed pair's grid). All are computed here so that the CPU tests
+hold them.
 
 The forwards read q, k and v straight from ``qkv [B, L, 3*H*D]`` (laid out
 ``[q | k | v]``) and return ``(out [B, L, H*D], lse2 [B, H, L])``, the
@@ -73,9 +74,15 @@ launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_
                  "flash_fwd_hs": 0, "flash_bwd_hs": 0, "flash_fwd_bd": 0}
 
 
+# Launches of the backward's long-row forms (rows past 128 tokens), by form:
+# which form a path's flash_bwd* launches took (chip_smoke.py reads them).
+bwd_form_counts = {"streamed": 0, "resident": 0, "tiled": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, bwd_form_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -505,30 +512,45 @@ def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> 
 # The launch plan of the backward's rows longer than SHORT_ROW tokens
 # (csrc/flash_bwd.cu); the constants are the kernel's.
 BWD_ROW_WARPS = 8  # the row kernel's launch bounds: at D=128 dk and dv take 128 registers
-BWD_PAIR_SMEM = SM_SMEM // 2 - CTA_RESERVED_SMEM  # the most each of two CTAs of an SM can take
-BWD_FORMS = {"tiled": 0, "resident": 1, "resident_pair": 2}  # the entry points' `resident`
+# the entry points' `resident` (2 was an earlier form's, which the kernel now refuses)
+BWD_FORMS = {"tiled": 0, "resident": 1, "streamed": 3}
+BWD_STREAM_BLOCK = 64   # tokens of the streamed pair's resident blocks
+BWD_STREAM_CHUNK = 32   # tokens of its streamed chunks
+BWD_STREAM_STAGES = 3   # its ring slots (the kernels' constant)
+BWD_STREAM_CTAS = 3     # CTAs an SM of the streamed pair (its launch bounds)
+BWD_STREAM_SMEM = SM_SMEM // BWD_STREAM_CTAS - CTA_RESERVED_SMEM  # each one's share of an SM
+BWD_STREAM_WARPS = 5    # a streamed CTA: one consumer warpgroup and one producer warp
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdLongRowPlan:
     """How the backward takes a row of more than 128 tokens: ``form``
-    "resident_pair" (the row kernel with Q, K, V and dO of the row in
-    unpadded swizzled shared rows, one CTA per (row, head), two CTAs of
-    ``warps`` warps an SM), "resident" (the same in padded rows, one CTA an
-    SM) or "tiled" (the pair of 64-token tile kernels, 4 warps a CTA),
-    and the CTA's dynamic shared memory."""
+    "streamed" (the dq kernel, then the dk/dv kernel, each on ``grid``
+    persistent CTAs of ``warps`` warps, three an SM, each holding a 64-token
+    block and streaming the row in 32-token chunks through three ring
+    slots), "resident" (the row kernel with Q, K, V and dO of the row in
+    padded shared rows, one CTA per (row, head) an SM) or "tiled" (the pair
+    of 64-token tile kernels, 4 warps a CTA), and the CTA's dynamic shared
+    memory (the larger of the streamed pair's two)."""
     form: str
     warps: int
     smem_bytes: int
+    grid: int = 0
+
+    def c_args(self) -> Tuple[int, int]:
+        """The entry points' plan integers ``(warps, resident)``: the
+        streamed form passes its grid in place of warps, every form its
+        code."""
+        return self.grid if self.form == "streamed" else self.warps, BWD_FORMS[self.form]
 
 
-def bwd_row_smem_bytes(L: int, D: int, segmented: bool, padded: bool = True) -> int:
-    """Shared memory of one row-kernel CTA (mirrors ``Tiles<D, SWZ>::bytes``
-    in csrc/flash_bwd.cu): Q, dO, K and V of the row in rows of D + 8
-    values (``padded``) or D values (swizzled), lse2 and delta, and the
-    segment ids of queries and keys when segmented."""
+def bwd_row_smem_bytes(L: int, D: int, segmented: bool) -> int:
+    """Shared memory of one row-kernel CTA (mirrors ``Tiles<D>::bytes`` in
+    csrc/flash_bwd.cu): Q, dO, K and V of the row in rows of D + 8 values,
+    lse2 and delta, and the segment ids of queries and keys when
+    segmented."""
     rows = -(-L // 16) * 16
-    return 4 * rows * (D + (8 if padded else 0)) * 2 + 8 * rows + (8 * rows if segmented else 0)
+    return 4 * rows * (D + 8) * 2 + 8 * rows + (8 * rows if segmented else 0)
 
 
 def bwd_tiled_smem_bytes(D: int, segmented: bool) -> int:
@@ -536,29 +558,60 @@ def bwd_tiled_smem_bytes(D: int, segmented: bool) -> int:
     return bwd_row_smem_bytes(LONG_TILE, D, segmented)
 
 
+def bwd_stream_smem_bytes(segmented: bool) -> Tuple[int, int]:
+    """Shared memory of one CTA of the streamed pair's dq kernel and of its
+    dk/dv kernel (mirror ``stream_dq_smem_bytes`` and
+    ``stream_dkdv_smem_bytes`` in csrc/flash_bwd.cu), head_dim 64, tiles in
+    rows of 128 bytes: 1 KB to align; dq: two item slots of Q, dO and out (64
+    rows each), three ring slots of K and V (32 rows each), lse2 and delta of
+    the item slots; dk/dv: two item slots of K and V, three ring slots of Q,
+    dO and Qs with their lse2 and delta; the seg ids of every slot when
+    segmented; the mbarriers (three an item slot and two a ring slot in dq,
+    two an item slot and three a ring slot in dk/dv)."""
+    blk, chunk, stages = BWD_STREAM_BLOCK, BWD_STREAM_CHUNK, BWD_STREAM_STAGES
+    seg = (2 * blk + stages * chunk) * 4 if segmented else 0
+    dq = (SW128_ALIGN + 6 * blk * 128 + 2 * stages * chunk * 128 + 2 * 2 * blk * 4 + seg
+          + 8 * (6 + 2 * stages))
+    dkdv = (SW128_ALIGN + 4 * blk * 128 + 3 * stages * chunk * 128 + stages * chunk * 8 + seg
+            + 8 * (4 + 3 * stages))
+    return dq, dkdv
+
+
+def bwd_stream_plan(B: int, L: int, H: int, segmented: bool, sms: int) -> BwdLongRowPlan:
+    """The streamed pair's plan for ``L > 128`` at head_dim 64: three CTAs an
+    SM (their registers and shared memory) on a grid of ``min(items, 3 *
+    sms)`` CTAs, where the items are the ``B * H * ceil(L / 64)`` (row, head,
+    64-token block)s."""
+    items = B * H * -(-L // BWD_STREAM_BLOCK)
+    return BwdLongRowPlan("streamed", BWD_STREAM_WARPS, max(bwd_stream_smem_bytes(segmented)),
+                          min(items, BWD_STREAM_CTAS * sms))
+
+
 def bwd_long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> BwdLongRowPlan:
     """The backward's launch plan for a row of ``L > 128`` tokens.
 
-    * D=64: resident_pair where the row fits half an SM's shared memory
-      unpadded (up to 208 tokens: ViT-B/16's 197), 8 warps a CTA;
+    * D=64: the streamed pair at every length (ViT-B/16's 197, ViT-L/14's
+      257, 336 px at 577, SigLIP-512 at 1024), from :func:`bwd_stream_plan`.
+      Up to 208 tokens it replaced an earlier form that held the whole row
+      unpadded in shared memory, two CTAs of 8 warps an SM: the streamed
+      pair was faster at both [64, 197, 12 x 64] and [512, 197, 12 x 64]
+      (PERF.md keeps both times);
     * D=128: resident where the padded row fits a CTA (up to 208 tokens),
       one warp per 16-token block up to 8; warp w walks the blocks w, w +
-      warps, ...;
-    * tiled beyond (336 px at 577 tokens).
-    Each form beat the others at the shapes it takes:
-    ``python -m latteclip_torch.tools.long_row_plans`` times them all on the
-    card (PERF.md keeps its numbers). ``B``, ``H`` and ``sms`` do not change
-    the plan: every long-row case of the towers has at least one (row, head)
-    pair an SM.
+      warps, ...; the tiled pair beyond. The streamed pair has no D=128
+      form: dk and dv alone would take 128 f32 registers a thread, so the
+      same template would hold one CTA an SM.
+    ``python -m latteclip_torch.tools.long_row_plans`` times every form on
+    the card (PERF.md keeps its numbers). ``B``, ``H`` and ``sms`` change
+    only the streamed pair's grid.
     """
     if L <= SHORT_ROW or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the backward long-row plan takes L > {SHORT_ROW} and head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
-    pair = bwd_row_smem_bytes(L, D, segmented, padded=False)
-    if D == 64 and pair <= BWD_PAIR_SMEM:
-        return BwdLongRowPlan("resident_pair", BWD_ROW_WARPS, pair)
+    if D == 64:
+        return bwd_stream_plan(B, L, H, segmented, sms)
     smem = bwd_row_smem_bytes(L, D, segmented)
-    if D == 128 and smem <= MAX_SMEM:
+    if smem <= MAX_SMEM:
         return BwdLongRowPlan("resident", min(-(-L // 16), BWD_ROW_WARPS), smem)
     return BwdLongRowPlan("tiled", 4, bwd_tiled_smem_bytes(D, segmented))
 
@@ -665,13 +718,15 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
         plan_args = bwd_short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args()
     else:
         plan = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sms)
-        plan_args = (plan.warps, BWD_FORMS[plan.form])
+        plan_args = plan.c_args()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
                      (D ** -0.5) * LOG2E, D ** -0.5, *plan_args, stream)
     _raise_on(err, name)
     launch_counts[counter] += 1
+    if L > SHORT_ROW:
+        bwd_form_counts[plan.form] += 1
     return dqkv
 
 

@@ -20,8 +20,8 @@
 //   dv = pb^T . do;  dp = do . v^T;  delta = rowsum(f32(do) * f32(out));
 //   ds = bf16(p * (dp - delta) * D^-1/2);  dq = ds . k;  dk = ds^T . q
 // with every product accumulated in f32 and rounded to bf16 once. Only the
-// f32 summation order differs (and the ring kernel's exp2, ex2.approx at
-// ~2^-22 relative, well below the bf16 rounding of p and ds).
+// f32 summation order differs (and the ring's and the streamed pair's exp2,
+// ex2.approx at ~2^-22 relative, well below the bf16 rounding of p and ds).
 //
 // Bound. Like the forward, the backward is memory-bound at the train shapes:
 // packed captions at R=300, P=128, H=8, D=64 (about four 32-token captions
@@ -46,8 +46,8 @@
 //     than the SMs (or than four an SM where the two passes run), keep the
 //     delta pre-pass and the row kernel below, which were faster there
 //     (PERF.md);
-//   * otherwise a pre-pass writes delta [B, H, L] f32 (read once from out
-//     and dout);
+//   * the row kernel and the tiled pair follow a pre-pass that writes delta
+//     [B, H, L] f32 (read once from out and dout);
 //   * the row kernel takes one CTA per (row, head) and copies the whole
 //     row's Q, K, V and dO into shared memory once (rows padded by 16 bytes
 //     for conflict-free ldmatrix). Warp w owns the 16-token blocks w, w +
@@ -57,41 +57,73 @@
 //     owner, so there are no atomics and the result does not depend on
 //     scheduling. Causal work per key block falls with its index and per
 //     query block rises, so every warp's sum is the same. Rows of at most
-//     128 tokens take one warp a block (at most 8). Longer rows take it
-//     under the launch plan
-//     (attention.py::bwd_long_row_plan) where the row fits a CTA's shared
-//     memory. The kernel's time falls with the warps an SM holds (its
-//     blocks are chains of ldmatrix, mma and exp2 that one warp cannot
-//     overlap): at ViT-B/16's 197 tokens (208 rows) padded rows take 4 x 208
-//     x 72 x 2 = 119,808 B plus lse2 and delta, one CTA of 13 warps an SM;
-//     unpadded rows with the 16-byte chunks of each row permuted by row % 8
-//     (conflict-free ldmatrix all the same) take 106,496 B, so two CTAs of 8
-//     warps (128 registers a thread) share an SM and one's copy-in overlaps
-//     the other's products, which beat one padded CTA of 13 warps
-//     (tools/long_row_plans.py times the forms). D = 64 takes that pair form
-//     up to 208 tokens; D = 128 takes padded rows up to
-//     208 tokens, one CTA of at most 8 warps an SM, so that dk and dv (128
-//     f32 accumulators) stay in registers (229,632 B at 197 with segment
-//     ids). No row kernel CTA has more than 8 warps;
-//   * longer rows (336 px at 577) split the same two phases over
-//     two kernels: one CTA of 4 warps per (row, head, 64-key tile) streams
-//     64-query tiles for dk and dv, and one per (row, head, 64-query tile)
-//     streams 64-key tiles for dq (Q, K, V and dO re-read from L2 by every
-//     tile CTA, the scores computed in both);
+//     128 tokens take one warp a block (at most 8). Longer rows take it at
+//     D = 128 under the launch plan (attention.py::bwd_long_row_plan) where
+//     the padded row fits a CTA's shared memory (up to 208 tokens: 229,632 B
+//     at 197 with segment ids), one CTA of at most 8 warps an SM, so that dk
+//     and dv (128 f32 accumulators) stay in registers, and at D = 64 only when
+//     the entry point is asked for it. No row kernel CTA has more than 8
+//     warps. (An earlier form held D = 64 rows of up to 208 tokens unpadded,
+//     the 16-byte chunks of each row permuted by row % 8, two CTAs of 8 warps
+//     an SM; the streamed pair below beat it at ViT-B/16's 197 tokens and
+//     replaced it: PERF.md keeps both times);
+//   * rows of more than 128 tokens at D = 64 (ViT-B/16 at 197, ViT-L/14 at
+//     257, 336 px at 577, SigLIP-512 at 1024; attention.py::bwd_long_row_plan)
+//     take the streamed pair: two kernels on persistent CTAs of one consumer
+//     warpgroup and one producer warp, three CTAs an SM, each CTA walking
+//     items of one 64-token block of a (row, head), the block fastest, so
+//     that the blocks of one (row, head) run side by side and re-read its
+//     tiles from L2 rather than from device memory. The block's own tiles
+//     stay in shared memory (two item slots, so the next item's copy
+//     overlaps this one's products) and the rest of the row streams in
+//     32-token chunks by TMA (128-byte swizzle, zeros past L) through a ring
+//     of full/empty mbarrier slots; every product is a wgmma of one fixed
+//     shape (m64n32k16 for the scores, m64n64k16 for the gradients), issued
+//     unconditionally, with p and ds repacked in registers as the A
+//     operand. The producer warp also does the per-item and per-chunk
+//     passes that need no product, between a slot's copy landing and the
+//     slot being marked full, so the consumers spend no time or barrier on
+//     them. The dq kernel runs first: items of 64 queries with Q, dO and out
+//     resident; the producer takes delta = rowsum(f32(dO) f32(out)) of the
+//     item's queries, writes it to the delta scratch [B, H, L], which
+//     replaces the pre-pass and its second read of out and dO (538 MB at
+//     [512, 257, 16 x 64], 0.16 ms at 3.35 TB/s), and overwrites Q with
+//     Qs; the consumers stream K and V: s = Qs K^T, dp = dO V^T, ds,
+//     dq += ds K. The dk/dv kernel then takes items of 64 keys with K and V
+//     resident and streams Q and dO with their lse2, delta and seg ids; the
+//     producer writes each chunk's Qs into a third tile of its slot, and the
+//     consumers take sT = K Qs^T and dpT = V dO^T, then dv += pT dO and
+//     dk += dsT Q (Q and dO read MN-major). Each gradient row has one owner:
+//     no atomics, and two calls are bit-equal. Both kernels compute the
+//     scores (the price of no atomics: seven products instead of five).
+//     Under a causal mask an item's chunks start (dk/dv) or end (dq) at its
+//     diagonal. Overlap within a warpgroup is left to the three CTAs an SM:
+//     splitting a chunk's products into groups waited for one at a time, or
+//     issuing the next chunk's scores under the previous chunk's gradient
+//     products, made ptxas serialise every wgmma (C7520: a compiler-inserted
+//     warpgroup arrive on a divergent path) and ran slower (PERF.md). Head
+//     width 128 has no streamed form: dk and dv alone take 128 f32 registers
+//     a thread there, so the same template would hold one CTA an SM;
+//   * D = 128 past 208 tokens takes the tiled pair: one CTA of 4 warps per
+//     (row, head, 64-key tile) streams 64-query tiles for dk and dv, and one
+//     per (row, head, 64-query tile) streams 64-key tiles for dq (Q, K, V
+//     and dO re-read from L2 by every tile CTA, the scores computed in both,
+//     each tile copied by cp.async and waited for before its products). It
+//     is the first port's design, kept also as the -DLATTECLIP_BWD_SHORT_ROW=0
+//     build that chip_smoke.py times beside every K3/K4 case;
 //   * in the row and tile kernels, scores, p and ds live in mma
 //     accumulators, 16 x 16 at a time, and are repacked in registers as the
 //     A operand of the next product, so neither p nor ds touches shared
 //     memory; every q, k, v and do fragment is reloaded with ldmatrix for
 //     each block rather than held, which keeps D = 128 within registers
 //     beside its 128 accumulators;
-//   * the ragged edge is zero-filled to a multiple of 16 and masked, so
-//     tokens beyond L contribute exactly 0; causal warps skip the 16 x 16
-//     blocks above the diagonal;
+//   * the ragged edge is zero-filled to a multiple of 16 (of 64 in the ring
+//     and the streamed pair's blocks, of 32 in its chunks) and masked, so
+//     tokens beyond L contribute exactly
+//     0; causal warps skip the 16 x 16 blocks above the diagonal;
 //   * padding tokens (segment 0) see each other, as in the TPU kernel; their
 //     cotangent is zero on the train path and their rows stay finite, since
 //     every row keeps its diagonal.
-// The phases recompute the scores once each (compute is cheap here); wgmma,
-// TMA and software pipelining of the long rows are left for later work.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing (the caller passes
@@ -120,7 +152,6 @@ constexpr bool TILED_ONLY = SHORT_ROW == 0;
 constexpr int TILE = 64;  // query or key rows per tile of the tiled pair
 constexpr int DELTA_THREADS = 256;
 constexpr int SMEM_MAX = 232448;  // shared memory a CTA can take on an H100
-constexpr int PAIR_SMEM_MAX = 233472 / 2 - 1024;  // the most two CTAs of one SM can each take
 
 constexpr int ROW_WARPS = 8;  // the most warps of a row kernel CTA: at D = 128 dk and dv
                               // take 128 f32 registers alone
@@ -128,17 +159,13 @@ constexpr int ROW_WARPS = 8;  // the most warps of a row kernel CTA: at D = 128 
 // Shared-memory tiles of one CTA: Q and dO (q_rows), K and V (k_rows), then
 // lse2 and delta of the query rows and, when segmented, the segment ids of
 // the query rows and of the keys. ldmatrix reads 8 rows of 16 bytes at one
-// column: rows padded by 16 bytes keep those in 8 bank groups; with SWZ the
-// rows are unpadded and the 16-byte chunks of row r are permuted by r % 8
-// (chunk c at c ^ (r % 8)), which does the same in less memory.
-template <int D, bool SWZ = false>
+// column: rows padded by 16 bytes keep those in 8 bank groups.
+template <int D>
 struct Tiles {
-  static constexpr int STRIDE = SWZ ? D : D + 8;  // shared row, in bf16 elements
+  static constexpr int STRIDE = D + 8;  // shared row, in bf16 elements
 
-  // element offset of (row, col), col a multiple of 8
-  static __device__ __forceinline__ int off(int row, int col) {
-    return SWZ ? row * STRIDE + ((((col >> 3) ^ (row & 7))) << 3) : row * STRIDE + col;
-  }
+  // element offset of (row, col)
+  static __device__ __forceinline__ int off(int row, int col) { return row * STRIDE + col; }
 
   __nv_bfloat16 *q, *dout, *k, *v;
   float *lse, *delta;
@@ -174,7 +201,7 @@ struct Row {
 
 // Copy n token rows from r0 on (one head's D columns, `stride` elements
 // between tokens) into dst, 16 bytes a thread; rows beyond L are zero-filled.
-template <int D, bool SWZ>
+template <int D>
 __device__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long stride, int r0,
                           int n, int L) {
   constexpr int CHUNKS = D / 8;
@@ -182,16 +209,16 @@ __device__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long str
     const int r = c / CHUNKS;
     const int col = (c % CHUNKS) * 8;
     const bool valid = r0 + r < L;
-    cp_async_16(&dst[Tiles<D, SWZ>::off(r, col)], src + (long)(valid ? r0 + r : 0) * stride + col,
+    cp_async_16(&dst[Tiles<D>::off(r, col)], src + (long)(valid ? r0 + r : 0) * stride + col,
                 valid);
   }
 }
 
 // Q, dO and the per-query scalars of query rows [r0, r0 + n).
-template <int D, bool SEG, bool SWZ>
-__device__ void load_queries(const Tiles<D, SWZ>& t, const Row& row, int r0, int n) {
-  copy_rows<D, SWZ>(t.q, row.qkv, 3L * row.HD, r0, n, row.L);
-  copy_rows<D, SWZ>(t.dout, row.dout, row.HD, r0, n, row.L);
+template <int D, bool SEG>
+__device__ void load_queries(const Tiles<D>& t, const Row& row, int r0, int n) {
+  copy_rows<D>(t.q, row.qkv, 3L * row.HD, r0, n, row.L);
+  copy_rows<D>(t.dout, row.dout, row.HD, r0, n, row.L);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int j = r0 + i;
     const bool valid = j < row.L;
@@ -202,10 +229,10 @@ __device__ void load_queries(const Tiles<D, SWZ>& t, const Row& row, int r0, int
 }
 
 // K, V and the segment ids of key rows [r0, r0 + n).
-template <int D, bool SEG, bool SWZ>
-__device__ void load_keys(const Tiles<D, SWZ>& t, const Row& row, int r0, int n) {
-  copy_rows<D, SWZ>(t.k, row.qkv + row.HD, 3L * row.HD, r0, n, row.L);
-  copy_rows<D, SWZ>(t.v, row.qkv + 2L * row.HD, 3L * row.HD, r0, n, row.L);
+template <int D, bool SEG>
+__device__ void load_keys(const Tiles<D>& t, const Row& row, int r0, int n) {
+  copy_rows<D>(t.k, row.qkv + row.HD, 3L * row.HD, r0, n, row.L);
+  copy_rows<D>(t.v, row.qkv + 2L * row.HD, 3L * row.HD, r0, n, row.L);
   if (SEG)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       t.segk[i] = r0 + i < row.L ? row.seg[r0 + i] : -2;
@@ -217,11 +244,11 @@ __device__ void load_keys(const Tiles<D, SWZ>& t, const Row& row, int r0, int n)
 // Scores are formed transposed, sT = K . Qs^T and dpT = V . dO^T, so each
 // thread's accumulator rows are its keys and p and ds repack straight into
 // A fragments for dv += pT . dO and dk += dsT . Q.
-template <int D, bool SEG, bool CAUSAL, bool SWZ>
-__device__ void warp_dkdv(const Tiles<D, SWZ>& t, int kr, int k0, int qr_lo, int qr_hi,
+template <int D, bool SEG, bool CAUSAL>
+__device__ void warp_dkdv(const Tiles<D>& t, int kr, int k0, int qr_lo, int qr_hi,
                           int query_base, int L, float qscale, float scale, float (&dk)[D / 8][4],
                           float (&dv)[D / 8][4]) {
-  using T = Tiles<D, SWZ>;
+  using T = Tiles<D>;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int key[2] = {k0 + g, k0 + g + 8};
@@ -286,10 +313,10 @@ __device__ void warp_dkdv(const Tiles<D, SWZ>& t, int kr, int k0, int qr_lo, int
 // tile (global index q0), over the keys at local rows [kr_lo, kr_hi) of the
 // key tile (global index key_base + local): s = Qs . K^T, dp = dO . V^T,
 // then dq += ds . K.
-template <int D, bool SEG, bool CAUSAL, bool SWZ>
-__device__ void warp_dq(const Tiles<D, SWZ>& t, int qr, int q0, int kr_lo, int kr_hi, int key_base,
+template <int D, bool SEG, bool CAUSAL>
+__device__ void warp_dq(const Tiles<D>& t, int qr, int q0, int kr_lo, int kr_hi, int key_base,
                         int L, float qscale, float scale, float (&dq)[D / 8][4]) {
-  using T = Tiles<D, SWZ>;
+  using T = Tiles<D>;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int query[2] = {q0 + g, q0 + g + 8};
@@ -422,12 +449,11 @@ __global__ void flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ out,
 }
 
 // One CTA per (row, head), the whole row in shared memory for both phases;
-// warp w owns the 16-token blocks w, w + warps, ... in each. With SWZ the
-// rows are unpadded (Tiles) so that two CTAs share an SM. At D = 64 two CTAs
-// of 8 warps must fit an SM's registers (128 a thread): without that bound
+// warp w owns the 16-token blocks w, w + warps, ... in each. At D = 64 two
+// CTAs of 8 warps must fit an SM's registers (128 a thread): without that bound
 // ptxas gives the short-row kernel 145-158 and one CTA an SM, which made K4
 // at [256, 100, 12 x 64] 1.4x slower.
-template <int D, bool SEG, bool CAUSAL, bool SWZ>
+template <int D, bool SEG, bool CAUSAL>
 __global__ void __launch_bounds__(ROW_WARPS * 32, D == 64 ? 2 : 1)
     flash_bwd_row_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ seg,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -435,7 +461,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32, D == 64 ? 2 : 1)
                          int L, int H, float qscale, float scale, Layout layout) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = round16(L);
-  const Tiles<D, SWZ> t(smem, rows, rows);
+  const Tiles<D> t(smem, rows, rows);
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const Row row = make_row(qkv, seg, dout, lse, delta, dqkv, b, h, L, H, D, layout);
   load_queries<D, SEG>(t, row, 0, rows);
@@ -880,6 +906,440 @@ __global__ void __launch_bounds__(NWG * 128 + 32, ring_min_ctas(D, NWG))
   }
 }
 
+// ---- rows longer than 128 tokens at D = 64: the streamed pair ----------------
+
+// A resident block is the 64 rows of a wgmma; a streamed chunk has 32 tokens,
+// which holds the consumers to 128 registers (dk and dv take 64) so that
+// three CTAs share an SM, and pads ViT-L/14's 257 tokens to 288 streamed
+// rows rather than 320. 64-token chunks (two CTAs an SM) were slower at 197
+// and 257 tokens and faster at 577 and 1024 (PERF.md §7: a chunk picked by
+// length is still to do).
+constexpr int SBLK = 64;                        // tokens of a resident block
+constexpr int SC = 32;                          // tokens of a streamed chunk
+constexpr int STILE = SBLK * SW128_ROW;         // one resident tile of one head: 8 KB
+constexpr int CTILE = SC * SW128_ROW;           // one streamed tile of one head: 4 KB
+constexpr int STREAM_THREADS = 128 + 32;        // one consumer warpgroup, one producer warp
+constexpr int STREAM_CTAS = 3;                  // CTAs an SM
+constexpr int STREAM_SMEM_MAX = 233472 / STREAM_CTAS - 1024;  // each CTA's share of an SM
+constexpr int STAGES = 3;  // ring slots: the most the dq kernel fits in a third of an SM
+constexpr int STREAMED = 3;  // the entry points' `resident` for the streamed pair
+
+// Shared memory of the two kernels (attention.py::bwd_stream_smem_bytes
+// mirrors them), 1 KB to align the swizzled tiles first. The dq kernel: two
+// item slots of Q (then Qs), dO and out, STAGES ring slots of K and V; lse2
+// and delta of each item slot, and (SEG) the item slots' query seg ids and
+// the ring slots' key seg ids; then three mbarriers an item slot (loaded,
+// full, empty) and two a ring slot. The dk/dv
+// kernel: two item slots of K and V, STAGES ring slots of Q, dO and Qs;
+// (SEG) the item slots' key seg ids; lse2, delta and (SEG) the query seg ids
+// of each ring slot; the item mbarriers and three a ring slot (loaded, full,
+// empty).
+constexpr size_t stream_dq_smem_bytes(bool seg) {
+  return SW128_ALIGN + 6 * (size_t)STILE + 2 * (size_t)STAGES * CTILE + 2 * 2 * SBLK * 4 +
+         (seg ? (size_t)(2 * SBLK + STAGES * SC) * 4 : 0) + 8 * (6 + 2 * (size_t)STAGES);
+}
+constexpr size_t stream_dkdv_smem_bytes(bool seg) {
+  return SW128_ALIGN + 4 * (size_t)STILE + 3 * (size_t)STAGES * CTILE + (size_t)STAGES * SC * 8 +
+         (seg ? (size_t)(2 * SBLK + STAGES * SC) * 4 : 0) + 8 * (4 + 3 * (size_t)STAGES);
+}
+static_assert(stream_dq_smem_bytes(true) <= STREAM_SMEM_MAX && stream_dkdv_smem_bytes(true) <= STREAM_SMEM_MAX,
+              "three CTAs of the streamed pair share an SM");
+
+__device__ __forceinline__ long lse_row(Layout layout, int b, int h, int H) {
+  return layout.split ? (long)h * layout.B + b : (long)b * H + h;
+}
+
+// Step 1 of the streamed pair, which launches first: dq and delta. CTA x
+// takes the items x, x + gridDim.x, ... of (row b, head h, 64-query block),
+// the block fastest, so the blocks of one (row, head) run side by side and
+// find its K and V in L2. The producer warp loads each item's Q, dO and out
+// by TMA into one of two item slots (the next item's copy overlaps this
+// one's products) with its lse2 and query seg ids, and streams the item's
+// 32-key chunks of K and V (zeros past L) through STAGES ring slots. Once
+// an item's tiles have landed (after it has issued the item's first chunk)
+// the producer takes delta = rowsum(f32(dO) f32(out)), one lane a row, writes
+// it to the slot and to delta [B, H, L] for step 2, overwrites Q in place
+// with Qs = bf16(q * qscale), and only then marks the item slot full, so the
+// consumers spend no time or barrier on that pass. Per chunk the consumer
+// warpgroup takes s = Qs K^T and dp = dO V^T by wgmma from shared memory, ds
+// in registers, dq += ds K with ds as the register A operand; it stores dq.
+// Under a causal mask the item visits the chunks up to its diagonal. Every
+// wgmma has a fixed shape and runs unconditionally; tokens past L are zeros
+// and masked.
+template <bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(STREAM_THREADS, STREAM_CTAS)
+    flash_bwd_stream_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                               const __grid_constant__ CUtensorMap qkv_chunk_map,
+                               const __grid_constant__ CUtensorMap out_map,
+                               const __grid_constant__ CUtensorMap dout_map,
+                               const int* __restrict__ seg, const float* __restrict__ lse,
+                               float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv, int B,
+                               int L, int H, float qscale, float scale, Layout layout) {
+  constexpr int D = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* tiles = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* ring = tiles + 6 * STILE;  // ring slot s: K, V
+  float* slse = reinterpret_cast<float*>(ring + STAGES * 2 * CTILE);  // [2][SBLK]
+  float* sdelta = slse + 2 * SBLK;                                    // [2][SBLK]
+  int* ssegq = reinterpret_cast<int*>(sdelta + 2 * SBLK);             // [2][SBLK]
+  int* ssegk = ssegq + (SEG ? 2 * SBLK : 0);                          // [STAGES][SC]
+  uint64_t* item_loaded = reinterpret_cast<uint64_t*>(ssegk + (SEG ? STAGES * SC : 0));
+  uint64_t* item_full = item_loaded + 2;
+  uint64_t* item_empty = item_full + 2;
+  uint64_t* full = item_empty + 2;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int nb = (L + SBLK - 1) / SBLK, nc = (L + SC - 1) / SC;
+  const int items = B * H * nb;  // the host checks that it fits an int
+  const int HD = H * D;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&item_loaded[i], 1);
+      mbar_init(&item_full[i], 1);
+      mbar_init(&item_empty[i], 1);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp
+    const int lane = tid % 32;
+    int c = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int blk = item % nb, h = (item / nb) % H, b = item / (nb * H);
+      const int slot = n % 2, q0 = blk * SBLK;
+      unsigned char* const it = tiles + (size_t)slot * 3 * STILE;
+      if (n >= 2) mbar_wait(&item_empty[slot], (n / 2 - 1) & 1);
+      const float* lrow = lse + lse_row(layout, b, h, H) * L;
+      for (int i = lane; i < SBLK; i += 32) {
+        const int q = q0 + i;
+        slse[slot * SBLK + i] = q < L ? lrow[q] : 0.f;
+        if (SEG) ssegq[slot * SBLK + i] = q < L ? seg[(long)b * L + q] : -1;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&item_loaded[slot], 3 * STILE);
+        tma_load_3d(it, &qkv_map, &item_loaded[slot], h * D, q0, b);
+        tma_load_3d(it + STILE, &dout_map, &item_loaded[slot], h * D, q0, b);
+        tma_load_3d(it + 2 * STILE, &out_map, &item_loaded[slot], h * D, q0, b);
+      }
+      const int chunks = CAUSAL ? min((blk + 1) * (SBLK / SC), nc) : nc;
+      for (int kc = 0; kc < chunks; ++kc, ++c) {
+        const int s = c % STAGES, k0 = kc * SC;
+        if (c >= STAGES) mbar_wait(&empty[s], (c / STAGES - 1) & 1);
+        if (SEG) {
+          for (int i = lane; i < SC; i += 32)
+            ssegk[s * SC + i] = k0 + i < L ? seg[(long)b * L + k0 + i] : -2;
+          __syncwarp();
+        }
+        if (lane == 0) {
+          unsigned char* dst = ring + (size_t)s * 2 * CTILE;
+          mbar_expect_tx(&full[s], 2 * CTILE);
+          tma_load_3d(dst, &qkv_chunk_map, &full[s], HD + h * D, k0, b);
+          tma_load_3d(dst + CTILE, &qkv_chunk_map, &full[s], 2 * HD + h * D, k0, b);
+        }
+        if (kc > 0) continue;
+        // the item's delta and Qs, rows `lane` and `lane + 32`, each row's
+        // 16-byte chunks in order; the waits above need only items already
+        // published
+        mbar_wait(&item_loaded[slot], (n / 2) & 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = lane + 32 * half;
+          float acc = 0.f;
+#pragma unroll
+          for (int chunk = 0; chunk < 8; ++chunk) {
+            const uint32_t off = sw128_offset(r, chunk);
+            const uint4 q4 = *reinterpret_cast<const uint4*>(it + off);
+            const uint4 g4 = *reinterpret_cast<const uint4*>(it + STILE + off);
+            const uint4 o4 = *reinterpret_cast<const uint4*>(it + 2 * STILE + off);
+            const uint32_t o[4] = {o4.x, o4.y, o4.z, o4.w}, gr[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 fo = __bfloat1622float2(as_bf162(o[e]));
+              const float2 fg = __bfloat1622float2(as_bf162(gr[e]));
+              acc += fg.x * fo.x;
+              acc += fg.y * fo.y;
+            }
+            *reinterpret_cast<uint4*>(it + off) =
+                make_uint4(scale_bf16x2(q4.x, qscale), scale_bf16x2(q4.y, qscale),
+                           scale_bf16x2(q4.z, qscale), scale_bf16x2(q4.w, qscale));
+          }
+          sdelta[slot * SBLK + r] = acc;
+          if (q0 + r < L) delta[((long)b * H + h) * L + q0 + r] = acc;
+        }
+        fence_proxy_async();  // Qs, written by the lanes, is read by wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&item_full[slot]);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g, r_b = r_a + 8;  // this thread's accumulator rows in the block
+  const uint32_t tiles_base = smem_addr(tiles), ring_base = smem_addr(ring);
+  const long tok = 3L * HD;  // elements between tokens of dqkv
+  int c = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int blk = item % nb, h = (item / nb) % H, b = item / (nb * H);
+    const int slot = n % 2, q0 = blk * SBLK;
+    const uint32_t qsb = tiles_base + slot * 3 * STILE, dob = qsb + STILE;
+    const float* sl = slse + slot * SBLK;
+    const float* sd = sdelta + slot * SBLK;
+    mbar_wait(&item_full[slot], (n / 2) & 1);
+    const float lse_q[2] = {sl[r_a], sl[r_b]}, delta_q[2] = {sd[r_a], sd[r_b]};
+    const int query[2] = {q0 + r_a, q0 + r_b};
+    int segq[2] = {0, 0};
+    if (SEG) {
+      segq[0] = ssegq[slot * SBLK + r_a];
+      segq[1] = ssegq[slot * SBLK + r_b];
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const int chunks = CAUSAL ? min((blk + 1) * (SBLK / SC), nc) : nc;
+    for (int kc = 0; kc < chunks; ++kc, ++c) {
+      const int s = c % STAGES;
+      const uint32_t kb = ring_base + s * 2 * CTILE, vb = kb + CTILE;
+      const int* sk = ssegk + s * SC;
+      mbar_wait(&full[s], (c / STAGES) & 1);
+      float sc[SC / 2], dp[SC / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_c<SC>(sc, sw128_desc(qsb) + 2 * kk, sw128_desc(kb) + 2 * kk, kk > 0);
+        wgmma_ss_c<SC>(dp, sw128_desc(dob) + 2 * kk, sw128_desc(vb) + 2 * kk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      uint32_t da[SC / 16][4];
+#pragma unroll
+      for (int jb = 0; jb < SC / 8; ++jb) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = jb * 8 + 2 * t + (e & 1), k = kc * SC + kl;
+          const int q = query[e / 2];
+          bool visible = q < L && k < L;
+          if (CAUSAL) visible = visible && k <= q;
+          if (SEG) visible = visible && sk[kl] == segq[e / 2];
+          const float p = visible ? exp2_approx(sc[4 * jb + e] - lse_q[e / 2]) : 0.f;
+          ds[e] = p * (dp[4 * jb + e] - delta_q[e / 2]) * scale;
+        }
+        da[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        da[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < SC / 16; ++cc) wgmma_rs_d<D>(dq, da[cc], kb + 16 * cc * SW128_ROW, CTILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);  // done with the ring slot
+    }
+    if (tid == 0) mbar_arrive(&item_empty[slot]);  // done with the item slot
+    store_part<D>(dq, dqkv + (long)b * L * tok + (long)h * D, 0, HD, tok, query[0], query[1], L, lane);
+  }
+}
+
+// Step 2 of the streamed pair: dk and dv. CTA x takes the items x, x +
+// gridDim.x, ... of (row b, head h, 64-key block), the block fastest. The
+// producer warp loads each item's K and V by TMA into one of two item slots
+// with its key seg ids, and streams the item's 32-query chunks of Q and dO
+// (zeros past L) through STAGES ring slots, with their lse2, their delta
+// (written by step 1) and their seg ids. A slot is loaded, then full: one
+// chunk behind the copies it issues, the producer writes the landed chunk's Qs = bf16(q * qscale) into the slot's
+// third tile and only then marks the slot full, so the consumers never
+// spend time or a barrier on that pass. Per chunk the consumer warpgroup
+// takes sT = K Qs^T and dpT = V dO^T by wgmma from shared memory, pT and
+// dsT in registers, then dv += pT dO and dk += dsT Q with pT and dsT as
+// register A operands and dO and Q read MN-major; it stores dk and dv.
+// Under a causal mask the item's chunks start at its diagonal.
+template <bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(STREAM_THREADS, STREAM_CTAS)
+    flash_bwd_stream_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                 const __grid_constant__ CUtensorMap qkv_chunk_map,
+                                 const __grid_constant__ CUtensorMap dout_chunk_map,
+                                 const int* __restrict__ seg, const float* __restrict__ lse,
+                                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dqkv,
+                                 int B, int L, int H, float qscale, float scale, Layout layout) {
+  constexpr int D = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* tiles = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* ring = tiles + 4 * STILE;  // ring slot s: Q, dO, Qs
+  float* slse = reinterpret_cast<float*>(ring + STAGES * 3 * CTILE);  // [STAGES][SC]
+  float* sdelta = slse + STAGES * SC;                                  // [STAGES][SC]
+  int* ssegk = reinterpret_cast<int*>(sdelta + STAGES * SC);           // [2][SBLK]
+  int* ssegq = ssegk + (SEG ? 2 * SBLK : 0);                           // [STAGES][SC]
+  uint64_t* item_full = reinterpret_cast<uint64_t*>(ssegq + (SEG ? STAGES * SC : 0));
+  uint64_t* item_empty = item_full + 2;
+  uint64_t* loaded = item_empty + 2;
+  uint64_t* full = loaded + STAGES;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int nb = (L + SBLK - 1) / SBLK, nc = (L + SC - 1) / SC;
+  const int items = B * H * nb;
+  const int HD = H * D;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&item_full[i], 1);
+      mbar_init(&item_empty[i], 1);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp
+    const int lane = tid % 32;
+    // Qs of chunk p once its copies have landed, 16 bytes a lane at the same
+    // swizzled offsets; then its slot is full
+    auto publish = [&](int p) {
+      const int s = p % STAGES;
+      unsigned char* stage = ring + (size_t)s * 3 * CTILE;
+      mbar_wait(&loaded[s], (p / STAGES) & 1);
+#pragma unroll 4
+      for (int i = lane; i < CTILE / 16; i += 32) {
+        const uint4 q4 = *reinterpret_cast<const uint4*>(stage + 16 * i);
+        *reinterpret_cast<uint4*>(stage + 2 * CTILE + 16 * i) =
+            make_uint4(scale_bf16x2(q4.x, qscale), scale_bf16x2(q4.y, qscale),
+                       scale_bf16x2(q4.z, qscale), scale_bf16x2(q4.w, qscale));
+      }
+      fence_proxy_async();  // Qs, written by the lanes, is read by wgmma
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    };
+    int c = 0, published = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int blk = item % nb, h = (item / nb) % H, b = item / (nb * H);
+      const int slot = n % 2, k0 = blk * SBLK;
+      if (n >= 2) mbar_wait(&item_empty[slot], (n / 2 - 1) & 1);
+      if (SEG) {
+        for (int i = lane; i < SBLK; i += 32)
+          ssegk[slot * SBLK + i] = k0 + i < L ? seg[(long)b * L + k0 + i] : -2;
+        __syncwarp();
+      }
+      if (lane == 0) {
+        unsigned char* dst = tiles + (size_t)slot * 2 * STILE;
+        mbar_expect_tx(&item_full[slot], 2 * STILE);
+        tma_load_3d(dst, &qkv_map, &item_full[slot], HD + h * D, k0, b);
+        tma_load_3d(dst + STILE, &qkv_map, &item_full[slot], 2 * HD + h * D, k0, b);
+      }
+      const float* lrow = lse + lse_row(layout, b, h, H) * L;
+      const float* drow = delta + ((long)b * H + h) * L;
+      for (int qc = CAUSAL ? blk * (SBLK / SC) : 0; qc < nc; ++qc, ++c) {
+        const int s = c % STAGES, q0 = qc * SC;
+        if (c >= STAGES) mbar_wait(&empty[s], (c / STAGES - 1) & 1);
+        for (int i = lane; i < SC; i += 32) {
+          const int q = q0 + i;
+          slse[s * SC + i] = q < L ? lrow[q] : 0.f;
+          sdelta[s * SC + i] = q < L ? drow[q] : 0.f;
+          if (SEG) ssegq[s * SC + i] = q < L ? seg[(long)b * L + q] : -1;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          unsigned char* dst = ring + (size_t)s * 3 * CTILE;
+          mbar_expect_tx(&loaded[s], 2 * CTILE);
+          tma_load_3d(dst, &qkv_chunk_map, &loaded[s], h * D, q0, b);
+          tma_load_3d(dst + CTILE, &dout_chunk_map, &loaded[s], h * D, q0, b);
+        }
+        // publish the chunk before this one: every wait above needs only
+        // chunks published already, the oldest slot waited for being STAGES
+        // chunks back
+        while (published < c) publish(published++);
+      }
+    }
+    while (published < c) publish(published++);
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_a = warp * 16 + g, r_b = r_a + 8;  // this thread's accumulator rows in the block
+  const uint32_t tiles_base = smem_addr(tiles), ring_base = smem_addr(ring);
+  const long tok = 3L * HD;
+  int c = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int blk = item % nb, h = (item / nb) % H, b = item / (nb * H);
+    const int slot = n % 2, k0 = blk * SBLK;
+    const uint32_t kb = tiles_base + slot * 2 * STILE, vb = kb + STILE;
+    const int key[2] = {k0 + r_a, k0 + r_b};
+    mbar_wait(&item_full[slot], (n / 2) & 1);
+    int segk[2] = {0, 0};
+    if (SEG) {
+      segk[0] = ssegk[slot * SBLK + r_a];
+      segk[1] = ssegk[slot * SBLK + r_b];
+    }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int qc = CAUSAL ? blk * (SBLK / SC) : 0; qc < nc; ++qc, ++c) {
+      const int s = c % STAGES;
+      const uint32_t qb = ring_base + s * 3 * CTILE, dob = qb + CTILE, qsb = dob + CTILE;
+      const float* sl = slse + s * SC;
+      const float* sd = sdelta + s * SC;
+      const int* sq = ssegq + s * SC;
+      mbar_wait(&full[s], (c / STAGES) & 1);
+      float st[SC / 2], dpt[SC / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_c<SC>(st, sw128_desc(kb) + 2 * kk, sw128_desc(qsb) + 2 * kk, kk > 0);
+        wgmma_ss_c<SC>(dpt, sw128_desc(vb) + 2 * kk, sw128_desc(dob) + 2 * kk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      // pT and dsT: rows are keys, columns queries
+      uint32_t pa[SC / 16][4], da[SC / 16][4];
+#pragma unroll
+      for (int jb = 0; jb < SC / 8; ++jb) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = jb * 8 + 2 * t + (e & 1), q = qc * SC + ql;
+          const int k = key[e / 2];
+          bool visible = q < L && k < L;
+          if (CAUSAL) visible = visible && k <= q;
+          if (SEG) visible = visible && sq[ql] == segk[e / 2];
+          p[e] = visible ? exp2_approx(st[4 * jb + e] - sl[ql]) : 0.f;
+          ds[e] = p[e] * (dpt[4 * jb + e] - sd[ql]) * scale;
+        }
+        pa[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+        pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        da[jb / 2][(jb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        da[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < SC / 16; ++cc) {
+        const uint32_t row = 16 * cc * SW128_ROW;
+        wgmma_rs_d<D>(dv, pa[cc], dob + row, CTILE);
+        wgmma_rs_d<D>(dk, da[cc], qb + row, CTILE);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[s]);  // done with the ring slot
+    }
+    if (tid == 0) mbar_arrive(&item_empty[slot]);  // done with K and V
+    __nv_bfloat16* base = dqkv + (long)b * L * tok + (long)h * D;
+    store_part<D>(dk, base, 1, HD, tok, key[0], key[1], L, lane);
+    store_part<D>(dv, base, 2, HD, tok, key[0], key[1], L, lane);
+  }
+}
+
 template <typename Kernel>
 int launch_kernel(Kernel kernel, bool (&allowed)[MAX_DEVICES], long blocks, int threads,
                   size_t smem, size_t smem_max, const void* qkv, const void* seg,
@@ -923,12 +1383,57 @@ int launch_ring(const void* qkv, const void* seg, const void* out, const void* d
   return (int)cudaGetLastError();
 }
 
+// The streamed pair at D = 64 on `grid` persistent CTAs (three an SM): the
+// dq kernel, which writes delta, then the dk/dv kernel, which reads it.
+template <bool SEG, bool CAUSAL>
+int launch_streamed(const void* qkv, const void* seg, const void* out, const void* dout,
+                    const void* lse, void* delta, void* dqkv, int B, int L, int H, float qscale,
+                    float scale, Layout layout, int grid, cudaStream_t stream) {
+  constexpr int D = 64;
+  auto dq_kernel = flash_bwd_stream_dq_kernel<SEG, CAUSAL>;
+  auto kv_kernel = flash_bwd_stream_dkdv_kernel<SEG, CAUSAL>;
+  static bool allowed_dq[MAX_DEVICES] = {}, allowed_kv[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(dq_kernel, STREAM_SMEM_MAX, allowed_dq, true);
+  if (err == cudaSuccess) err = allow_smem(kv_kernel, STREAM_SMEM_MAX, allowed_kv, true);
+  if (err != cudaSuccess) return (int)err;
+  if ((long)B * H * ((L + SBLK - 1) / SBLK) > INT_MAX || grid < 1) return (int)cudaErrorInvalidValue;
+  // qkv as [B][L][3 * H * D], out and dout as [B][L][H * D], in boxes of a
+  // resident block's rows and of a chunk's: rows past L read as zeros
+  CUtensorMap qkv_map, qkv_chunk_map, out_map, dout_map, dout_chunk_map;
+  const uint64_t qkv_dims[3] = {(uint64_t)3 * H * D, (uint64_t)L, (uint64_t)B};
+  const uint64_t o_dims[3] = {(uint64_t)H * D, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&qkv_map, qkv, 3, qkv_dims, SBLK) ||
+      !tensor_map_bf16(&qkv_chunk_map, qkv, 3, qkv_dims, SC) ||
+      !tensor_map_bf16(&out_map, out, 3, o_dims, SBLK) ||
+      !tensor_map_bf16(&dout_map, dout, 3, o_dims, SBLK) ||
+      !tensor_map_bf16(&dout_chunk_map, dout, 3, o_dims, SC))
+    return (int)cudaErrorInvalidValue;
+  dq_kernel<<<grid, STREAM_THREADS, stream_dq_smem_bytes(SEG), stream>>>(
+      qkv_map, qkv_chunk_map, out_map, dout_map, static_cast<const int*>(seg),
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dqkv), B,
+      L, H, qscale, scale, layout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kv_kernel<<<grid, STREAM_THREADS, stream_dkdv_smem_bytes(SEG), stream>>>(
+      qkv_map, qkv_chunk_map, dout_chunk_map, static_cast<const int*>(seg), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqkv), B, L, H, qscale, scale,
+      layout);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool SEG, bool CAUSAL>
 int launch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
            void* delta, void* dqkv, int B, int L, int H, float qscale, float scale, bool split,
            int warps, int resident, cudaStream_t s) {
   const Layout layout{B, split};
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  // the streamed pair: grid `warps` (head_dim 64 only)
+  if (!TILED_ONLY && L > SHORT_ROW && resident == STREAMED) {
+    if constexpr (D == 64)
+      return launch_streamed<SEG, CAUSAL>(qkv, seg, out, dout, lse, delta, dqkv, B, L, H, qscale,
+                                          scale, layout, warps, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (!TILED_ONLY && L <= SHORT_ROW && warps > 0) {  // the ring: grid `warps`, stages `resident`
     if (L <= 64)
       return launch_ring<D, 1, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale,
@@ -940,14 +1445,10 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
   const long delta_blocks = (n + DELTA_THREADS - 1) / DELTA_THREADS;
   if (delta_blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const int rows = round16(L);
-  // resident 1: padded rows, one CTA an SM; 2: unpadded swizzled rows at D =
-  // 64, two CTAs of at most 8 warps an SM
-  const bool pair = resident == 2;
-  const size_t row_smem = pair ? Tiles<D, true>::bytes(rows, rows, SEG) : Tiles<D>::bytes(rows, rows, SEG);
+  const size_t row_smem = Tiles<D>::bytes(rows, rows, SEG);
   const bool long_resident = !TILED_ONLY && L > SHORT_ROW && resident;
-  if (long_resident &&
-      (resident > 2 || warps < 1 || warps > ROW_WARPS || warps > rows / 16 ||
-       row_smem > (size_t)(pair ? PAIR_SMEM_MAX : SMEM_MAX) || (pair && D != 64)))
+  if (long_resident && (resident != 1 || warps < 1 || warps > ROW_WARPS || warps > rows / 16 ||
+                        row_smem > (size_t)SMEM_MAX))
     return (int)cudaErrorInvalidValue;  // refused before anything is launched
   flash_bwd_delta_kernel<<<(unsigned)delta_blocks, DELTA_THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
@@ -956,19 +1457,9 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
   if (err != cudaSuccess) return (int)err;
 
   if (!TILED_ONLY && (L <= SHORT_ROW || long_resident)) {
-    static bool allowed[MAX_DEVICES] = {}, allowed_pair[MAX_DEVICES] = {};
+    static bool allowed[MAX_DEVICES] = {};
     const int threads = 32 * (L <= SHORT_ROW ? rows / 16 : warps);
-    if constexpr (D == 64) {
-      if (long_resident && pair) {
-        cudaError_t e = allow_smem(flash_bwd_row_kernel<D, SEG, CAUSAL, true>, PAIR_SMEM_MAX,
-                                   allowed_pair, true);
-        if (e != cudaSuccess) return (int)e;
-        return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL, true>, allowed_pair,
-                             (long)B * H, threads, row_smem, PAIR_SMEM_MAX, qkv, seg, dout, lse,
-                             delta, dqkv, L, H, qscale, scale, layout, s);
-      }
-    }
-    return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL, false>, allowed, (long)B * H,
+    return launch_kernel(flash_bwd_row_kernel<D, SEG, CAUSAL>, allowed, (long)B * H,
                          threads, row_smem, SMEM_MAX, qkv, seg, dout, lse, delta, dqkv, L, H,
                          qscale, scale, layout, s);
   }
@@ -984,8 +1475,9 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
 
 // warps and resident: the launch plan. For rows longer than SHORT_ROW tokens
 // (attention.py::bwd_long_row_plan): resident = 1 runs the row kernel with
-// `warps` warps in padded rows, 2 in unpadded swizzled rows (D = 64, two CTAs
-// an SM), 0 the tiled pair. For shorter rows (attention.py::bwd_short_row_plan):
+// `warps` warps in padded rows, 0 the tiled pair, and 3 (STREAMED) the
+// streamed pair (D = 64) on a grid of `warps` persistent CTAs; any other
+// value is refused. For shorter rows (attention.py::bwd_short_row_plan):
 // `warps` is the ring's grid of persistent CTAs and `resident` its stages;
 // a grid of 0 runs the delta pre-pass and the one-CTA-per-(row, head) row
 // kernel.

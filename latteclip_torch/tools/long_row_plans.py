@@ -10,19 +10,22 @@ lse2, as ``chip_smoke.py`` holds them) and timed with CUDA events, L2
 flushed, median of ``--iters``. Prints one JSON line a shape: the plan that
 ``attention.long_row_plan`` picks, its time, and every plan's time, and
 SDPA's on the same q, k, v. Then K3's entry point (``latteclip_flash_bwd``)
-runs under every backward form it takes (the row kernel in padded rows or,
-at head_dim 64, in unpadded swizzled rows two CTAs an SM, at several warp
-counts; the tiled pair), each checked against the plain backward (dq, dk,
-dv as ``chip_smoke.py`` holds them), with one ``bwd`` JSON line a shape:
-the plan that ``attention.bwd_long_row_plan`` picks, every form's time, and
-SDPA's backward alone. It answers how the plans' rules were chosen; the
-kernels and their wrappers never read it.
+runs under every backward form it takes (the row kernel in padded rows, at
+several warp counts, where the row fits a CTA; at head_dim 64 the streamed
+pair on the plan's grid and on one CTA an SM; the tiled pair), each checked
+against the plain backward (dq, dk, dv as ``chip_smoke.py`` holds them),
+with one ``bwd`` JSON line a shape: the plan that
+``attention.bwd_long_row_plan`` picks, every form's time, the device time
+of each kernel the plan's form launches (a torch.profiler trace, L2 not
+flushed), and SDPA's backward alone. It answers how the plans' rules were chosen; the kernels
+and their wrappers never read it.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
 import json
+import re
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +34,8 @@ from latteclip_torch.kernels import attention as A
 from latteclip_torch.tools.perf_lab import Timer
 
 SHAPES = ((64, 197, 12, 64), (256, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64))
-BWD_SHAPES = ((64, 197, 12, 64), (512, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64))
+BWD_SHAPES = ((64, 197, 12, 64), (512, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64),
+              (64, 257, 16, 64), (512, 257, 16, 64), (64, 256, 8, 64), (16, 1024, 12, 64))
 OUT_TOL, OUT_REL_TOL, LSE_TOL = 2e-2, 1e-2, 1e-3
 GRAD_REL_TOL, GRAD_MAX_TOL = 1e-2, 2e-2
 
@@ -52,6 +56,27 @@ def grads_agree(dqkv, ref, H, D) -> bool:
                 or float((a - r).abs().max() / r.abs().max()) > GRAD_MAX_TOL):
             return False
     return True
+
+
+def kernel_split_ms(call, calls: int = 10) -> dict:
+    """Device ms a call of each kernel that ``call`` launches, from a
+    torch.profiler trace of ``calls`` calls after one untraced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ms = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = re.search(r"(flash_bwd_\w+?)_kernel", ev.name)
+            key = name.group(1) if name else ev.name[:40]
+            ms[key] = ms.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
+    return ms
 
 
 def _qkv(B, L, H, D, gen):
@@ -99,30 +124,38 @@ def sweep_bwd(B, L, H, D, timer, gen) -> dict:
     kernel = A._kernel("latteclip_flash_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     nblk = -(-L // 16)
-    forms = [("tiled", 4)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (label, the entry point's warps and resident)
+    forms = [("tiled w4", 4, A.BWD_FORMS["tiled"])]
     if A.bwd_row_smem_bytes(L, D, False) <= A.MAX_SMEM:
-        forms += [("resident", w) for w in (4, 8) if w <= nblk]
-    if D == 64 and A.bwd_row_smem_bytes(L, D, False, padded=False) <= A.BWD_PAIR_SMEM:
-        forms += [("resident_pair", w) for w in (5, 7, 8) if w <= nblk]
-    times = {}
-    for form, warps in forms:
-        call = lambda: kernel(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse2.data_ptr(),  # noqa: E731
+        forms += [(f"resident w{w}", w, A.BWD_FORMS["resident"]) for w in (4, 8) if w <= nblk]
+    if D == 64:
+        grid = A.bwd_stream_plan(B, L, H, False, sms).grid
+        forms += [(f"streamed g{g}", g, A.BWD_FORMS["streamed"]) for g in sorted({grid, min(grid, sms)})]
+
+    def entry(warps, resident):
+        return lambda: kernel(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
                               delta.data_ptr(), dqkv.data_ptr(), B, L, H, D, 0,
-                              (D ** -0.5) * A.LOG2E, D ** -0.5, warps, A.BWD_FORMS[form], stream)
+                              (D ** -0.5) * A.LOG2E, D ** -0.5, warps, resident, stream)
+
+    times, calls = {}, {}
+    for label, warps, resident in forms:
+        calls[label] = call = entry(warps, resident)
         if call():
-            raise RuntimeError(f"backward form {form, warps} refused at {[B, L, H, D]}")
+            raise RuntimeError(f"backward form {label} refused at {[B, L, H, D]}")
         torch.cuda.synchronize()
         if not grads_agree(dqkv, ref, H, D):
-            raise RuntimeError(f"backward form {form, warps} disagrees at {[B, L, H, D]}")
-        times[f"{form} w{warps}"] = timer(call)
-    plan = A.bwd_long_row_plan(B, L, H, D, False, torch.cuda.get_device_properties(0).multi_processor_count)
+            raise RuntimeError(f"backward form {label} disagrees at {[B, L, H, D]}")
+        times[label] = timer(call)
+    plan = A.bwd_long_row_plan(B, L, H, D, False, sms)
     leaves = [t.detach().clone().requires_grad_(True)
               for t in qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4)]
     o = F.scaled_dot_product_attention(*leaves)
     do4 = dout.view(B, L, H, D).transpose(1, 2)
     sdpa = timer(lambda: torch.autograd.grad(o, leaves, do4, retain_graph=True))
-    own = f"{plan.form} w{plan.warps}"
+    own = f"streamed g{plan.grid}" if plan.form == "streamed" else f"{plan.form} w{plan.warps}"
     return {"bwd": [B, L, H, D], "plan": own, "plan_ms": times.get(own),
+            "plan_kernel_ms": kernel_split_ms(calls[own]) if own in calls else None,
             "best": min(times, key=times.get), "best_ms": min(times.values()),
             "sdpa_bwd_ms": sdpa, "ms": times}
 

@@ -68,7 +68,8 @@ def _assert_grads_close(ours, ref, H, D):
         assert rel <= GRAD_REL_TOL and worst <= GRAD_MAX_TOL, f"{name}: rel {rel:.3g}, max {worst:.3g}"
 
 
-@pytest.mark.parametrize("L,causal,D", [(50, False, 64), (77, True, 64), (77, True, 128)])
+@pytest.mark.parametrize("L,causal,D", [(50, False, 64), (77, True, 64), (77, True, 128),
+                                        (257, False, 64), (257, True, 64)])
 def test_flash_bwd_plain_matches_pallas(L, causal, D):
     H, B = 2, 3  # B=3 is odd: JAX pads rows to its group
     x, g = _inputs(B, L, H, D, seed=L + D)
@@ -83,13 +84,19 @@ def test_flash_bwd_plain_matches_pallas(L, causal, D):
     _assert_grads_close(ours, ref, H, D)
 
 
-@pytest.mark.parametrize("layout", ["vision_pairs", "packed_text"])
+@pytest.mark.parametrize("layout", ["vision_pairs", "packed_text", "long_pairs", "long_causal"])
 def test_flash_bwd_seg_plain_matches_pallas(layout):
     if layout == "vision_pairs":  # two 50-token images per row, non-causal
         R, P, causal = 3, 100, False
         seg = np.tile(np.repeat(np.array([1, 2], np.int32), 50), (R, 1))
-    else:
+    elif layout == "packed_text":
         R, P, causal = 2, 128, True
+        seg = _packed_text_segments(R, P)
+    elif layout == "long_pairs":  # rows past 208 tokens: a 200-token and a 57-token segment
+        R, P, causal = 2, 257, False
+        seg = np.tile(np.repeat(np.array([1, 2], np.int32), [200, 57]), (R, 1))
+    else:  # causal rows past 208 tokens: three segments and a padding tail
+        R, P, causal = 2, 257, True
         seg = _packed_text_segments(R, P)
     H, D = 2, 64
     x, g = _inputs(R, P, H, D, seed=P)

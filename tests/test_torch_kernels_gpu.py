@@ -205,11 +205,12 @@ def _pair_segments(rng, B, L):
     return seg
 
 
-# The backward's rows of more than 128 tokens: the row kernel where the row
-# fits (D=64 up to 208 tokens in unpadded rows, two CTAs an SM; D=128 up to
-# 208 in padded rows) and the tiled pair beyond.
+# The backward's rows of more than 128 tokens in their plan's form: the
+# streamed pair at D=64 at every length; at D=128 the row kernel where the
+# padded row fits (up to 208 tokens) and the tiled pair beyond.
 BWD_LONG_ROW_CASES = [
     *[(2, L, 2, D) for L in (129, 197, 256, 577) for D in (64, 128)],
+    *[(2, L, 2, 64) for L in (209, 257, 321, 1024)],
     (1, 208, 1, 128), (1, 209, 1, 128), (1, 208, 1, 64), (1, 209, 1, 64),
     (64, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64),
 ]
@@ -263,13 +264,15 @@ def _bwd_entry(x, seg, out, dout, lse2, H, causal, warps, resident):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,H,D", [(2, 197, 2, 64), (2, 197, 1, 128), (3, 256, 2, 64)])
+@pytest.mark.parametrize("B,L,H,D", [(2, 197, 2, 64), (2, 197, 1, 128), (3, 256, 2, 64),
+                                     (2, 257, 2, 64)])
 def test_cuda_backward_forms_agree(B, L, H, D):
-    """Where the row fits, the row kernel at several warp counts, in padded
-    rows and (D=64, up to 208 tokens) in unpadded swizzled rows, and the
-    tiled pair each match the plain version: the plan picks between forms
-    that compute the same gradient (padded rows at D=64 are no plan's form,
-    but the entry point runs them)."""
+    """The row kernel at several warp counts in padded rows, the streamed
+    pair (D=64) on its plan's grid and on grids that wrap the items many
+    times or do not divide them, and the tiled pair each match the plain
+    version: the plan picks between forms that compute the same gradient
+    (padded rows at D=64 are no plan's form, but the entry point runs them
+    where the row fits a CTA)."""
     _need_cuda()
     rng = np.random.default_rng(L + D + 29)
     x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
@@ -278,9 +281,12 @@ def test_cuda_backward_forms_agree(B, L, H, D):
         out, lse2 = A.flash_attention_qkv(x, H, causal)
         ref = A.flash_bwd_plain(x, out, dout, lse2, H, causal)
         most = min(A.BWD_ROW_WARPS, -(-L // 16))
-        forms = [(most, 1), (4, 1), (1, 1), (0, 0)]
-        if D == 64 and L <= 208:  # unpadded swizzled rows, two CTAs an SM
-            forms += [(8, 2), (3, 2)]
+        forms = [(0, 0)]
+        if A.bwd_row_smem_bytes(L, D, False) <= A.MAX_SMEM:  # padded rows fit a CTA
+            forms += [(most, 1), (4, 1), (1, 1)]
+        if D == 64:  # the streamed pair: (grid, 3)
+            plan = A.bwd_stream_plan(B, L, H, False, 132)
+            forms += [plan.c_args(), (1, 3), (3, 3), (7, 3)]
         for warps, resident in forms:
             err, dqkv = _bwd_entry(x, None, out, dout, lse2, H, causal, warps, resident)
             torch.cuda.synchronize()
@@ -290,13 +296,19 @@ def test_cuda_backward_forms_agree(B, L, H, D):
 
 @pytest.mark.gpu
 def test_cuda_long_row_backward_refuses_a_plan_it_cannot_take():
-    """The backward entry point returns an error for a resident plan whose
-    shared memory or warps it cannot take, and launches nothing for it."""
+    """The backward entry point returns an error for a long-row plan whose
+    form, shared memory, warps or grid it cannot take, and launches nothing
+    for it."""
     _need_cuda()
+    # resident 2 (an earlier form's code) and anything past 3 are no form;
+    # the streamed pair (resident 3, grid `warps`) has no head_dim 128 form
+    # and no empty grid
     for L, D, warps, resident in ((577, 64, 8, 1), (385, 64, 8, 1), (209, 128, 8, 1),
                                   (197, 128, 9, 1), (197, 64, 9, 1), (197, 64, 0, 1),
-                                  (129, 64, 10, 1), (197, 64, 9, 2), (209, 64, 8, 2),
-                                  (197, 128, 8, 2), (197, 64, 8, 3)):
+                                  (129, 64, 10, 1), (197, 64, 8, 2), (209, 64, 8, 2),
+                                  (197, 128, 8, 2), (257, 128, 264, 3), (257, 64, 0, 3),
+                                  (257, 64, 264, 4), (257, 64, 264, 5), (1024, 64, -1, 3),
+                                  (197, 64, 8, -1)):
         H = 1
         x = torch.zeros(1, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
         out = torch.zeros(1, L, H * D, device="cuda", dtype=torch.bfloat16)
@@ -304,6 +316,33 @@ def test_cuda_long_row_backward_refuses_a_plan_it_cannot_take():
                             warps, resident)
         assert err != 0, (L, D, warps, resident)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segmented", [False, True])
+def test_cuda_streamed_backward_is_bit_equal_across_calls(segmented):
+    """At ViT-L/14's row ([4, 257, 16 x 3 x 64]) the streamed pair gives every
+    gradient row one owner and sums in a fixed order, so two calls agree bit
+    for bit (and agree with the plain version)."""
+    _need_cuda()
+    B, L, H, D = 4, 257, 16, 64
+    assert A.bwd_long_row_plan(B, L, H, D, segmented, 132).form == "streamed"
+    rng = np.random.default_rng(257)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    if segmented:
+        seg = torch.from_numpy(_long_segments(rng, B, L)).cuda()
+        out, lse2 = A.flash_attention_qkv_segmented(x, H, seg, False)
+        run = lambda: A.flash_attention_qkv_segmented_bwd(x, seg, out, dout, lse2, H, False)  # noqa: E731
+        ref = A.flash_bwd_seg_plain(x, seg, out, dout, lse2, H, False)
+    else:
+        out, lse2 = A.flash_attention_qkv(x, H)
+        run = lambda: A.flash_attention_qkv_bwd(x, out, dout, lse2, H)  # noqa: E731
+        ref = A.flash_bwd_plain(x, out, dout, lse2, H, False)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_grads_close(first, ref, H, D)
 
 
 def _ring_fwd(name, x, seg, H, causal, grid, stages, lse_shape=None):
@@ -755,12 +794,13 @@ def test_cuda_ln_linear_refuses_a_plan_it_cannot_take():
 def test_cuda_every_plan_form_counts_its_launch():
     """Each form of each launch plan, run through its wrapper, adds one to
     its kernel's count and matches the plain version: the backward's short
-    rows and its three long-row forms; K8's three tiles."""
+    rows and the three long-row forms a plan takes (each also counted by
+    form); K8's three tiles."""
     _need_cuda()
     rng = np.random.default_rng(31)
-    for (B, L, H, D), form in (((2, 77, 2, 64), None), ((2, 197, 2, 64), "resident_pair"),
-                               ((2, 197, 1, 128), "resident"), ((2, 256, 2, 64), "tiled"),
-                               ((1, 257, 1, 128), "tiled")):
+    for (B, L, H, D), form in (((2, 77, 2, 64), None), ((2, 197, 2, 64), "streamed"),
+                               ((2, 197, 1, 128), "resident"), ((2, 256, 2, 64), "streamed"),
+                               ((2, 257, 2, 64), "streamed"), ((1, 257, 1, 128), "tiled")):
         if form:
             assert A.bwd_long_row_plan(B, L, H, D, False, 132).form == form
         x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
@@ -769,6 +809,7 @@ def test_cuda_every_plan_form_counts_its_launch():
         A.reset_launch_counts()
         ours = A.flash_attention_qkv_bwd(x, out, dout, lse2, H)
         assert A.launch_counts["flash_bwd"] == 1 and sum(A.launch_counts.values()) == 1
+        assert A.bwd_form_counts == {f: int(f == form) for f in A.bwd_form_counts}
         torch.cuda.synchronize()
         _assert_grads_close(ours, A.flash_bwd_plain(x, out, dout, lse2, H, False), H, D)
     for (B, L, D, O), tile in (((2, 77, 512, 1536), (128, 128)), ((1, 50, 768, 3072), (128, 128)),

@@ -2,9 +2,9 @@
 forward's long-row kernel (csrc/flash_fwd.cu::flash_fwd_long_kernel: K and V
 resident in shared memory or streamed through a ring, the warps of a CTA and
 the CTAs per (row, head)) and the backward's (csrc/flash_bwd.cu: the row
-resident in shared memory or the tiled pair, the warps of a CTA), at the
-shapes the towers and the GPU tests give them, on a card of 132 SMs (an H100
-SXM). The kernels themselves run only on the card
+resident in shared memory, the streamed pair or the tiled pair, the warps of
+a CTA, the streamed pair's grid), at the shapes the towers and
+the GPU tests give them, on a card of 132 SMs (an H100 SXM). The kernels themselves run only on the card
 (tests/test_torch_kernels_gpu.py)."""
 import pytest
 
@@ -120,41 +120,111 @@ BWD_SHAPES = [
 @pytest.mark.parametrize("B,L,H,D", BWD_SHAPES)
 @pytest.mark.parametrize("segmented", [False, True])
 def test_bwd_long_row_plan_is_one_the_kernel_takes(B, L, H, D, segmented):
-    """At D=64 the row takes the pair form (two CTAs an SM) exactly where its
-    unpadded rows fit half an SM; at D=128 it stays resident in padded rows
-    exactly where Q, K, V and dO of the whole row (with lse2, delta and
-    segment ids) fit a CTA's shared memory, one warp per 16-token block up
-    to 8; the tiled pair takes the rest, in 64-token tiles that always fit."""
+    """At D=64 the row takes the streamed pair at every length (three CTAs
+    an SM, both kernels within a third of an SM's shared memory, one CTA per
+    item at most); at D=128 it stays resident in padded rows exactly where Q, K, V
+    and dO of the whole row (with lse2, delta and segment ids) fit a CTA's
+    shared memory, one warp per 16-token block up to 8, and the tiled pair
+    takes the rest, in 64-token tiles that always fit."""
     plan = A.bwd_long_row_plan(B, L, H, D, segmented, SMS)
     rows = -(-L // 16) * 16
-    pair = D == 64 and A.bwd_row_smem_bytes(L, D, segmented, padded=False) <= A.BWD_PAIR_SMEM
     fits = D == 128 and A.bwd_row_smem_bytes(L, D, segmented) <= A.MAX_SMEM
     assert plan.smem_bytes <= A.MAX_SMEM
-    assert plan.form == ("resident_pair" if pair else "resident" if fits else "tiled")
-    if pair:
-        assert plan.warps == A.BWD_ROW_WARPS and 2 * (plan.smem_bytes + 1024) <= A.SM_SMEM
-        assert plan.smem_bytes == A.bwd_row_smem_bytes(L, D, segmented, padded=False)
+    assert plan.form == ("streamed" if D == 64 else "resident" if fits else "tiled")
+    if plan.form == "streamed":
+        items = B * H * -(-L // 64)
+        assert plan.warps == 5 and plan.grid == min(items, 3 * SMS)
+        assert 3 * (max(A.bwd_stream_smem_bytes(segmented)) + 1024) <= A.SM_SMEM
+        assert plan.smem_bytes == max(A.bwd_stream_smem_bytes(segmented))
+        assert plan.c_args() == (plan.grid, 3)
     elif fits:
         assert plan.warps == min(rows // 16, A.BWD_ROW_WARPS)
         assert plan.smem_bytes == A.bwd_row_smem_bytes(L, D, segmented)
+        assert plan.c_args() == (plan.warps, 1)
     else:
         assert plan.smem_bytes == A.bwd_tiled_smem_bytes(D, segmented)
+        assert plan.c_args() == (4, 0)
 
 
 @pytest.mark.parametrize("B,L,H,D,form,warps", [
-    (64, 197, 12, 64, "resident_pair", 8),   # ViT-B/16 vision: two CTAs of 8 warps an SM
-    (512, 197, 12, 64, "resident_pair", 8),  # its train batch
-    (2, 256, 2, 64, "tiled", 4),             # past 208 tokens the D=64 row takes the tiled pair
+    (64, 197, 12, 64, "streamed", 5),     # ViT-B/16 vision: the streamed pair beat resident_pair
+    (512, 197, 12, 64, "streamed", 5),    # its train batch
+    (2, 256, 2, 64, "streamed", 5),
     (64, 197, 6, 128, "resident", 8),     # head_dim 128: 8 warps walk 13 blocks
-    (8, 577, 16, 64, "tiled", 4),         # 336 px: the row does not fit a CTA
-    (1, 208, 1, 64, "resident_pair", 8),  # the forms' edges
-    (1, 209, 1, 64, "tiled", 4),
+    (8, 577, 16, 64, "streamed", 5),      # 336 px
+    (1, 208, 1, 64, "streamed", 5),       # the forms' edges
+    (1, 209, 1, 64, "streamed", 5),
     (1, 208, 1, 128, "resident", 8),
     (1, 209, 1, 128, "tiled", 4),
+    (512, 257, 16, 64, "streamed", 5),    # ViT-L/14 training
+    (64, 257, 16, 64, "streamed", 5),     # ViT-L/14 serving
+    (16, 1024, 12, 64, "streamed", 5),    # ViT-B-16-SigLIP-512
+    (2, 257, 2, 128, "tiled", 4),         # head_dim 128 keeps the tiled pair
 ])
 def test_bwd_long_row_plan_at_the_main_shapes(B, L, H, D, form, warps):
     plan = A.bwd_long_row_plan(B, L, H, D, True, SMS)
     assert (plan.form, plan.warps) == (form, warps)
+
+
+@pytest.mark.parametrize("L", [129, 144, 176, 197, 208])
+def test_bwd_long_row_plan_streams_from_129_tokens_at_head_dim_64(L):
+    """At 129-208 tokens, where an earlier form held the whole row in
+    shared memory two CTAs an SM, the plan takes the streamed pair, which
+    beat that form at [64, 197, 12 x 64] and [512, 197, 12 x 64], at every
+    batch and head count."""
+    for B, H in ((64, 12), (512, 12), (1, 1)):
+        for segmented in (False, True):
+            plan = A.bwd_long_row_plan(B, L, H, 64, segmented, SMS)
+            assert (plan.form, plan.c_args()) == ("streamed", (plan.grid, A.BWD_FORMS["streamed"]))
+
+
+@pytest.mark.parametrize("L", [209, 257, 577, 1024])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_bwd_long_row_plan_streams_past_208_tokens_at_head_dim_64(L, segmented):
+    """ViT-L/14's 257 tokens, 336 px at 577 and SigLIP-512 at 1024 take the
+    streamed pair on 396 CTAs (three an SM) with three ring slots: a fourth
+    (a 32-row K and V tile each, two mbarriers) would not leave the dq
+    kernel's CTA in a third of an SM."""
+    plan = A.bwd_long_row_plan(512, L, 16, 64, segmented, SMS)
+    assert (plan.form, plan.grid) == ("streamed", 3 * SMS)
+    assert plan.c_args() == (3 * SMS, 3)
+    assert A.BWD_STREAM_STAGES == 3
+    assert A.bwd_stream_smem_bytes(segmented)[0] + 2 * 32 * 128 + 16 > A.BWD_STREAM_SMEM
+
+
+def test_bwd_stream_smem_mirrors_the_kernels():
+    """The dq kernel's CTA: 1 KB to align, two item slots of Q, dO and out
+    (64 rows of 128 B each), three ring slots of K and V (32 rows each),
+    lse2 and delta of the item slots, the seg ids of the item and ring slots
+    when segmented, 12 mbarriers; the dk/dv kernel's: two item slots of K
+    and V, three ring slots of Q, dO and Qs with their lse2 and delta, the
+    seg ids, 13 mbarriers. Three CTAs share an SM."""
+    block, chunk = 64 * 128, 32 * 128
+    for seg in (False, True):
+        ids = (2 * 64 + 3 * 32) * 4 if seg else 0
+        dq, dkdv = A.bwd_stream_smem_bytes(seg)
+        assert dq == 1024 + 6 * block + 6 * chunk + 2 * 2 * 64 * 4 + ids + 8 * 12
+        assert dkdv == 1024 + 4 * block + 9 * chunk + 3 * 32 * 8 + ids + 8 * 13
+    assert A.bwd_stream_smem_bytes(False) == (75872, 71528)
+    assert A.BWD_STREAM_SMEM == 233472 // 3 - 1024 == 76800
+    assert max(A.bwd_stream_smem_bytes(True)) <= A.BWD_STREAM_SMEM
+
+
+@pytest.mark.parametrize("B,L,H", [(1, 209, 1), (2, 257, 2), (3, 1024, 1), (512, 257, 16)])
+def test_bwd_stream_plan_grid_never_exceeds_the_items(B, L, H):
+    """The grid is one CTA per (row, head, 64-token block) item up to three
+    an SM, so small cases launch no idle CTA."""
+    for segmented in (False, True):
+        plan = A.bwd_stream_plan(B, L, H, segmented, SMS)
+        assert plan.grid == min(B * H * -(-L // 64), 3 * SMS)
+
+
+def test_bwd_long_row_plan_keeps_the_tiled_pair_at_head_dim_128():
+    """The streamed pair has no head_dim 128 form: past 208 tokens the D=128
+    row keeps the tiled pair at every length and batch."""
+    for L in (209, 257, 385, 577, 1024, 4096):
+        for B, H in ((1, 1), (512, 8)):
+            assert A.bwd_long_row_plan(B, L, H, 128, False, SMS).form == "tiled"
 
 
 def test_bwd_row_smem_holds_the_row():
@@ -165,9 +235,6 @@ def test_bwd_row_smem_holds_the_row():
     assert A.bwd_row_smem_bytes(197, 64, True) == 4 * 208 * 72 * 2 + 208 * 16
     assert A.bwd_row_smem_bytes(197, 128, True) == 229632
     assert A.bwd_tiled_smem_bytes(64, False) == 4 * 64 * 72 * 2 + 64 * 8
-    assert A.bwd_row_smem_bytes(197, 64, True, padded=False) == 4 * 208 * 64 * 2 + 208 * 16
-    assert 2 * (A.bwd_row_smem_bytes(208, 64, True, padded=False) + 1024) <= A.SM_SMEM
-    assert 2 * (A.bwd_row_smem_bytes(209, 64, False, padded=False) + 1024) > A.SM_SMEM
 
 
 @pytest.mark.parametrize("L,D", [(128, 64), (77, 64), (197, 32)])
