@@ -30,10 +30,15 @@ Phases, each raising on failure:
    training's [512, 257, 16 x 3 x 64] and SigLIP-512 training's
    [16, 1024, 12 x 3 x 64], K4 past 208 tokens non-causal ([64, 257], two
    segments a row) and causal ([16, 577], packed segments) and K6 causal at
-   [64, 257]; forward cases of more than 128 tokens name the
+   [64, 257], K1 at the ViT-L/14 eval's [256, 257, 16 x 3 x 64] and K2 at
+   [64, 257] (two segments a row) and [16, 577] (causal, packed segments);
+   forward cases of more than 128 tokens name their plan: at head width 64
+   the ring's form (row_ring or stream_ring), grid, slots, keys a slot and
+   padded share of query rows, with the long-row kernel it replaced checked
+   and timed beside it (ring, long, long, ring: `design`), at 128 the
    long-row kernel's form (resident or streamed), CTAs per (row, head) and
-   warps a CTA, backward ones the backward plan's form (streamed, resident
-   or tiled), warps and, streamed, grid; every backward case
+   warps a CTA; backward ones the backward plan's form (streamed, resident
+   or tiled), warps and, streamed, grid; every case
    also checks that two calls are bit-equal; cases of at most 128 tokens name the
    short-row plan's form (ring or cta) and, for the ring, its warpgroups a
    CTA, CTAs an SM, stages and grid. Then the short-row plan sweep
@@ -92,10 +97,11 @@ Phases, each raising on failure:
 5b. slice_b16: ViT-B/16 zero-shot classification at full width and depth
    (L=197, heads 64 wide), the same requests from seeded random weights; no
    batch pair-packs at 197 tokens, so every vision layer runs K1 on the
-   long-row kernel. The counters are set to 0 just before the requests and
+   row ring. The counters are set to 0 just before the requests and
    read just after (one flash_fwd launch a layer: the classifier build's text,
-   five eval batches, the prototype batch; nothing else), and again around
-   the eval alone (12 a batch). Features and classifier columns must agree
+   five eval batches, the prototype batch; nothing else; every vision launch
+   in its plan's long-row form, by attention.fwd_form_counts), and again
+   around the eval alone (12 a batch). Features and classifier columns must agree
    with the plain route at cosine >= 0.999, prototype top-1 on >= 99% of
    rows; a torch.profiler trace of the eval gives its device busy ms, idle
    share and device ms by kind, printed with images/s and peak memory on one
@@ -198,8 +204,9 @@ Phases, each raising on failure:
    weights. (a) ViT-L/14 (vision 24 x 1024, L=257, no pair-packing; text 12
    x 768) trained as phase 6b's step, batch 512, captions and templates
    packed at 128, both towers rematerialised: warm-up and 10 timed steps
-   with exactly 24 flash_fwd, 24 flash_bwd (every one the streamed pair, by
-   the backward's per-form counts), 24 flash_fwd_seg and 24 flash_bwd_seg a
+   with exactly 24 flash_fwd (every one the row ring, by the forward's
+   per-form counts), 24 flash_bwd (every one the streamed pair, by the
+   backward's per-form counts), 24 flash_fwd_seg and 24 flash_bwd_seg a
    step; a profiled step; kernel and
    plain routes on one batch of 64 with augment off at phase 6's bounds; a
    train_l14 line with images/s, device busy ms, idle share and peak memory.
@@ -366,6 +373,7 @@ import copy
 import ctypes
 import dataclasses
 import importlib.util
+import inspect
 import json
 import logging
 import os
@@ -490,18 +498,48 @@ def bound(flops, nbytes):
     return max(t_flops, t_bytes), "operations" if t_flops > t_bytes else "bytes"
 
 
-def long_row_fields(B, L, H, D, segmented) -> dict:
-    """The form ("resident" or "streamed"), CTAs per (row, head) and warps a
-    CTA of a row of more than 128 tokens on this card, from the wrappers'
-    launch plan; nothing for shorter rows, or for a tree whose forward has
-    no long-row plan (so that this script also measures such a tree)."""
+def long_row_fields(B, L, H, D, segmented, causal=False) -> dict:
+    """The launch plan of a row of more than 128 tokens on this card: a
+    ring's form ("row_ring" or "stream_ring"), grid, slots, keys a slot
+    (the row ring's capacity, the stream ring's chunk) and the share of its
+    64-row query blocks that is padding; or the long-row kernel's form
+    ("resident" or "streamed"), CTAs per (row, head) and warps a CTA.
+    Nothing for shorter rows, or for a tree whose forward has no long-row
+    plan (so that this script also measures such a tree)."""
     from latteclip_torch.kernels import attention as A
 
     plan_of = getattr(A, "long_row_plan", None)
     if L <= ROW_MAX or plan_of is None:
         return {}
-    plan = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    takes_causal = "causal" in inspect.signature(plan_of).parameters
+    plan = plan_of(B, L, H, D, segmented, sms, *([causal] if takes_causal else []))
+    if plan.form in ("row_ring", "stream_ring"):
+        rows = -(-L // 64) * 64
+        return {"form": plan.form, "grid": plan.grid, "stages": plan.stages, "keys_a_slot": plan.chunk,
+                "padded_share": (rows - L) / rows}
     return {"form": plan.form, "ctas_per_bh": plan.splits, "warps": plan.warps}
+
+
+def long_kernel_call(name, qkv, seg, H, causal):
+    """The forward entry point ``name`` on flash_fwd_long_kernel's own plan
+    (the design the rings replaced at head_dim 64), called as the wrapper
+    calls its plan: (out, lse2 in the wrapper's layout). Not counted: it is
+    no part of any path."""
+    from latteclip_torch.kernels import attention as A
+
+    B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    entry = {"flash_fwd": "latteclip_flash_fwd", "flash_fwd_seg": "latteclip_flash_fwd_seg",
+             "flash_fwd_hs": "latteclip_flash_fwd_hs"}[name]
+    lse_shape = A._hs_lse_shape(B, L, H, D) if name == "flash_fwd_hs" else (B, H, L)
+    out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
+    lse2 = torch.empty(lse_shape, dtype=torch.float32, device=qkv.device)
+    tensors = [qkv, *([] if seg is None else [seg]), out, lse2]
+    plan = A.long_kernel_plan(B, L, H, D, seg is not None, torch.cuda.get_device_properties(0).multi_processor_count)
+    A._raise_on(A._kernel(entry)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal), (D ** -0.5) * A.LOG2E,
+                                 *plan.c_args(), torch.cuda.current_stream().cuda_stream), entry)
+    return out, lse2
 
 
 def short_row_fields(B, L, H, D, segmented, bwd=False, blockdiag=False) -> dict:
@@ -564,6 +602,11 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     ok = out_ok and err_lse <= LSE_TOL
     if not (torch.isfinite(out.float()).all() and torch.isfinite(lse2).all()):
         ok = False
+    # every output row has one owner, so a second call gives the same bits
+    again = kernel()
+    bit_equal = bool(torch.equal(out, again[0]) and torch.equal(lse2, again[1]))
+    ok = ok and bit_equal
+    del again
     # control: the out check must see the values of one 16-key block dropped
     dropped = qkv.clone()
     dropped[:, L // 2:L // 2 + 16, 2 * H * D:] = 0
@@ -574,16 +617,32 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, is_causal=causal and mask is None)
     ms, plain_ms, library_ms = timer(kernel), timer(plain), timer(library)
+    plan = long_row_fields(B, L, H, D, seg is not None, causal)
+    design = None
+    if plan.get("form") in ("row_ring", "stream_ring"):
+        # the long-row kernel the rings replaced, checked and timed beside the
+        # ring in the order ring, long-row kernel, long-row kernel, ring
+        old = lambda: long_kernel_call(name, qkv, seg, H, causal)  # noqa: E731
+        old_out, old_lse2 = old()
+        torch.cuda.synchronize()
+        old_ok, old_rel = out_check(old_out, ref_out)
+        old_err_lse = float((old_lse2 - ref_lse2).abs().max())
+        old_ok = old_ok and old_err_lse <= LSE_TOL
+        ok = ok and old_ok
+        old_ms = [timer(old), timer(old)]
+        design = {"kernel_ms": [ms, timer(kernel)], "long_kernel_ms": old_ms, "long_kernel_ok": old_ok,
+                  "long_kernel_out_rel_err": old_rel, "long_kernel_max_abs_err_lse2": old_err_lse}
+        del old_out, old_lse2
     flops = 4 * D * H * pairs
     nbytes = qkv.numel() * 2 + out.numel() * 2 + lse2.numel() * 4 + (0 if seg is None else seg.numel() * 4)
     bound_ms, bound_by = bound(flops, nbytes)
     rec = {
         "name": name, "shape": [B, L, 3 * H * D], "heads": H, "head_dim": D, "causal": causal,
         "max_abs_err": err_out, "out_rel_err": rel_out, "max_abs_err_lse2": err_lse, "ok": ok,
-        "control_rel_err": rel_dropped, "control_rejected": control_rejected,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "control_rel_err": rel_dropped, "control_rejected": control_rejected, "bit_equal": bit_equal,
+        "design": design, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-        **long_row_fields(B, L, H, D, seg is not None),
+        **plan,
         **short_row_fields(B, L, H, D, seg is not None, blockdiag=name == "flash_fwd_bd"),
     }
     rec["bound_share"] = rec["bound_ms"] / ms
@@ -841,6 +900,13 @@ def phase_kernels(train, tiled_lib):
     cases += [("flash_fwd", 64, 256, 8, 64, False, None),
               ("flash_fwd", 1000, 77, 10, 64, True, None),
               ("flash_fwd_seg", 64, PACK_LEN, 10, 64, True, text640)]
+    # the ViT-L/14 eval's batch, and the segmented rings past 208 tokens (as
+    # K4's cases below): two segments a row at 257 (the row ring's 272-key
+    # capacity) and packed causal segments at 577 (the stream ring's 64-key chunks)
+    cases += [("flash_fwd", EVAL_BATCH, 257, 16, 64, False, None),
+              ("flash_fwd_seg", 64, 257, 16, 64, False,
+               np.tile(np.repeat(np.array([1, 2], np.int32), [200, 57]), (64, 1))),
+              ("flash_fwd_seg", 16, 577, 16, 64, True, random_segments(rng, 16, 577))]
     bwd_cases += [("flash_bwd", 64, 256, 8, 64, False, None),
                   ("flash_bwd_seg", 64, PACK_LEN, 10, 64, True, text640)]
     records = [kernel_case(n, B, L, H, D, c, s, timer, gen) for n, B, L, H, D, c, s in cases]
@@ -1431,7 +1497,7 @@ def phase_slice_b16(smi: str):
     """ViT-B/16 serving at full width and depth (vision 12 x 768 at 224 px /
     patch 16, L=197, heads 64 wide): the same requests as the ViT-B/32 slice.
     No batch pair-packs at 197 tokens (that needs 2L <= 128), so every vision
-    layer runs K1 on the long-row kernel at [256, 197, 12 x 3 x 64]."""
+    layer runs K1 on the row ring at [256, 197, 12 x 3 x 64]."""
     return serve_whole_rows(smi, "ViT-B-16", 197, "slice_b16", "eval_b16")
 
 
@@ -1443,8 +1509,9 @@ def serve_whole_rows(smi: str, name: str, seq_len: Optional[int], label: str,
     (exactly one flash_fwd launch a layer: the classifier build's text tower
     at L=77, then the vision tower on five eval batches and the prototype
     request's batch, where its attention runs on the kernels,
-    :func:`vision_kernel_layers`), and again around the eval alone (one a
-    vision layer and batch, no flash_fwd_seg).
+    :func:`vision_kernel_layers`, each vision launch in its plan's long-row
+    form by ``attention.fwd_form_counts``), and again around the eval alone
+    (one a vision layer and batch, no flash_fwd_seg).
     Features and classifier columns must agree with the plain route at
     cosine >= 0.999, prototype top-1 on >= 99% of rows; a torch.profiler
     trace of the eval gives its device busy ms, idle share and device ms by
@@ -1463,18 +1530,28 @@ def serve_whole_rows(smi: str, name: str, seq_len: Optional[int], label: str,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     fast = run_requests(model, tok, classnames, templates, batches, bank, "kernel")
-    launches = read_counts()
+    launches, forms = read_counts(), read_fwd_forms()
     peak = torch.cuda.max_memory_allocated()
     reset_counts()
     zs.run_zero_shot_eval(model, fast["classifier"], batches)
-    eval_launches = read_counts()
-    log(f"{label} kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}")
+    eval_launches, eval_forms = read_counts(), read_fwd_forms()
+    log(f"{label} kernels: {json.dumps(launches)}; eval alone: {json.dumps(eval_launches)}; "
+        f"forward forms {json.dumps(forms)}; eval alone {json.dumps(eval_forms)}")
     vision_runs = len(batches) + 1  # the eval's batches, then the prototype request's
     for window, got, n in (("requests", launches, cfg.text.layers + vision_layers * vision_runs),
                            ("eval", eval_launches, vision_layers * len(batches))):
         want = {**dict.fromkeys(got, 0), "flash_fwd": n}
         if got != want:
             raise RuntimeError(f"{name} {window} launched {got}, expected {want}")
+    # every vision launch past 128 tokens took the form of its plan (the
+    # text tower's rows of 77 tokens are short and count no form)
+    long_form = (long_row_fields(EVAL_BATCH, seq_len, cfg.vision.heads, cfg.vision.head_width, False).get("form")
+                 if seq_len and vision_layers else None)
+    for window, got, n in (("requests", forms, vision_layers * vision_runs),
+                           ("eval", eval_forms, vision_layers * len(batches))):
+        want = {**dict.fromkeys(got, 0), **({long_form: n} if long_form else {})}
+        if forms is not None and got != want:
+            raise RuntimeError(f"{name} {window}'s long-row forwards took {got}, expected {want}")
 
     reset_counts()
     slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
@@ -1666,6 +1743,15 @@ def read_counts() -> dict:
     from latteclip_torch.kernels import attention as A, fused_ln_linear as FL, lab
 
     return {**A.launch_counts, **FL.launch_counts, **lab.launch_counts}
+
+
+def read_fwd_forms() -> Optional[dict]:
+    """The forward's long-row launches by form since the counters were set to
+    0 (None for a tree that does not count them)."""
+    from latteclip_torch.kernels import attention as A
+
+    forms = getattr(A, "fwd_form_counts", None)
+    return None if forms is None else dict(forms)
 
 
 def counted_steps(step_fn, state, batches, gen, n):
@@ -2625,7 +2711,8 @@ def phase_vit_l_train(smi: str, train: dict):
     packed at 128, colour augment on, AdamW 1e-5, both towers
     rematerialised: warm-up and 10 timed steps with the counters set to 0
     just before and read just after: no vision pair packs at 257 tokens, so
-    exactly 24 flash_fwd and 24 flash_bwd (every one the backward's
+    exactly 24 flash_fwd (every one the forward's row ring, by
+    ``attention.fwd_form_counts``) and 24 flash_bwd (every one the backward's
     streamed pair, by ``attention.bwd_form_counts``) and 24 flash_fwd_seg
     and 24 flash_bwd_seg (captions, templates) a step;
     losses finite, logit_scale in [0, ln 100], bank rows unit-norm; a
@@ -2662,7 +2749,9 @@ def phase_vit_l_train(smi: str, train: dict):
     ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
     peak = torch.cuda.max_memory_allocated()
     forms = dict(A.bwd_form_counts)  # set to 0 with the launch counts
-    log(f"train kernels packed_l14_remat: {json.dumps(launches)}; backward forms {json.dumps(forms)}")
+    fwd_forms = read_fwd_forms()
+    log(f"train kernels packed_l14_remat: {json.dumps(launches)}; backward forms {json.dumps(forms)}; "
+        f"forward forms {json.dumps(fwd_forms)}")
     want = {**dict.fromkeys(launches, 0), "flash_fwd": n * vision_sites,
             "flash_bwd": n * vision_sites, "flash_fwd_seg": n * text_sites,
             "flash_bwd_seg": n * text_sites}
@@ -2671,6 +2760,13 @@ def phase_vit_l_train(smi: str, train: dict):
     want_forms = {**dict.fromkeys(forms, 0), "streamed": n * vision_sites}
     if forms != want_forms:
         raise RuntimeError(f"packed_l14_remat's long-row backwards took {forms}, expected {want_forms}")
+    # every vision K1 at 257 tokens took its plan's form (the text's K2 rows are short)
+    if fwd_forms is not None:
+        vision = cfg.vision
+        form = long_row_fields(VIT_L_BATCH, 257, vision.heads, vision.head_width, False)["form"]
+        want_fwd = {**dict.fromkeys(fwd_forms, 0), form: n * vision_sites}
+        if fwd_forms != want_fwd:
+            raise RuntimeError(f"packed_l14_remat's long-row forwards took {fwd_forms}, expected {want_fwd}")
     check_state(state, warm_losses + losses, "packed_l14_remat route")
     profile = device_profile(lambda: step_fn(state, batches[0], gen))
     log("profile train_step_packed_l14_remat " + json.dumps(profile))

@@ -28,9 +28,11 @@ Port of ``latteclip_tpu/kernels/attention.py``:
 Rows of at most 128 tokens take the forward's and the backward's ring
 kernels (persistent CTAs fed by a TMA ring) under :func:`short_row_plan` and
 :func:`bwd_short_row_plan` (form, consumer warpgroups, CTAs an SM, ring
-stages, grid). Rows of more than 128 tokens take the forward's long-row
-kernel under the launch plan of :func:`long_row_plan` (form, warps a CTA,
-CTAs per (row, head)), and the backward's row kernel, its streamed pair or
+stages, grid). Rows of more than 128 tokens take the forward's rings at
+head_dim 64 (the row ring up to 272 tokens, the stream ring beyond) or its
+long-row kernel at head_dim 128, under the launch plan of
+:func:`long_row_plan` (form, grid and slots of a ring; warps a CTA and CTAs
+per (row, head) of the long-row kernel), and the backward's row kernel, its streamed pair or
 its tiled pair under :func:`bwd_long_row_plan` (form, warps a CTA, the
 streamed pair's grid). All are computed here so that the CPU tests
 hold them.
@@ -74,13 +76,14 @@ launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_
                  "flash_fwd_hs": 0, "flash_bwd_hs": 0, "flash_fwd_bd": 0}
 
 
-# Launches of the backward's long-row forms (rows past 128 tokens), by form:
-# which form a path's flash_bwd* launches took (chip_smoke.py reads them).
+# Launches of the long-row forms (rows past 128 tokens), by form: which form
+# a path's flash_fwd* and flash_bwd* launches took (chip_smoke.py reads them).
+fwd_form_counts = {"row_ring": 0, "stream_ring": 0, "resident": 0, "streamed": 0}
 bwd_form_counts = {"streamed": 0, "resident": 0, "tiled": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, bwd_form_counts):
+    for counts in (launch_counts, fwd_form_counts, bwd_form_counts):
         for name in counts:
             counts[name] = 0
 
@@ -448,28 +451,112 @@ CTA_RESERVED_SMEM = 1024  # shared memory the system keeps for each CTA
 MIN_SPLIT_BLOCKS = 4      # 16-row query blocks a split keeps at least
 
 
+# The rings of rows longer than SHORT_ROW tokens at head_dim 64
+# (csrc/flash_fwd.cu, flash_fwd_row_ring_kernel and
+# flash_fwd_stream_ring_kernel); the constants are the kernels'.
+RING_WARPGROUPS = 2          # consumer warpgroups of a long-row ring CTA, one CTA an SM
+ROW_RING_WARPS = 8           # the row ring: no producer warp (its consumers refill the slots)
+STREAM_RING_WARPS = 9        # the stream ring: and a producer warp
+ROW_RING_KEYS = (208, 272)   # the row ring's key capacities (64 n + 16): the rows it takes
+RING_MAX_SLOTS = 8           # slots of a long-row ring, at most
+STREAM_RING_CHUNKS = (64, 128)  # the stream ring's chunks of keys
+# the entry points' `resident` code of each form past SHORT_ROW tokens (the
+# stream ring's with 128-key chunks is one more than its code)
+FWD_FORMS = {"streamed": 0, "resident": 1, "row_ring": 2, "stream_ring": 3}
+
+
 @dataclasses.dataclass(frozen=True)
 class LongRowPlan:
-    """How ``flash_fwd_long_kernel`` takes a row of more than 128 tokens:
-    ``form`` "resident" (K and V of the row in shared memory) or "streamed"
-    (a ring of 64-key slots), ``warps`` a CTA, ``splits`` CTAs per (row,
-    head), and the CTA's dynamic shared memory."""
+    """How a row of more than 128 tokens is taken: ``form`` "row_ring" (one
+    pass: Q, K and V of a whole (row, head) in one of ``stages`` slots,
+    ``chunk`` its key capacity, every score of a 64-row block in registers)
+    or "stream_ring" (two passes over ``chunk``-key chunks of K, then K and
+    V, through ``stages`` ring slots), each on ``grid`` persistent CTAs of
+    ``warps`` warps; or
+    ``flash_fwd_long_kernel``'s "resident" (K and V of the row in shared
+    memory) or "streamed" (a ring of 64-key slots), ``warps`` a CTA,
+    ``splits`` CTAs per (row, head); and the CTA's dynamic shared memory."""
     form: str
     warps: int
     splits: int
     smem_bytes: int
+    grid: int = 0
+    stages: int = 0
+    chunk: int = 0
+
+    def c_args(self) -> Tuple[int, int, int]:
+        """The entry points' plan integers ``(warps, splits, resident)``: a
+        ring passes its grid, its stages and its form's code."""
+        if self.form in ("row_ring", "stream_ring"):
+            code = FWD_FORMS[self.form] + (self.chunk == 128)
+            return self.grid, self.stages, code
+        return self.warps, self.splits, FWD_FORMS[self.form]
 
 
 def long_row_smem_bytes(L: int, D: int, warps: int, segmented: bool, resident: bool) -> int:
-    """Shared memory of one long-row CTA (mirrors ``long_smem_bytes`` in
-    csrc/flash_fwd.cu): the seg ids and K and V of the whole row or of the
-    ring, 16 rows a warp for its Q block and output."""
+    """Shared memory of one ``flash_fwd_long_kernel`` CTA (mirrors
+    ``long_smem_bytes`` in csrc/flash_fwd.cu): the seg ids and K and V of
+    the whole row or of the ring, 16 rows a warp for its Q block and
+    output."""
     kv_rows = -(-L // 16) * 16 if resident else LONG_STREAM_SLOTS * LONG_TILE
     return (4 * kv_rows if segmented else 0) + (2 * kv_rows + 16 * warps) * (D + 8) * 2
 
 
-def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> LongRowPlan:
-    """The launch plan of a row of ``L > 128`` tokens on a card of ``sms`` SMs.
+def row_ring_keys(L: int) -> int:
+    """The row ring's key capacity for a row of ``L`` tokens (its kernel's
+    template constant), or 0 past the longest it holds."""
+    return next((kc for kc in ROW_RING_KEYS if L <= kc), 0)
+
+
+def row_ring_smem_bytes(keys: int, stages: int) -> int:
+    """Shared memory of one row-ring CTA (mirrors ``row_ring_smem_bytes`` in
+    csrc/flash_fwd.cu): 1 KB to align, per stage Q, K and V of ``keys``
+    token rows of 128 B, the two warpgroups' 64-row output tiles, and per
+    stage an mbarrier and a release count."""
+    return SW128_ALIGN + stages * 3 * keys * 128 + 2 * 64 * 128 + 16 * stages
+
+
+def stream_ring_smem_bytes(chunk: int, stages: int, segmented: bool) -> int:
+    """Shared memory of one stream-ring CTA (mirrors ``stream_ring_smem_bytes``
+    in csrc/flash_fwd.cu): 1 KB to align, two item slots of Q (two 64-row
+    boxes each), ``stages`` ring slots of K and V of ``chunk`` keys, the two
+    output tiles, the seg ids of the item slots' queries and the ring slots'
+    keys, two mbarriers a slot."""
+    return (SW128_ALIGN + 4 * 64 * 128 + stages * 2 * chunk * 128 + 2 * 64 * 128
+            + ((2 * 128 + stages * chunk) * 4 if segmented else 0) + 16 * (2 + stages))
+
+
+def _most_stages(smem_of) -> int:
+    return max(s for s in range(1, RING_MAX_SLOTS + 1) if s == 1 or smem_of(s) <= MAX_SMEM)
+
+
+def row_ring_plan(B: int, L: int, H: int, sms: int) -> LongRowPlan:
+    """The row ring at ``L`` <= 272 tokens: ``chunk`` its key capacity
+    (:func:`row_ring_keys`), as many slots of a whole (row, head) as fit one
+    CTA an SM (two: 177,184 B at 208 keys, 226,336 B at 272; segment ids
+    are read from device memory), and a grid of ``min(B * H, sms)``."""
+    keys = row_ring_keys(L)
+    stages = _most_stages(lambda s: row_ring_smem_bytes(keys, s))
+    return LongRowPlan("row_ring", ROW_RING_WARPS, 1, row_ring_smem_bytes(keys, stages),
+                       min(B * H, sms), stages, keys)
+
+
+def stream_ring_plan(B: int, L: int, H: int, segmented: bool, sms: int, chunk: int = 128) -> LongRowPlan:
+    """The stream ring: ``chunk``-key chunks, as many ring slots as fit one
+    CTA an SM (at most ``RING_MAX_SLOTS``), and a grid of ``min(items,
+    sms)``, where the items are the ``B * H * ceil(ceil(L / 64) / 2)`` (row,
+    head, pair of 64-row query blocks)s."""
+    stages = _most_stages(lambda s: stream_ring_smem_bytes(chunk, s, segmented))
+    query_blocks = -(-L // 64)
+    items = B * H * -(-query_blocks // RING_WARPGROUPS)
+    return LongRowPlan("stream_ring", STREAM_RING_WARPS, 1, stream_ring_smem_bytes(chunk, stages, segmented),
+                       min(items, sms), stages, chunk)
+
+
+def long_kernel_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> LongRowPlan:
+    """The plan of ``flash_fwd_long_kernel`` (one CTA per (row, head), warps
+    walking 16-row query blocks with mma.sync), the form head_dim 128 takes
+    and the one the rings replaced at head_dim 64:
 
     * splits: one CTA per (row, head) unless ``B * H`` would leave at least
       half the SMs idle; then as many splits as fill the SMs once, each
@@ -482,13 +569,8 @@ def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> 
     * form: resident if K and V of the row fit beside the warps' Q blocks,
       with the warps cut down to ``LONG_MIN_WARPS`` if need be; streamed
       otherwise.
-
-    ``python -m latteclip_torch.tools.long_row_plans`` times the other plans
-    on the card (PERF.md keeps its numbers).
     """
-    if L <= SHORT_ROW or D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the long-row plan takes L > {SHORT_ROW} and head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
+    _check_long(L, D)
     nblk = -(-L // 16)
     pairs = B * H
     splits = 1
@@ -507,6 +589,40 @@ def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> 
             return LongRowPlan("resident", warps, splits, smem(warps, True))
     warps = min(cap, blocks)
     return LongRowPlan("streamed", warps, splits, smem(warps, False))
+
+
+def _check_long(L: int, D: int) -> None:
+    if L <= SHORT_ROW or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the long-row plan takes L > {SHORT_ROW} and head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got L={L}, head_dim={D}")
+
+
+def long_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int,
+                  causal: bool = False) -> LongRowPlan:
+    """The launch plan of a row of ``L > 128`` tokens on a card of ``sms`` SMs.
+
+    * head_dim 64: the row ring up to 272 tokens (ViT-B/16's 197, ViT-L/14's
+      257, 256 without a class token), where a warpgroup holds every score
+      of its 64 query rows in registers and takes the exact row maxima in
+      one pass (:func:`row_ring_plan`); the stream ring beyond (336 px at
+      577, SigLIP-512 at 1024), which computes the scores twice, in chunks
+      of 128 keys, or of 64 under a causal mask, which would spill beside 128
+      keys of scores (:func:`stream_ring_plan`);
+    * head_dim 128: ``flash_fwd_long_kernel`` (:func:`long_kernel_plan`).
+      The rings have no head_dim 128 form: P V's accumulator alone would
+      take 64 registers a thread and Q's fragments 32, so the row ring would
+      hold no row of 197 scores and the stream ring no chunk of 128.
+
+    ``python -m latteclip_torch.tools.long_row_plans`` times the rings'
+    chunks, slots and grids beside ``flash_fwd_long_kernel``'s plans on the
+    card (PERF.md keeps its numbers).
+    """
+    _check_long(L, D)
+    if D == 64:
+        if row_ring_keys(L):
+            return row_ring_plan(B, L, H, sms)
+        return stream_ring_plan(B, L, H, segmented, sms, 64 if causal else 128)
+    return long_kernel_plan(B, L, H, D, segmented, sms)
 
 
 # The launch plan of the backward's rows longer than SHORT_ROW tokens
@@ -622,7 +738,8 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``. Rows of
     at most 128 tokens carry their :func:`short_row_plan` (the block-diagonal
     forward none: it takes one CTA per (row, head), which beat its ring by
-    4-27% at head width 64, PERF.md), longer ones their :func:`long_row_plan`."""
+    4-27% at head width 64, PERF.md), longer ones their :func:`long_row_plan`,
+    whose form ``fwd_form_counts`` counts."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
@@ -631,19 +748,22 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     lse2 = torch.empty(lse_shape or (B, H, L), dtype=torch.float32, device=qkv.device)
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, lse2]
     sms = sm_count(qkv.device.index)
+    plan = None
     if name == "latteclip_flash_fwd_bd":  # one CTA per (row, head): its ring was slower
         plan_args = ()
     elif L <= SHORT_ROW:
         plan_args = (*short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args(), 0)
     else:
-        plan = long_row_plan(B, L, H, D, seg_ids is not None, sms)
-        plan_args = (plan.warps, plan.splits, int(plan.form == "resident"))
+        plan = long_row_plan(B, L, H, D, seg_ids is not None, sms, causal)
+        plan_args = plan.c_args()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
         err = kernel(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
                      (D ** -0.5) * LOG2E, *plan_args, stream)
     _raise_on(err, name)
     launch_counts[counter] += 1
+    if plan is not None:
+        fwd_form_counts[plan.form] += 1
     return out, lse2
 
 

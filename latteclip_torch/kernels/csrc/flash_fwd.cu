@@ -39,13 +39,15 @@
 //
 // Bound. Every case the towers give these kernels is memory-bound: text at
 // B=1000, L=77, H=8, D=64 does 12.1 GFLOP (4*B*H*L^2*D) against about
-// 318 MB read and written, 38 FLOP/byte; ViT-B/16 vision at [64, 197, 12 x
-// 64] does 11.5 GFLOP with the scores computed twice against 77.5 MB, 148
-// FLOP/byte; both sit below the ~295 FLOP/byte at which an H100's bf16
-// tensor cores (989 TFLOP/s) rather than its memory (3.35 TB/s) become the
-// limit. So the design goal is to read q, k and v of each (row, head) once
-// from device memory, to keep scores and probabilities on chip, and to keep
-// copies in flight while the tensor cores work:
+// 318 MB read and written, 38 FLOP/byte; ViT-B/16 vision at [256, 197, 12 x
+// 64] does 30.5 GFLOP against 309 MB, 99 FLOP/byte; both sit below the ~295
+// FLOP/byte at which an H100's bf16 tensor cores (989 TFLOP/s) rather than
+// its memory (3.35 TB/s) become the limit (SigLIP-512's [16, 1024, 12 x 64],
+// whose scores the stream ring computes twice, is the exception: 77 GFLOP,
+// 0.078 ms at peak, against 0.052 ms of bytes). So the design goal is to read
+// q, k and v of each (row, head) once from device memory, to keep scores and
+// probabilities on chip, and to keep copies in flight while the tensor cores
+// work:
 //   * rows of at most 128 tokens (ViT-B/32 vision at 50, its image pairs at
 //     100, packed text at 128) take flash_fwd_ring_kernel: persistent CTAs,
 //     each walking (row, head) items with one producer warp that keeps the
@@ -66,39 +68,76 @@
 //     per (row, head) with one warp per 16 query rows and K and V of the
 //     row in shared memory: at 65..96 tokens the ring's second warpgroup
 //     would spend most of its work on padding;
-//   * longer rows (ViT-B/16 at 197, 336 px at 577) take flash_fwd_long_kernel.
-//     Its CTA holds K and V of the whole row in shared memory (the
-//     "resident" form: 59,904 B at D=64, L=197; 113,152 B at D=128, L=197;
-//     170,496 B at D=64, L=577) and its warps walk 16-row query blocks over
-//     them, so that K and V are read once per CTA, not once per 64-row query
-//     tile as in the first port (8x K's bytes and 4x V's at L=197, 20x and
-//     10x at L=577), and a ragged row costs 16-row granularity (208 rows of
-//     products at L=197, not 256). K is copied in 64-key stages, each its
-//     own cp.async group, so the first pass (the exact row maxima) starts on
-//     the first keys while the rest land; V is committed last and lands
-//     behind that pass. Where K and V do not fit (D=128 beyond 384 tokens,
-//     D=64 beyond about 800) the same kernel streams them through a ring of
-//     two 64-key slots (the "streamed" form): every warp of the CTA walks the
-//     key tiles in step, the copy of the next tile overlapping the products
-//     of this one, K once for the maxima and K with V again for p and P V;
-//   * the launch plan (attention.py::long_row_plan) picks the form, the warps
-//     of a CTA (warp w takes the 16-row blocks w, w + warps, ...) and the
-//     CTAs per (row, head). The time falls with the warps an SM holds, up to
-//     the 16 that 128 registers a thread allow: 8 a CTA where two CTAs fit an
-//     SM's shared memory (D=64, L=197), else up to 16. A (row, head) is split
-//     across CTAs only where B * H would leave half the SMs idle: each split
-//     reads K and V again from L2, and at [8, 577, 16] (128 pairs for 132
-//     SMs) one CTA of 16 warps a pair beat three of 12;
-//   * each warp takes 32 keys (D=64) or 64 keys (D=128) of its block at a
-//     time, so that several mma chains are in flight; at D=64 it keeps its Q
-//     fragments in registers, at D=128 it re-reads them from shared memory at
-//     every k-step (acc alone takes 64 registers there);
-//   * p = exp2(s - m) on the SFU (ex2.approx, ~2^-22 relative, well below
-//     p's bf16 rounding), and l by one more mma, P times a column of ones:
-//     the f32 sum of the bf16 p without unpacking them;
-//   * Q, K and V move with 16-byte cp.async copies; the ragged edge is
-//     zero-filled to a multiple of 16 keys and masked, so keys beyond L
-//     contribute exactly 0; blocks of 16 keys past the edge are skipped;
+//   * rows of 129..272 tokens at D=64 (ViT-B/16 at 197, ViT-L/14 at 257,
+//     ViT-medium at 256) take flash_fwd_row_ring_kernel, in one pass:
+//     persistent CTAs (one an SM) of two consumer warpgroups and no
+//     producer warp, walking (row, head) items through two slots that each
+//     hold Q, K and V of one item as TMA boxes (KC rows: 208 up to 208
+//     tokens, 272 up to 272; zeros past L). K and V of a row stay resident
+//     while the warpgroups walk its 64-row query blocks (both warpgroups
+//     share the CTA's sequence of (item, block)s, so 257 tokens' five
+//     blocks split evenly over items), and the next item's copy overlaps
+//     this one's products; the warpgroup that frees a slot last refills it.
+//     A warpgroup holds every score of its 64 rows in registers (KC / 2 a
+//     thread: 104 or 136), so the exact row maxima take one pass: S = Qs
+//     K^T by wgmma (Qs in registers, K from shared memory, n128 + n64 or
+//     n128 + n128, then n16), in two commit groups whose first 128 keys'
+//     masks and maxima run while the rest multiply; p and l; P V by wgmma
+//     with p repacked in registers as A and V read MN-major. Without a
+//     producer warp a CTA has eight warps, two a scheduler, which leaves a
+//     thread 255 registers; a ninth warp cuts that to 168, and an earlier
+//     build with one spilled at 272 keys and ptxas serialised every wgmma
+//     (C7512). ptxas: 176 registers and no spill at 208 keys, 208 at 272;
+//     causal ones up to 255 without spill, three of the four
+//     segment-masked ones 255 with 72-104 bytes of spill (none serialised).
+//     setmaxnreg is not used: with no producer warpgroup there is nothing
+//     to take registers from;
+//   * rows past 272 tokens at D=64 (336 px at 577, SigLIP-512 at 1024), and
+//     any row the row ring does not hold, take flash_fwd_stream_ring_kernel,
+//     in two passes: persistent CTAs (one an SM) of two consumer
+//     warpgroups and one producer warp, walking (row, head, pair of 64-row
+//     query blocks) items, the pair fastest so that one (row, head)'s items
+//     run side by side and find its K and V in L2; the producer loads each
+//     item's Q into one of two item slots and streams the row's chunks of
+//     128 keys (64 under a causal mask, which would spill beside 128 keys
+//     of scores) through up to eight ring slots, twice: K alone for S, the
+//     masks and the exact row maxima (pass 1), then K and V for S again, p,
+//     l and P V (pass 2). Both warpgroups read every chunk, so a chunk is
+//     copied once for 128 query rows. The scores are computed twice, as the
+//     exact maxima need (an online softmax would round p against a running
+//     maximum); ptxas: 158-168 registers, no spill;
+//   * every wgmma of the rings has a fixed shape and runs unconditionally
+//     (a wgmma behind a branch or of a run-time shape makes ptxas serialise
+//     them all); key capacities and chunks are template constants; exp2 is
+//     skipped on 16-key chunks with no visible key. A 64-row wgmma pads the
+//     last query block: 197 tokens take 256 rows (23% padding), 257 take 320
+//     (20%), 577 take 640 (10%), 256 and 1024 none; the row ring's keys
+//     pad 197 to 208 and 257 to 272. Each output row has one owner (no
+//     atomics), so two calls give the same bits; out leaves through a
+//     shared-memory tile a warpgroup by TMA store, lse2 from registers;
+//   * tried on the card and not kept (PERF.md): ping-pong turns between the
+//     two warpgroups (named barriers), S of the stream ring in two commit
+//     groups, two accumulators for P V, and one consumer warpgroup a CTA,
+//     two CTAs an SM: none was faster, and the last was slower;
+//   * D=128 keeps flash_fwd_long_kernel at every length past 128 tokens: P
+//     V's accumulator alone takes 64 registers a thread and Q's fragments
+//     32, so the row ring would hold no row of 197 scores and the stream
+//     ring no chunk of 128. Its CTA holds K and V of the whole row in
+//     shared memory (the "resident" form: 113,152 B at D=128, L=197) and its
+//     warps walk 16-row query blocks over them; where K and V do not fit
+//     (D=128 beyond 384 tokens) it streams them through a ring of two
+//     64-key slots (the "streamed" form), K once for the maxima and K with
+//     V again for p and P V. Its launch plan (attention.py::long_kernel_plan)
+//     picks the form, the warps of a CTA and the CTAs per (row, head); the
+//     same plans still reach it at D=64 through their `resident` codes 1 and
+//     0, which chip_smoke.py and tools/long_row_plans.py time beside the
+//     rings. Each warp takes 32 keys (D=64) or 64 keys (D=128) of its block
+//     at a time; at D=64 it keeps its Q fragments in registers, at D=128 it
+//     re-reads them from shared memory at every k-step; p = exp2(s - m) on
+//     the SFU (ex2.approx, ~2^-22 relative, well below p's bf16 rounding),
+//     and l by one more mma, P times a column of ones; Q, K and V move with
+//     16-byte cp.async copies, the ragged edge zero-filled to a multiple of
+//     16 keys and masked;
 //   * the long-row and one-CTA kernels run their products on the tensor
 //     cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); shared-memory
 //     rows are padded by 16 bytes so that the ldmatrix reads are free of
@@ -107,13 +146,13 @@
 //     a transpose within each quad of lanes);
 //   * causal CTAs stop at the last key their rows can see; every causal or
 //     segment row keeps its own diagonal, so its maximum is finite.
-// What bounds the long-row kernel is not settled (no profiler runs on the
-// card): it reaches a third of its memory bound at ViT-B/16's rows and a
-// sixth at 577 tokens (PERF.md), and computes every score twice. Trial
-// builds that dropped the first pass or the exp2, prefetched the next (row,
-// head) into a second buffer, or gave each warp 32-row tiles (half the
-// ldmatrix reads) were not faster. wgmma, TMA multicast across a cluster
-// and warp specialisation are left for later work on the long rows.
+// What bounds the rings is not settled (no profiler here shows stalls or L2
+// traffic): on an NVIDIA H100 80GB HBM3 at 700 W the row ring reaches 48% of
+// its bound (memory) at [256, 197, 12 x 64] and 44% at [256, 257, 16 x 64],
+// the stream ring 23% at [16, 1024, 12 x 64] (PERF.md). Per 64-row block a
+// warpgroup's time grows little with the keys (about 4.2 us at 208 keys and
+// 4.7 at 272), so its chain of products, masks and exp2 is bound by latency
+// more than by the tensor cores or the SFU.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -941,6 +980,522 @@ __global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 1)
   }
 }
 
+// ---- rows of more than 128 tokens at D = 64: the TMA rings -------------------
+
+constexpr int LR_TILE = 64 * SW128_ROW;   // a 64-row box of one head: 8 KB
+constexpr int ROW_KEYS_SHORT = 208;       // the row ring's key capacities: 64 n + 16
+constexpr int ROW_KEYS_LONG = 272;
+constexpr int ROW_THREADS = 256;          // the row ring: two consumer warpgroups, no producer warp
+constexpr int STREAM_THREADS = 256 + 32;  // the stream ring: two consumer warpgroups, one producer warp
+constexpr int RING_MAX_SLOTS = 8;         // slots of a long-row ring, at most
+// the entry points' `resident` past SHORT_ROW tokens: flash_fwd_long_kernel's forms, then the rings
+constexpr int FORM_STREAMED = 0, FORM_RESIDENT = 1, FORM_ROW_RING = 2, FORM_STREAM_RING64 = 3,
+              FORM_STREAM_RING128 = 4;
+
+// Shared memory of the row ring (attention.py::row_ring_smem_bytes mirrors
+// it): 1 KB to align the swizzled tiles, per stage Q, K and V of one (row,
+// head) as KC token rows of 128 B each, the two warpgroups' 64-row output
+// tiles, and per stage an mbarrier and a release count.
+template <int KC>
+constexpr size_t row_ring_smem_bytes(int stages) {
+  return SW128_ALIGN + (size_t)stages * 3 * KC * SW128_ROW + 2 * (size_t)LR_TILE + 16 * (size_t)stages;
+}
+
+// Shared memory of the stream ring (attention.py::stream_ring_smem_bytes
+// mirrors it): 1 KB to align, two item slots of Q (two 64-row boxes),
+// `stages` ring slots of K and V of C keys, the output tiles, (SEG) the item
+// slots' query and the ring slots' key seg ids, and the full and empty
+// mbarriers of every slot.
+constexpr size_t stream_ring_smem_bytes(int chunk, int stages, bool seg) {
+  return SW128_ALIGN + 4 * (size_t)LR_TILE + (size_t)stages * 2 * chunk * SW128_ROW + 2 * (size_t)LR_TILE +
+         (seg ? (2 * 128 + (size_t)stages * chunk) * 4 : 0) + 16 * (2 + (size_t)stages);
+}
+
+// A seg id from device memory, by a load that the compiler keeps in program
+// order with the wgmma waits (a volatile asm): hoisted above them, a row's
+// 68 key ids would sit in registers beside its 136 scores and spill.
+__device__ __forceinline__ int load_seg(const int* p) {
+  int v;
+  asm volatile("ld.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// Masks of one accumulator block of J 8-key columns, keys key0 .. key0 + 8 J
+// - 1, for the accumulator rows row_a and row_a + 8 of seg ids seg_a and
+// seg_b; key_seg(j) is the seg id of key j (asked only below L).
+// Masked scores become MASKED, and mx takes the maxima of what is left: four
+// partial maxima a row, by column, so that the chains of dependent
+// instructions stay short (two warps a scheduler hide little latency). A
+// block whose keys are all below L takes no mask unless CAUSAL or SEG.
+template <bool SEG, bool CAUSAL, int K, typename KeySeg>
+__device__ __forceinline__ void mask_max(float (&x)[K], int J, int key0, int L, int row_a, int seg_a,
+                                         int seg_b, KeySeg key_seg, int t, float (&mx)[2][4]) {
+  const bool edge = CAUSAL || SEG || key0 + 8 * J > L;
+#pragma unroll
+  for (int jb = 0; jb < J; ++jb) {
+    const int jl = jb * 8 + 2 * t;  // this lane's two keys of the block, from key0
+    int sk[2] = {0, 0};
+    if (SEG) {
+      sk[0] = key0 + jl < L ? key_seg(key0 + jl) : -2;
+      sk[1] = key0 + jl + 1 < L ? key_seg(key0 + jl + 1) : -2;
+    }
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = key0 + jl + (e & 1);
+        bool visible = j < L;
+        if (CAUSAL) visible = visible && j <= row_a + (e < 2 ? 0 : 8);
+        if (SEG) visible = visible && sk[e & 1] == (e < 2 ? seg_a : seg_b);
+        if (!visible) x[4 * jb + e] = MASKED;
+      }
+    }
+    mx[0][jb % 4] = fmaxf(mx[0][jb % 4], fmaxf(x[4 * jb], x[4 * jb + 1]));
+    mx[1][jb % 4] = fmaxf(mx[1][jb % 4], fmaxf(x[4 * jb + 2], x[4 * jb + 3]));
+  }
+}
+
+// The row maxima from the partial maxima of mask_max, over the quad of lanes.
+__device__ __forceinline__ void row_max(const float (&mx)[2][4], float (&m)[2]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) m[q] = quad_max(fmaxf(fmaxf(mx[q][0], mx[q][1]), fmaxf(mx[q][2], mx[q][3])));
+}
+
+// p = bf16(exp2(s - m)) of the 16-key chunk whose scores are x[i0 .. i0 + 7]
+// (one accumulator's two 8-key columns), packed as the A fragment of P V;
+// lp[.][slot] += those bf16 values in f32 (four partial sums a row). A
+// chunk with no visible key (`live` false) is 0, with no exp2.
+template <int K>
+__device__ __forceinline__ void p_chunk(const float (&x)[K], int i0, bool live, const float (&m)[2],
+                                        float (&lp)[2][4], int slot, uint32_t (&pf)[4]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + half * 4;
+    __nv_bfloat162 pa = __floats2bfloat162_rn(0.f, 0.f), pb = pa;
+    if (live) {
+      pa = __floats2bfloat162_rn(exp2_approx(x[i] - m[0]), exp2_approx(x[i + 1] - m[0]));
+      pb = __floats2bfloat162_rn(exp2_approx(x[i + 2] - m[1]), exp2_approx(x[i + 3] - m[1]));
+    }
+    const float2 fa = __bfloat1622float2(pa), fb = __bfloat1622float2(pb);
+    lp[0][slot] += fa.x + fa.y;
+    lp[1][slot] += fb.x + fb.y;
+    pf[half * 2 + 0] = as_u32(pa);
+    pf[half * 2 + 1] = as_u32(pb);
+  }
+}
+
+// Q fragments of a warp's 16 rows (from row0) of the swizzled rows at
+// qtile, scaled by qscale in f32 and rounded to bf16, as the TPU kernel
+// scales q.
+__device__ __forceinline__ void load_q64(uint32_t (&qf)[4][4], uint32_t qtile, int row0, int lane,
+                                         float qscale) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldmatrix_x4_at(qf[kk], qtile + sw128_offset(row0 + a_row(lane), kk * 2 + lane / 16));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qf[kk][e] = scale_bf16x2(qf[kk][e], qscale);
+  }
+}
+
+// The epilogue of a warpgroup's 64-row block (rows row0 .. row0 + 63 of row
+// b, head column col): out = acc / l rounded once to bf16 (the correctly
+// rounded quotient, from the row's correctly rounded reciprocal and one
+// exact FMA residual) through the warpgroup's output tile in the 128-byte
+// swizzle and one TMA store, which drops the rows from L on; lse2 = m +
+// log2(l) for the rows below L. `wtid` is the thread's index in its
+// warpgroup, `barrier` the warpgroup's named barrier; the tile is reused
+// once the previous store has read it.
+__device__ __forceinline__ void store_block(const float (&acc)[32], const float (&lp)[2][4], const float (&m)[2],
+                                            unsigned char* tile, const CUtensorMap* out_map, int col, int row0,
+                                            int b, float* lbase, int L, int wtid, int barrier) {
+  float l[2], rcp[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    l[q] = quad_sum((lp[q][0] + lp[q][1]) + (lp[q][2] + lp[q][3]));
+    rcp[q] = __frcp_rn(l[q]);
+  }
+  auto finish = [&](float a, int q) {
+    const float x = a * rcp[q];
+    return fmaf(fmaf(-x, l[q], a), rcp[q], x);
+  };
+  const int lane = wtid % 32, t = lane % 4, ra = (wtid / 32) * 16 + lane / 4;
+  const bool leader = wtid == 0;
+  if (leader) bulk_wait_read<0>();
+  named_barrier(barrier, 128);
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    *reinterpret_cast<uint32_t*>(tile + sw128_offset(ra, jb) + 4 * t) =
+        pack_bf16(finish(acc[4 * jb], 0), finish(acc[4 * jb + 1], 0));
+    *reinterpret_cast<uint32_t*>(tile + sw128_offset(ra + 8, jb) + 4 * t) =
+        pack_bf16(finish(acc[4 * jb + 2], 1), finish(acc[4 * jb + 3], 1));
+  }
+  fence_proxy_async();  // the tile, written by the threads, is read by TMA
+  named_barrier(barrier, 128);
+  if (leader) {
+    tma_store_3d(out_map, tile, col, row0, b);
+    bulk_commit();
+  }
+  if (t == 0) {
+    if (row0 + ra < L) lbase[row0 + ra] = m[0] + log2f(l[0]);
+    if (row0 + ra + 8 < L) lbase[row0 + ra + 8] = m[1] + log2f(l[1]);
+  }
+}
+
+// The row ring ("row_ring", rows of 129..KC tokens, D = 64), in one pass:
+// persistent CTAs of two consumer warpgroups and no producer warp (a ninth
+// warp would cut each thread's registers from 255 to 168, short of a row of
+// 272 scores); CTA x takes the (row, head) items x, x + gridDim.x, ...
+// through `stages` slots, each holding Q, K and V of one item as KC token
+// rows (TMA boxes of 64 rows, then 16; zeros past L) in the 128-byte
+// swizzle. Thread 0 fills every slot at the start; then the warpgroup that
+// releases a slot last (a count in shared memory) refills it with the item
+// `stages` on, so the next items' copies overlap this one's products. The
+// warpgroups share the CTA's sequence of (item, 64-row query block)s:
+// warpgroup w takes the blocks w, w + 2, ... of it, so an odd count of
+// blocks a row (5 at 257 tokens) splits evenly over the items. The last
+// block reads its rows past KC from the slot's K rows: they are finite, and
+// rows from L on are never stored. Per block a warpgroup holds every score
+// of its 64 rows in registers: S = Qs K^T by wgmma (Qs in registers, K from
+// shared memory) in two commit groups, the first 128 keys' masks and maxima
+// taken while the rest are multiplied, so that the row maxima are exact in
+// one pass; p and l; P V by wgmma with p repacked as the register A operand
+// and V read MN-major. Every wgmma has a fixed shape and runs
+// unconditionally; exp2 is skipped on 16-key chunks with no visible key.
+// The warpgroup releases the slot when the P V of its last block of the item
+// has retired, before that block's epilogue.
+template <int KC, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    flash_fwd_row_ring_kernel(const __grid_constant__ CUtensorMap map64, const __grid_constant__ CUtensorMap map16,
+                              const __grid_constant__ CUtensorMap out_map, const int* __restrict__ seg,
+                              float* __restrict__ lse, int B, int L, int H, float qscale, long lse_b, long lse_h,
+                              int stages) {
+  constexpr int D = 64;
+  constexpr int NB = KC / 64;  // 64-key blocks of S; a 16-key block follows
+  static_assert(KC % 64 == 16 && NB >= 2, "key capacities of 64 n + 16, n >= 2");
+  constexpr int CHUNKS = KC / 16;  // 16-key chunks of P V
+  constexpr int REGION = KC * SW128_ROW, STAGE = 3 * REGION;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* out_tiles = ring + (size_t)stages * STAGE;  // 64 x D a warpgroup
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tiles + 2 * LR_TILE);
+  unsigned* released = reinterpret_cast<unsigned*>(full + stages);
+
+  const int tid = threadIdx.x;
+  const int items = B * H, HD = H * D, nqb = (L + 63) / 64;
+  // the copies of item `item` into slot s, reported to full[s]
+  auto fill = [&](int s, int item) {
+    const int b = item / H, h = item % H;
+    mbar_expect_tx(&full[s], STAGE);
+    unsigned char* dst = ring + (size_t)s * STAGE;
+    for (int part = 0; part < 3; ++part) {  // q, k, v
+      for (int i = 0; i < NB; ++i)
+        tma_load_3d(dst + part * REGION + i * LR_TILE, &map64, &full[s], part * HD + h * D, i * 64, b);
+      tma_load_3d(dst + part * REGION + NB * LR_TILE, &map16, &full[s], part * HD + h * D, NB * 64, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    mbar_fence_init();
+    for (int s = 0; s < stages && (int)(blockIdx.x + s * gridDim.x) < items; ++s)
+      fill(s, (int)(blockIdx.x + s * gridDim.x));
+  }
+  __syncthreads();
+
+  const int wg = tid / 128, wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t ring_base = smem_addr(ring);
+  const float neg_inf = __int_as_float(0xff800000);
+  unsigned char* tile = out_tiles + wg * LR_TILE;
+  const int my_items = (int)blockIdx.x < items ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const long tasks = (long)my_items * nqb;
+  int waited = -1;  // the item whose slot this warpgroup last waited for
+
+#pragma unroll 1
+  for (long k = wg; k < tasks; k += 2) {
+    const int n = (int)(k / nqb), qb = (int)(k % nqb), s = n % stages;
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int b = item / H, h = item % H;
+    const uint32_t qbase = ring_base + s * STAGE, kbase = qbase + REGION, vbase = kbase + REGION;
+    if (n != waited) {
+      mbar_wait(&full[s], (n / stages) & 1);
+      waited = n;
+    }
+    const int row_a = qb * 64 + warp * 16 + g;
+    uint32_t qf[4][4];
+    load_q64(qf, qbase + qb * LR_TILE, warp * 16, lane, qscale);
+    int seg_a = 0, seg_b = 0;
+    const int* rowseg = seg + (long)b * L;
+    auto key_seg = [&](int j) { return load_seg(rowseg + j); };
+    if (SEG) {
+      seg_a = row_a < L ? rowseg[row_a] : -1;
+      seg_b = row_a + 8 < L ? rowseg[row_a + 8] : -1;
+    }
+
+    // S = Qs K^T over the KC keys: keys 0..127 as one commit group, the rest
+    // (64-key blocks two at a time, then 16 keys in sc[NB]) as a second
+    float sc[NB + 1][32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs128<0>(*reinterpret_cast<float(*)[64]>(&sc[0][0]), qf[kk], sw128_desc(kbase) + 2 * kk, kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int hk = 2; hk < NB; hk += 2) {
+        const uint64_t db = sw128_desc(kbase + hk * LR_TILE) + 2 * kk;
+        if (hk + 1 < NB)
+          wgmma_rs128<0>(*reinterpret_cast<float(*)[64]>(&sc[hk][0]), qf[kk], db, kk > 0);
+        else
+          wgmma_rs64<0>(sc[hk], qf[kk], db, kk > 0);
+      }
+      wgmma_rs16<0>(sc[NB], qf[kk], sw128_desc(kbase + NB * LR_TILE) + 2 * kk, kk > 0);
+    }
+    wgmma_commit();
+
+    float mx[2][4], m[2];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) mx[q / 4][q % 4] = neg_inf;
+    wgmma_wait<1>();  // the first 128 keys have retired, the rest may still run
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      fence_operands(sc[hk]);
+      mask_max<SEG, CAUSAL>(sc[hk], 8, hk * 64, L, row_a, seg_a, seg_b, key_seg, t, mx);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hk = 2; hk < NB; ++hk) {
+      fence_operands(sc[hk]);
+      mask_max<SEG, CAUSAL>(sc[hk], 8, hk * 64, L, row_a, seg_a, seg_b, key_seg, t, mx);
+    }
+    fence_operands(sc[NB]);
+    mask_max<SEG, CAUSAL>(sc[NB], 2, NB * 64, L, row_a, seg_a, seg_b, key_seg, t, mx);
+    row_max(mx, m);
+
+    // p and l; chunks past the block's last visible key are 0
+    const int live = ((CAUSAL ? min(L, (qb + 1) * 64) : L) + 15) / 16;
+    float lp[2][4] = {};
+    uint32_t pf[CHUNKS][4];
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) p_chunk(sc[c / 4], (c % 4) * 8, c < live, m, lp, c % 4, pf[c]);
+
+    float acc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c)
+      wgmma_rs64<1>(acc, pf[c], sw128_mn_desc(vbase + c * 16 * SW128_ROW, LR_TILE), c > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(pf);
+
+    // The slot is free once this warpgroup's last block of the item has
+    // read it; the warpgroup that releases it last refills it.
+    if (k + 2 >= (long)(n + 1) * nqb && wtid == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[s], 1u) == 1) {
+        __threadfence_block();
+        released[s] = 0;
+        const int next = item + stages * (int)gridDim.x;
+        if (next < items) fill(s, next);
+      }
+    }
+    store_block(acc, lp, m, tile, &out_map, h * D, qb * 64, b, lse + b * lse_b + h * lse_h, L, wtid, 1 + wg);
+  }
+  if (wtid == 0) bulk_wait_read<0>();  // shared memory outlives the last stores' reads
+}
+
+// The stream ring ("stream_ring", any row past 128 tokens at D = 64), in two
+// passes: persistent CTAs, CTA x taking the items x, x + gridDim.x, ... of
+// (row b, head h, pair of 64-row query blocks), the pair fastest, so that
+// the pairs of one (row, head) run side by side and find its K and V in L2.
+// Consumer warpgroup w owns block 2 pair + w of the item. The producer warp
+// loads each item's Q into one of two item slots and streams the item's
+// C-key chunks through `stages` ring slots, twice: K alone, for S, the
+// masks and the exact row maxima (pass 1), then K and V, for S again, p, l
+// and P V (pass 2), zeros past L. Both warpgroups read every chunk; each
+// of their eight warps releases a ring slot when its products on it have
+// retired and its masks have read the slot's seg ids, and the item slot
+// once it holds its Q fragments and query seg ids. Every wgmma has a fixed shape and runs
+// unconditionally; a causal item streams the chunks up to its last row.
+template <int C, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+    flash_fwd_stream_ring_kernel(const __grid_constant__ CUtensorMap map64, const __grid_constant__ CUtensorMap out_map,
+                                 const int* __restrict__ seg, float* __restrict__ lse, int B, int L, int H,
+                                 float qscale, long lse_b, long lse_h, int stages) {
+  constexpr int D = 64;
+  constexpr int KT = C * SW128_ROW;  // K or V of one chunk
+  constexpr int QSLOT = 2 * LR_TILE; // Q of one item
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* qslots = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* ring = qslots + 2 * QSLOT;
+  unsigned char* out_tiles = ring + (size_t)stages * 2 * KT;
+  int* sqseg = reinterpret_cast<int*>(out_tiles + 2 * LR_TILE);  // [2][128]
+  int* skseg = sqseg + (SEG ? 2 * 128 : 0);                      // [stages][C]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skseg + (SEG ? stages * C : 0));
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int HD = H * D;
+  const int nqb = (L + 63) / 64, npair = (nqb + 1) / 2, nkc = (L + C - 1) / C;
+  const int items = B * H * npair;  // the host checks that it fits an int
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the chunks an item streams in each pass: a causal item's end at its last row
+  auto item_chunks = [&](int pr) { return CAUSAL ? min(nkc, (min(L, (pr + 1) * 128) + C - 1) / C) : nkc; };
+
+  if (tid >= 256) {  // the producer warp
+    const int lane = tid % 32;
+    int c = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int pr = item % npair, bh = item / npair, h = bh % H, b = bh / H;
+      const int qs = n % 2;
+      if (n >= 2) mbar_wait(&q_empty[qs], (n / 2 - 1) & 1);
+      if (SEG) {
+        for (int i = lane; i < 128; i += 32) {
+          const int q = pr * 128 + i;
+          sqseg[qs * 128 + i] = q < L ? seg[(long)b * L + q] : -1;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[qs], QSLOT);
+        for (int w = 0; w < 2; ++w)
+          tma_load_3d(qslots + (size_t)qs * QSLOT + w * LR_TILE, &map64, &q_full[qs], h * D, pr * 128 + w * 64, b);
+      }
+      const int chunks = item_chunks(pr);
+      for (int pass = 0; pass < 2; ++pass)
+        for (int kc = 0; kc < chunks; ++kc, ++c) {
+          const int s = c % stages;
+          if (c >= stages) mbar_wait(&empty[s], (c / stages - 1) & 1);
+          if (SEG) {
+            for (int i = lane; i < C; i += 32) {
+              const int k = kc * C + i;
+              skseg[s * C + i] = k < L ? seg[(long)b * L + k] : -2;
+            }
+            __syncwarp();
+          }
+          if (lane == 0) {
+            unsigned char* dst = ring + (size_t)s * 2 * KT;
+            mbar_expect_tx(&full[s], (pass + 1) * KT);
+            for (int i = 0; i < C / 64; ++i) {
+              tma_load_3d(dst + i * LR_TILE, &map64, &full[s], HD + h * D, kc * C + i * 64, b);
+              if (pass)
+                tma_load_3d(dst + KT + i * LR_TILE, &map64, &full[s], 2 * HD + h * D, kc * C + i * 64, b);
+            }
+          }
+        }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t qslot_base = smem_addr(qslots), ring_base = smem_addr(ring);
+  const float neg_inf = __int_as_float(0xff800000);
+  unsigned char* tile = out_tiles + wg * LR_TILE;
+  int c = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int pr = item % npair, bh = item / npair, h = bh % H, b = bh / H;
+    const int qs = n % 2, qb = pr * 2 + wg;
+    const int row_a = qb * 64 + warp * 16 + g;
+    mbar_wait(&q_full[qs], (n / 2) & 1);
+    uint32_t qf[4][4];
+    load_q64(qf, qslot_base + qs * QSLOT + wg * LR_TILE, warp * 16, lane, qscale);
+    int seg_a = 0, seg_b = 0;
+    if (SEG) {
+      seg_a = sqseg[qs * 128 + wg * 64 + warp * 16 + g];
+      seg_b = sqseg[qs * 128 + wg * 64 + warp * 16 + g + 8];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&q_empty[qs]);  // this warp holds its Q and seg ids
+
+    const int chunks = item_chunks(pr);
+    const int live_end = CAUSAL ? min(L, (qb + 1) * 64) : L;  // keys this block can see end here
+    // S = Qs K^T of the chunk in ring slot s, masked, the maxima into mx
+    auto scores = [&](float (&sc)[C / 64][32], int s, int kc, float (&mx)[2][4]) {
+      const uint32_t kb = ring_base + s * 2 * KT;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (C == 128)
+          wgmma_rs128<0>(*reinterpret_cast<float(*)[64]>(&sc[0][0]), qf[kk], sw128_desc(kb) + 2 * kk, kk > 0);
+        else
+          wgmma_rs64<0>(sc[0], qf[kk], sw128_desc(kb) + 2 * kk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hk = 0; hk < C / 64; ++hk) {
+        fence_operands(sc[hk]);
+        mask_max<SEG, CAUSAL>(sc[hk], 8, kc * C + hk * 64, L, row_a, seg_a, seg_b,
+                              [&](int j) { return skseg[s * C + j - kc * C]; }, t, mx);
+      }
+    };
+
+    // pass 1: the exact row maxima
+    float mx[2][4], m[2];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) mx[q / 4][q % 4] = neg_inf;
+    for (int kc = 0; kc < chunks; ++kc, ++c) {
+      const int s = c % stages;
+      mbar_wait(&full[s], (c / stages) & 1);
+      float sc[C / 64][32];
+      scores(sc, s, kc, mx);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    row_max(mx, m);
+
+    // pass 2: p, l and P V
+    float lp[2][4] = {}, acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int kc = 0; kc < chunks; ++kc, ++c) {
+      const int s = c % stages;
+      mbar_wait(&full[s], (c / stages) & 1);
+      float sc[C / 64][32], unused[2][4] = {};
+      scores(sc, s, kc, unused);
+      uint32_t pf[C / 16][4];
+#pragma unroll
+      for (int cc = 0; cc < C / 16; ++cc)
+        p_chunk(sc[cc / 4], (cc % 4) * 8, kc * C + cc * 16 < live_end, m, lp, cc % 4, pf[cc]);
+      const uint32_t vb = ring_base + s * 2 * KT + KT;
+      wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < C / 16; ++cc)
+        wgmma_rs64<1>(acc, pf[cc], sw128_mn_desc(vb + cc * 16 * SW128_ROW, LR_TILE), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(pf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    store_block(acc, lp, m, tile, &out_map, h * D, qb * 64, b, lse + b * lse_b + h * lse_h, L, wtid, 1 + wg);
+  }
+  if (wtid == 0) bulk_wait_read<0>();  // shared memory outlives the last stores' reads
+}
+
 // lse_head_major stores lse2 as [H, B, L] (the head-split kernel's
 // [H/HP, HP, B, L]), otherwise as [B, H, L].
 template <int D, int BLOCK_N, bool SEG, bool CAUSAL, bool BD>
@@ -1005,11 +1560,84 @@ int launch_long(const void* qkv, const void* seg, void* out, void* lse, int B, i
   return (int)cudaGetLastError();
 }
 
+// The row ring with key capacity KC on `grid` persistent CTAs (one an SM)
+// and `stages` slots.
+template <int KC, bool SEG, bool CAUSAL>
+int launch_row_ring(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                    float qscale, bool lse_head_major, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_fwd_row_ring_kernel<KC, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = row_ring_smem_bytes<KC>(stages);
+  if (B <= 0 || H <= 0 || L <= SHORT_ROW || L > KC || (long)B * H * ((L + 63) / 64) > INT_MAX || grid < 1 ||
+      stages < 1 || stages > RING_MAX_SLOTS || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  // qkv as [B][L][3 * H * D] and out as [B][L][H * D]: box rows past L read as zeros and are not stored
+  CUtensorMap map64, map16, out_map;
+  const uint64_t dims[3] = {(uint64_t)3 * H * 64, (uint64_t)L, (uint64_t)B};
+  const uint64_t out_dims[3] = {(uint64_t)H * 64, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&map64, qkv, 3, dims, 64) || !tensor_map_bf16(&map16, qkv, 3, dims, 16) ||
+      !tensor_map_bf16(&out_map, out, 3, out_dims, 64))
+    return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
+  kernel<<<grid, ROW_THREADS, smem, stream>>>(map64, map16, out_map, static_cast<const int*>(seg),
+                                              static_cast<float*>(lse), B, L, H, qscale, lse_b, lse_h, stages);
+  return (int)cudaGetLastError();
+}
+
+// The stream ring with C-key chunks on `grid` persistent CTAs (one an SM)
+// and `stages` ring slots.
+template <int C, bool SEG, bool CAUSAL>
+int launch_stream_ring(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                       float qscale, bool lse_head_major, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_fwd_stream_ring_kernel<C, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = stream_ring_smem_bytes(C, stages, SEG);
+  const long pairs = ((long)(L + 63) / 64 + 1) / 2;
+  if (B <= 0 || H <= 0 || L <= SHORT_ROW || (long)B * H * pairs > INT_MAX || grid < 1 || stages < 1 ||
+      stages > RING_MAX_SLOTS || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map, out_map;
+  const uint64_t dims[3] = {(uint64_t)3 * H * 64, (uint64_t)L, (uint64_t)B};
+  const uint64_t out_dims[3] = {(uint64_t)H * 64, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&map, qkv, 3, dims, 64) || !tensor_map_bf16(&out_map, out, 3, out_dims, 64))
+    return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
+  kernel<<<grid, STREAM_THREADS, smem, stream>>>(map, out_map, static_cast<const int*>(seg),
+                                                 static_cast<float*>(lse), B, L, H, qscale, lse_b, lse_h, stages);
+  return (int)cudaGetLastError();
+}
+
+// The rings past SHORT_ROW tokens at D = 64: `form` FORM_ROW_RING (the key
+// capacity from L) or FORM_STREAM_RING64/128, each on (grid, stages).
+template <bool SEG, bool CAUSAL>
+int launch_long_ring(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                     float qscale, bool hm, int grid, int stages, int form, cudaStream_t s) {
+  if (form == FORM_ROW_RING) {
+    if (L <= ROW_KEYS_SHORT)
+      return launch_row_ring<ROW_KEYS_SHORT, SEG, CAUSAL>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+    return launch_row_ring<ROW_KEYS_LONG, SEG, CAUSAL>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+  }
+  if (form == FORM_STREAM_RING64)
+    return launch_stream_ring<64, SEG, CAUSAL>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+  if constexpr (!CAUSAL) {  // a causal mask beside 128 keys of scores a warpgroup would spill
+    if (form == FORM_STREAM_RING128)
+      return launch_stream_ring<128, SEG, CAUSAL>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // The launch plan: for rows of more than SHORT_ROW tokens (warps, splits,
-// resident) of the long-row kernel; for shorter rows `warps` carries the
-// ring's grid of persistent CTAs and `splits` its stages, and a grid of 0
-// selects the one-CTA-per-(row, head) kernel, which the block-diagonal
-// forward always takes.
+// resident) of the long-row kernel, or (grid, stages, form) of a ring at D
+// = 64 (resident FORM_ROW_RING and up); for
+// shorter rows `warps` carries the ring's grid of persistent CTAs and
+// `splits` its stages, and a grid of 0 selects the one-CTA-per-(row, head)
+// kernel, which the block-diagonal forward always takes.
 template <int D, bool SEG, bool BD>
 int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
                 int causal, float qscale, bool hm, int warps, int splits, int resident,
@@ -1032,6 +1660,12 @@ int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, i
   if constexpr (BD) {
     return (int)cudaErrorInvalidValue;  // BD takes one key tile
   } else {
+    if (resident >= FORM_ROW_RING) {
+      if (D != 64) return (int)cudaErrorInvalidValue;
+      return causal ? launch_long_ring<SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, resident, s)
+                    : launch_long_ring<SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, resident, s);
+    }
+    if (resident != FORM_RESIDENT && resident != FORM_STREAMED) return (int)cudaErrorInvalidValue;
     if (resident)
       return causal ? launch_long<D, SEG, true, true>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s)
                     : launch_long<D, SEG, false, true>(qkv, seg, out, lse, B, L, H, qscale, hm, warps, splits, s);
@@ -1057,9 +1691,11 @@ int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int 
 }  // namespace
 
 // warps, splits and resident: the launch plan, attention.py::long_row_plan
-// for rows longer than 128 tokens; for shorter rows attention.py::short_row_plan
-// gives (grid, stages, 0) of the ring kernel, or (0, 0, 0) for the
-// one-CTA-per-(row, head) kernel.
+// for rows longer than 128 tokens: (grid, slots, 2) of the row ring, (grid,
+// slots, 3 or 4) of the stream ring with 64- or 128-key chunks (head_dim 64),
+// or (warps, splits, 1 or 0) of flash_fwd_long_kernel's resident or streamed
+// form; for shorter rows attention.py::short_row_plan gives (grid, stages,
+// 0) of the ring kernel, or (0, 0, 0) for the one-CTA-per-(row, head) kernel.
 extern "C" int latteclip_flash_fwd(const void* qkv, void* out, void* lse, int B, int L, int H,
                                    int D, int causal, float qscale, int warps, int splits,
                                    int resident, void* stream) {

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA,
-// mbarriers and wgmma: ln_linear.cu (K8), the short-row attention rings of
-// flash_fwd.cu and flash_bwd.cu, and the lab rings of lab.cu.
+// mbarriers and wgmma: ln_linear.cu (K8), the attention rings of flash_fwd.cu
+// and flash_bwd.cu, and the lab rings of lab.cu.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count, and
 //     a parity wait;
@@ -13,11 +13,13 @@
 //     links against libcudart alone), bf16 boxes 64 values (128 bytes) wide
 //     in the 128-byte swizzle;
 //   * wgmma m64nNk16 (bf16 in, f32 accumulate) with A in shared memory (ss,
-//     N = 32, 64, 128) or in registers (rs, N = 64, 128), and the descriptors of
+//     N = 32, 64, 128) or in registers (rs, N = 16, 64, 128), and the descriptors of
 //     operands in the 128-byte swizzle: K-major (rows of 64 values along the
 //     reduction, 8-row groups 1024 B apart) and MN-major (the transposed B:
 //     rows along the reduction, 64 values of N each; 8-row groups 1024 B
 //     apart, 64-value blocks of N `lbo` bytes apart);
+//   * fence_operands, which keeps the registers of an asynchronous wgmma
+//     out of the compiler's reach until its wait;
 //   * the warp and quad-of-lanes shuffles of the epilogues.
 //
 // Fragments. A register A operand is the mma.sync m16n8k16 A fragment of
@@ -191,6 +193,19 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[K], uint64_t da, uint64_t 
 }
 
 template <int TB, int K>
+__device__ __forceinline__ void wgmma_rs16(float (&d)[K], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  static_assert(K >= 8, "accumulator too small");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7"
+      "}, {%8,%9,%10,%11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB, int K>
 __device__ __forceinline__ void wgmma_ss64(float (&d)[K], uint64_t da, uint64_t db, int scale_d) {
   static_assert(K >= 32, "accumulator too small");
   asm volatile(
@@ -268,6 +283,26 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[K], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+
+// Keep registers that an asynchronous wgmma reads or writes out of the
+// compiler's reach until its wait: an empty asm that claims to change them.
+template <int K>
+__device__ __forceinline__ void fence_operands(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
 // -- shuffles ----------------------------------------------------------------------
 

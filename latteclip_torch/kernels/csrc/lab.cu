@@ -275,26 +275,6 @@ __global__ void __launch_bounds__(FWD_MAX_WARPS * 32, D == 64 ? 2 : 1)
   }
 }
 
-// Keep registers that an asynchronous wgmma reads or writes out of the
-// compiler's reach until its wait: an empty asm that claims to change them.
-template <int K>
-__device__ __forceinline__ void fence_operands(float (&r)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_operands(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // ---- lab forward on persistent CTAs fed by a TMA ring ----------------------
 
 constexpr int RING_MAX_STAGES = 4;

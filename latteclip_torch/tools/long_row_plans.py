@@ -4,12 +4,17 @@ launch plans other than their own, on the card:
     python -m latteclip_torch.tools.long_row_plans
 
 For each shape, K1's entry point (``latteclip_flash_fwd``) runs non-causal
-under every plan of ``--warps`` x ``--splits`` x form (resident, streamed)
-that the kernel takes, each checked against the plain version (out and
-lse2, as ``chip_smoke.py`` holds them) and timed with CUDA events, L2
-flushed, median of ``--iters``. Prints one JSON line a shape: the plan that
-``attention.long_row_plan`` picks, its time, and every plan's time, and
-SDPA's on the same q, k, v. Then K3's entry point (``latteclip_flash_bwd``)
+under every plan it takes: at head_dim 64 the rings (the row ring up to 272
+tokens at one and two slots, the stream ring's 64- and 128-key chunks at
+one, two and the most slots that fit; each on the plan's grid and on half
+of it), and at every head width ``flash_fwd_long_kernel``'s plans of
+``--warps`` x ``--splits`` x form (resident, streamed) that the kernel
+takes. Each is checked against the plain version (out and lse2, as
+``chip_smoke.py`` holds them) and timed with CUDA events, L2 flushed,
+median of ``--iters``. Prints one JSON line a shape: the plan that
+``attention.long_row_plan`` picks, its time, the device time of its kernel
+(a torch.profiler trace, L2 not flushed), every plan's time, and SDPA's on
+the same q, k, v. Then K3's entry point (``latteclip_flash_bwd``)
 runs under every backward form it takes (the row kernel in padded rows, at
 several warp counts, where the row fits a CTA; at head_dim 64 the streamed
 pair on the plan's grid and on one CTA an SM; the tiled pair), each checked
@@ -23,6 +28,7 @@ and their wrappers never read it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import re
@@ -33,7 +39,8 @@ import torch.nn.functional as F
 from latteclip_torch.kernels import attention as A
 from latteclip_torch.tools.perf_lab import Timer
 
-SHAPES = ((64, 197, 12, 64), (256, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64))
+SHAPES = ((64, 197, 12, 64), (256, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64),
+          (256, 257, 16, 64), (64, 256, 8, 64), (16, 1024, 12, 64))
 BWD_SHAPES = ((64, 197, 12, 64), (512, 197, 12, 64), (64, 197, 6, 128), (8, 577, 16, 64),
               (64, 257, 16, 64), (512, 257, 16, 64), (64, 256, 8, 64), (16, 1024, 12, 64))
 OUT_TOL, OUT_REL_TOL, LSE_TOL = 2e-2, 1e-2, 1e-3
@@ -73,7 +80,7 @@ def kernel_split_ms(call, calls: int = 10) -> dict:
     ms = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
-            name = re.search(r"(flash_bwd_\w+?)_kernel", ev.name)
+            name = re.search(r"(flash_(?:fwd|bwd)_\w+?)_kernel", ev.name)
             key = name.group(1) if name else ev.name[:40]
             ms[key] = ms.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
     return ms
@@ -84,6 +91,38 @@ def _qkv(B, L, H, D, gen):
     return (torch.randn((B, L, 3 * H * D), generator=gen, device="cuda") * std).to(torch.bfloat16)
 
 
+def plan_label(plan) -> str:
+    """A forward plan's name in the sweep's lines."""
+    if plan.form == "row_ring":
+        return f"row_ring g{plan.grid} st{plan.stages}"
+    if plan.form == "stream_ring":
+        return f"stream_ring c{plan.chunk} g{plan.grid} st{plan.stages}"
+    return f"{plan.form} w{plan.warps} s{plan.splits}"
+
+
+def fwd_plans(B, L, H, D, warps_grid, splits_grid, sms) -> dict:
+    """{label: the entry point's plan integers} of every forward plan swept
+    at one shape (non-causal, no segment ids)."""
+    plans = {}
+    nblk = -(-L // 16)
+    for warps, splits, resident in itertools.product(warps_grid, splits_grid, (True, False)):
+        if warps <= nblk // splits and A.long_row_smem_bytes(L, D, warps, False, resident) <= A.MAX_SMEM:
+            form = "resident" if resident else "streamed"
+            plans[f"{form} w{warps} s{splits}"] = (warps, splits, A.FWD_FORMS[form])
+    if D != 64:
+        return plans
+    rings = []
+    if A.row_ring_keys(L):
+        base = A.row_ring_plan(B, L, H, sms)
+        rings += [dataclasses.replace(base, grid=g, stages=st)
+                  for g in sorted({base.grid, max(1, base.grid // 2)}) for st in range(1, base.stages + 1)]
+    for chunk in A.STREAM_RING_CHUNKS:
+        base = A.stream_ring_plan(B, L, H, False, sms, chunk)
+        rings += [dataclasses.replace(base, grid=g, stages=st)
+                  for g in sorted({base.grid, max(1, base.grid // 2)}) for st in sorted({1, 2, base.stages})]
+    return {**plans, **{plan_label(p): p.c_args() for p in rings}}
+
+
 def sweep(B, L, H, D, warps_grid, splits_grid, timer, gen) -> dict:
     qkv = _qkv(B, L, H, D, gen)
     out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
@@ -91,24 +130,21 @@ def sweep(B, L, H, D, warps_grid, splits_grid, timer, gen) -> dict:
     ref_out, ref_lse2 = A.flash_fwd_plain(qkv, H, False)
     kernel = A._kernel("latteclip_flash_fwd")
     stream = torch.cuda.current_stream().cuda_stream
-    nblk = -(-L // 16)
-    times = {}
-    for warps, splits, resident in itertools.product(warps_grid, splits_grid, (True, False)):
-        if (warps > nblk // splits or A.long_row_smem_bytes(L, D, warps, False, resident) > A.MAX_SMEM):
-            continue
-        call = lambda: kernel(qkv.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, 0,  # noqa: E731
-                              (D ** -0.5) * A.LOG2E, warps, splits, int(resident), stream)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times, calls = {}, {}
+    for label, args in fwd_plans(B, L, H, D, warps_grid, splits_grid, sms).items():
+        calls[label] = call = lambda args=args: kernel(  # noqa: E731
+            qkv.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, 0, (D ** -0.5) * A.LOG2E, *args, stream)
         if call():
-            raise RuntimeError(f"plan {warps, splits, resident} refused at {[B, L, H, D]}")
+            raise RuntimeError(f"plan {label} refused at {[B, L, H, D]}")
         torch.cuda.synchronize()
         if not agrees(out, lse2, ref_out, ref_lse2):
-            raise RuntimeError(f"plan {warps, splits, resident} disagrees at {[B, L, H, D]}")
-        form = "resident" if resident else "streamed"
-        times[f"{form} w{warps} s{splits}"] = timer(call)
-    plan = A.long_row_plan(B, L, H, D, False, torch.cuda.get_device_properties(0).multi_processor_count)
+            raise RuntimeError(f"plan {label} disagrees at {[B, L, H, D]}")
+        times[label] = timer(call)
+    own = plan_label(A.long_row_plan(B, L, H, D, False, sms))
     q, k, v = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
-    own = f"{plan.form} w{plan.warps} s{plan.splits}"
     return {"shape": [B, L, H, D], "plan": own, "plan_ms": times.get(own),
+            "plan_kernel_ms": kernel_split_ms(calls[own]) if own in calls else None,
             "best": min(times, key=times.get), "best_ms": min(times.values()),
             "sdpa_ms": timer(lambda: F.scaled_dot_product_attention(q, k, v)), "ms": times}
 

@@ -58,6 +58,8 @@ def _compare(ours, ref):
 
 @pytest.mark.parametrize("L,causal,H,D", [
     (50, False, 2, 64), (77, True, 2, 64), (77, False, 2, 64), (77, True, 2, 128),
+    # the rows the long-row rings take on the card: ViT-B/16's and ViT-L/14's
+    (197, False, 2, 64), (197, True, 2, 64), (257, False, 2, 64), (257, True, 2, 64),
 ])
 def test_flash_fwd_plain_matches_pallas(L, causal, H, D):
     x = _qkv(3, L, H, D, seed=L + D)  # B=3 is odd: JAX pads rows to its group
@@ -76,11 +78,14 @@ def _packed_text_segments(R, P):
     return seg
 
 
-@pytest.mark.parametrize("layout", ["vision_pairs", "packed_text"])
+@pytest.mark.parametrize("layout", ["vision_pairs", "packed_text", "long_two_segments"])
 def test_flash_fwd_seg_plain_matches_pallas(layout):
     if layout == "vision_pairs":  # two 50-token images per row, non-causal
         R, P, causal = 3, 100, False
         seg = np.tile(np.repeat(np.array([1, 2], np.int32), 50), (R, 1))
+    elif layout == "long_two_segments":  # a 257-token row of 200 and 57 tokens, non-causal
+        R, P, causal = 3, 257, False
+        seg = np.tile(np.repeat(np.array([1, 2], np.int32), [200, 57]), (R, 1))
     else:
         R, P, causal = 2, 128, True
         seg = _packed_text_segments(R, P)

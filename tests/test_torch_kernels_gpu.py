@@ -11,8 +11,10 @@ JAX-side conftest:
 Lengths cover both sides of each dispatch edge of the kernels (rows of at
 most 128 tokens on the short-row ring, one warpgroup up to L=64 and two up
 to 128, or in the one-CTA-per-(row, head) form, with one 64-key tile up to
-L=64 and one 128-key tile up to 128; the long-row kernel beyond, in its
-resident and streamed forms) and a ragged edge in each; the ring also runs
+L=64 and one 128-key tile up to 128; beyond, the rings at head width 64
+(the row ring up to 272 tokens, the stream ring past it) and the long-row
+kernel's resident and streamed forms at 128) and a ragged edge in each; the
+short-row ring also runs
 on explicit grids that it wraps many times, that do not divide the items,
 and that have one CTA per item. q and k are
 drawn from N(0, 0.3^2), v and the cotangent from N(0, 1).
@@ -52,6 +54,7 @@ OUT_REL_TOL = 1e-2
 LSE_TOL = 1e-3
 GRAD_REL_TOL = 1e-2
 GRAD_MAX_TOL = 2e-2
+ONE_P_FLIP_LSE = 2 ** -8 / np.log(2)  # lse2 moved by one flip of a bf16 p, l >= 1
 
 
 def _need_cuda():
@@ -123,29 +126,52 @@ def test_cuda_kernels_match_plain_versions(L, D):
             torch.testing.assert_close(ours[1], ref[1], atol=LSE_TOL, rtol=0)
 
 
-# Rows of more than 128 tokens take the long-row kernel: (B, L, H, D) on both
-# sides of its edges (16-row blocks, 64-key stages, the resident form's edge
-# at D=128 between 384 and 385 tokens, the streamed form beyond), with grids
-# from one (row, head) pair, split across CTAs, up to several waves.
+# Rows of more than 128 tokens take the rings at head_dim 64 (the row ring up
+# to 272 tokens, its key capacities 208 and 272; the stream ring beyond) and
+# the long-row kernel at head_dim 128: (B, L, H, D) on both sides of their
+# edges (64-row query blocks, 16-row blocks, the resident form's edge at
+# D=128 between 384 and 385 tokens, the streamed form beyond), with grids
+# from one (row, head) pair up to several waves, and the ViT-B/16 and
+# ViT-L/14 eval batches' rows.
 LONG_ROW_CASES = [
     *[(2, L, 2, 64) for L in (129, 144, 197, 255, 256, 257, 577)],
     *[(2, L, 1, 128) for L in (129, 144, 197, 255, 256, 257, 577)],
     (1, 197, 1, 128), (1, 384, 1, 128), (1, 385, 1, 128), (1, 1024, 2, 64),
     (8, 577, 16, 64), (64, 197, 12, 64), (64, 197, 6, 128),
+    (256, 197, 12, 64), (4, 257, 16, 64),
 ]
+
+
+def _assert_seg_lse2_close(lse2, ref, seg, causal, shortest=6):
+    """lse2 of a segmented forward on _long_segments: LSE_TOL where a row
+    sees at least ``shortest`` keys (as _long_segments argues), and the
+    one-flip bound ONE_P_FLIP_LSE (l >= 1) on the rows that see fewer: under
+    a causal mask the k-th row of a segment sees k keys, so its second row
+    has l near 2, where one flip of a bf16 p moves lse2 by up to 2.8e-3 (one
+    such row in the 605,184 of [256, 197, 12] does; NVIDIA H100 80GB HBM3,
+    700 W)."""
+    few = (A._seg_visible(seg, causal)[:, 0].sum(-1) < shortest)[:, None, :].expand_as(ref)
+    torch.testing.assert_close(lse2[~few], ref[~few], atol=LSE_TOL, rtol=0)
+    torch.testing.assert_close(lse2[few], ref[few], atol=ONE_P_FLIP_LSE, rtol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L,H,D", LONG_ROW_CASES)
 def test_cuda_long_rows_match_plain_versions(B, L, H, D):
     """K1, K2 (segments) and K5 on long rows against their plain versions,
-    causal and not, each in the form its plan gives; K5 bit for bit K1."""
+    causal and not, each in the form its plan gives (a ring at head_dim 64,
+    counted by form); K5 bit for bit K1."""
     _need_cuda()
     rng = np.random.default_rng(B * 100000 + L * 1000 + H * 10 + D)
     x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
     seg = torch.from_numpy(_long_segments(rng, B, L)).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for causal in (False, True):
+        form = A.long_row_plan(B, L, H, D, False, sms, causal).form
+        assert (form in ("row_ring", "stream_ring")) == (D == 64)
+        A.reset_launch_counts()
         out, lse2 = A.flash_attention_qkv(x, H, causal)
+        assert A.fwd_form_counts == {f: int(f == form) for f in A.fwd_form_counts}
         ref_out, ref_lse2 = A.flash_fwd_plain(x, H, causal)
         torch.cuda.synchronize()
         _assert_out_close(out, ref_out)
@@ -154,7 +180,7 @@ def test_cuda_long_rows_match_plain_versions(B, L, H, D):
         ref_out, ref_lse2 = A.flash_fwd_seg_plain(x, seg, H, causal)
         torch.cuda.synchronize()
         _assert_out_close(seg_out, ref_out)
-        torch.testing.assert_close(seg_lse2, ref_lse2, atol=LSE_TOL, rtol=0)
+        _assert_seg_lse2_close(seg_lse2, ref_lse2, seg, causal)
         if A.head_split(H, D):
             hs_out, hs_lse2 = A.flash_attention_qkv_hs(x, H, causal)
             torch.cuda.synchronize()
@@ -170,24 +196,78 @@ def test_cuda_long_rows_match_plain_versions(B, L, H, D):
 @pytest.mark.gpu
 def test_cuda_long_row_kernel_refuses_a_plan_it_cannot_take():
     """The entry point returns an error for a plan whose shared memory,
-    warps or splits it cannot take, and the wrapper raises on such an error:
-    no fallback."""
+    warps, splits, grid, slots or form it cannot take: the long-row
+    kernel's at head_dim 128; the rings' at head_dim 64 (the row ring past
+    272 tokens, no grid, no slot or more than fit, the stream ring's 128-key
+    chunks under a causal mask, a ring at head_dim 128, an unknown form);
+    and the wrapper raises on such an error: no fallback."""
     _need_cuda()
-    B, L, H, D = 1, 577, 1, 128
-    x = torch.zeros(B, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
-    out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
-    lse2 = torch.empty(B, H, L, device="cuda")
     kernel = A._kernel("latteclip_flash_fwd")
     stream = torch.cuda.current_stream().cuda_stream
-    for warps, splits, resident in ((4, 1, 1), (17, 1, 0), (4, 37, 0), (0, 1, 0)):
-        err = kernel(x.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, 0,
-                     (D ** -0.5) * A.LOG2E, warps, splits, resident, stream)
-        assert err != 0, (warps, splits, resident)
-    A.flash_attention_qkv(x, H)  # the plan's own launch
+    row, s64, s128 = A.FWD_FORMS["row_ring"], A.FWD_FORMS["stream_ring"], A.FWD_FORMS["stream_ring"] + 1
+    for (B, L, H, D), refused in (
+            ((1, 577, 1, 128), [((4, 1, 1), 0), ((17, 1, 0), 0), ((4, 37, 0), 0), ((0, 1, 0), 0),
+                                ((1, 2, row), 0), ((1, 2, s128), 0)]),
+            ((1, 577, 2, 64), [((1, 2, row), 0), ((0, 2, s128), 0), ((1, 0, s128), 0), ((1, 9, s64), 0),
+                               ((1, 6, s128), 0), ((1, 2, s128), 1), ((1, 2, 5), 0), ((1, 2, -1), 0)]),
+            ((1, 257, 2, 64), [((1, 3, row), 0), ((1, 0, row), 0), ((0, 2, row), 0)])):
+        x = torch.zeros(B, L, 3 * H * D, device="cuda", dtype=torch.bfloat16)
+        out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+        lse2 = torch.empty(B, H, L, device="cuda")
+        for (warps, splits, resident), causal in refused:
+            err = kernel(x.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, causal,
+                         (D ** -0.5) * A.LOG2E, warps, splits, resident, stream)
+            assert err != 0, (B, L, H, D, warps, splits, resident, causal)
+        A.flash_attention_qkv(x, H)  # the plan's own launch
+        A.flash_attention_qkv(x, H, True)
+        torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        A._raise_on(kernel(x.data_ptr(), out.data_ptr(), lse2.data_ptr(), 1, 257, 2, 64, 0,
+                           0.125 * A.LOG2E, 1, 3, row, stream), "latteclip_flash_fwd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,segmented", [(2, 197, 2, False), (4, 257, 16, False), (3, 257, 2, True),
+                                             (2, 577, 2, False), (2, 577, 2, True), (1, 1024, 2, False)])
+def test_cuda_long_row_rings_and_long_kernel_agree(B, L, H, segmented):
+    """At head_dim 64 the plan's ring and the long-row kernel it replaced
+    (reached through its own plan's codes) run on the same inputs: both
+    agree with the plain version, and two calls of the ring give the same
+    bits (one owner per output row, sums in a fixed order); past 272 tokens
+    the stream ring's 64- and 128-key chunks agree too."""
+    _need_cuda()
+    D = 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(L * 10 + B + segmented)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_long_segments(rng, B, L)).cuda() if segmented else None
+    name = "latteclip_flash_fwd_seg" if segmented else "latteclip_flash_fwd"
+    kernel = A._kernel(name)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(plan):
+        out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+        lse2 = torch.empty(B, H, L, device="cuda")
+        tensors = [x, *([] if seg is None else [seg]), out, lse2]
+        A._raise_on(kernel(*(t.data_ptr() for t in tensors), B, L, H, D, 0, (D ** -0.5) * A.LOG2E,
+                           *plan.c_args(), stream), name)
+        return out, lse2
+
+    ring = A.long_row_plan(B, L, H, D, segmented, sms)
+    plans = [ring, A.long_kernel_plan(B, L, H, D, segmented, sms)]
+    if ring.form == "stream_ring":
+        plans.append(A.stream_ring_plan(B, L, H, segmented, sms, 64))
+    ref_out, ref_lse2 = (A.flash_fwd_seg_plain(x, seg, H, False) if segmented
+                         else A.flash_fwd_plain(x, H, False))
+    first = run(ring)
+    second = run(ring)
     torch.cuda.synchronize()
-
-
-ONE_P_FLIP_LSE = 2 ** -8 / np.log(2)  # lse2 moved by one flip of a bf16 p, l >= 1
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for plan in plans:
+        out, lse2 = run(plan)
+        torch.cuda.synchronize()
+        _assert_out_close(out, ref_out)
+        torch.testing.assert_close(lse2, ref_lse2, atol=LSE_TOL, rtol=0)
 
 
 def _pair_segments(rng, B, L):
@@ -793,11 +873,25 @@ def test_cuda_ln_linear_refuses_a_plan_it_cannot_take():
 @pytest.mark.gpu
 def test_cuda_every_plan_form_counts_its_launch():
     """Each form of each launch plan, run through its wrapper, adds one to
-    its kernel's count and matches the plain version: the backward's short
-    rows and the three long-row forms a plan takes (each also counted by
-    form); K8's three tiles."""
+    its kernel's count and matches the plain version: the forward's four
+    long-row forms (the rings at head_dim 64, the long-row kernel's two at
+    128, each also counted by form); the backward's short rows and the three
+    long-row forms a plan takes (each also counted by form); K8's three
+    tiles."""
     _need_cuda()
     rng = np.random.default_rng(31)
+    for (B, L, H, D), form in (((2, 197, 2, 64), "row_ring"), ((2, 577, 2, 64), "stream_ring"),
+                               ((2, 197, 1, 128), "resident"), ((1, 577, 1, 128), "streamed")):
+        assert A.long_row_plan(B, L, H, D, False, 132).form == form
+        x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+        A.reset_launch_counts()
+        out, lse2 = A.flash_attention_qkv(x, H)
+        assert A.launch_counts["flash_fwd"] == 1 and sum(A.launch_counts.values()) == 1
+        assert A.fwd_form_counts == {f: int(f == form) for f in A.fwd_form_counts}
+        torch.cuda.synchronize()
+        ref_out, ref_lse2 = A.flash_fwd_plain(x, H, False)
+        _assert_out_close(out, ref_out)
+        torch.testing.assert_close(lse2, ref_lse2, atol=LSE_TOL, rtol=0)
     for (B, L, H, D), form in (((2, 77, 2, 64), None), ((2, 197, 2, 64), "streamed"),
                                ((2, 197, 1, 128), "resident"), ((2, 256, 2, 64), "streamed"),
                                ((2, 257, 2, 64), "streamed"), ((1, 257, 1, 128), "tiled")):
