@@ -40,11 +40,17 @@ Phases, each raising on failure:
    warps a CTA; backward ones the backward plan's form (streamed, resident
    or tiled), warps and, streamed, grid; every case
    also checks that two calls are bit-equal; cases of at most 128 tokens name the
-   short-row plan's form (ring or cta) and, for the ring, its warpgroups a
-   CTA, CTAs an SM, stages and grid. Then the short-row plan sweep
+   short-row plan's form (ring, warp_ring or cta) and, for a ring, its
+   warpgroups (warp_ring: warps) a CTA, CTAs an SM, stages and grid; where
+   the plan takes the warp ring (65..96 tokens at head width 64; the
+   backward's few-item cases), the one-CTA form it replaced is checked
+   against the same plain result and timed beside it (warp ring, cta, cta,
+   warp ring: `design`, with `same_bits_as_cta`). Then the short-row plan sweep
    (latteclip_torch.tools.short_row_plans: every form of the short-row
-   forward and backward at the train, serving and classifier-build shapes,
-   each checked against its plain version, with SDPA) prints one
+   forward and backward at the band's shapes (the padded step's, the
+   classifier build's, the templates') and the few-item backward's, each
+   checked against its plain version, with SDPA; 5 timed calls a form here,
+   where the tool alone takes 20 at all 13 of its shapes) prints one
    short_row_plan line a shape and direction. Every K3/K4 case also checks and times the tiled kernel pair
    (flash_bwd.cu built a second time with -DLATTECLIP_BWD_SHORT_ROW=0, which
    sends every row there) beside the kernel its plan runs, in the order
@@ -86,7 +92,9 @@ Phases, each raising on failure:
    over four batches of 256 images and one of 255, and the prototype
    classifier from a seeded bank; the launch counters are reset just before
    and read just after, and every forward kernel of the path must have
-   launched. The same requests then run with the plain attention forced;
+   launched, the classifier build's K1 at [1000, 77] on the warp ring (the
+   short-row form counts ride on the `slice kernels` line; the head-split
+   build's K5 on it too). The same requests then run with the plain attention forced;
    image features and classifier columns must agree with cosine >= 0.999 and
    prototype top-1 on >= 99% of rows. A torch.profiler trace of the
    classifier build and of the eval gives each one's device busy time and
@@ -118,7 +126,10 @@ Phases, each raising on failure:
    padded routes follow: padded_hs (attention="headsplit",
    ln_linear="fused"), K5 = K6 = 2 x 12, K2 = K4 = 12, K8 = 2 x 36 and no
    K1/K3/K7, and padded_bd (attention="blockdiag"), K7 = K3 = 2 x 12,
-   K2 = K4 = 12 and no K1/K5/K6/K8. Every loss
+   K2 = K4 = 12 and no K1/K5/K6/K8. On the padded routes every K1/K5
+   and K3/K6 launch (the text at 77 tokens) must take the warp ring and no
+   short-row launch the one-CTA form (attention.short_*_form_counts,
+   printed on each `train kernels` line). Every loss
    must be finite, logit_scale in [0, ln 100] and the bank rows unit-norm.
    10 steps with the plain attention forced give its rate and must launch
    nothing. From one copied state and one batch with augment off, the kernel
@@ -184,7 +195,8 @@ Phases, each raising on failure:
    36 K4 a step as phase 7; the 80,000-row ImageNet classifier (80 templates
    x 1000 classes; packed, as the loop builds it under --text-packing)
    timed, and the same rows padded at L=77 timed on K1 (12 a chunk of 64
-   classes) and held against the plain route at cosine >= 0.999. (c)
+   classes, every one on the warp ring) and held against the plain route
+   at cosine >= 0.999. (c)
    --extract-group-weight-path: 1024 weights in [0, 1]; K1 12 (bank) + 12
    (class texts) + 12 a batch (captions), K2 12 a batch; the job's weights
    equal its own batches' margins; against the plain route on the same
@@ -216,7 +228,7 @@ Phases, each raising on failure:
    long_row_plan printed), ViT-B-16-SigLIP (no class token, the MAP head,
    text non-causal at 64 tokens from seeded ids) and ViT-H-14-quickgelu
    (vision heads 80 wide: the plain route, zero vision launches asserted;
-   its text tower on K1), GEOMETRY_DEPTH (4) layers a tower since PR 17:
+   its text tower on K1), GEOMETRY_DEPTH (2) layers a tower:
    64 images and 64 text rows each against the plain route, features at
    cosine >= 0.999 row by row, prototype top-1 on >= 99% of rows, exact
    launches; a geometry line each;
@@ -230,7 +242,9 @@ Phases, each raising on failure:
    flash_fwd (the padded [47, 77] templates, causal, 8 x 64), 12
    flash_fwd_seg (the vision pairs [256, 100], 12 x 64), 12 flash_bwd (the
    templates' backward; none under v1, whose anchor is detached) and 12
-   flash_bwd_seg, the teacher doubling both forwards; losses finite,
+   flash_bwd_seg, the teacher doubling both forwards, every flash_fwd and
+   flash_bwd on the warp ring (the short-row form counts ride on each
+   `trainers kernels` line); losses finite,
    logit_scale in [0, ln 100], under v1 the text tower bit-equal and the
    updated bank rows not unit-norm (the gamma mean is not renormalised), the
    FLYP bank unchanged; a profiled step each (device busy ms, idle share,
@@ -312,9 +326,8 @@ Phases, each raising on failure:
    xlm-roberta-base-ViT-B-32, mt5-base-ViT-B-32, nllb-clip-base,
    nllb-clip-base-siglip (576 tokens, the MAP head), xlm-roberta-large-ViT-H-14,
    mt5-xl-ViT-H-14 and nllb-clip-large (vision heads 80 wide: the plain
-   route). Since PR 17 every geometry line (phases 9, 11, 12) runs
-   GEOMETRY_DEPTH = 4 layers a tower at the config's widths, the cut
-   printed;
+   route). Every geometry line (phases 9, 11, 12) runs GEOMETRY_DEPTH
+   layers a tower at the config's widths, the cut printed;
 13. rest, bf16, seed-0 weights: (a) int8 serving on ViT-B/32 and ViT-L/14
    (replace_linear, the default include: 48 and 72 weights): the serving
    requests (1000-class template classifier, the 1279-image eval from
@@ -428,6 +441,12 @@ REPLACES = {
 }
 LOG100 = 4.6051702  # ln(100), the logit-scale clamp
 ROW_MAX = 128        # flash_bwd.cu: longest row of the one-CTA-per-(row, head) kernel
+# the short-row sweep's shapes here: the band's and the few-item backward's
+# (the tool alone sweeps all 13 of its shapes), 5 timed calls a form (the
+# tool's default is 20), to keep the script inside its 1200 s limit
+SWEEP_SHAPES = ((1000, 77, 8, 64, True, None), (1024, 77, 8, 64, True, None), (47, 77, 8, 64, True, None),
+                (8, 128, 8, 64, True, "packed"), (64, 128, 8, 64, True, "packed"))
+SWEEP_ITERS = 5
 TRAIN_BATCH, PACK_LEN, TRAIN_STEPS = 512, 128, 10
 TRAIN_BATCH_B16, AGREE_BATCH_B16 = 512, 64  # ViT-B/16 train batch; its agreement batch
 CANVAS = 256         # the pipeline's on-device crop canvas (PipelineConfig.canvas_size)
@@ -544,10 +563,11 @@ def long_kernel_call(name, qkv, seg, H, causal):
 
 def short_row_fields(B, L, H, D, segmented, bwd=False, blockdiag=False) -> dict:
     """The short-row plan of a row of at most 128 tokens on this card: its
-    form ("ring" or "cta"), and for the ring its consumer warpgroups a CTA,
-    CTAs an SM, stages and grid (the block-diagonal forward always takes
-    "cta"); nothing for longer rows, or for a tree without short-row plans
-    (so that this script also measures such a tree)."""
+    form ("ring", "warp_ring" or "cta"), and for a ring its consumer
+    warpgroups (the warp ring: warps) a CTA, CTAs an SM, stages and grid (the
+    block-diagonal forward always takes "cta"); nothing for longer rows, or
+    for a tree without short-row plans (so that this script also measures
+    such a tree)."""
     from latteclip_torch.kernels import attention as A
 
     plan_of = getattr(A, "bwd_short_row_plan" if bwd else "short_row_plan", None)
@@ -556,8 +576,49 @@ def short_row_fields(B, L, H, D, segmented, bwd=False, blockdiag=False) -> dict:
     if blockdiag:
         return {"form": "cta"}
     p = plan_of(B, L, H, D, segmented, torch.cuda.get_device_properties(0).multi_processor_count)
-    return {"form": p.form, **({"warpgroups": p.warpgroups, "ctas_per_sm": p.ctas_per_sm,
-                               "stages": p.stages, "grid": p.grid} if p.form == "ring" else {})}
+    if p.form == "cta":
+        return {"form": p.form}
+    width = {"warps": -(-L // 16)} if p.form == "warp_ring" else {"warpgroups": p.warpgroups}
+    return {"form": p.form, **width, "ctas_per_sm": p.ctas_per_sm, "stages": p.stages, "grid": p.grid}
+
+
+def cta_fwd_call(name, qkv, seg, H, causal):
+    """The forward entry point ``name`` in the one-CTA-per-(row, head) form
+    (the design the warp ring replaced at 65..96 tokens), called as the
+    wrapper calls its plan: (out, lse2 in the wrapper's layout). Not counted:
+    it is no part of any path."""
+    from latteclip_torch.kernels import attention as A
+
+    B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    entry = {"flash_fwd": "latteclip_flash_fwd", "flash_fwd_seg": "latteclip_flash_fwd_seg",
+             "flash_fwd_hs": "latteclip_flash_fwd_hs"}[name]
+    lse_shape = A._hs_lse_shape(B, L, H, D) if name == "flash_fwd_hs" else (B, H, L)
+    out = torch.empty((B, L, H * D), dtype=qkv.dtype, device=qkv.device)
+    lse2 = torch.empty(lse_shape, dtype=torch.float32, device=qkv.device)
+    tensors = [qkv, *([] if seg is None else [seg]), out, lse2]
+    A._raise_on(A._kernel(entry)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal), (D ** -0.5) * A.LOG2E,
+                                 *A.CTA_PLAN.c_args(), torch.cuda.current_stream().cuda_stream), entry)
+    return out, lse2
+
+
+def cta_bwd_call(name, qkv, seg, out, dout, lse2, H, causal):
+    """The backward entry point ``name`` in the one-CTA form (the delta
+    pre-pass and the row kernel, the design the warp ring replaced): dqkv in
+    the layout of qkv. Not counted."""
+    from latteclip_torch.kernels import attention as A
+
+    B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    entry = {"flash_bwd": "latteclip_flash_bwd", "flash_bwd_seg": "latteclip_flash_bwd_seg",
+             "flash_bwd_hs": "latteclip_flash_bwd_hs"}[name]
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=qkv.device)
+    tensors = [qkv, *([] if seg is None else [seg]), out, dout, lse2, delta, dqkv]
+    A._raise_on(A._kernel(entry)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal), (D ** -0.5) * A.LOG2E,
+                                 D ** -0.5, *A.CTA_PLAN.c_args(bwd=True), torch.cuda.current_stream().cuda_stream),
+                entry)
+    return dqkv
 
 
 def bwd_plan_fields(B, L, H, D, segmented) -> dict:
@@ -633,6 +694,22 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
         design = {"kernel_ms": [ms, timer(kernel)], "long_kernel_ms": old_ms, "long_kernel_ok": old_ok,
                   "long_kernel_out_rel_err": old_rel, "long_kernel_max_abs_err_lse2": old_err_lse}
         del old_out, old_lse2
+    short = short_row_fields(B, L, H, D, seg is not None, blockdiag=name == "flash_fwd_bd")
+    if short.get("form") == "warp_ring":
+        # the one-CTA form the warp ring replaced, checked and timed beside it
+        # in the order warp ring, cta, cta, warp ring
+        old = lambda: cta_fwd_call(name, qkv, seg, H, causal)  # noqa: E731
+        old_out, old_lse2 = old()
+        torch.cuda.synchronize()
+        old_ok, old_rel = out_check(old_out, ref_out)
+        old_err_lse = float((old_lse2 - ref_lse2).abs().max())
+        old_ok = old_ok and old_err_lse <= LSE_TOL
+        ok = ok and old_ok
+        old_ms = [timer(old), timer(old)]
+        design = {"kernel_ms": [ms, timer(kernel)], "cta_ms": old_ms, "cta_ok": old_ok,
+                  "cta_out_rel_err": old_rel, "cta_max_abs_err_lse2": old_err_lse,
+                  "same_bits_as_cta": bool(torch.equal(out, old_out) and torch.equal(lse2, old_lse2))}
+        del old_out, old_lse2
     flops = 4 * D * H * pairs
     nbytes = qkv.numel() * 2 + out.numel() * 2 + lse2.numel() * 4 + (0 if seg is None else seg.numel() * 4)
     bound_ms, bound_by = bound(flops, nbytes)
@@ -642,8 +719,7 @@ def kernel_case(name, B, L, H, D, causal, seg_np, timer, gen):
         "control_rel_err": rel_dropped, "control_rejected": control_rejected, "bit_equal": bit_equal,
         "design": design, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-        **plan,
-        **short_row_fields(B, L, H, D, seg is not None, blockdiag=name == "flash_fwd_bd"),
+        **plan, **short,
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -744,6 +820,20 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         tiled_ms = [timer(tiled), timer(tiled)]
         design = {"kernel_ms": [ms, timer(kernel)], "tiled_ms": tiled_ms,
                   "tiled_grad_err": tiled_errs, "tiled_ok": tiled_ok}
+    short = short_row_fields(B, L, H, D, seg is not None, bwd=True)
+    if short.get("form") == "warp_ring":
+        # the pre-pass and row kernel the warp ring replaced, checked and
+        # timed beside it (after the tiled pair: ..., kernel, cta, cta, kernel)
+        old = lambda: cta_bwd_call(name, qkv, seg, out, dout, lse2, H, causal)  # noqa: E731
+        old_d = old()
+        torch.cuda.synchronize()
+        cta_ok, cta_errs = grad_check(old_d, ref, H, D)
+        ok = ok and cta_ok
+        cta_ms = [timer(old), timer(old)]
+        design = {**(design or {"kernel_ms": [ms]}), "cta_ms": cta_ms, "cta_grad_err": cta_errs,
+                  "cta_ok": cta_ok, "same_bits_as_cta": bool(torch.equal(as_qkv(ours3), old_d))}
+        design["kernel_ms"] = [*design["kernel_ms"], timer(kernel)]
+        del old_d
     flops = 10 * D * H * pairs
     nbytes = 2 * B * L * 8 * H * D + 4 * B * H * L + (0 if seg is None else 4 * B * L)
     bound_ms, bound_by = bound(flops, nbytes)
@@ -754,8 +844,7 @@ def bwd_case(name, B, L, H, D, causal, seg_np, timer, gen, tiled_lib):
         "merge_ms": merge_ms, "bit_equal": bit_equal,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-        **bwd_plan_fields(B, L, H, D, seg is not None),
-        **short_row_fields(B, L, H, D, seg is not None, bwd=True),
+        **bwd_plan_fields(B, L, H, D, seg is not None), **short,
     }
     rec["bound_share"] = rec["bound_ms"] / ms
     log("kernel_case " + json.dumps(rec))
@@ -927,7 +1016,7 @@ def phase_kernels(train, tiled_lib):
     if importlib.util.find_spec("latteclip_torch.tools.short_row_plans") is not None:
         from latteclip_torch.tools import short_row_plans
 
-        for rec in short_row_plans.run():  # raises where a form disagrees with the plain version
+        for rec in short_row_plans.run(SWEEP_SHAPES, SWEEP_ITERS):  # raises where a form disagrees
             log("short_row_plan " + json.dumps(rec))
         torch.cuda.empty_cache()
     return records
@@ -1367,11 +1456,14 @@ def phase_slice(smi: str):
     reset_counts()
     fast = run_requests(model, tok, classnames, templates, batches, bank, "kernel")
     launches = read_counts()
+    forms = read_short_forms()
     peak = torch.cuda.max_memory_allocated()
-    log(f"slice kernels: {json.dumps(launches)}")
+    log(f"slice kernels: {json.dumps(launches)} short_forms {json.dumps(forms)}")
     for name in ("flash_fwd", "flash_fwd_seg"):  # serving runs no backward
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched on the ViT-B/32 path")
+    # the classifier build's text at 77 tokens: K1 on the warp ring, once a layer
+    check_band_forms(forms, "ViT-B/32 serving", cfg.text.layers, 0, exact=False)
 
     reset_counts()
     slow = run_requests(model, tok, classnames, templates, batches, bank, "plain")
@@ -1456,10 +1548,11 @@ def phase_slice(smi: str):
     return launches
 
 
-# (route, attention, ln_linear, launches per text layer of one padded build)
+# (route, attention, ln_linear, launches per text layer of one padded build,
+# of them warp-ring launches: K5 takes it at 77 tokens, K7 has no plan)
 BUILD_ROUTES = (
-    ("headsplit_fused", "headsplit", "fused", {"flash_fwd_hs": 1, "ln_linear": 2}),
-    ("blockdiag", "blockdiag", "unfused", {"flash_fwd_bd": 1}),
+    ("headsplit_fused", "headsplit", "fused", {"flash_fwd_hs": 1, "ln_linear": 2}, 1),
+    ("blockdiag", "blockdiag", "unfused", {"flash_fwd_bd": 1}, 0),
 )
 
 
@@ -1470,7 +1563,7 @@ def route_builds(model, tok, classnames, templates, plain_classifier, text_layer
     from latteclip_torch.eval import zero_shot as zs
 
     builds = {}
-    for route, attention, ln_linear, per_layer in BUILD_ROUTES:
+    for route, attention, ln_linear, per_layer, band in BUILD_ROUTES:
         kwargs = {"chunk_classes": len(classnames), "attention": attention, "ln_linear": ln_linear}
         zs.build_zero_shot_classifier(model, tok, classnames, templates, **kwargs)  # warm-up
         reset_counts()
@@ -1479,13 +1572,14 @@ def route_builds(model, tok, classnames, templates, plain_classifier, text_layer
         clf = zs.build_zero_shot_classifier(model, tok, classnames, templates, **kwargs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = read_counts()
+        launches, forms = read_counts(), read_short_forms()
         want = {**dict.fromkeys(launches, 0), **{k: n * text_layers for k, n in per_layer.items()}}
         if launches != want:
             raise RuntimeError(f"{route} classifier build launched {launches}, expected {want}")
+        check_band_forms(forms, f"{route} classifier build", band * text_layers, 0)
         builds[route] = {
             "attention": attention, "ln_linear": ln_linear, "classifier_build_s": seconds,
-            "launches": launches,
+            "launches": launches, "short_forms": forms,
             "classifier_cos_min": float(F.cosine_similarity(clf, plain_classifier, dim=0).min()),
         }
     return builds
@@ -1754,6 +1848,30 @@ def read_fwd_forms() -> Optional[dict]:
     return None if forms is None else dict(forms)
 
 
+def read_short_forms() -> Optional[dict]:
+    """The short-row launches (rows of at most 128 tokens) by direction and
+    form since the counters were set to 0 (None for a tree that does not
+    count them)."""
+    from latteclip_torch.kernels import attention as A
+
+    fwd, bwd = (getattr(A, n, None) for n in ("short_fwd_form_counts", "short_bwd_form_counts"))
+    return None if fwd is None else {"fwd": dict(fwd), "bwd": dict(bwd)}
+
+
+def check_band_forms(forms: Optional[dict], where: str, fwd: int, bwd: int, exact: bool = True) -> None:
+    """Every launch of the 65..96-token band on a path took the warp ring:
+    no short-row launch took the one-CTA form, and the warp ring took ``fwd``
+    forward and ``bwd`` backward launches (at least that many where not
+    ``exact``). A tree without the counts passes."""
+    if forms is None:
+        return
+    got = forms["fwd"].get("warp_ring", 0), forms["bwd"].get("warp_ring", 0)
+    cta = forms["fwd"].get("cta", 0) + forms["bwd"].get("cta", 0)
+    if cta or (got != (fwd, bwd) if exact else got[0] < fwd or got[1] < bwd):
+        raise RuntimeError(f"{where}: short-row launches by form {forms}, expected no one-CTA form and "
+                           f"{'' if exact else 'at least '}{fwd} forward and {bwd} backward warp-ring launches")
+
+
 def counted_steps(step_fn, state, batches, gen, n):
     """n timed steps with the launch counters set to 0 just before and read
     just after: (images/s, losses, launches)."""
@@ -1792,6 +1910,11 @@ def phase_train(smi: str, train: dict):
         "padded_fused_text": {"flash_fwd": n * cfg.text.layers, "flash_bwd": n * cfg.text.layers,
                               **segmented},
     }
+    # (forward, backward) launches of the 65..96-token band a route makes:
+    # the padded text; padded_bd's forward is K7, which has no plan
+    band = {"padded": (n * text_sites, n * text_sites), "padded_hs": (n * text_sites, n * text_sites),
+            "padded_bd": (0, n * text_sites),
+            "padded_fused_text": (n * cfg.text.layers, n * cfg.text.layers)}
 
     bank = St.init_memory_bank(model, tok, classes, templates)
     state = St.create_train_state(
@@ -1819,12 +1942,15 @@ def phase_train(smi: str, train: dict):
         _, warm_losses = timed_steps(step_fn, state, route_batches, gen, warm)
         torch.cuda.reset_peak_memory_stats()
         ips, losses, launches = counted_steps(step_fn, state, route_batches, gen, n)
+        forms = read_short_forms()
         routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
-                         "max_memory_allocated": torch.cuda.max_memory_allocated()}
-        log(f"train kernels {route}: {json.dumps(launches)}")
+                         "max_memory_allocated": torch.cuda.max_memory_allocated(), "short_forms": forms}
+        log(f"train kernels {route}: {json.dumps(launches)} short_forms {json.dumps(forms)}")
         want = {**dict.fromkeys(launches, 0), **expected[route]}
         if launches != want:
             raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
+        if route in band:  # the text at 77 tokens: every K1/K5 and K3/K6 on the warp ring
+            check_band_forms(forms, f"{route} steps", *band[route])
         check_state(state, warm_losses + losses, f"{route} route")
 
     for route, step_fn, _, route_batches in steps:
@@ -2123,13 +2249,31 @@ def htod_profile(prof) -> dict:
             "htod_overlap_share": overlap / total if total else None}
 
 
+# the synthetic fixtures written by the CLI runs, by (temporary directory,
+# train images, image size): the fixture is seeded and only read, so a run
+# that would write the same one again (5-11 s of JPEG encoding on the host)
+# reads the one written before it
+_SYNTHETIC_ROOTS: dict = {}
+
+
 def run_cli(argv, step_launches, eval_launches, init_launches, timings, profile_epoch=None):
     """latteclip_torch.train.main.main(argv) with the launches of every
-    step, eval and bank init recorded, the checkpoint writes timed, and, for
-    ``profile_epoch``, that epoch's steps and copies traced."""
+    step, eval and bank init recorded, the checkpoint writes timed, the
+    synthetic fixture reused where an earlier run wrote the same one, and,
+    for ``profile_epoch``, that epoch's steps and copies traced."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
     from latteclip_torch.train import loop as L, main as M
+
+    def reused(orig):
+        def wrapper(args, cfg, data_size=1):
+            key = (tempfile.gettempdir(), max(args.batch_size * data_size * 2, 64), cfg.vision.image_size)
+            if not os.path.isdir(_SYNTHETIC_ROOTS.get(key, "")):
+                _SYNTHETIC_ROOTS[key] = orig(args, cfg, data_size)
+            return _SYNTHETIC_ROOTS[key]
+        return wrapper
 
     def train(orig):
         return lambda state, step_fn, *a, **k: orig(state, counted_call(step_fn, step_launches),
@@ -2164,7 +2308,8 @@ def run_cli(argv, step_launches, eval_launches, init_launches, timings, profile_
             _patch(L, "evaluate_zero_shot", lambda f: counted_call(f, eval_launches)),
             _patch(M, "init_memory_bank", lambda f: counted_call(f, init_launches)),
             _patch(L, "save_epoch_checkpoint", timed),
-            _patch(L, "prefetch", traced_prefetch)]
+            _patch(L, "prefetch", traced_prefetch),
+            _patch(M, "synthetic_root", reused)]
     try:
         if M.main(argv) != 0:
             raise RuntimeError(f"main({argv}) returned non-zero")
@@ -2558,6 +2703,7 @@ def phase_offline(smi: str):
             torch.cuda.synchronize()
             padded.setdefault(route + "_s", []).append(time.perf_counter() - t0)
             padded[route + "_launches"] = {k: v for k, v in read_counts().items() if v}
+            padded[route + "_short_forms"] = read_short_forms()
             padded[route] = clf
         clf_cos = float(F.cosine_similarity(padded.pop("kernel"), padded.pop("plain"), dim=0).min())
         report["join"] = {
@@ -2580,6 +2726,11 @@ def phase_offline(smi: str):
                 or padded["plain_launches"] or clf_cos < 0.999:
             bad.append("padded ImageNet classifier: "
                        f"{report['join']['imagenet_classifier_padded']}")
+        try:  # every K1 of the padded build at 77 tokens on the warp ring
+            check_band_forms(padded["kernel_short_forms"], "padded ImageNet classifier",
+                             layers * -(-len(names) // 64), 0)
+        except RuntimeError as e:
+            bad.append(str(e))
 
         # (c) the group-weight job, then both routes' margins on its samples
         gw_dir, secs = os.path.join(workdir, "gw"), []
@@ -2699,10 +2850,9 @@ VIT_L, VIT_L_BATCH, VIT_L_AGREE_BATCH = "ViT-L-14", 512, 64
 GEOMETRIES = ("ViT-L-14-336", "ViT-B-16-SigLIP", "ViT-H-14-quickgelu")
 GEOMETRY_IMAGES = 64
 # layers a tower of every geometry_check (its widths, heads and tokens as
-# the config's): since PR 17, when phase 14 joined the 1200 s command;
-# until then full depth but EVA02-E (8 of 64), EVA01-g (10 of 40) and the
-# H-14 HF CLIPs (8 of 32 vision, 6 of 24 text)
-GEOMETRY_DEPTH = 4
+# the config's), cut to keep the command inside its 1200 s limit on a slow
+# host: 4 layers took it to 1264 s there
+GEOMETRY_DEPTH = 2
 
 
 def phase_vit_l_train(smi: str, train: dict):
@@ -3099,15 +3249,18 @@ def phase_trainers_steps(smi: str, train: dict, teacher_path: str) -> dict:
         _, warm = timed_steps(step_fn, state, batches, gen, 2)
         torch.cuda.reset_peak_memory_stats()
         ips, losses, launches = counted_steps(step_fn, state, batches, gen, n)
+        forms = read_short_forms()
         peak = torch.cuda.max_memory_allocated()
-        log(f"trainers kernels {trainer}: {json.dumps(launches)}")
+        log(f"trainers kernels {trainer}: {json.dumps(launches)} short_forms {json.dumps(forms)}")
         want = {**dict.fromkeys(launches, 0), **trainer_launches(cfg, trainer, n)}
         if launches != want:
             raise RuntimeError(f"{trainer} steps launched {launches}, expected {want}")
+        # the padded templates (and the teacher's) at 77 tokens: K1 and K3 on the warp ring
+        check_band_forms(forms, f"{trainer} steps", want["flash_fwd"], want["flash_bwd"])
         scale = float(model.logit_scale.detach())
         if not all(np.isfinite(warm + losses)) or not 0.0 <= scale <= LOG100:
             raise RuntimeError(f"{trainer}: losses {warm + losses}, logit_scale {scale}")
-        entry = {"images_per_s": ips, "losses": losses, "launches": launches,
+        entry = {"images_per_s": ips, "losses": losses, "launches": launches, "short_forms": forms,
                  "max_memory_allocated": peak, "logit_scale": scale}
         if trainer == "v1":
             text_equal = all(torch.equal(p.detach(), q) for p, q in
@@ -4629,9 +4782,8 @@ def ptxas_usage(lines) -> dict:
             usage[kernel] = ""
         elif kernel and "spill stores" in line:
             usage[kernel] = line.split(",")[1].strip().replace(" stores", "")
-        elif kernel and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            usage[kernel] = f"{regs} registers, {usage[kernel]}"
+        elif kernel and "registers" in line and (regs := re.search(r"Used (\d+) registers", line)):
+            usage[kernel] = f"{regs.group(1)} registers, {usage[kernel]}"
     return usage
 
 

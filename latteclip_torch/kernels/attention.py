@@ -26,7 +26,10 @@ Port of ``latteclip_tpu/kernels/attention.py``:
   after the PV product).
 
 Rows of at most 128 tokens take the forward's and the backward's ring
-kernels (persistent CTAs fed by a TMA ring) under :func:`short_row_plan` and
+kernels (persistent CTAs fed by a TMA ring, consumer warpgroups of 64 rows),
+their warp rings (the same with one consumer warp per 16 rows: the band of
+65..96 tokens, text at 77, and the backward's few-item cases) or the
+one-CTA-per-(row, head) form under :func:`short_row_plan` and
 :func:`bwd_short_row_plan` (form, consumer warpgroups, CTAs an SM, ring
 stages, grid). Rows of more than 128 tokens take the forward's rings at
 head_dim 64 (the row ring up to 272 tokens, the stream ring beyond) or its
@@ -80,10 +83,16 @@ launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_
 # a path's flash_fwd* and flash_bwd* launches took (chip_smoke.py reads them).
 fwd_form_counts = {"row_ring": 0, "stream_ring": 0, "resident": 0, "streamed": 0}
 bwd_form_counts = {"streamed": 0, "resident": 0, "tiled": 0}
+# Launches of the short-row forms (rows of at most 128 tokens) under their
+# plans, forward (K1, K2, K5) and backward (K3, K4, K6); the block-diagonal
+# forward has no plan and is not counted here.
+short_fwd_form_counts = {"cta": 0, "ring": 0, "warp_ring": 0}
+short_bwd_form_counts = {"cta": 0, "ring": 0, "warp_ring": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, fwd_form_counts, bwd_form_counts):
+    for counts in (launch_counts, fwd_form_counts, bwd_form_counts, short_fwd_form_counts,
+                   short_bwd_form_counts):
         for name in counts:
             counts[name] = 0
 
@@ -314,11 +323,15 @@ def _raise_on(err: int, name: str) -> None:
 
 
 # The launch plans of rows of at most SHORT_ROW tokens (csrc/flash_fwd.cu,
-# flash_fwd_ring_kernel; csrc/flash_bwd.cu, flash_bwd_ring_kernel); the
-# constants are the kernels'.
+# flash_fwd_ring_kernel and flash_fwd_warp_ring_kernel; csrc/flash_bwd.cu,
+# flash_bwd_ring_kernel and flash_bwd_warp_ring_kernel); the constants are
+# the kernels'.
 SHORT_ROW = 128           # longest row of the short-row kernels
 RING_MAX_STAGES = 4       # ring slots a ring kernel takes at most
 SW128_ALIGN = 1024        # the ring's alignment of its swizzled tiles
+WARP_RING_CODE = 1        # the forward entry points' `resident` for the warp ring
+BWD_WARP_RING_CODE = 16   # the backward's: its `resident` is this plus the stages
+WARP_RING_STAGES = 2      # a warp ring's stages at most: a third ran slower (PERF.md)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,9 +339,11 @@ class ShortRowPlan:
     """How a row of at most 128 tokens is taken: ``form`` "ring" (``grid``
     persistent CTAs, ``ctas_per_sm`` of them an SM, each with ``warpgroups``
     consumer warpgroups of 64 query rows and one producer warp keeping
-    ``stages`` (row, head) items in flight by TMA) or "cta" (one CTA per (row,
-    head), the first port's design; the backward's with its delta pre-pass),
-    and the ring CTA's dynamic shared memory (0 for "cta")."""
+    ``stages`` (row, head) items in flight by TMA), "warp_ring" (the same
+    with one consumer warp per 16 rows, mma.sync, and ``warpgroups`` 0) or
+    "cta" (one CTA per (row, head), the first port's design; the backward's
+    with its delta pre-pass), and a ring CTA's dynamic shared memory (0 for
+    "cta")."""
     form: str
     warpgroups: int
     ctas_per_sm: int
@@ -336,10 +351,17 @@ class ShortRowPlan:
     grid: int
     smem_bytes: int
 
-    def c_args(self) -> Tuple[int, int]:
-        """The entry points' plan integers for a short row: (grid, stages)
-        of the ring, or (0, 0) for one CTA per (row, head)."""
-        return (self.grid, self.stages) if self.form == "ring" else (0, 0)
+    def c_args(self, bwd: bool = False) -> Tuple[int, ...]:
+        """The entry points' plan integers for a short row: the forward's
+        (warps, splits, resident) = (grid, stages, 0) of the ring, (grid,
+        stages, WARP_RING_CODE) of the warp ring, (0, 0, 0) for one CTA per
+        (row, head); the backward's (warps, resident) = (grid, stages),
+        (grid, BWD_WARP_RING_CODE + stages), (0, 0)."""
+        if self.form == "cta":
+            return (0, 0) if bwd else (0, 0, 0)
+        if bwd:
+            return self.grid, self.stages + (BWD_WARP_RING_CODE if self.form == "warp_ring" else 0)
+        return self.grid, self.stages, WARP_RING_CODE if self.form == "warp_ring" else 0
 
 
 def ring_warpgroups(L: int) -> int:
@@ -363,21 +385,58 @@ def bwd_short_row_smem_bytes(L: int, D: int, stages: int, segmented: bool) -> in
     return SW128_ALIGN + stages * (5 * D * box * 2 + (12 if segmented else 8) * box) + 16 * stages
 
 
-# Rows of CTA_FORM_MIN..CTA_FORM_MAX tokens (BWD_CTA_FORM_MAX in the
-# backward) keep the one-CTA-per-(row, head) form: their second warpgroup's
-# 64 rows hold at most 32 (16) tokens, so most of its products, masks and
-# exp2 are spent on padding (77-token text ran at 1.3x the one-CTA form's
-# time on the forward ring; the backward ring tied it at 80 tokens and was
-# 22% faster at 96; PERF.md).
-CTA_FORM_MIN, CTA_FORM_MAX, BWD_CTA_FORM_MAX = 65, 96, 80
+def warp_ring_smem_bytes(L: int, stages: int, segmented: bool) -> int:
+    """Shared memory of one forward warp-ring CTA, head_dim 64 (mirrors
+    ``warp_ring_smem_bytes`` in csrc/flash_fwd.cu): 1 KB to align, per stage
+    Q, K and V of one (row, head) as round16(L) token rows of 128 B, the
+    output tile (16 rows a consumer warp), the seg ids of each stage, two
+    mbarriers a stage."""
+    rows = -(-L // 16) * 16
+    return SW128_ALIGN + stages * 3 * rows * 128 + rows * 128 + (stages * rows * 4 if segmented else 0) + 16 * stages
+
+
+def bwd_warp_ring_smem_bytes(L: int, stages: int, segmented: bool) -> int:
+    """Shared memory of one backward warp-ring CTA, head_dim 64 (mirrors
+    ``warp_ring_smem_bytes`` in csrc/flash_bwd.cu): 1 KB to align, per stage
+    Q, K, V, dO and out as round16(L) token rows of 128 B, one 16-row staging
+    tile a consumer warp, lse2, delta and the seg ids of each stage, three
+    mbarriers a stage."""
+    rows = -(-L // 16) * 16
+    return (SW128_ALIGN + stages * 5 * rows * 128 + rows * 128 + stages * rows * (12 if segmented else 8)
+            + 24 * stages)
+
+
+def warp_ring_ctas(L: int, bwd: bool) -> int:
+    """CTAs an SM that a warp ring's registers allow (``WARP_RING_CTAS`` in
+    csrc/flash_fwd.cu, ``warp_ring_min_ctas`` in csrc/flash_bwd.cu): forward
+    two (three of five consumer warps, at 96 registers a thread, spilled and
+    ran slower); backward two of up to five consumer warps (80 rows), else
+    one."""
+    rows = -(-L // 16) * 16
+    return 2 if not bwd or rows <= 80 else 1
+
+
+# The forms by row length and head width. Rows of WARP_RING_MIN..
+# WARP_RING_MAX tokens (text at 77) take the warp ring, forward and backward:
+# the warpgroup ring's second warpgroup holds at most 32 of its 64 rows
+# there, so most of its products, masks and exp2 are spent on padding
+# (77-token text ran at 1.3x the one-CTA form's time on it), and 16-row
+# warps pad 77 to 80. At 81..96 tokens the backward's warp ring (one CTA an
+# SM, six consumer warps at 96) also beat the warpgroup ring ([512, 96, 8 x
+# 64] 0.199 against 0.280 ms causal, PERF.md). The backward's few-item cases at
+# head_dim 64 take it as well (see bwd_short_row_plan). Head_dim 128 keeps
+# the one-CTA form in the band: a slot of Q, K and V of 80 rows is 60 KB
+# there (100 KB with dO and out), so two slots and the output tile hold one
+# CTA of five warps an SM where the one-CTA form runs two.
+WARP_RING_MIN, WARP_RING_MAX = 65, 96
 
 
 def _ring_plan(B: int, L: int, H: int, D: int, sms: int, ctas: int, stages_cap: int,
-               smem_of) -> ShortRowPlan:
-    wg = ring_warpgroups(L)
+               smem_of, form: str = "ring") -> ShortRowPlan:
+    wg = ring_warpgroups(L) if form == "ring" else 0
     budget = min(MAX_SMEM, SM_SMEM // ctas - CTA_RESERVED_SMEM)
     stages = max(s for s in range(1, stages_cap + 1) if s == 1 or smem_of(s) <= budget)
-    return ShortRowPlan("ring", wg, ctas, stages, min(B * H, sms * ctas), smem_of(stages))
+    return ShortRowPlan(form, wg, ctas, stages, min(B * H, sms * ctas), smem_of(stages))
 
 
 def _check_short(L: int, D: int) -> None:
@@ -389,11 +448,23 @@ def _check_short(L: int, D: int) -> None:
 CTA_PLAN = ShortRowPlan("cta", 0, 0, 0, 0, 0)
 
 
+def warp_ring_plan(B: int, L: int, H: int, segmented: bool, sms: int, bwd: bool = False) -> ShortRowPlan:
+    """The warp ring at head_dim 64: :func:`warp_ring_ctas` CTAs an SM, as
+    many stages as fit each one's share of an SM (at most
+    ``WARP_RING_STAGES``), a grid of ``min(B * H, sms * ctas_per_sm)``."""
+    smem = bwd_warp_ring_smem_bytes if bwd else warp_ring_smem_bytes
+    return _ring_plan(B, L, H, 64, sms, warp_ring_ctas(L, bwd), WARP_RING_STAGES,
+                      lambda s: smem(L, s, segmented), "warp_ring")
+
+
 def short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> ShortRowPlan:
     """The forward's launch plan for a row of ``L <= 128`` tokens on a card
     of ``sms`` SMs:
 
-    * "cta" for ``CTA_FORM_MIN <= L <= CTA_FORM_MAX``; otherwise
+    * ``WARP_RING_MIN <= L <= WARP_RING_MAX``: the warp ring at head_dim 64
+      (:func:`warp_ring_plan`: two CTAs an SM of five consumer warps at
+      65..80 tokens, of six at 81..96, two stages each), "cta" at head_dim
+      128; otherwise
     * the ring, one consumer warpgroup a CTA up to 64 tokens and two beyond;
       as many CTAs an SM as the kernel's registers allow (``ring_min_ctas``
       in csrc/flash_fwd.cu: four with one warpgroup at D=64, two with one
@@ -407,8 +478,8 @@ def short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) ->
     ``python -m latteclip_torch.tools.short_row_plans`` times the forms on
     the card (PERF.md keeps its numbers)."""
     _check_short(L, D)
-    if CTA_FORM_MIN <= L <= CTA_FORM_MAX:
-        return CTA_PLAN
+    if WARP_RING_MIN <= L <= WARP_RING_MAX:
+        return warp_ring_plan(B, L, H, segmented, sms) if D == 64 else CTA_PLAN
     one = ring_warpgroups(L) == 1
     ctas = (4 if D == 64 else 2) if one else (2 if D == 64 else 1)
     return _ring_plan(B, L, H, D, sms, ctas, 1 if ctas > 1 else RING_MAX_STAGES,
@@ -418,12 +489,15 @@ def short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) ->
 def bwd_short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int) -> ShortRowPlan:
     """The backward's launch plan for a row of ``L <= 128`` tokens:
 
-    * "cta" (with the delta pre-pass) for ``CTA_FORM_MIN <= L <=
-      BWD_CTA_FORM_MAX``; where ``B * H`` items leave each SM at most one (the
-      ring then overlaps nothing; packed templates, [8, 128, 8 x 64]); and
-      at D=64 beyond 64 tokens where they leave it at most four, since the
-      ring's two passes over the queries there cost more than its few items
-      a CTA save ([64, 128, 8 x 64] ran 5% slower on the ring);
+    * the warp ring (:func:`warp_ring_plan`) at head_dim 64, "cta" (the row
+      kernel with the delta pre-pass) at 128, for ``WARP_RING_MIN <= L <=
+      WARP_RING_MAX``; where ``B * H`` items leave each SM at most one
+      (the warpgroup ring then overlaps nothing; packed templates, [8, 128,
+      8 x 64]); and at D=64 beyond 64 tokens where they leave it at most
+      four, since the warpgroup ring's two passes over the queries there
+      cost more than its few items a CTA save ([64, 128, 8 x 64] ran 5%
+      slower on it than on the one-CTA form, which the warp ring beat by
+      15%);
     * otherwise the ring, with warpgroups and grid as in
       :func:`short_row_plan`, two CTAs an SM at D=64 or with one warpgroup,
       else one (``ring_min_ctas`` in csrc/flash_bwd.cu), and as many stages
@@ -431,9 +505,9 @@ def bwd_short_row_plan(B: int, L: int, H: int, D: int, segmented: bool, sms: int
     """
     _check_short(L, D)
     two_passes = D == 64 and L > 64
-    if (CTA_FORM_MIN <= L <= BWD_CTA_FORM_MAX or B * H <= sms
+    if (WARP_RING_MIN <= L <= WARP_RING_MAX or B * H <= sms
             or (two_passes and B * H <= 4 * sms)):
-        return CTA_PLAN
+        return warp_ring_plan(B, L, H, segmented, sms, bwd=True) if D == 64 else CTA_PLAN
     ctas = 2 if D == 64 or ring_warpgroups(L) == 1 else 1
     return _ring_plan(B, L, H, D, sms, ctas, RING_MAX_STAGES,
                       lambda s: bwd_short_row_smem_bytes(L, D, s, segmented))
@@ -738,8 +812,9 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     ``name`` and count it; ``lse_shape`` defaults to ``[B, H, L]``. Rows of
     at most 128 tokens carry their :func:`short_row_plan` (the block-diagonal
     forward none: it takes one CTA per (row, head), which beat its ring by
-    4-27% at head width 64, PERF.md), longer ones their :func:`long_row_plan`,
-    whose form ``fwd_form_counts`` counts."""
+    4-27% at head width 64, PERF.md), whose form ``short_fwd_form_counts``
+    counts, longer ones their :func:`long_row_plan`, whose form
+    ``fwd_form_counts`` counts."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     if seg_ids is not None:
         _check_seg(seg_ids, qkv, B, L)
@@ -748,13 +823,14 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     lse2 = torch.empty(lse_shape or (B, H, L), dtype=torch.float32, device=qkv.device)
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, lse2]
     sms = sm_count(qkv.device.index)
-    plan = None
+    plan, forms = None, None
     if name == "latteclip_flash_fwd_bd":  # one CTA per (row, head): its ring was slower
         plan_args = ()
     elif L <= SHORT_ROW:
-        plan_args = (*short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args(), 0)
+        plan, forms = short_row_plan(B, L, H, D, seg_ids is not None, sms), short_fwd_form_counts
+        plan_args = plan.c_args()
     else:
-        plan = long_row_plan(B, L, H, D, seg_ids is not None, sms, causal)
+        plan, forms = long_row_plan(B, L, H, D, seg_ids is not None, sms, causal), fwd_form_counts
         plan_args = plan.c_args()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
@@ -763,7 +839,7 @@ def _launch_fwd(name: str, counter: str, qkv: torch.Tensor, seg_ids: Optional[to
     _raise_on(err, name)
     launch_counts[counter] += 1
     if plan is not None:
-        fwd_form_counts[plan.form] += 1
+        forms[plan.form] += 1
     return out, lse2
 
 
@@ -822,7 +898,8 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
     """Check the residuals, launch the backward entry point ``name`` and
     count it; ``lse_shape`` defaults to ``[B, H, L]``. The gradient comes in
     the layout of ``qkv``; rows of at most 128 tokens carry their
-    :func:`bwd_short_row_plan`, longer ones their :func:`bwd_long_row_plan`."""
+    :func:`bwd_short_row_plan`, longer ones their :func:`bwd_long_row_plan`,
+    whose forms ``short_bwd_form_counts`` and ``bwd_form_counts`` count."""
     B, L, H, D = _check_cuda_qkv(qkv, num_heads)
     _check_residual("out", out, qkv, (B, L, H * D), torch.bfloat16)
     _check_residual("dout", dout, qkv, (B, L, H * D), torch.bfloat16)
@@ -835,9 +912,10 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
     tensors = [qkv, *([] if seg_ids is None else [seg_ids]), out, dout, lse2, delta, dqkv]
     sms = sm_count(qkv.device.index)
     if L <= SHORT_ROW:
-        plan_args = bwd_short_row_plan(B, L, H, D, seg_ids is not None, sms).c_args()
+        plan, forms = bwd_short_row_plan(B, L, H, D, seg_ids is not None, sms), short_bwd_form_counts
+        plan_args = plan.c_args(bwd=True)
     else:
-        plan = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sms)
+        plan, forms = bwd_long_row_plan(B, L, H, D, seg_ids is not None, sms), bwd_form_counts
         plan_args = plan.c_args()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     with torch.cuda.device(qkv.device):
@@ -845,8 +923,7 @@ def _launch_bwd(name: str, counter: str, qkv, seg_ids, out, dout, lse2, num_head
                      (D ** -0.5) * LOG2E, D ** -0.5, *plan_args, stream)
     _raise_on(err, name)
     launch_counts[counter] += 1
-    if L > SHORT_ROW:
-        bwd_form_counts[plan.form] += 1
+    forms[plan.form] += 1
     return dqkv
 
 

@@ -28,6 +28,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Sources that nvcc optimises on several threads (--split-compile=0):
+# flash_fwd.cu, the longest build, took 47-50 s with it against 70-77 s
+# without, beside the other builds on the card's 8-core host, and its
+# kernels' times did not move; flash_bwd.cu's warpgroup ring ran 5% slower
+# at [336, 128, 8 x 64] built so, and the other sources finish sooner anyway.
+SPLIT_COMPILE = ("flash_fwd",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": nvcc wall time (0.0 when already built), "ptxas": -Xptxas -v lines}
@@ -42,11 +48,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(name: str) -> List[str]:
+    return [*NVCC_FLAGS, *(["--split-compile=0"] if name in SPLIT_COMPILE else [])]
+
+
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -63,7 +73,7 @@ def load_all() -> Dict[str, ctypes.CDLL]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                [_nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((name, target, tmp, proc, time.perf_counter()))
     failures = []

@@ -41,11 +41,23 @@
 //     pT dO and dsT Q by wgmma, p and ds repacked in registers as A) and dq
 //     of its 64 queries (Qs K^T, dO V^T, then ds K). At D = 128, or with two
 //     warpgroups at D = 64 (two CTAs an SM, 112 registers a thread), dk and
-//     dv take separate passes that each compute the scores. Rows of 65..80
+//     dv take separate passes that each compute the scores. Rows of 65..96
 //     tokens (text at 77), and cases whose (row, head) items are no more
-//     than the SMs (or than four an SM where the two passes run), keep the
-//     delta pre-pass and the row kernel below, which were faster there
-//     (PERF.md);
+//     than the SMs (or than four an SM where the two passes run), take the
+//     warp ring below at D = 64 and the delta pre-pass and the row kernel at
+//     D = 128;
+//   * the warp ring (flash_bwd_warp_ring_kernel, D = 64) keeps the row
+//     kernel's partition and arithmetic, one warp per 16-token block with
+//     mma.sync, on persistent CTAs (two of up to five consumer warps an SM
+//     up to 80 tokens, one of up to eight beyond) whose producer warp keeps
+//     the items' Q, K, V, dO and out in flight by TMA through mbarrier slots
+//     and takes delta from each slot between the copy landing and the slot
+//     being marked full: no pre-pass launches, out and dO are read once, and
+//     the next item's copy overlaps this one's products and stores; the
+//     gradients leave by TMA store into dqkv in the layout of qkv. Its sums
+//     run in the row kernel's and the pre-pass's order, so the two give the
+//     same bits. D = 128 keeps the row kernel: dk and dv alone take 128 f32
+//     registers a thread there, and a slot of five 80-row tiles is 100 KB;
 //   * the row kernel and the tiled pair follow a pre-pass that writes delta
 //     [B, H, L] f32 (read once from out and dout);
 //   * the row kernel takes one CTA per (row, head) and copies the whole
@@ -906,6 +918,333 @@ __global__ void __launch_bounds__(NWG * 128 + 32, ring_min_ctas(D, NWG))
   }
 }
 
+// ---- rows of at most 128 tokens at D = 64: one warp per 16 rows, fed by a TMA ring
+
+constexpr int WARP_RING = 16;  // the entry points' `resident` for the warp ring: WARP_RING + stages
+constexpr int WR_BLOCK = 16 * SW128_ROW;  // a warp's 16 rows of one tile: 2 KB
+
+// Shared memory of the warp ring (attention.py::bwd_warp_ring_smem_bytes
+// mirrors it), 1 KB to align the swizzled tiles first: per stage Q, K, V, dO
+// and out of one (row, head) as `rows` token rows of 128 B; one 16-row
+// staging tile a consumer warp; per stage lse2, delta and (SEG) the seg ids
+// of the rows; three mbarriers a stage (loaded, full, empty).
+__host__ __device__ constexpr size_t warp_ring_smem_bytes(int rows, int stages, bool seg) {
+  return SW128_ALIGN + (size_t)stages * 5 * rows * SW128_ROW + (size_t)rows * SW128_ROW +
+         (size_t)stages * rows * (seg ? 12 : 8) + 24 * (size_t)stages;
+}
+
+// The row kernel's warp_dkdv on the swizzled tiles of a slot (q, k, v and do
+// are their addresses): dk and dv of the 16 keys from k0 over the queries
+// [q_lo, rows), with lse2, delta and the seg ids from the slot's arrays.
+template <bool SEG, bool CAUSAL>
+__device__ __forceinline__ void ring_dkdv(uint32_t q, uint32_t k, uint32_t v, uint32_t dob, const float* sl,
+                                          const float* sd, const int* ss, int k0, int q_lo, int rows, int L,
+                                          float qscale, float scale, float (&dk)[8][4], float (&dv)[8][4]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int key[2] = {k0 + g, k0 + g + 8};
+  int segk[2] = {0, 0};
+  if (SEG) {
+    segk[0] = ss[key[0]];
+    segk[1] = ss[key[1]];
+  }
+  for (int qr = q_lo; qr < rows; qr += 16) {
+    float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ka[4], va[4], qb[4], ob[4];
+      const int ca = 2 * kk + lane / 16, cb = 2 * kk + (lane / 8) % 2;
+      ldmatrix_x4_at(ka, k + sw128_offset(k0 + a_row(lane), ca));
+      ldmatrix_x4_at(va, v + sw128_offset(k0 + a_row(lane), ca));
+      ldmatrix_x4_at(qb, q + sw128_offset(qr + b_row(lane), cb));
+      ldmatrix_x4_at(ob, dob + sw128_offset(qr + b_row(lane), cb));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qb[e] = scale_bf16x2(qb[e], qscale);
+      mma_bf16(st[0], ka, qb[0], qb[1]);
+      mma_bf16(st[1], ka, qb[2], qb[3]);
+      mma_bf16(dpt[0], va, ob[0], ob[1]);
+      mma_bf16(dpt[1], va, ob[2], ob[3]);
+    }
+    // pT and dsT of this 16 x 16 block; columns are queries
+    float p[2][4], ds[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qg = qr + n * 8 + 2 * tq + (e & 1);
+        const int r = e / 2;
+        bool visible = qg < L && key[r] < L;
+        if (CAUSAL) visible = visible && key[r] <= qg;
+        if (SEG) visible = visible && ss[qg] == segk[r];
+        p[n][e] = visible ? exp2f(st[n][e] - sl[qg]) : 0.f;
+        ds[n][e] = p[n][e] * (dpt[n][e] - sd[qg]) * scale;
+      }
+    }
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+    const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+    for (int d2 = 0; d2 < 4; ++d2) {
+      uint32_t ob[4], qb[4];
+      const int r = qr + a_row(lane), c = 2 * d2 + lane / 16;
+      ldmatrix_x4_trans_at(ob, dob + sw128_offset(r, c));
+      ldmatrix_x4_trans_at(qb, q + sw128_offset(r, c));
+      mma_bf16(dv[2 * d2], pa, ob[0], ob[1]);
+      mma_bf16(dv[2 * d2 + 1], pa, ob[2], ob[3]);
+      mma_bf16(dk[2 * d2], da, qb[0], qb[1]);
+      mma_bf16(dk[2 * d2 + 1], da, qb[2], qb[3]);
+    }
+  }
+}
+
+// The row kernel's warp_dq on the swizzled tiles of a slot: dq of the 16
+// queries from q0 over the keys [0, k_hi).
+template <bool SEG, bool CAUSAL>
+__device__ __forceinline__ void ring_dq(uint32_t q, uint32_t k, uint32_t v, uint32_t dob, const float* sl,
+                                        const float* sd, const int* ss, int q0, int k_hi, int L, float qscale,
+                                        float scale, float (&dq)[8][4]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int query[2] = {q0 + g, q0 + g + 8};
+  const float lse[2] = {sl[query[0]], sl[query[1]]};
+  const float delta[2] = {sd[query[0]], sd[query[1]]};
+  int segq[2] = {0, 0};
+  if (SEG) {
+    segq[0] = ss[query[0]];
+    segq[1] = ss[query[1]];
+  }
+  for (int kr = 0; kr < k_hi; kr += 16) {
+    float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t qa[4], oa[4], kb[4], vb[4];
+      const int ca = 2 * kk + lane / 16, cb = 2 * kk + (lane / 8) % 2;
+      ldmatrix_x4_at(qa, q + sw128_offset(q0 + a_row(lane), ca));
+      ldmatrix_x4_at(oa, dob + sw128_offset(q0 + a_row(lane), ca));
+      ldmatrix_x4_at(kb, k + sw128_offset(kr + b_row(lane), cb));
+      ldmatrix_x4_at(vb, v + sw128_offset(kr + b_row(lane), cb));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qa[e] = scale_bf16x2(qa[e], qscale);
+      mma_bf16(s[0], qa, kb[0], kb[1]);
+      mma_bf16(s[1], qa, kb[2], kb[3]);
+      mma_bf16(dp[0], oa, vb[0], vb[1]);
+      mma_bf16(dp[1], oa, vb[2], vb[3]);
+    }
+    float ds[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kg = kr + n * 8 + 2 * tq + (e & 1);
+        const int r = e / 2;
+        bool visible = query[r] < L && kg < L;
+        if (CAUSAL) visible = visible && kg <= query[r];
+        if (SEG) visible = visible && ss[kg] == segq[r];
+        const float p = visible ? exp2f(s[n][e] - lse[r]) : 0.f;
+        ds[n][e] = p * (dp[n][e] - delta[r]) * scale;
+      }
+    }
+    const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+    for (int d2 = 0; d2 < 4; ++d2) {
+      uint32_t kb[4];
+      ldmatrix_x4_trans_at(kb, k + sw128_offset(kr + a_row(lane), 2 * d2 + lane / 16));
+      mma_bf16(dq[2 * d2], da, kb[0], kb[1]);
+      mma_bf16(dq[2 * d2 + 1], da, kb[2], kb[3]);
+    }
+  }
+}
+
+// A warp's 16 accumulator rows rounded to bf16 into its 16-row staging tile
+// in the 128-byte swizzle (rows lane / 4 and lane / 4 + 8).
+__device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&acc)[8][4], int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + sw128_offset(g, j) + 4 * t) = pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(tile + sw128_offset(g + 8, j) + 4 * t) = pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+// Consumer warps a warp-ring CTA holds at most: five (rows of at most 80
+// tokens, two CTAs an SM) or eight (up to 128, one CTA an SM).
+__host__ __device__ constexpr int warp_ring_min_ctas(int MAXW) { return MAXW <= 5 ? 2 : 1; }
+
+// The warp ring ("warp_ring"): rows/16 consumer warps, one per 16-token
+// block, then one producer warp. CTA x takes the (row, head) items x, x +
+// gridDim.x, ...; the producer keeps them in flight through `stages` slots,
+// each holding Q, K, V, dO and out of one item as TMA boxes of round16(L)
+// token rows (zeros past L) in the 128-byte swizzle, with the item's lse2 and
+// seg ids loaded by its lanes. Once a slot's tiles have landed the producer
+// takes delta = rowsum(f32(dO) f32(out)) from them, in the pre-pass's order
+// of summation, and only then marks the slot full, so no pre-pass launches,
+// out and dO are read once, and the consumers spend no time or barrier on
+// it. It issues the copies of item n + stages once item n's slot is free,
+// and takes item n + 1's delta while the consumers work on item n (with one
+// stage, after issuing its copy). Warp w keeps the row kernel's partition
+// and arithmetic (ring_dkdv, ring_dq: mma.sync from the slot): dk and dv of
+// keys 16w..16w+15 over the queries that see them, then dq of queries
+// 16w..16w+15 over the keys they see, so causal work balances over the
+// warps and each gradient row has one owner (no atomics; two calls are
+// bit-equal, and equal to the row kernel's). dk goes out through the warp's
+// staging tile and dv through its 16 rows of the slot's out tile (dead once
+// delta is taken), each by TMA store into dqkv in the layout of qkv; once
+// those stores have read shared memory the warp releases the slot, then
+// stores dq through its staging tile, so the next item's copy overlaps this
+// one's last products and stores.
+template <int MAXW, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(MAXW * 32 + 32, warp_ring_min_ctas(MAXW))
+    flash_bwd_warp_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                               const __grid_constant__ CUtensorMap out_map,
+                               const __grid_constant__ CUtensorMap dout_map,
+                               const __grid_constant__ CUtensorMap dqkv_map, const int* __restrict__ seg,
+                               const float* __restrict__ lse, int B, int L, int H, float qscale, float scale,
+                               Layout layout, int stages) {
+  constexpr int D = 64;
+  const int rows = round16(L), nw = rows / 16;
+  const int TILE_BYTES = rows * SW128_ROW;  // one tile of one item
+  const int STAGE = 5 * TILE_BYTES;         // Q, K, V, dO, out
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* staging = ring + (size_t)stages * STAGE;
+  float* slse = reinterpret_cast<float*>(staging + TILE_BYTES);
+  float* sdelta = slse + stages * rows;
+  int* sseg = reinterpret_cast<int*>(sdelta + stages * rows);
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(sseg + (SEG ? stages * rows : 0));
+  uint64_t* full = loaded + stages;
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int items = B * H;
+  const int HD = H * D;
+  const int mine = (int)blockIdx.x < items ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], nw);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= nw * 32) {  // the producer warp
+    const int lane = tid % 32;
+    // the copies of this CTA's n-th item into slot n % stages, once its
+    // previous item has released it; its lse2 and seg ids by the lanes
+    auto issue = [&](int n) {
+      const int s = n % stages, item = (int)blockIdx.x + n * (int)gridDim.x;
+      if (n >= stages) mbar_wait(&empty[s], (n / stages - 1) & 1);
+      const int b = item / H, h = item % H;
+      const float* lrow = lse + (layout.split ? (long)h * layout.B + b : (long)b * H + h) * L;
+      for (int i = lane; i < rows; i += 32) {
+        slse[s * rows + i] = i < L ? lrow[i] : 0.f;
+        if (SEG) sseg[s * rows + i] = i < L ? seg[(long)b * L + i] : -2;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&loaded[s], STAGE);
+        unsigned char* dst = ring + (size_t)s * STAGE;
+        for (int part = 0; part < 3; ++part)  // q, k, v
+          tma_load_3d(dst + part * TILE_BYTES, &qkv_map, &loaded[s], part * HD + h * D, 0, b);
+        tma_load_3d(dst + 3 * TILE_BYTES, &dout_map, &loaded[s], h * D, 0, b);
+        tma_load_3d(dst + 4 * TILE_BYTES, &out_map, &loaded[s], h * D, 0, b);
+      }
+    };
+    // delta of the n-th item's rows, one lane a row, each row's 16-byte
+    // chunks in order (the pre-pass's order), then the slot is full
+    auto finish = [&](int n) {
+      const int s = n % stages;
+      mbar_wait(&loaded[s], (n / stages) & 1);
+      const unsigned char* st = ring + (size_t)s * STAGE;
+      for (int r = lane; r < rows; r += 32) {
+        float acc = 0.f;
+#pragma unroll
+        for (int chunk = 0; chunk < 8; ++chunk) {
+          const uint32_t off = sw128_offset(r, chunk);
+          const uint4 o4 = *reinterpret_cast<const uint4*>(st + 4 * TILE_BYTES + off);
+          const uint4 g4 = *reinterpret_cast<const uint4*>(st + 3 * TILE_BYTES + off);
+          const uint32_t o[4] = {o4.x, o4.y, o4.z, o4.w}, gr[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 fo = __bfloat1622float2(as_bf162(o[e]));
+            const float2 fg = __bfloat1622float2(as_bf162(gr[e]));
+            acc += fg.x * fo.x;
+            acc += fg.y * fo.y;
+          }
+        }
+        sdelta[s * rows + r] = acc;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    };
+    for (int n = 0; n < stages && n < mine; ++n) issue(n);
+    if (mine > 0) finish(0);
+    for (int n = 0; n + 1 < mine; ++n) {
+      if (stages > 1) {
+        finish(n + 1);
+        if (n + stages < mine) issue(n + stages);
+      } else {
+        issue(n + 1);
+        finish(n + 1);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16;  // this warp's 16-token block
+  const uint32_t ring_base = smem_addr(ring);
+  unsigned char* own = staging + warp * WR_BLOCK;  // this warp's staging tile
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int s = n % stages;
+    const int b = item / H, h = item % H;
+    const uint32_t qb = ring_base + s * STAGE, kb = qb + TILE_BYTES, vb = kb + TILE_BYTES,
+                   dob = vb + TILE_BYTES;
+    unsigned char* const out_rows = ring + (size_t)s * STAGE + 4 * TILE_BYTES + warp * WR_BLOCK;
+    const float* sl = slse + s * rows;
+    const float* sd = sdelta + s * rows;
+    const int* ss = sseg + s * rows;
+    mbar_wait(&full[s], (n / stages) & 1);
+
+    // 1. dk and dv of keys r0..r0+15 over the queries that can see them
+    float acc_a[8][4] = {}, acc_b[8][4] = {};
+    ring_dkdv<SEG, CAUSAL>(qb, kb, vb, dob, sl, sd, ss, r0, CAUSAL ? r0 : 0, rows, L, qscale, scale, acc_a,
+                           acc_b);
+    if (lane == 0) bulk_wait_read<0>();  // the previous item's dq store has read the staging tile
+    __syncwarp();
+    stage_rows(own, acc_a, lane);       // dk
+    stage_rows(out_rows, acc_b, lane);  // dv, into the slot's out rows of this block
+    fence_proxy_async();  // the tiles, written by the lanes, are read by TMA
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&dqkv_map, own, HD + h * D, r0, b);
+      tma_store_3d(&dqkv_map, out_rows, 2 * HD + h * D, r0, b);
+      bulk_commit();
+    }
+
+    // 2. dq of queries r0..r0+15 over the keys they can see
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc_a[j][0] = acc_a[j][1] = acc_a[j][2] = acc_a[j][3] = 0.f;
+    ring_dq<SEG, CAUSAL>(qb, kb, vb, dob, sl, sd, ss, r0, CAUSAL ? r0 + 16 : rows, L, qscale, scale, acc_a);
+    if (lane == 0) bulk_wait_read<0>();  // dk and dv have left the staging tile and the slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the slot
+    stage_rows(own, acc_a, lane);  // dq
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&dqkv_map, own, h * D, r0, b);
+      bulk_commit();
+    }
+  }
+  if (lane == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
+}
+
 // ---- rows longer than 128 tokens at D = 64: the streamed pair ----------------
 
 // A resident block is the 64 rows of a wgmma; a streamed chunk has 32 tokens,
@@ -1383,6 +1722,35 @@ int launch_ring(const void* qkv, const void* seg, const void* out, const void* d
   return (int)cudaGetLastError();
 }
 
+// The warp ring at D = 64 on `grid` persistent CTAs with `stages` slots.
+template <int MAXW, bool SEG, bool CAUSAL>
+int launch_warp_ring(const void* qkv, const void* seg, const void* out, const void* dout,
+                     const void* lse, void* dqkv, int B, int L, int H, float qscale, float scale,
+                     Layout layout, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_bwd_warp_ring_kernel<MAXW, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, SMEM_MAX, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = round16(L);
+  const size_t smem = warp_ring_smem_bytes(rows, stages, SEG);
+  if ((long)B * H > INT_MAX || rows / 16 > MAXW || grid < 1 || stages < 1 || stages > RING_MAX_STAGES ||
+      smem > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  // qkv as [B][L][3 * H * 64], out and dout as [B][L][H * 64] in boxes of the
+  // row's padded rows (rows past L read as zeros); dqkv in boxes of a warp's
+  // 16 rows (rows from L on are not stored)
+  CUtensorMap qkv_map, out_map, dout_map, dqkv_map;
+  const uint64_t qkv_dims[3] = {(uint64_t)3 * H * 64, (uint64_t)L, (uint64_t)B};
+  const uint64_t o_dims[3] = {(uint64_t)H * 64, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&qkv_map, qkv, 3, qkv_dims, rows) || !tensor_map_bf16(&out_map, out, 3, o_dims, rows) ||
+      !tensor_map_bf16(&dout_map, dout, 3, o_dims, rows) || !tensor_map_bf16(&dqkv_map, dqkv, 3, qkv_dims, 16))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<grid, rows * 2 + 32, smem, stream>>>(qkv_map, out_map, dout_map, dqkv_map,
+                                                 static_cast<const int*>(seg), static_cast<const float*>(lse), B,
+                                                 L, H, qscale, scale, layout, stages);
+  return (int)cudaGetLastError();
+}
+
 // The streamed pair at D = 64 on `grid` persistent CTAs (three an SM): the
 // dq kernel, which writes delta, then the dk/dv kernel, which reads it.
 template <bool SEG, bool CAUSAL>
@@ -1434,6 +1802,17 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
                                           scale, layout, warps, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (!TILED_ONLY && L <= SHORT_ROW && warps > 0 && resident > WARP_RING) {
+    // the warp ring: grid `warps`, stages `resident - WARP_RING` (head_dim 64 only)
+    if constexpr (D == 64 && !TILED_ONLY) {
+      if (L <= 80)
+        return launch_warp_ring<5, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale, layout,
+                                                warps, resident - WARP_RING, s);
+      return launch_warp_ring<8, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale, layout,
+                                              warps, resident - WARP_RING, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (!TILED_ONLY && L <= SHORT_ROW && warps > 0) {  // the ring: grid `warps`, stages `resident`
     if (L <= 64)
       return launch_ring<D, 1, SEG, CAUSAL>(qkv, seg, out, dout, lse, dqkv, B, L, H, qscale, scale,
@@ -1478,9 +1857,9 @@ int launch(const void* qkv, const void* seg, const void* out, const void* dout, 
 // `warps` warps in padded rows, 0 the tiled pair, and 3 (STREAMED) the
 // streamed pair (D = 64) on a grid of `warps` persistent CTAs; any other
 // value is refused. For shorter rows (attention.py::bwd_short_row_plan):
-// `warps` is the ring's grid of persistent CTAs and `resident` its stages;
-// a grid of 0 runs the delta pre-pass and the one-CTA-per-(row, head) row
-// kernel.
+// `warps` is the ring's grid of persistent CTAs and `resident` its stages,
+// or WARP_RING + stages for the warp ring (head_dim 64); a grid of 0 runs
+// the delta pre-pass and the one-CTA-per-(row, head) row kernel.
 template <bool SEG>
 int dispatch(const void* qkv, const void* seg, const void* out, const void* dout, const void* lse,
              void* delta, void* dqkv, int B, int L, int H, int D, int causal, float qscale,

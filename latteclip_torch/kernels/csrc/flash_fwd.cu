@@ -63,11 +63,31 @@
 //     (attention.py::short_row_plan) runs as many CTAs an SM as the
 //     registers allow (four of one warpgroup at D=64, two of two), with one
 //     stage each, and every wgmma has a fixed shape (a wgmma behind a branch
-//     made ptxas serialise them all). Rows of 65..96 tokens (text at 77),
-//     and the block-diagonal kernel's rows, keep flash_fwd_kernel, one CTA
-//     per (row, head) with one warp per 16 query rows and K and V of the
-//     row in shared memory: at 65..96 tokens the ring's second warpgroup
-//     would spend most of its work on padding;
+//     made ptxas serialise them all). The block-diagonal kernel's rows, and
+//     rows of 65..96 tokens at D=128, keep flash_fwd_kernel, one CTA per
+//     (row, head) with one warp per 16 query rows and K and V of the row in
+//     shared memory;
+//   * rows of 65..96 tokens at D=64 (text at 77) take
+//     flash_fwd_warp_ring_kernel: a 64-row wgmma would pad 77 tokens to 128
+//     rows and spend most of the second warpgroup's products, masks and
+//     exp2 on padding (1.3x the one-CTA form's time), so the warp ring keeps
+//     the one-CTA form's warps (one per 16 query rows: 80 rows at 77 tokens)
+//     and its mma.sync m16n8k16 products, and puts them on persistent CTAs
+//     (two an SM, of five consumer warps at 65..80 tokens, of six at
+//     81..96) whose producer warp keeps the items' Q, K and V in flight by
+//     TMA (boxes of round16(L) rows, zeros past L, in the 128-byte swizzle)
+//     through full/empty mbarrier slots, so the next item's copy lands while
+//     this one computes (at 38 FLOP a byte the band is bound by the bytes in
+//     flight, not by the tensor cores). Each warp reads its fragments from
+//     the swizzled slot, takes every key of the row as the one-CTA form does
+//     (masked past a causal diagonal: a warp that stopped there would wait
+//     for the slot's last warp, and ran slower), releases the slot once P V
+//     is issued, and stores
+//     out through its 16 rows of an output tile by TMA; its products and
+//     sums run in the one-CTA form's order, so the two give the same bits.
+//     D=128 keeps the one-CTA form: a slot of Q, K and V of 80 rows is 60 KB
+//     there, so two slots and the output tile hold one CTA of five warps an
+//     SM where the one-CTA form runs two;
 //   * rows of 129..272 tokens at D=64 (ViT-B/16 at 197, ViT-L/14 at 257,
 //     ViT-medium at 256) take flash_fwd_row_ring_kernel, in one pass:
 //     persistent CTAs (one an SM) of two consumer warpgroups and no
@@ -138,8 +158,8 @@
 //     and l by one more mma, P times a column of ones; Q, K and V move with
 //     16-byte cp.async copies, the ragged edge zero-filled to a multiple of
 //     16 keys and masked;
-//   * the long-row and one-CTA kernels run their products on the tensor
-//     cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); shared-memory
+//   * the long-row, one-CTA and warp-ring kernels run their products on the
+//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); shared-memory
 //     rows are padded by 16 bytes so that the ldmatrix reads are free of
 //     bank conflicts; the output goes back through shared memory so that it
 //     too is stored 16 bytes a thread (the ring stores 16 bytes a lane after
@@ -634,6 +654,238 @@ __global__ void __launch_bounds__(NWG * 128 + 32, ring_min_ctas(D, NWG))
       if (row_b < L) lbase[row_b] = m_row[1] + log2f(l_run[1]);
     }
   }
+}
+
+// ---- rows of 65..96 tokens at D = 64: one warp per 16 rows, fed by a TMA ring -
+
+constexpr int WARP_RING = 1;  // the entry points' `resident` for the warp ring on short rows
+
+// Shared memory of the warp ring (attention.py::warp_ring_smem_bytes mirrors
+// it): 1 KB to align the swizzled tiles, per stage Q, K and V of one (row,
+// head) as ROWS token rows of 128 B, the output tile (16 rows a consumer
+// warp), (SEG) the stages' seg ids, and the full and empty mbarriers.
+template <int ROWS>
+constexpr size_t warp_ring_smem_bytes(int stages, bool seg) {
+  return SW128_ALIGN + (size_t)stages * 3 * ROWS * SW128_ROW + (size_t)ROWS * SW128_ROW +
+         (seg ? (size_t)stages * ROWS * 4 : 0) + 16 * (size_t)stages;
+}
+
+// CTAs an SM that the warp ring's registers must allow, of five consumer
+// warps (80 rows) or six (96 rows): three of five, at 96 registers a thread,
+// spilled and ran slower (PERF.md).
+constexpr int WARP_RING_CTAS = 2;
+
+// ROWS / 16 consumer warps, one per 16 query rows, then one producer warp.
+// CTA x takes the (row, head) items x, x + gridDim.x, ...; the producer keeps
+// them in flight through `stages` slots, each holding Q, K and V of one item
+// as TMA boxes of ROWS token rows (zeros past L) in the 128-byte swizzle.
+// Per item each consumer warp computes what flash_fwd_kernel's warp does,
+// with the same mma.sync m16n8k16 products in the same order, reading its
+// fragments from the swizzled slot: Qs, S = Qs K^T over every key of the
+// slot, the masks, the exact row maxima, p = bf16(exp2(s - m)), l, P V. A
+// causal warp takes the chunks past its diagonal too (masked, p = 0): the
+// slot is refilled once its last warp is done with it, so a warp that
+// stopped at its diagonal would only wait for the last one (that form ran
+// 14% slower at [1000, 77, 8 x 64], PERF.md). It releases the slot when P V
+// has been issued (its operands are in registers), then writes out = acc /
+// l into its 16 rows of the output tile and stores them by TMA (rows from L
+// on are dropped), and lse2 from registers. A 64-row wgmma would pad 77
+// tokens to 128 rows; 16-row warps pad them to 80.
+template <int ROWS, bool SEG, bool CAUSAL>
+__global__ void __launch_bounds__(ROWS * 2 + 32, WARP_RING_CTAS)
+    flash_fwd_warp_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                               const __grid_constant__ CUtensorMap out_map, const int* __restrict__ seg,
+                               float* __restrict__ lse, int B, int L, int H, float qscale, long lse_b,
+                               long lse_h, int stages) {
+  constexpr int D = 64;
+  constexpr int NW = ROWS / 16;                // consumer warps
+  constexpr int TILE_BYTES = ROWS * SW128_ROW;  // Q, K or V of one item
+  constexpr int STAGE = 3 * TILE_BYTES;
+  constexpr int NT = ROWS / 8;                 // 8-key score tiles
+  constexpr int KSTEPS = D / 16;
+  constexpr int DT = D / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + SW128_ALIGN - 1) & ~(uint32_t)(SW128_ALIGN - 1)) - raw);
+  unsigned char* out_tile = ring + (size_t)stages * STAGE;
+  int* sseg = reinterpret_cast<int*>(out_tile + TILE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sseg + (SEG ? stages * ROWS : 0));
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int items = B * H;
+  const int HD = H * D;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NW);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NW * 32) {  // the producer warp
+    const int lane = tid % 32;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int s = n % stages;
+      if (n >= stages) mbar_wait(&empty[s], (n / stages - 1) & 1);
+      const int b = item / H, h = item % H;
+      if (SEG) {  // the item's seg ids, -2 past L, by the warp's lanes
+        for (int i = lane; i < ROWS; i += 32) sseg[s * ROWS + i] = i < L ? seg[(long)b * L + i] : -2;
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], STAGE);
+        unsigned char* dst = ring + (size_t)s * STAGE;
+        for (int part = 0; part < 3; ++part)  // q, k, v
+          tma_load_3d(dst + part * TILE_BYTES, &qkv_map, &full[s], part * HD + h * D, 0, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = warp * 16 + g, row_b = row_a + 8;
+  const uint32_t ring_base = smem_addr(ring);
+  unsigned char* tile = out_tile + warp * 16 * SW128_ROW;  // this warp's 16 output rows
+  const float neg_inf = __int_as_float(0xff800000);
+  // ldmatrix lane addresses in the swizzled tiles, as a 16-row block's byte
+  // offset plus the lane's row and its 16-byte chunk of k-step j: the A
+  // pattern (Q, and V transposed) and the B pattern (K). Every block starts
+  // at a multiple of 8 rows, so the swizzle of a lane's row is lane % 8; a
+  // few registers a thread, where addresses precomputed for every block and
+  // k-step would be hoisted out of the item loop and spill.
+  const uint32_t arow = a_row(lane) * SW128_ROW, brow = b_row(lane) * SW128_ROW;
+  uint32_t xa[4], xb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    xa[j] = arow + (((2 * j + lane / 16) ^ (lane % 8)) << 4);
+    xb[j] = brow + (((2 * j + (lane / 8) % 2) ^ (lane % 8)) << 4);
+  }
+
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int s = n % stages;
+    const int b = item / H, h = item % H;
+    const uint32_t qbase = ring_base + s * STAGE, kbase = qbase + TILE_BYTES, vbase = kbase + TILE_BYTES;
+    const int* ss = sseg + s * ROWS;
+    mbar_wait(&full[s], (n / stages) & 1);
+
+    // Q fragments of this warp's 16 rows, scaled by qscale in f32 and rounded
+    // to bf16, as the TPU kernel scales q.
+    uint32_t qf[KSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      ldmatrix_x4_at(qf[kk], qbase + warp * 16 * SW128_ROW + xa[kk]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qf[kk][e] = scale_bf16x2(qf[kk][e], qscale);
+    }
+
+    // s = Qs K^T over every key of the slot, masked.
+    float sc[NT][4];
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sc[2 * c + i / 4][i % 4] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t kf[4];
+        ldmatrix_x4_at(kf, kbase + c * 16 * SW128_ROW + xb[kk]);
+        mma_bf16(sc[2 * c], qf[kk], kf[0], kf[1]);
+        mma_bf16(sc[2 * c + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+    int seg_a = 0, seg_b = 0;
+    if (SEG) {
+      seg_a = row_a < L ? ss[row_a] : -1;
+      seg_b = row_b < L ? ss[row_b] : -1;
+    }
+    if (CAUSAL || SEG || L < ROWS) {
+#pragma unroll
+      for (int n8 = 0; n8 < NT; ++n8) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = n8 * 8 + 2 * t + (e & 1);
+          bool visible = j < L;
+          if (CAUSAL) visible = visible && j <= (e < 2 ? row_a : row_b);
+          if (SEG) visible = visible && ss[j] == (e < 2 ? seg_a : seg_b);
+          if (!visible) sc[n8][e] = MASKED;
+        }
+      }
+    }
+
+    // The row maxima over every key, as the TPU kernel takes them over its
+    // whole row, so that p is rounded against the same maximum.
+    float m_row[2] = {neg_inf, neg_inf};
+#pragma unroll
+    for (int n8 = 0; n8 < NT; ++n8) {
+      m_row[0] = fmaxf(m_row[0], fmaxf(sc[n8][0], sc[n8][1]));
+      m_row[1] = fmaxf(m_row[1], fmaxf(sc[n8][2], sc[n8][3]));
+    }
+    m_row[0] = quad_max(m_row[0]);
+    m_row[1] = quad_max(m_row[1]);
+
+    // p = bf16(exp2(s - m)), l = sum of those bf16 values, acc = P V.
+    float l_run[2] = {0.f, 0.f};
+    uint32_t pf[NW][4];
+#pragma unroll
+    for (int n8 = 0; n8 < NT; ++n8) {
+      const __nv_bfloat162 pa =
+          __floats2bfloat162_rn(exp2f(sc[n8][0] - m_row[0]), exp2f(sc[n8][1] - m_row[0]));
+      const __nv_bfloat162 pb =
+          __floats2bfloat162_rn(exp2f(sc[n8][2] - m_row[1]), exp2f(sc[n8][3] - m_row[1]));
+      const float2 fa = __bfloat1622float2(pa);
+      const float2 fb = __bfloat1622float2(pb);
+      l_run[0] += fa.x + fa.y;
+      l_run[1] += fb.x + fb.y;
+      pf[n8 / 2][(n8 % 2) * 2 + 0] = as_u32(pa);
+      pf[n8 / 2][(n8 % 2) * 2 + 1] = as_u32(pb);
+    }
+    float acc[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+#pragma unroll
+      for (int d2 = 0; d2 < DT / 2; ++d2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans_at(vf, vbase + c * 16 * SW128_ROW + xa[d2]);
+        mma_bf16(acc[2 * d2], pf[c], vf[0], vf[1]);
+        mma_bf16(acc[2 * d2 + 1], pf[c], vf[2], vf[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the slot is free: the rest reads registers only
+    l_run[0] = quad_sum(l_run[0]);
+    l_run[1] = quad_sum(l_run[1]);
+
+    // out = acc / l in bf16 through this warp's rows of the output tile,
+    // once the previous item's store has read them, then one TMA store.
+    if (lane == 0) bulk_wait_read<0>();
+    __syncwarp();
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<uint32_t*>(tile + sw128_offset(g, d) + 4 * t) =
+          pack_bf16(acc[d][0] / l_run[0], acc[d][1] / l_run[0]);
+      *reinterpret_cast<uint32_t*>(tile + sw128_offset(g + 8, d) + 4 * t) =
+          pack_bf16(acc[d][2] / l_run[1], acc[d][3] / l_run[1]);
+    }
+    fence_proxy_async();  // the tile, written by the lanes, is read by TMA
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&out_map, tile, h * D, warp * 16, b);
+      bulk_commit();
+    }
+    if (t == 0) {
+      float* lbase = lse + b * lse_b + h * lse_h;
+      if (row_a < L) lbase[row_a] = m_row[0] + log2f(l_run[0]);
+      if (row_b < L) lbase[row_b] = m_row[1] + log2f(l_run[1]);
+    }
+  }
+  if (lane == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
 }
 
 // ---- rows of more than 128 tokens -------------------------------------------
@@ -1539,6 +1791,35 @@ int launch_ring(const void* qkv, const void* seg, void* out, void* lse, int B, i
   return (int)cudaGetLastError();
 }
 
+// The warp ring on `grid` persistent CTAs with `stages` slots: D = 64 and
+// rows of 65..96 tokens (ROWS = round16(L)).
+template <int ROWS, bool SEG, bool CAUSAL>
+int launch_warp_ring(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
+                     float qscale, bool lse_head_major, int grid, int stages, cudaStream_t stream) {
+  auto kernel = flash_fwd_warp_ring_kernel<ROWS, SEG, CAUSAL>;
+  static bool allowed[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, MAX_SMEM, allowed, true);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = warp_ring_smem_bytes<ROWS>(stages, SEG);
+  if (B <= 0 || H <= 0 || round16(L) != ROWS || (long)B * H > INT_MAX || grid < 1 || stages < 1 ||
+      stages > RING_MAX_STAGES || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  // qkv as [B][L][3 * H * 64] in boxes of ROWS rows (rows past L read as
+  // zeros), out as [B][L][H * 64] in boxes of a warp's 16 rows (rows from L on
+  // are not stored)
+  CUtensorMap map, out_map;
+  const uint64_t dims[3] = {(uint64_t)3 * H * 64, (uint64_t)L, (uint64_t)B};
+  const uint64_t out_dims[3] = {(uint64_t)H * 64, (uint64_t)L, (uint64_t)B};
+  if (!tensor_map_bf16(&map, qkv, 3, dims, ROWS) || !tensor_map_bf16(&out_map, out, 3, out_dims, 16))
+    return (int)cudaErrorInvalidValue;
+  const long lse_b = lse_head_major ? L : (long)H * L;
+  const long lse_h = lse_head_major ? (long)B * L : L;
+  kernel<<<grid, ROWS * 2 + 32, smem, stream>>>(map, out_map, static_cast<const int*>(seg),
+                                                static_cast<float*>(lse), B, L, H, qscale, lse_b, lse_h,
+                                                stages);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool SEG, bool CAUSAL, bool RESIDENT>
 int launch_long(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
                 float qscale, bool lse_head_major, int warps, int splits, cudaStream_t stream) {
@@ -1636,8 +1917,10 @@ int launch_long_ring(const void* qkv, const void* seg, void* out, void* lse, int
 // resident) of the long-row kernel, or (grid, stages, form) of a ring at D
 // = 64 (resident FORM_ROW_RING and up); for
 // shorter rows `warps` carries the ring's grid of persistent CTAs and
-// `splits` its stages, and a grid of 0 selects the one-CTA-per-(row, head)
-// kernel, which the block-diagonal forward always takes.
+// `splits` its stages, `resident` 0 for the warpgroup ring or WARP_RING for
+// the warp ring (D = 64, 65..96 tokens), and a grid of 0 selects the
+// one-CTA-per-(row, head) kernel, which the block-diagonal forward always
+// takes.
 template <int D, bool SEG, bool BD>
 int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, int L, int H,
                 int causal, float qscale, bool hm, int warps, int splits, int resident,
@@ -1645,6 +1928,15 @@ int launch_rows(const void* qkv, const void* seg, void* out, void* lse, int B, i
   if (L <= 0) return (int)cudaErrorInvalidValue;
   if (!BD && L <= SHORT_ROW && warps > 0) {
     const int grid = warps, stages = splits;
+    if (resident == WARP_RING) {
+      if (D != 64 || L < 65 || L > 96) return (int)cudaErrorInvalidValue;
+      if (L <= 80)
+        return causal ? launch_warp_ring<80, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s)
+                      : launch_warp_ring<80, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+      return causal ? launch_warp_ring<96, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s)
+                    : launch_warp_ring<96, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
+    }
+    if (resident != 0) return (int)cudaErrorInvalidValue;
     if (L <= 64)
       return causal ? launch_ring<D, 1, SEG, true>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s)
                     : launch_ring<D, 1, SEG, false>(qkv, seg, out, lse, B, L, H, qscale, hm, grid, stages, s);
@@ -1695,7 +1987,8 @@ int dispatch(const void* qkv, const void* seg, void* out, void* lse, int B, int 
 // slots, 3 or 4) of the stream ring with 64- or 128-key chunks (head_dim 64),
 // or (warps, splits, 1 or 0) of flash_fwd_long_kernel's resident or streamed
 // form; for shorter rows attention.py::short_row_plan gives (grid, stages,
-// 0) of the ring kernel, or (0, 0, 0) for the one-CTA-per-(row, head) kernel.
+// 0) of the ring kernel, (grid, stages, 1) of the warp ring (D = 64, 65..96
+// tokens), or (0, 0, 0) for the one-CTA-per-(row, head) kernel.
 extern "C" int latteclip_flash_fwd(const void* qkv, void* out, void* lse, int B, int L, int H,
                                    int D, int causal, float qscale, int warps, int splits,
                                    int resident, void* stream) {

@@ -142,6 +142,13 @@ __device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) 
                : "r"(addr));
 }
 
+// ldmatrix x4 .trans at a shared-memory address.
+__device__ __forceinline__ void ldmatrix_x4_trans_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Byte offset of the 16-byte chunk `chunk` (0..7) of row r in a panel of
 // 128-byte rows in the 128-byte swizzle (a 1024-byte aligned panel).
 __device__ __forceinline__ uint32_t sw128_offset(int r, int chunk) {

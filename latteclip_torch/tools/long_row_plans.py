@@ -47,11 +47,11 @@ OUT_TOL, OUT_REL_TOL, LSE_TOL = 2e-2, 1e-2, 1e-3
 GRAD_REL_TOL, GRAD_MAX_TOL = 1e-2, 2e-2
 
 
-def agrees(out, lse2, ref_out, ref_lse2) -> bool:
+def agrees(out, lse2, ref_out, ref_lse2, lse_tol: float = LSE_TOL) -> bool:
     d, r = out.float() - ref_out.float(), ref_out.float()
     return (bool((d.abs() <= OUT_TOL + OUT_TOL * r.abs()).all())
             and float(d.norm() / r.norm()) <= OUT_REL_TOL
-            and float((lse2 - ref_lse2).abs().max()) <= LSE_TOL)
+            and float((lse2 - ref_lse2).abs().max()) <= lse_tol)
 
 
 def grads_agree(dqkv, ref, H, D) -> bool:

@@ -3,32 +3,44 @@ launch plans other than their own, on the card:
 
     python -m latteclip_torch.tools.short_row_plans
 
-For each shape (the train step's, serving's and the classifier build's), the
-forward entry point (``latteclip_flash_fwd``, or ``latteclip_flash_fwd_seg``
-where the shape has segment ids) runs under the one-CTA-per-(row, head) form
-and under the ring at every stage count that fits, one to four CTAs an SM
-(one or two where a CTA has two warpgroups),
-each checked against the plain version (out and lse2, as ``chip_smoke.py``
-holds them) and timed with CUDA events, L2 flushed, median of ``--iters``;
-then the backward entry point the same way (its one-CTA form with the delta
-pre-pass), checked on dq, dk and dv. One JSON line a shape and direction:
-the plan that ``attention.short_row_plan`` (or ``bwd_short_row_plan``)
-picks, its time, every form's time, and SDPA's (forward, or backward alone)
-on the same q, k, v and mask. It answers how the plans' rules were chosen;
-the kernels and their wrappers never read it.
+For each shape (the train step's, serving's, the classifier build's and
+FLYP's templates'), the forward entry point (``latteclip_flash_fwd``, or
+``latteclip_flash_fwd_seg`` where the shape has segment ids) runs under the
+one-CTA-per-(row, head) form, under the warpgroup ring at every stage count
+that fits, one to four CTAs an SM (one or two where a CTA has two
+warpgroups), and under the warp ring (head_dim 64, 65..96 tokens) at every
+CTA count an SM and stage count that fits, each checked against the plain
+version (out and lse2, as ``chip_smoke.py`` holds them; causal lse2 to one
+flip of a bf16 p, ``ONE_P_FLIP_LSE``), every warp-ring form also against the
+one-CTA form's bits, and timed with CUDA events, L2 flushed, median of
+``--iters``; then the backward entry point the same way (its one-CTA form
+with the delta pre-pass; its warp ring at head_dim 64 at any length),
+checked on dq, dk and dv. One JSON line a shape and
+direction: the plan that ``attention.short_row_plan`` (or
+``bwd_short_row_plan``) picks, its time, every form's time, and SDPA's
+(forward, or backward alone) on the same q, k, v and mask. It answers how
+the plans' rules were chosen; the kernels and their wrappers never read it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from latteclip_torch.kernels import attention as A
-from latteclip_torch.tools.long_row_plans import _qkv, agrees, grads_agree
+from latteclip_torch.tools.long_row_plans import LSE_TOL, _qkv, agrees, grads_agree
 from latteclip_torch.tools.perf_lab import Timer
+
+# lse2 of causal rows near their start, which see few keys: one flip of a
+# bf16 p (2^-8 of p), which the f32 summation order of the scores can cause,
+# moves it by up to 2^-8 / (l ln 2), l >= 1 (tests/test_torch_kernels_gpu.py
+# holds causal lse2 to the same bound); every warp-ring form is held besides
+# to the one-CTA form's bits, whose products and sums it repeats in order
+ONE_P_FLIP_LSE = 2 ** -8 / math.log(2)
 
 # (B, L, H, D, causal, segments): "pairs" = two 50-token images a row,
 # "packed" = runs of 6..40 tokens and a padding tail (at least 6 keys with p
@@ -43,8 +55,11 @@ SHAPES = (
     (336, 128, 8, 64, True, "packed"),    # packed captions
     (8, 128, 8, 64, True, "packed"),      # packed templates
     (64, 100, 6, 128, False, "pairs"),    # head_dim 128
-    (512, 80, 8, 64, False, None),        # the one-CTA form's range, 80 and 96 tokens
+    (512, 80, 8, 64, False, None),        # the band's edges, 80 and 96 tokens
     (512, 96, 8, 64, False, None),
+    (1000, 77, 10, 64, True, None),       # 640-wide text, classifier build
+    (47, 77, 8, 64, True, None),          # FLYP's and the padded step's templates
+    (64, 128, 8, 64, True, "packed"),     # few items a SM beyond 64 tokens
 )
 
 
@@ -64,16 +79,27 @@ def segments(kind, B, L, rng) -> np.ndarray:
 
 
 def forms(plan_of, B, L, H, D, segmented, sms, bwd):
-    """{label: (grid, stages)} of every form the entry point takes here."""
+    """{label: the entry point's plan integers} of every form the entry
+    point takes here, and the label of the plan's own."""
     smem = A.bwd_short_row_smem_bytes if bwd else A.short_row_smem_bytes
-    out = {"cta": (0, 0)}
-    for ctas in ((1, 2, 3, 4) if A.ring_warpgroups(L) == 1 else (1, 2)):
+    out = {"cta": A.CTA_PLAN.c_args(bwd)}
+
+    def add(form, ctas, stages, smem_bytes, wg=0):
         budget = min(A.MAX_SMEM, A.SM_SMEM // ctas - A.CTA_RESERVED_SMEM)
+        if smem_bytes <= budget:
+            plan = A.ShortRowPlan(form, wg, ctas, stages, min(B * H, sms * ctas), smem_bytes)
+            out[f"{form} c{ctas} s{stages}"] = plan.c_args(bwd)
+
+    for ctas in ((1, 2, 3, 4) if A.ring_warpgroups(L) == 1 else (1, 2)):
         for stages in range(1, A.RING_MAX_STAGES + 1):
-            if smem(L, D, stages, segmented) <= budget:
-                out[f"ring c{ctas} s{stages}"] = (min(B * H, sms * ctas), stages)
+            add("ring", ctas, stages, smem(L, D, stages, segmented), A.ring_warpgroups(L))
+    if D == 64 and (bwd or A.WARP_RING_MIN <= L <= A.WARP_RING_MAX):
+        wr_smem = A.bwd_warp_ring_smem_bytes if bwd else A.warp_ring_smem_bytes
+        for ctas in (1, 2, 3, 4):
+            for stages in range(1, A.RING_MAX_STAGES + 1):
+                add("warp_ring", ctas, stages, wr_smem(L, stages, segmented))
     plan = plan_of(B, L, H, D, segmented, sms)
-    own = "cta" if plan.form == "cta" else f"ring c{plan.ctas_per_sm} s{plan.stages}"
+    own = "cta" if plan.form == "cta" else f"{plan.form} c{plan.ctas_per_sm} s{plan.stages}"
     return out, own
 
 
@@ -104,22 +130,26 @@ def sweep(B, L, H, D, causal, kind, timer, gen, rng, sms) -> list:
     if seg is None:
         ref_out, ref_lse2 = A.flash_fwd_plain(qkv, H, causal)
         kernel = A._kernel("latteclip_flash_fwd")
-        fwd = lambda g, s: kernel(qkv.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, c,  # noqa: E731
-                                  qscale, g, s, 0, stream)
+        fwd = lambda args: kernel(qkv.data_ptr(), out.data_ptr(), lse2.data_ptr(), B, L, H, D, c,  # noqa: E731
+                                  qscale, *args, stream)
     else:
         ref_out, ref_lse2 = A.flash_fwd_seg_plain(qkv, seg, H, causal)
         kernel = A._kernel("latteclip_flash_fwd_seg")
-        fwd = lambda g, s: kernel(qkv.data_ptr(), seg.data_ptr(), out.data_ptr(), lse2.data_ptr(),  # noqa: E731
-                                  B, L, H, D, c, qscale, g, s, 0, stream)
+        fwd = lambda args: kernel(qkv.data_ptr(), seg.data_ptr(), out.data_ptr(), lse2.data_ptr(),  # noqa: E731
+                                  B, L, H, D, c, qscale, *args, stream)
     plans, own = forms(A.short_row_plan, B, L, H, D, seg is not None, sms, False)
-    times = {}
-    for label, (grid, stages) in plans.items():
-        if fwd(grid, stages):
+    times, cta = {}, None
+    for label, args in plans.items():
+        if fwd(args):
             raise RuntimeError(f"forward form {label} refused at {shape}")
         torch.cuda.synchronize()
-        if not agrees(out, lse2, ref_out, ref_lse2):
+        if not agrees(out, lse2, ref_out, ref_lse2, ONE_P_FLIP_LSE if causal else LSE_TOL):
             raise RuntimeError(f"forward form {label} disagrees at {shape}")
-        times[label] = timer(lambda: fwd(grid, stages))
+        if label == "cta":
+            cta = out.clone(), lse2.clone()
+        elif label.startswith("warp_ring") and not (torch.equal(out, cta[0]) and torch.equal(lse2, cta[1])):
+            raise RuntimeError(f"forward form {label} differs from the one-CTA form's bits at {shape}")
+        times[label] = timer(lambda: fwd(args))
     records = [{**shape, "plan": own, "plan_ms": times[own], "best": min(times, key=times.get),
                 "best_ms": min(times.values()),
                 "sdpa_ms": timer(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)), "ms": times}]
@@ -133,24 +163,28 @@ def sweep(B, L, H, D, causal, kind, timer, gen, rng, sms) -> list:
     if seg is None:
         ref = A.flash_bwd_plain(qkv, out, dout, lse2, H, causal)
         kernel = A._kernel("latteclip_flash_bwd")
-        bwd = lambda g, s: kernel(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse2.data_ptr(),  # noqa: E731
+        bwd = lambda args: kernel(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse2.data_ptr(),  # noqa: E731
                                   delta.data_ptr(), dqkv.data_ptr(), B, L, H, D, c, qscale,
-                                  D ** -0.5, g, s, stream)
+                                  D ** -0.5, *args, stream)
     else:
         ref = A.flash_bwd_seg_plain(qkv, seg, out, dout, lse2, H, causal)
         kernel = A._kernel("latteclip_flash_bwd_seg")
-        bwd = lambda g, s: kernel(qkv.data_ptr(), seg.data_ptr(), out.data_ptr(), dout.data_ptr(),  # noqa: E731
+        bwd = lambda args: kernel(qkv.data_ptr(), seg.data_ptr(), out.data_ptr(), dout.data_ptr(),  # noqa: E731
                                   lse2.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, L, H, D,
-                                  c, qscale, D ** -0.5, g, s, stream)
+                                  c, qscale, D ** -0.5, *args, stream)
     plans, own = forms(A.bwd_short_row_plan, B, L, H, D, seg is not None, sms, True)
     times = {}
-    for label, (grid, stages) in plans.items():
-        if bwd(grid, stages):
+    for label, args in plans.items():
+        if bwd(args):
             raise RuntimeError(f"backward form {label} refused at {shape}")
         torch.cuda.synchronize()
         if not grads_agree(dqkv, ref, H, D):
             raise RuntimeError(f"backward form {label} disagrees at {shape}")
-        times[label] = timer(lambda: bwd(grid, stages))
+        if label == "cta":
+            cta = dqkv.clone()
+        elif label.startswith("warp_ring") and not torch.equal(dqkv, cta):
+            raise RuntimeError(f"backward form {label} differs from the one-CTA form's bits at {shape}")
+        times[label] = timer(lambda: bwd(args))
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     o = F.scaled_dot_product_attention(*leaves, **sdpa)
     do4 = dout.view(B, L, H, D).transpose(1, 2)

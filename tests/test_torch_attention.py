@@ -96,6 +96,37 @@ def test_flash_fwd_seg_plain_matches_pallas(layout):
     _compare(ours, ref)
 
 
+def _band_segments(R, L):
+    """Two segments a row, then a seg-0 padding tail of 5 + r tokens."""
+    seg = np.zeros((R, L), np.int32)
+    for r in range(R):
+        a = L // 2 + r
+        seg[r, :a] = 1
+        seg[r, a:L - 5 - r] = 2
+    return seg
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mask", ["causal", "none", "segments"])
+@pytest.mark.parametrize("L", [65, 80, 81, 96])
+def test_band_rows_plain_matches_pallas(L, mask, D):
+    """The band of 65..96 tokens that the forward's warp ring takes on the
+    card at head_dim 64 (text at 77; each edge of its 80- and 96-row
+    instantiations), causal, non-causal and in causal segments, at both head
+    widths, against the Pallas bodies in interpret mode."""
+    H, B = 2, 3
+    x = _qkv(B, L, H, D, seed=L * 3 + D)
+    xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    if mask == "segments":
+        seg = _band_segments(B, L)
+        ref = _flash_fwd_seg_impl(xj, jnp.asarray(seg), True, H)
+        ours = A.flash_fwd_seg_plain(xt, torch.from_numpy(seg), H, True)
+    else:
+        ref = _flash_fwd_impl(xj, mask == "causal", H)
+        ours = A.flash_fwd_plain(xt, H, mask == "causal")
+    _compare(ours, ref)
+
+
 def _pair_segments(rng, R, P):
     """Runs of 2 tokens and of 2..P/3 tokens, alternating, then a seg-0 tail."""
     seg = np.zeros((R, P), np.int32)

@@ -111,6 +111,37 @@ def test_flash_bwd_seg_plain_matches_pallas(layout):
     _assert_grads_close(ours, ref, H, D)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mask", ["causal", "none", "segments"])
+@pytest.mark.parametrize("L", [65, 80, 81, 96])
+def test_band_rows_bwd_plain_matches_pallas(L, mask, D):
+    """The band of 65..96 tokens (the backward's warp ring takes it and the
+    few-item cases at head_dim 64), causal, non-causal and in causal
+    segments (two a row and a padding tail), at both head widths, against
+    the Pallas bodies' vjp in interpret mode."""
+    H, B = 2, 3
+    x, g = _inputs(B, L, H, D, seed=L * 5 + D)
+    xj, gj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    xt, gt = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(g).to(torch.bfloat16)
+    if mask == "segments":
+        seg = np.zeros((B, L), np.int32)
+        for r in range(B):
+            seg[r, :L // 2 + r] = 1
+            seg[r, L // 2 + r:L - 5 - r] = 2
+        sj = jnp.asarray(seg)
+        _, vjp = jax.vjp(lambda a: flash_attention_qkv_segmented(a, H, sj, True), xj)
+        out, lse2 = _flash_fwd_seg_impl(xj, sj, True, H)
+        ours = A.flash_bwd_seg_plain(xt, torch.from_numpy(seg), torch.from_numpy(np.array(out.astype(jnp.float32))),
+                                     gt, torch.from_numpy(np.array(lse2)), H, True)
+    else:
+        causal = mask == "causal"
+        _, vjp = jax.vjp(lambda a: flash_attention_qkv(a, H, causal), xj)
+        out, lse2 = _flash_fwd_impl(xj, causal, H)
+        ours = A.flash_bwd_plain(xt, torch.from_numpy(np.array(out.astype(jnp.float32))), gt,
+                                 torch.from_numpy(np.array(lse2)), H, causal)
+    _assert_grads_close(ours, vjp(gj)[0], H, D)
+
+
 def _segments():
     return torch.tensor([[1] * 10 + [2] * 20 + [0] * 7, [1] * 37], dtype=torch.int32)
 

@@ -540,15 +540,18 @@ def test_cuda_short_row_ring_refuses_a_plan_it_cannot_take():
 
 @pytest.mark.gpu
 def test_cuda_short_row_plan_forms_count_their_launch():
-    """Each form of the short-row plans (the ring; the one-CTA form at 65..96
-    tokens, 65..80 in the backward, and there where the items are few an SM),
-    run through the wrappers, adds one to its kernel's count and matches the
-    plain version."""
+    """Each form of the short-row plans (the ring; the warp ring at 65..96
+    tokens, and in the backward where the items are few an SM;
+    the one-CTA form at head_dim 128 in the band), run through the wrappers,
+    adds one to its kernel's count and to its form's, and matches the plain
+    version."""
     _need_cuda()
     rng = np.random.default_rng(43)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (B, L, H, D), forms in (((160, 100, 4, 64), ("ring", "ring")), ((64, 77, 4, 64), ("cta", "cta")),
-                                ((2, 100, 2, 64), ("ring", "cta")), ((128, 50, 2, 128), ("ring", "ring"))):
+    for (B, L, H, D), forms in (((160, 100, 4, 64), ("ring", "ring")),
+                                ((64, 77, 4, 64), ("warp_ring", "warp_ring")),
+                                ((2, 100, 2, 64), ("ring", "warp_ring")), ((128, 50, 2, 128), ("ring", "ring")),
+                                ((8, 77, 1, 128), ("cta", "cta"))):
         assert (A.short_row_plan(B, L, H, D, False, sms).form,
                 A.bwd_short_row_plan(B, L, H, D, False, sms).form) == forms
         x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
@@ -558,12 +561,157 @@ def test_cuda_short_row_plan_forms_count_their_launch():
         ours = A.flash_attention_qkv_bwd(x, out, dout, lse2, H, True)
         assert A.launch_counts["flash_fwd"] == 1 and A.launch_counts["flash_bwd"] == 1
         assert sum(A.launch_counts.values()) == 2
+        assert A.short_fwd_form_counts == {f: int(f == forms[0]) for f in A.short_fwd_form_counts}
+        assert A.short_bwd_form_counts == {f: int(f == forms[1]) for f in A.short_bwd_form_counts}
         ref_out, ref_lse2 = A.flash_fwd_plain(x, H, True)
         torch.cuda.synchronize()
         _assert_out_close(out, ref_out)
         # causal rows near the start see few keys: one flipped bf16 p moves lse2 by <= ONE_P_FLIP_LSE
         torch.testing.assert_close(lse2, ref_lse2, atol=ONE_P_FLIP_LSE, rtol=0)
         _assert_grads_close(ours, A.flash_bwd_plain(x, out, dout, lse2, H, True), H, D)
+
+
+def _warp_ring_fwd(name, x, seg, H, causal, grid, stages, lse_shape=None):
+    """A forward entry point called with an explicit warp-ring plan: (error,
+    out, lse2)."""
+    B, L, _ = x.shape
+    D = x.shape[-1] // (3 * H)
+    out = torch.empty(B, L, H * D, device="cuda", dtype=torch.bfloat16)
+    lse2 = torch.empty(lse_shape or (B, H, L), device="cuda")
+    tensors = [x, *([] if seg is None else [seg]), out, lse2]
+    err = A._kernel(name)(*(t.data_ptr() for t in tensors), B, L, H, D, int(causal),
+                          (D ** -0.5) * A.LOG2E, grid, stages, A.WARP_RING_CODE,
+                          torch.cuda.current_stream().cuda_stream)
+    return err, out, lse2
+
+
+def _warp_ring_bwd(name, x, seg, out, dout, lse2, H, causal, grid, stages):
+    """A backward entry point called with an explicit warp-ring plan:
+    (error, dqkv)."""
+    return _ring_bwd(name, x, seg, out, dout, lse2, H, causal, grid, A.BWD_WARP_RING_CODE + stages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grids", list(RING_GRIDS))
+@pytest.mark.parametrize("L", [65, 77, 80, 81, 96])
+def test_cuda_warp_ring_matches_plain_versions(L, grids):
+    """The warp rings (head_dim 64) against their plain versions at the
+    band's lengths, causal, non-causal and segmented, on grids that wrap the
+    items, do not divide them, or give each its own CTA, at one and two
+    stages: out and lse2 (causal lse2 to ONE_P_FLIP_LSE, as for the ring),
+    dq, dk and dv; each equal bit for bit to the one-CTA form it replaced
+    (the same products and sums in the same order), and to a second call;
+    the head-split forward and backward on the warp ring equal K1 and K3
+    bit for bit."""
+    _need_cuda()
+    B, grid = RING_GRIDS[grids]
+    D, H = 64, 4
+    grid = grid or B * H
+    rng = np.random.default_rng(L * 1000 + 47 + B)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_long_segments(rng, B, L)).cuda()
+    for stages in (1, 2):
+        for causal in (False, True):
+            for sg in (None, seg):
+                suffix = "" if sg is None else "_seg"
+                err, out, lse2 = _warp_ring_fwd("latteclip_flash_fwd" + suffix, x, sg, H, causal, grid, stages)
+                err2, out2, lse2_2 = _warp_ring_fwd("latteclip_flash_fwd" + suffix, x, sg, H, causal, grid,
+                                                    stages)
+                errc, outc, lsec = _ring_fwd("latteclip_flash_fwd" + suffix, x, sg, H, causal, 0, 0)
+                ref_out, ref_lse2 = (A.flash_fwd_plain(x, H, causal) if sg is None
+                                     else A.flash_fwd_seg_plain(x, sg, H, causal))
+                torch.cuda.synchronize()
+                assert err == err2 == errc == 0
+                _assert_out_close(out, ref_out)
+                torch.testing.assert_close(lse2, ref_lse2, atol=ONE_P_FLIP_LSE if causal else LSE_TOL, rtol=0)
+                assert torch.equal(out, out2) and torch.equal(lse2, lse2_2)
+                assert torch.equal(out, outc) and torch.equal(lse2, lsec)
+                err, dqkv = _warp_ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal,
+                                           grid, stages)
+                err2, dqkv2 = _warp_ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal,
+                                             grid, stages)
+                errc, dqkvc = _ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal, 0, 0)
+                ref = (A.flash_bwd_plain(x, out, dout, lse2, H, causal) if sg is None
+                       else A.flash_bwd_seg_plain(x, sg, out, dout, lse2, H, causal))
+                torch.cuda.synchronize()
+                assert err == err2 == errc == 0
+                _assert_grads_close(dqkv, ref, H, D)
+                assert torch.equal(dqkv, dqkv2) and torch.equal(dqkv, dqkvc)
+            hp = 128 // D
+            err, out_hs, lse_hs = _warp_ring_fwd("latteclip_flash_fwd_hs", x, None, H, causal, grid, stages,
+                                                 (H // hp, hp, B, L))
+            err1, out1, lse1 = _warp_ring_fwd("latteclip_flash_fwd", x, None, H, causal, grid, stages)
+            torch.cuda.synchronize()
+            assert err == err1 == 0
+            assert torch.equal(out_hs, out1) and torch.equal(lse_hs.reshape(H, B, L).transpose(0, 1), lse1)
+            err, d_hs = _warp_ring_bwd("latteclip_flash_bwd_hs", x, None, out1, dout, lse_hs, H, causal, grid,
+                                       stages)
+            err1, d1 = _warp_ring_bwd("latteclip_flash_bwd", x, None, out1, dout, lse1, H, causal, grid, stages)
+            torch.cuda.synchronize()
+            assert err == err1 == 0
+            assert torch.equal(d_hs, d1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 16, 50, 64, 100, 113, 128])
+def test_cuda_backward_warp_ring_takes_the_few_item_lengths(L):
+    """The backward's warp ring at every row length it may take where the
+    items are few an SM (its five-warp instantiation up to 80 tokens, its
+    eight-warp one beyond), causal and segmented, at the plan's grid and
+    stages and on a grid that wraps: dq, dk and dv against the plain
+    version, bit-equal to the row kernel's."""
+    _need_cuda()
+    D, H, B = 64, 2, 5
+    rng = np.random.default_rng(L * 7 + 3)
+    x = _qkv(rng, B, L, H, D).to("cuda", torch.bfloat16)
+    dout = torch.from_numpy(rng.standard_normal((B, L, H * D)).astype(np.float32)).to("cuda", torch.bfloat16)
+    seg = torch.from_numpy(_long_segments(rng, B, L, shortest=min(6, L))).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = A.bwd_short_row_plan(B, L, H, D, True, sms)
+    assert plan.form == "warp_ring"
+    for causal in (False, True):
+        for sg in (None, seg):
+            suffix = "" if sg is None else "_seg"
+            out, lse2 = (A.flash_fwd_plain(x, H, causal) if sg is None else A.flash_fwd_seg_plain(x, sg, H, causal))
+            ref = (A.flash_bwd_plain(x, out, dout, lse2, H, causal) if sg is None
+                   else A.flash_bwd_seg_plain(x, sg, out, dout, lse2, H, causal))
+            errc, dqkvc = _ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal, 0, 0)
+            for grid, stages in ((plan.grid, plan.stages), (3, 1)):
+                err, dqkv = _warp_ring_bwd("latteclip_flash_bwd" + suffix, x, sg, out, dout, lse2, H, causal,
+                                           grid, stages)
+                torch.cuda.synchronize()
+                assert err == errc == 0
+                if L == 1:
+                    _assert_single_token_grads(dqkv, ref, H, D)
+                else:
+                    _assert_grads_close(dqkv, ref, H, D)
+                assert torch.equal(dqkv, dqkvc)
+
+
+@pytest.mark.gpu
+def test_cuda_warp_ring_refuses_a_plan_it_cannot_take():
+    """The warp rings' entry points return an error, and launch nothing, for
+    what they cannot run: the forward's outside 65..96 tokens or at head_dim
+    128, no stage or more than RING_MAX_STAGES; the backward's at head_dim
+    128, more than RING_MAX_STAGES stages, or stages past a CTA's shared
+    memory (a grid of 0 is the one-CTA form, as for the ring); the wrappers
+    raise on a refused launch."""
+    _need_cuda()
+    for L, D, stages, grid in ((64, 64, 1, 1), (97, 64, 1, 1), (77, 128, 1, 1), (77, 64, 0, 1), (77, 64, 5, 1)):
+        x = torch.zeros(1, L, 3 * D, device="cuda", dtype=torch.bfloat16)
+        err, _, _ = _warp_ring_fwd("latteclip_flash_fwd", x, None, 1, False, grid, stages)
+        assert err != 0, (L, D, stages, grid)
+    for L, D, stages in ((77, 128, 1), (77, 64, 5), (128, 64, 3)):
+        x = torch.zeros(1, L, 3 * D, device="cuda", dtype=torch.bfloat16)
+        out = torch.zeros(1, L, D, device="cuda", dtype=torch.bfloat16)
+        err, _ = _warp_ring_bwd("latteclip_flash_bwd", x, None, out, out, torch.zeros(1, 1, L, device="cuda"), 1,
+                                False, 1, stages)
+        assert err != 0, (L, D, stages)
+    torch.cuda.synchronize()
+    x = torch.zeros(1, 77, 3 * 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):  # an entry point's refusal is raised
+        A._raise_on(_warp_ring_fwd("latteclip_flash_fwd", x, None, 1, False, 1, 5)[0], "latteclip_flash_fwd")
 
 
 def _grad_errors(ours, ref, H, D):
