@@ -17,7 +17,13 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
+from latteclip_torch.obs.trace import counter_dict, span
+
 logger = logging.getLogger(__name__)
+
+# what pack_caption_batch packed: slots (rows x pack_len) and the real tokens
+# in them (benchmark/metrics/pack_fill.*)
+pack_counts = counter_dict("packing.pack_counts", ("pack_slots", "pack_tokens"))
 
 
 class PackedText(NamedTuple):
@@ -107,8 +113,12 @@ def pack_caption_batch(per_image_tokens: np.ndarray, per_group_tokens: np.ndarra
                        pack_len: int, rows: int) -> Dict[str, np.ndarray]:
     """Both caption streams of one train batch, packed in the order
     [per_image (B), per_group (B)], under the field names the step reads."""
-    tokens = np.concatenate([per_image_tokens, per_group_tokens], axis=0)
-    packed = pack_token_rows(tokens, token_lengths(tokens), pack_len, rows=rows)
+    with span("pack"):
+        tokens = np.concatenate([per_image_tokens, per_group_tokens], axis=0)
+        lengths = token_lengths(tokens)
+        packed = pack_token_rows(tokens, lengths, pack_len, rows=rows)
+    pack_counts["pack_slots"] += rows * pack_len
+    pack_counts["pack_tokens"] += int(lengths.sum())
     return {
         "cap_tokens": packed.tokens,
         "cap_positions": packed.positions,

@@ -74,6 +74,7 @@ from latteclip_torch.data.tar_reader import (
     split_shards,
 )
 from latteclip_torch.models.tokenizer import ClipTokenizer
+from latteclip_torch.obs.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -638,7 +639,7 @@ def _copy_to(batch: Dict[str, np.ndarray], device: torch.device,
     pinned memory on ``stream`` (arrays not yet pinned are pinned first);
     other values pass through."""
     out = {}
-    with torch.cuda.stream(stream):
+    with torch.cuda.stream(stream), span("h2d"):
         for k, v in batch.items():
             if not isinstance(v, np.ndarray):
                 out[k] = v
@@ -683,15 +684,17 @@ def prefetch(iterator: Iterator, size: int = 2, device=None) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("input_wait"):
+            item = q.get()
+            if item is not sentinel and on_cuda:
+                item, event = item
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
         if item is sentinel:
             if error:
                 raise error[0]
             return
         if on_cuda:
-            item, event = item
-            current = torch.cuda.current_stream(device)
-            current.wait_event(event)
             for v in item.values():
                 if isinstance(v, torch.Tensor):
                     v.record_stream(current)

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 from PIL import Image
 
+from latteclip_torch.obs.trace import span
+
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -124,8 +126,9 @@ def load_rgb(path_or_file) -> Image.Image:
 
 
 def _standardize(x: torch.Tensor, mean, std) -> torch.Tensor:
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    with span("wait"):  # on CUDA each copy of a host list waits for the stream to drain
+        m = torch.tensor(mean, dtype=torch.float32, device=x.device)
+        s = torch.tensor(std, dtype=torch.float32, device=x.device)
     return (x - m) / s
 
 

@@ -27,6 +27,7 @@ from latteclip_torch.data.pipeline import prefetch
 from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.models.tokenizer import ClipTokenizer
+from latteclip_torch.obs.trace import span
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -91,10 +92,14 @@ def make_eval_step(model: clip_mod.CLIP, classifier: torch.Tensor, *,
 
     @torch.no_grad()
     def step(images_u8) -> torch.Tensor:
-        images = T.normalize_images(torch.as_tensor(images_u8).to(dev), mean, std)
-        feats = clip_mod.encode_image(model, images, normalize=True, attention=attention,
-                                      ln_linear=ln_linear)
-        return 100.0 * feats @ classifier
+        with span("eval_step", step=True):
+            with span("normalize"):
+                images = T.normalize_images(torch.as_tensor(images_u8).to(dev), mean, std)
+            with span("vision"):
+                feats = clip_mod.encode_image(model, images, normalize=True, attention=attention,
+                                              ln_linear=ln_linear)
+            with span("classify"):
+                return 100.0 * feats @ classifier
     return step
 
 

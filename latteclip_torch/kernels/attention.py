@@ -67,6 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from latteclip_torch.device import sm_count
+from latteclip_torch.obs.trace import counter_dict
 
 NEG_INF = -1e9
 LOG2E = math.log2(math.e)
@@ -75,19 +76,23 @@ KERNEL_HEAD_DIMS = (64, 128)
 BLOCKDIAG_MAX_LEN, BLOCKDIAG_MAX_WIDTH = 128, 1024
 
 # Launches of each kernel in this process (chip_smoke.py resets and reads them).
-launch_counts = {"flash_fwd": 0, "flash_fwd_seg": 0, "flash_bwd": 0, "flash_bwd_seg": 0,
-                 "flash_fwd_hs": 0, "flash_bwd_hs": 0, "flash_fwd_bd": 0}
+launch_counts = counter_dict("attention.launch_counts", (
+    "flash_fwd", "flash_fwd_seg", "flash_bwd", "flash_bwd_seg", "flash_fwd_hs", "flash_bwd_hs",
+    "flash_fwd_bd"))
 
 
 # Launches of the long-row forms (rows past 128 tokens), by form: which form
 # a path's flash_fwd* and flash_bwd* launches took (chip_smoke.py reads them).
-fwd_form_counts = {"row_ring": 0, "stream_ring": 0, "resident": 0, "streamed": 0}
-bwd_form_counts = {"streamed": 0, "resident": 0, "tiled": 0}
+fwd_form_counts = counter_dict("attention.fwd_form_counts",
+                               ("row_ring", "stream_ring", "resident", "streamed"))
+bwd_form_counts = counter_dict("attention.bwd_form_counts", ("streamed", "resident", "tiled"))
 # Launches of the short-row forms (rows of at most 128 tokens) under their
 # plans, forward (K1, K2, K5) and backward (K3, K4, K6); the block-diagonal
 # forward has no plan and is not counted here.
-short_fwd_form_counts = {"cta": 0, "ring": 0, "warp_ring": 0}
-short_bwd_form_counts = {"cta": 0, "ring": 0, "warp_ring": 0}
+short_fwd_form_counts = counter_dict("attention.short_fwd_form_counts",
+                                     ("cta", "ring", "warp_ring"))
+short_bwd_form_counts = counter_dict("attention.short_bwd_form_counts",
+                                     ("cta", "ring", "warp_ring"))
 
 
 def reset_launch_counts() -> None:

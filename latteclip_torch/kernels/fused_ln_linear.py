@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from latteclip_torch.device import sm_count
 from latteclip_torch.kernels.attention import MAX_SMEM
 from latteclip_torch.models.quantize import Int8Weight, int8_dense
+from latteclip_torch.obs.trace import counter_dict
 
 LN_EPS = 1e-5
 LN_LINEAR_CHOICES = ("unfused", "fused")
@@ -37,7 +38,7 @@ LN_LINEAR_CHOICES = ("unfused", "fused")
 _TPU_VMEM_BUDGET = 10 * 1024 * 1024
 
 # Launches of the kernel in this process (chip_smoke.py resets and reads them).
-launch_counts = {"ln_linear": 0}
+launch_counts = counter_dict("fused_ln_linear.launch_counts", ("ln_linear",))
 
 
 def reset_launch_counts() -> None:

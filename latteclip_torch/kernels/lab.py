@@ -46,6 +46,7 @@ import torch
 
 from latteclip_torch.device import sm_count
 from latteclip_torch.kernels.attention import CTA_RESERVED_SMEM, SM_SMEM, SW128_ALIGN
+from latteclip_torch.obs.trace import counter_dict
 
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_SMEM = 232448      # dynamic shared memory a CTA may use on an H100 (csrc/lab.cu)
@@ -62,7 +63,7 @@ BWD_RING_MAX_LEN = 208  # rows whose item and ds fit one backward ring CTA (head
 BWD_RING_MAX_STAGES = 2  # resident items of the backward ring
 
 # Launches of each kernel in this process (chip_smoke.py resets and reads them).
-launch_counts = {"lab_fwd": 0, "lab_bwd": 0, "lab_qk": 0, "lab_pv": 0}
+launch_counts = counter_dict("lab.launch_counts", ("lab_fwd", "lab_bwd", "lab_qk", "lab_pv"))
 
 
 def reset_launch_counts() -> None:

@@ -13,7 +13,9 @@ tool's columns.
 
 :class:`StepTraceProfiler` records a ``torch.profiler`` trace of the train
 loop's steps ``[start_step, start_step + num_steps)``, host and (on CUDA)
-device activity, and writes it as a Chrome trace,
+device activity, with the program's spans (:mod:`latteclip_torch.obs.trace`:
+``train_step`` and its phases, ``input_wait``, and the prefetch thread's
+``h2d`` and ``pack``) as ranges of their own, and writes it as a Chrome trace,
 ``<trace_dir>/steps_<start>-<stop>.pt.trace.json``, which Perfetto and
 TensorBoard's profiler plugin read. Before the trace stops it calls
 ``sync`` (``torch.cuda.synchronize`` on the card), so that the traced
@@ -75,6 +77,18 @@ def profile_model(name: str, batch_size: int = 1, device="cuda") -> Dict[str, fl
     }
 
 
+def _every_thread():
+    """Kineto's setting that records the ranges of every thread, the
+    prefetch thread's ``h2d`` and ``pack`` spans too, where this torch has
+    it (None: the threads the profiler starts on)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 class StepTraceProfiler:
     """A ``torch.profiler`` trace of steps ``[start_step, start_step +
     num_steps)`` (module docstring). Call :meth:`on_step` with each step's
@@ -104,7 +118,7 @@ class StepTraceProfiler:
                 activities.append(ProfilerActivity.CUDA)
             if sync is not None:
                 sync()
-            self._prof = profile(activities=activities)
+            self._prof = profile(activities=activities, experimental_config=_every_thread())
             self._prof.start()
         elif self._prof is not None and step >= self.stop_step:
             self._stop(sync, stop=step)

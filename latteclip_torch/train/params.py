@@ -351,7 +351,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="capture a torch.profiler trace (host and device) of a "
                         "few warm train steps into <logs>/<name>/trace as a "
                         "Chrome trace (view with Perfetto or TensorBoard's "
-                        "profile plugin)")
+                        "profile plugin); it carries the program's spans: "
+                        "train_step, its phases, input_wait, and the prefetch "
+                        "thread's h2d and pack")
     p.add_argument("--profile-start-step", type=int, default=3,
                    help="first global step inside the trace window (after "
                         "compile + pipeline warmup)")

@@ -65,6 +65,7 @@ from latteclip_torch.models import clip as clip_mod
 from latteclip_torch.models import coca as coca_mod
 from latteclip_torch.models.layers import l2_normalize
 from latteclip_torch.models.quantize import refuse_training
+from latteclip_torch.obs.trace import span
 from latteclip_torch.train.objective import (
     clip_loss,
     distill_clip_loss,
@@ -184,73 +185,79 @@ def latteclip_loss_fn(
     zs_preds = _to_device(batch, ("zs_preds",), dev)[0].long()
     routes = {"attention": attention, "ln_linear": ln_linear}
     text = {**routes, "normalize": True, "remat": hp.text_remat}
-    image_features = clip_mod.encode_image(model, images, normalize=True, remat=hp.vision_remat,
-                                           **routes)
-    logit_scale = model.logit_scale.exp()
+    with span("vision"):
+        image_features = clip_mod.encode_image(model, images, normalize=True,
+                                               remat=hp.vision_remat, **routes)
 
-    # fine-tune pseudo-labels from the live prototype classifier (train.py:384-411)
-    with torch.no_grad():
-        preds = (100.0 * image_features @ l2_normalize(memory_bank).T).argmax(dim=1)
-
-    # the C class templates run once and their rows are gathered per label
     B = zs_preds.shape[0]
-    if hp.text_packing:
-        if template_packed is not None:
-            class_text_feats = clip_mod.encode_text_packed(model, *template_packed, **text)
+    # the C class templates run once and their rows are gathered per label
+    with span("text"):
+        if hp.text_packing:
+            if template_packed is not None:
+                class_text_feats = clip_mod.encode_text_packed(model, *template_packed, **text)
+            else:
+                class_text_feats = clip_mod.encode_text(model, template_table, **text)
+            caption_feats = clip_mod.encode_text_packed(
+                model, *_to_device(batch, PACKED_KEYS, dev), **text)
+            per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
+        elif hp.fuse_text_fwd:
+            C = template_table.shape[0]
+            tokens = torch.cat([template_table,
+                                *_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev)])
+            tokens = torch.cat([tokens, tokens.new_zeros((-tokens.shape[0] % 8, tokens.shape[1]))])
+            feats = clip_mod.encode_text(model, tokens, **text)
+            class_text_feats = feats[:C]
+            per_img_f, per_grp_f = feats[C:C + B], feats[C + B:C + 2 * B]
         else:
             class_text_feats = clip_mod.encode_text(model, template_table, **text)
-        caption_feats = clip_mod.encode_text_packed(
-            model, *_to_device(batch, PACKED_KEYS, dev), **text)
-        per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
-    elif hp.fuse_text_fwd:
-        C = template_table.shape[0]
-        tokens = torch.cat([template_table,
-                            *_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev)])
-        tokens = torch.cat([tokens, tokens.new_zeros((-tokens.shape[0] % 8, tokens.shape[1]))])
-        feats = clip_mod.encode_text(model, tokens, **text)
-        class_text_feats = feats[:C]
-        per_img_f, per_grp_f = feats[C:C + B], feats[C + B:C + 2 * B]
-    else:
-        class_text_feats = clip_mod.encode_text(model, template_table, **text)
-        tokens = torch.cat(_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev))
-        caption_feats = clip_mod.encode_text(model, tokens, **text)
-        per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
-    label_f = class_text_feats[preds]
-    label_zs_f = class_text_feats[zs_preds]
+            tokens = torch.cat(_to_device(batch, ("per_image_tokens", "per_group_tokens"), dev))
+            caption_feats = clip_mod.encode_text(model, tokens, **text)
+            per_img_f, per_grp_f = caption_feats[:B], caption_feats[B:]
+    with span("loss"):
+        logit_scale = model.logit_scale.exp()
 
-    # confidence weights against the epoch prototypes (detached), gated
-    w_img_g = (text_confidence_weights(per_img_f, prototypes) + WEIGHT_EPS) * hp.use_image_caption
-    w_grp_g = (text_confidence_weights(per_grp_f, prototypes) + WEIGHT_EPS) * hp.use_batch_caption
-    w_label_g = (text_confidence_weights(label_f, prototypes) + WEIGHT_EPS) * hp.use_template_caption
-    w_label_zs_g = ((text_confidence_weights(label_zs_f, prototypes) + WEIGHT_EPS)
-                    * hp.use_template_caption)
-    text_fused, text_fused_zs = fuse_text_streams(
-        label_f, label_zs_f, per_img_f, per_grp_f,
-        w_label_g, w_label_zs_g, w_img_g, w_grp_g, hp.bug_compat)
+        # fine-tune pseudo-labels from the live prototype classifier (train.py:384-411)
+        with torch.no_grad():
+            preds = (100.0 * image_features @ l2_normalize(memory_bank).T).argmax(dim=1)
+        label_f = class_text_feats[preds]
+        label_zs_f = class_text_feats[zs_preds]
 
-    # prototype anchoring (train.py:487-488)
-    anchor, anchor_zs = memory_bank[preds], memory_bank[zs_preds]
-    text_final = anchor + hp.alpha * (text_fused - anchor)
-    text_final_zs = anchor_zs + hp.alpha * (text_fused_zs - anchor_zs)
+        # confidence weights against the epoch prototypes (detached), gated
+        w_img_g = ((text_confidence_weights(per_img_f, prototypes) + WEIGHT_EPS)
+                   * hp.use_image_caption)
+        w_grp_g = ((text_confidence_weights(per_grp_f, prototypes) + WEIGHT_EPS)
+                   * hp.use_batch_caption)
+        w_label_g = ((text_confidence_weights(label_f, prototypes) + WEIGHT_EPS)
+                     * hp.use_template_caption)
+        w_label_zs_g = ((text_confidence_weights(label_zs_f, prototypes) + WEIGHT_EPS)
+                        * hp.use_template_caption)
+        text_fused, text_fused_zs = fuse_text_streams(
+            label_f, label_zs_f, per_img_f, per_grp_f,
+            w_label_g, w_label_zs_g, w_img_g, w_grp_g, hp.bug_compat)
 
-    image_all = mesh_mod.gather(image_features, mesh)
-    loss_ft = clip_loss(image_all, mesh_mod.gather(text_final, mesh), logit_scale)
-    loss_zs = (clip_loss(image_all, mesh_mod.gather(text_final_zs, mesh), logit_scale)
-               * hp.use_zeroshot_pseudolabel)
-    total = (loss_ft + loss_zs) * hp.use_finetune_pseudolabel
-    agreement = (preds == zs_preds).float().mean()
-    aux = {
-        "loss": total.detach(),
-        "contrastive_loss": loss_ft.detach(),
-        "zeroshot": loss_zs.detach(),
-        "preds": preds,
-        "zs_preds": zs_preds,
-        "text_final": text_final.detach(),
-        "text_final_zs": text_final_zs.detach(),
-        "logit_scale": logit_scale.detach(),
-        "pseudo_agreement": agreement if mesh is None else mesh.mean(agreement),
-    }
-    return total, aux
+        # prototype anchoring (train.py:487-488)
+        anchor, anchor_zs = memory_bank[preds], memory_bank[zs_preds]
+        text_final = anchor + hp.alpha * (text_fused - anchor)
+        text_final_zs = anchor_zs + hp.alpha * (text_fused_zs - anchor_zs)
+
+        image_all = mesh_mod.gather(image_features, mesh)
+        loss_ft = clip_loss(image_all, mesh_mod.gather(text_final, mesh), logit_scale)
+        loss_zs = (clip_loss(image_all, mesh_mod.gather(text_final_zs, mesh), logit_scale)
+                   * hp.use_zeroshot_pseudolabel)
+        total = (loss_ft + loss_zs) * hp.use_finetune_pseudolabel
+        agreement = (preds == zs_preds).float().mean()
+        aux = {
+            "loss": total.detach(),
+            "contrastive_loss": loss_ft.detach(),
+            "zeroshot": loss_zs.detach(),
+            "preds": preds,
+            "zs_preds": zs_preds,
+            "text_final": text_final.detach(),
+            "text_final_zs": text_final_zs.detach(),
+            "logit_scale": logit_scale.detach(),
+            "pseudo_agreement": agreement if mesh is None else mesh.mean(agreement),
+        }
+        return total, aux
 
 
 def _segment_sums(C: int, ids: torch.Tensor, feats: torch.Tensor,
@@ -261,7 +268,8 @@ def _segment_sums(C: int, ids: torch.Tensor, feats: torch.Tensor,
     its mean; JAX step.py:278-298 psums them over the data axis)."""
     sums = torch.zeros(C, feats.shape[1], dtype=torch.float32, device=feats.device)
     sums.index_add_(0, ids, feats)
-    counts = torch.bincount(ids, minlength=C).float()
+    with span("wait"):  # bincount reads the largest id back to the host on CUDA
+        counts = torch.bincount(ids, minlength=C).float()
     if mesh is None:
         return sums, counts
     both = mesh.all_reduce_(torch.cat([sums, counts[:, None]], dim=1))
@@ -360,26 +368,32 @@ def make_train_step(
               if name.split(".", 1)[0] in zero_update_subtrees]
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
-        images = _step_images(cfg, hp, aug, batch, generator, dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = latteclip_loss_fn(state.model, hp, batch, images, state.memory_bank,
-                                      state.prototypes, table, packed, attention=attention,
-                                      ln_linear=ln_linear, mesh=state.mesh)
-        loss.backward()
-        with torch.no_grad():
-            kept = [p.detach().clone() for p in frozen]
-        apply_gradients(state)
-        with torch.no_grad():
-            if frozen:
-                torch._foreach_copy_(frozen, kept)
-            state.model.logit_scale.clamp_(0.0, LOG100)
-
-        state.memory_bank = update_memory_bank(state.memory_bank, aux["preds"], aux["zs_preds"],
-                                               aux["text_final"], aux["text_final_zs"],
-                                               state.mesh)
-        state.step += 1
-        return {k: aux[k] for k in ("loss", "contrastive_loss", "zeroshot", "logit_scale",
-                                    "pseudo_agreement")}
+        with span("train_step", step=True):
+            with span("augment", stream=True):
+                images = _step_images(cfg, hp, aug, batch, generator, dev)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("forward", stream=True):
+                loss, aux = latteclip_loss_fn(state.model, hp, batch, images, state.memory_bank,
+                                              state.prototypes, table, packed, attention=attention,
+                                              ln_linear=ln_linear, mesh=state.mesh)
+            with span("backward", stream=True):
+                loss.backward()
+            with span("update", stream=True):
+                with span("optimizer"):
+                    with torch.no_grad():
+                        kept = [p.detach().clone() for p in frozen]
+                    apply_gradients(state)
+                    with torch.no_grad():
+                        if frozen:
+                            torch._foreach_copy_(frozen, kept)
+                        state.model.logit_scale.clamp_(0.0, LOG100)
+                with span("bank"):
+                    state.memory_bank = update_memory_bank(state.memory_bank, aux["preds"],
+                                                           aux["zs_preds"], aux["text_final"],
+                                                           aux["text_final_zs"], state.mesh)
+            state.step += 1
+            return {k: aux[k] for k in ("loss", "contrastive_loss", "zeroshot", "logit_scale",
+                                        "pseudo_agreement")}
 
     return step_fn
 
@@ -463,22 +477,27 @@ def make_v1_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, gamma: 
     text_params = tower_parameters(model, "text")
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
-        images = _step_images(cfg, hp, aug, batch, generator, dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = v1_loss_fn(state.model, hp, batch, images, state.memory_bank, table,
-                               attention=attention, ln_linear=ln_linear, mesh=state.mesh)
-        loss.backward()
-        with torch.no_grad():
-            kept = [p.detach().clone() for p in text_params]
-        apply_gradients(state)
-        with torch.no_grad():
-            torch._foreach_copy_(text_params, kept)
-            state.model.logit_scale.clamp_(0.0, LOG100)
-        state.memory_bank = v1_update_memory_bank(state.memory_bank, aux["zs_preds"],
-                                                  aux["anchored"], aux["image_features"], gamma,
-                                                  state.mesh)
-        state.step += 1
-        return {k: aux[k] for k in ("loss", "contrastive_loss", "logit_scale")}
+        with span("train_step", step=True):
+            with span("augment", stream=True):
+                images = _step_images(cfg, hp, aug, batch, generator, dev)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("forward", stream=True):
+                loss, aux = v1_loss_fn(state.model, hp, batch, images, state.memory_bank, table,
+                                       attention=attention, ln_linear=ln_linear, mesh=state.mesh)
+            with span("backward", stream=True):
+                loss.backward()
+            with span("update", stream=True):
+                with torch.no_grad():
+                    kept = [p.detach().clone() for p in text_params]
+                apply_gradients(state)
+                with torch.no_grad():
+                    torch._foreach_copy_(text_params, kept)
+                    state.model.logit_scale.clamp_(0.0, LOG100)
+                state.memory_bank = v1_update_memory_bank(state.memory_bank, aux["zs_preds"],
+                                                          aux["anchored"], aux["image_features"],
+                                                          gamma, state.mesh)
+            state.step += 1
+            return {k: aux[k] for k in ("loss", "contrastive_loss", "logit_scale")}
 
     return step_fn
 
@@ -566,16 +585,22 @@ def make_flyp_step(model: clip_mod.CLIP, hp: LatteHParams, template_table, use_g
         teacher.eval().requires_grad_(False)
 
     def step_fn(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
-        images = _step_images(cfg, hp, aug, batch, generator, dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = flyp_loss_fn(state.model, hp, batch, images, table, use_gt, use_siglip,
-                                     teacher, attention=attention, ln_linear=ln_linear,
-                                     coca_weights=coca_weights, mesh=state.mesh)
-        loss.backward()
-        apply_gradients(state)
-        with torch.no_grad():
-            state.model.logit_scale.clamp_(0.0, LOG100)
-        state.step += 1
-        return metrics
+        with span("train_step", step=True):
+            with span("augment", stream=True):
+                images = _step_images(cfg, hp, aug, batch, generator, dev)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("forward", stream=True):
+                loss, metrics = flyp_loss_fn(state.model, hp, batch, images, table, use_gt,
+                                             use_siglip, teacher, attention=attention,
+                                             ln_linear=ln_linear, coca_weights=coca_weights,
+                                             mesh=state.mesh)
+            with span("backward", stream=True):
+                loss.backward()
+            with span("update", stream=True):
+                apply_gradients(state)
+                with torch.no_grad():
+                    state.model.logit_scale.clamp_(0.0, LOG100)
+            state.step += 1
+            return metrics
 
     return step_fn
