@@ -1839,6 +1839,16 @@ def read_counts() -> dict:
     return {**A.launch_counts, **FL.launch_counts, **lab.launch_counts}
 
 
+def read_dense_counts() -> Optional[dict]:
+    """The float-weight ``dense`` calls with a bias by where the bias was
+    added, since the counters were set to 0 (None for a tree that does not
+    count them)."""
+    from latteclip_torch.kernels import fused_ln_linear as FL
+
+    counts = getattr(FL, "dense_counts", None)
+    return None if counts is None else dict(counts)
+
+
 def read_fwd_forms() -> Optional[dict]:
     """The forward's long-row launches by form since the counters were set to
     0 (None for a tree that does not count them)."""
@@ -1942,13 +1952,19 @@ def phase_train(smi: str, train: dict):
         _, warm_losses = timed_steps(step_fn, state, route_batches, gen, warm)
         torch.cuda.reset_peak_memory_stats()
         ips, losses, launches = counted_steps(step_fn, state, route_batches, gen, n)
-        forms = read_short_forms()
+        forms, dense = read_short_forms(), read_dense_counts()
         routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
-                         "max_memory_allocated": torch.cuda.max_memory_allocated(), "short_forms": forms}
-        log(f"train kernels {route}: {json.dumps(launches)} short_forms {json.dumps(forms)}")
+                         "max_memory_allocated": torch.cuda.max_memory_allocated(), "short_forms": forms,
+                         "dense_counts": dense}
+        log(f"train kernels {route}: {json.dumps(launches)} short_forms {json.dumps(forms)} "
+            f"dense_counts {json.dumps(dense)}")
         want = {**dict.fromkeys(launches, 0), **expected[route]}
         if launches != want:
             raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
+        # on CUDA every projection's bias rides its product's epilogue
+        if dense is not None and model.logit_scale.is_cuda and (dense["separate"]
+                                                                or not dense["epilogue"]):
+            raise RuntimeError(f"{route} steps added biases {dense}, expected every one in the epilogue")
         if route in band:  # the text at 77 tokens: every K1/K5 and K3/K6 on the warp ring
             check_band_forms(forms, f"{route} steps", *band[route])
         check_state(state, warm_losses + losses, f"{route} route")

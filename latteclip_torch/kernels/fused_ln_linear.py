@@ -9,10 +9,11 @@ bf16, then ``xn . bf16(W)^T`` accumulated in float32 with the bias added to
 the accumulator before the one rounding of the output. The kernel takes W
 already rounded to bf16 (the rounding the TPU kernel applies as it reads W),
 made once per forward, and runs under the launch plan of
-:func:`ln_linear_plan`, computed here so that the CPU tests hold it. The
-unfused route, ``dense(layer_norm(x))``, rounds the product first and adds the bias in the
-compute dtype, so the two routes round differently and :func:`ln_linear`
-follows the JAX package's rule for which one a pair takes. ``FusedLnLinear``'s
+:func:`ln_linear_plan`, computed here so that the CPU tests hold it. On the
+CPU the unfused route, ``dense(layer_norm(x))``, rounds the product first and adds the bias
+in the compute dtype, so the two routes round differently and :func:`ln_linear`
+follows the JAX package's rule for which one a pair takes; on CUDA ``dense`` adds
+the bias in the product's epilogue, and rounds once too. ``FusedLnLinear``'s
 gradient is that of the unfused composition, as JAX's ``_bwd`` is.
 
 ``layer_norm`` and ``dense`` live here, beside the kernel that fuses them;
@@ -39,10 +40,15 @@ _TPU_VMEM_BUDGET = 10 * 1024 * 1024
 
 # Launches of the kernel in this process (chip_smoke.py resets and reads them).
 launch_counts = counter_dict("fused_ln_linear.launch_counts", ("ln_linear",))
+# Float-weight dense calls with a bias, by where the bias was added: in the
+# product's epilogue (CUDA) or by a pass of its own after it (the CPU).
+dense_counts = counter_dict("fused_ln_linear.dense_counts", ("epilogue", "separate"))
 
 
 def reset_launch_counts() -> None:
-    launch_counts["ln_linear"] = 0
+    for counts in (launch_counts, dense_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -54,16 +60,28 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
           dtype: torch.dtype) -> torch.Tensor:
-    """``x @ weight.T`` emitted in ``dtype``; the bias is added in ``dtype``
-    after the product, as the JAX package does. A quantised weight
+    """``x @ weight.T + bias`` emitted in ``dtype``, from ``dtype`` operands.
+
+    On a CUDA tensor the bias, rounded to ``dtype``, joins the product's
+    float32 accumulator and the sum is rounded once, as K8 and JAX's fused
+    route do: ``x`` is flattened to ``[M, K]``, where ``F.linear`` is
+    ``addmm`` and takes cuBLASLt's bias epilogue, so no broadcast pass of its
+    own adds it. On the CPU the product is rounded to ``dtype`` and the bias
+    added in ``dtype`` after it, as JAX's ``dense`` does. ``dense_counts``
+    counts the two. A quantised weight
     (:class:`~latteclip_torch.models.quantize.Int8Weight`) takes the int8
     product, as JAX's ``dense`` does on its ``{"int8", "scale"}`` dict."""
     if isinstance(weight, Int8Weight):
         return int8_dense(x, weight, bias, dtype)
-    y = F.linear(x.to(dtype), weight.to(dtype))
-    if bias is not None:
-        y = y + bias.to(dtype)
-    return y
+    if bias is None:
+        return F.linear(x.to(dtype), weight.to(dtype))
+    if x.is_cuda:
+        dense_counts["epilogue"] += 1
+        x2d = x.to(dtype).reshape(-1, x.shape[-1]).contiguous()
+        y = F.linear(x2d, weight.to(dtype), bias.to(dtype))
+        return y.view(*x.shape[:-1], y.shape[-1])
+    dense_counts["separate"] += 1
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
 
 
 def fused_route(b: int, l: int, d: int, o: int) -> bool:

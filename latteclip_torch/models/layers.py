@@ -7,7 +7,11 @@ in float32. Modules carry OpenCLIP's parameter names
 OpenCLIP state dict loads with ``strict=True``. Weights keep torch's
 ``[out, in]`` orientation and go through ``F.linear``. ``layer_norm`` and
 ``dense`` come from :mod:`latteclip_torch.kernels.fused_ln_linear`, whose
-``ln_linear`` runs the two LayerNorm -> projection pairs of each block.
+``ln_linear`` runs the two LayerNorm -> projection pairs of each block. On a
+CUDA tensor ``dense`` adds each projection's bias in the product's epilogue,
+to the float32 accumulator before the output's one rounding, as the fused
+kernel does; on the CPU it adds it in the compute dtype after the rounded
+product, as the JAX package's ``dense`` does.
 
 ``Transformer.forward(remat=True)`` rematerialises each block, as JAX's
 ``jax.checkpoint`` with ``REMAT_SAVE_NAMES`` does (layers.py:39-43,
@@ -244,7 +248,8 @@ def mlp(x: torch.Tensor, ln: nn.LayerNorm, fc: nn.Linear, proj: nn.Linear, act,
     ``proj`` products (float32 products of ``dtype`` operands, not rounded)
     are summed over the model group and rounded once, and ``proj``'s bias
     is added after the sum: the roundings of :func:`dense` on the whole
-    product."""
+    product on the CPU (on CUDA ``dense`` adds the bias before the one
+    rounding)."""
     ln_w, ln_b = ln.weight, ln.bias
     if tp is not None:
         x, ln_w, ln_b = mesh_mod.copy_to_model(tp, x, ln_w, ln_b)

@@ -1088,6 +1088,103 @@ def test_cuda_fused_ln_linear_function_matches_autograd_through_unfused():
         assert rel <= 1e-2, f"d{name}: {rel:.4g}"
 
 
+# -- dense: the bias in the product's epilogue --------------------------------
+# The eight projections of a block: vision 768 -> 2304, 768, 3072 and 3072 ->
+# 768; text 512 -> 1536, 512, 2048 and 2048 -> 512, at 2 x 197 rows.
+DENSE_SITES = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+               (512, 1536), (512, 512), (512, 2048), (2048, 512)]
+
+
+def _dense_inputs(K, O, seed):
+    """x [2, 197, K] bf16, float32 W [O, K] and bias [O] on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 197, K, generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn(O, K, generator=g) * K ** -0.5).cuda()
+    b = (0.1 * torch.randn(O, generator=g)).cuda()
+    return x, w, b
+
+
+def _two_roundings(x, w, b, dtype):
+    """The CPU route's composition: the product rounded, then the bias added in ``dtype``."""
+    return torch.nn.functional.linear(x.to(dtype), w.to(dtype)) + b.to(dtype)
+
+
+def _gemm_patterns():
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "benchmark", "metrics", "kernels.json")
+    with open(path) as f:
+        return json.load(f)["gemm"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,O", DENSE_SITES)
+def test_cuda_dense_rounds_once_and_counts_its_epilogue(K, O):
+    """On CUDA ``dense`` is within one bf16 rounding (2^-8 relative, plus the
+    float32 sum's order, K * 2^-24 of sum |x w|) of the float64 product of
+    the same bf16 operands plus bf16(b), no further from it than the two
+    roundings of the CPU route by error norm, and counts one ``epilogue``."""
+    _need_cuda()
+    x, w, b = _dense_inputs(K, O, K + O)
+    before = dict(FL.dense_counts)
+    y = FL.dense(x, w, b, torch.bfloat16)
+    assert FL.dense_counts == {"epilogue": before["epilogue"] + 1, "separate": before["separate"]}
+    old = _two_roundings(x, w, b, torch.bfloat16)
+    x64, w64 = x.double(), w.to(torch.bfloat16).double()
+    ref = x64 @ w64.t() + b.to(torch.bfloat16).double()
+    assert y.shape == (2, 197, O) and y.dtype == torch.bfloat16
+    err = (y.double() - ref).abs()
+    bound = 2 ** -8 * ref.abs() + K * 2 ** -24 * (x64.abs() @ w64.abs().t())
+    assert bool((err <= bound).all()), f"worst excess {float((err - bound).max()):.3g}"
+    assert float(err.norm()) <= float((old.double() - ref).norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,O", DENSE_SITES)
+def test_cuda_dense_launches_one_gemm_and_no_bias_pass(K, O):
+    """Under torch.profiler one ``dense`` call launches one kernel that the
+    benchmark's ``gemm`` patterns match, and beside it only the casts of W
+    and the bias to bf16: no broadcast ``elementwise_kernel`` adds the bias."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_cuda()
+    x, w, b = _dense_inputs(K, O, 7)
+    FL.dense(x, w, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FL.dense(x, w, b, torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
+    pats = _gemm_patterns()
+    gemms = [n for n in names if any(p in n.lower() for p in pats)]
+    others = [n for n in names if n not in gemms]
+    assert len(gemms) == 1, names
+    assert len(others) <= 2 and all("copy" in n.lower() for n in others), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,O", DENSE_SITES)
+def test_cuda_dense_gradient_is_the_two_rounding_composition_gradient(K, O):
+    """dx, dW and db of the epilogue route equal those of the CPU route's
+    composition on the card (the same products and the same row sum):
+    ||d - ref|| / ||ref|| <= 1e-2."""
+    _need_cuda()
+    x, w, b = _dense_inputs(K, O, 3 * K + O)
+    dy = torch.randn(2, 197, O, generator=torch.Generator().manual_seed(O)).to("cuda", torch.bfloat16)
+    grads = []
+    for fn in (FL.dense, _two_roundings):
+        args = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        grads.append(torch.autograd.grad(fn(*args, torch.bfloat16), args, dy))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("x", "W", "b"), *grads):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        rel = float((a.float() - r.float()).norm() / r.float().norm())
+        assert rel <= GRAD_REL_TOL, f"d{name}: {rel:.4g}"
+
+
 # -- the attention lab's kernels (csrc/lab.cu) --------------------------------
 # Forward o and the gradients are held as above; lse (natural log) atol 1e-3.
 # The head-summed products are f32: ||S - ref|| / ||ref|| <= 1e-4 and

@@ -317,3 +317,49 @@ def test_packed_template_rows_take_the_fused_kernel_too():
             model, *(torch.from_numpy(a) for a in pack_template_table(table, 128)),
             normalize=True, ln_linear="fused")
     torch.testing.assert_close(packed, padded, atol=TOWER_TOL, rtol=0)
+
+
+def _dense_case(case):
+    """(x, w, b, dtype, the counts' change) for one CPU ``dense`` call."""
+    g = torch.Generator().manual_seed(5)
+    shape = (6, 64) if case == "2d" else (2, 7, 64)
+    x = torch.randn(*shape, generator=g)
+    w = torch.randn(96, 64, generator=g) * 64 ** -0.5
+    b = 0.1 * torch.randn(96, generator=g)
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    if case == "int8":
+        from latteclip_torch.models.quantize import Int8Weight
+        w = Int8Weight(w)
+    if case in ("int8", "no_bias"):
+        return x, w, None if case == "no_bias" else b, dtype, {"epilogue": 0, "separate": 0}
+    return x, w, b, dtype, {"epilogue": 0, "separate": 1}
+
+
+@pytest.mark.parametrize("case", ["bfloat16", "float32", "2d", "no_bias", "int8"])
+def test_cpu_dense_keeps_jax_roundings_and_counts_its_route(case):
+    """On the CPU a float ``dense`` with a bias is ``F.linear`` in ``dtype``,
+    then the bias added in ``dtype`` (JAX's two roundings), bit for bit, and
+    counts ``separate``; an ``Int8Weight`` or a bias of None counts neither."""
+    x, w, b, dtype, moved = _dense_case(case)
+    before = dict(FL.dense_counts)
+    y = FL.dense(x, w, b, dtype)
+    assert {k: FL.dense_counts[k] - before[k] for k in before} == moved
+    if case != "int8":
+        want = torch.nn.functional.linear(x.to(dtype), w.to(dtype))
+        if b is not None:
+            want = want + b.to(dtype)
+        assert y.dtype == dtype and torch.equal(y, want)
+
+
+def test_dense_counts_are_reported_by_counters():
+    """``obs.trace.counters()`` reads ``dense_counts`` as it reads the
+    packer's counters; ``reset_launch_counts`` sets them to 0."""
+    from latteclip_torch.obs import trace
+
+    FL.dense(torch.ones(2, 8), torch.ones(4, 8), torch.ones(4), torch.bfloat16)
+    snap = trace.counters()
+    assert snap["fused_ln_linear.dense_counts.separate"] == FL.dense_counts["separate"] >= 1
+    assert snap["fused_ln_linear.dense_counts.epilogue"] == FL.dense_counts["epilogue"]
+    FL.reset_launch_counts()
+    assert FL.dense_counts == {"epilogue": 0, "separate": 0}
+    assert FL.launch_counts == {"ln_linear": 0}
