@@ -93,6 +93,9 @@ short_fwd_form_counts = counter_dict("attention.short_fwd_form_counts",
                                      ("cta", "ring", "warp_ring"))
 short_bwd_form_counts = counter_dict("attention.short_bwd_form_counts",
                                      ("cta", "ring", "warp_ring"))
+# Attention outputs of rematerialised blocks (AttentionResiduals.attend):
+# recorded by a block's forward, replayed by its recompute in the backward.
+replay_counts = counter_dict("attention.replay_counts", ("recorded", "replayed"))
 
 
 def reset_launch_counts() -> None:
@@ -1003,9 +1006,11 @@ class AttentionResiduals:
         self.replay = False
 
     def attend(self, fn, *args) -> torch.Tensor:
-        """``fn.apply(*args)[0]``, recorded or replayed."""
+        """``fn.apply(*args)[0]``, recorded or replayed (``replay_counts``)."""
         if self.replay:
+            replay_counts["replayed"] += 1
             return fn.apply(*args, self.saved.pop(0))[0]
+        replay_counts["recorded"] += 1
         out, lse2 = fn.apply(*args)
         self.saved.append((out, lse2))
         return out

@@ -36,6 +36,11 @@ from latteclip_torch.kernels import (
 )
 from latteclip_torch.kernels import fused_ln_linear as fused
 from latteclip_torch.kernels.fused_ln_linear import LN_EPS, dense, layer_norm
+from latteclip_torch.obs.trace import counter_dict, span
+
+# Blocks run under remat (one per forward of _BlockRemat) and recomputed
+# (one per backward of it).
+remat_counts = counter_dict("layers.remat_counts", ("blocks", "recomputed"))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -293,10 +298,15 @@ def float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class _BlockRemat(torch.autograd.Function):
     """One block, rematerialised: ``forward`` runs it without autograd and
     keeps its input and its attention residuals; ``backward`` runs it again
-    with autograd, replaying the attention, and differentiates that."""
+    with autograd, replaying the attention, and differentiates that. The
+    second forward, the cost of remat, runs inside a ``recompute`` span timed
+    on the stream; on CUDA the backward runs on autograd's device thread,
+    where the span has no parent and its events go on that thread's current
+    stream, which autograd sets to the stream the forward ran on."""
 
     @staticmethod
     def forward(ctx, x, block, kwargs, *params):
+        remat_counts["blocks"] += 1
         residuals = AttentionResiduals()
         with torch.no_grad():
             y = block(x, residuals=residuals, **kwargs)
@@ -306,11 +316,12 @@ class _BlockRemat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        remat_counts["recomputed"] += 1
         (x,) = ctx.saved_tensors
         x = x.detach().requires_grad_(True)
         ctx.residuals.replay = True
         params = tuple(ctx.block.parameters())
-        with torch.enable_grad():
+        with span("recompute", stream=True), torch.enable_grad():
             y = ctx.block(x, residuals=ctx.residuals, **ctx.kwargs)
         grads = torch.autograd.grad(y, (x,) + params, dy, allow_unused=True)
         return (grads[0], None, None) + grads[1:]
