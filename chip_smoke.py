@@ -63,7 +63,12 @@ Phases, each raising on failure:
    build's, held as bf16 out is, on the bf16 copy of W that its Function
    makes once a forward (that copy's time is cast_ms); its control zeroes
    one 16-output block of W, its yardstick is the port's unfused route,
-   dense(layer_norm(x)) on the f32 W, and it names its launch plan;
+   dense(layer_norm(x)) on the f32 W, and it names its launch plan. The
+   LayerNorm kernels (csrc/layer_norm.cu) take the main path's rows
+   (LN_SHAPES), forward writing the statistics and backward, against the
+   plain composition F.layer_norm(x.float()).to(bf16) and its autograd
+   backward (also the yardstick, library_ms), with the byte bound and the
+   plain version's time; the train phase prints layer_norm_counts;
 4. lab: the attention lab's kernels (csrc/lab.cu) against their plain
    versions at the lab tools' shapes ([512, 197, 12 x 64] for the lab
    forward, packed and BHLD, and the lab backward; [1024, 77, 8 x 64] for
@@ -897,6 +902,93 @@ def ln_case(name, B, L, D, O, timer, gen):
     return rec
 
 
+# the main path's LayerNorm rows: ViT-B/16 training's vision, ViT-L/14
+# training's vision, the packed captions at 512, the ViT-B/16 eval's vision
+LN_SHAPES = ((100864, 768), (131584, 1024), (43008, 512), (50432, 768))
+
+
+def layer_norm_case(M, D, timer, gen):
+    """The LayerNorm kernels (csrc/layer_norm.cu) on bf16 rows x [M, D] ~
+    2 N(0, 1) + 0.5, scale ~ 1 + N(0, 0.1^2), bias ~ N(0, 0.1^2), cotangent
+    ~ N(0, 1): the forward writing the statistics, as under autograd, and
+    the backward pair. y and dx are held as bf16 out is against the plain
+    composition and its autograd backward (also the yardstick, library_ms);
+    dgamma and dbeta, float32 sums over M rows, to 1e-3 relative. The plain
+    version (plain_ms) is the kernels' arithmetic in torch ops. Controls: one
+    16-column block of the bias, or of the cotangent, zeroed. Bound: bytes
+    (x, y, the statistics and parameters; backward x, dy, dx and those) /
+    3.35e12. A tree without the kernels gives no case."""
+    from latteclip_torch.kernels import fused_ln_linear as FL
+
+    if not hasattr(FL, "layer_norm_plan"):
+        return []
+    x = (2 * torch.randn((M, D), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    dy = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
+    x32 = x.float()
+    mean_p = x32.mean(-1, keepdim=True)
+    rstd_p = torch.rsqrt((x32 - mean_p).square().mean(-1, keepdim=True) + FL.LN_EPS)
+    del x32
+
+    def plain_fwd():
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + FL.LN_EPS)
+        return ((x32 - mean) * rstd * w + b).to(x.dtype)
+
+    def plain_bwd(dy=dy):
+        xh = (x.float() - mean_p) * rstd_p
+        d = dy.float()
+        g = w * d
+        dx = rstd_p * (g - g.mean(-1, keepdim=True) - xh * (g * xh).mean(-1, keepdim=True))
+        return dx.to(x.dtype), (d * xh).sum(0), d.sum(0)
+
+    xl, wl, bl = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y_lib = FL.layer_norm_plain(xl, wl, bl)
+    kernel_fwd = lambda: FL.layer_norm_fwd(x, w, b, FL.LN_EPS, stats=True)  # noqa: E731
+    y, mean, rstd, _ = kernel_fwd()
+    kernel_bwd = lambda: FL.layer_norm_bwd(x, dy, w, mean, rstd)  # noqa: E731
+    dx, dw, db = kernel_bwd()
+    dx_lib = torch.autograd.grad(y_lib, xl, dy, retain_graph=True)[0]
+    _, dw_p, db_p = plain_bwd()
+    torch.cuda.synchronize()
+    plan = FL.layer_norm_plan(D, 2)
+    plan_fields = {"plan": {"vec": plan.vec, "k": plan.k, "warps": plan.warps, "rows": plan.rows,
+                            "bwd_ctas": plan.bwd_ctas(M, torch.cuda.get_device_properties(0).multi_processor_count)}}
+    dropped = b.clone()  # controls: one 16-column block of the bias, of the cotangent, zeroed
+    dropped[D // 2:D // 2 + 16] = 0
+    fwd_control_ok, _ = out_check(FL.layer_norm_plain(x, w, dropped), y_lib)
+    dy_dropped = dy.clone()
+    dy_dropped[:, D // 2:D // 2 + 16] = 0
+    bwd_control_ok, _ = out_check(plain_bwd(dy_dropped)[0], dx_lib)
+    fwd_ok, fwd_rel = out_check(y, y_lib)
+    bwd_ok, bwd_rel = out_check(dx, dx_lib)
+    param_rel = max(float((ours - ref).norm() / ref.norm()) for ours, ref in ((dw, dw_p), (db, db_p)))
+    bwd_ok = bwd_ok and param_rel <= 1e-3
+    timings = {
+        "fwd": (timer(kernel_fwd), timer(plain_fwd), timer(lambda: FL.layer_norm_plain(x, w, b)),
+                2 * M * D * 2 + 2 * M * 4 + 2 * D * 4),
+        "bwd": (timer(kernel_bwd), timer(plain_bwd),
+                timer(lambda: torch.autograd.grad(y_lib, (xl, wl, bl), dy, retain_graph=True)),
+                3 * M * D * 2 + 2 * M * 4 + 3 * D * 4),
+    }
+    records = []
+    for direction, (ms, plain_ms, library_ms, nbytes) in timings.items():
+        ok, rel, control_ok, out, ref = ((fwd_ok, fwd_rel, fwd_control_ok, y, y_lib) if direction == "fwd"
+                                         else (bwd_ok, bwd_rel, bwd_control_ok, dx, dx_lib))
+        bound_ms, bound_by = bound(0, nbytes)
+        rec = {"name": f"layer_norm_{direction}", "shape": [M, D], **plan_fields,
+               "max_abs_err": float((out.float() - ref.float()).abs().max()), "out_rel_err": rel,
+               "ok": ok, "control_rejected": not control_ok,
+               **({"param_grad_rel_err": param_rel} if direction == "bwd" else {}),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "bound_share": bound_ms / ms}
+        log("kernel_case " + json.dumps(rec))
+        records.append(rec)
+    return records
+
+
 def phase_kernels(train, tiled_lib):
     from latteclip_torch.tools.perf_lab import Timer
 
@@ -1002,6 +1094,9 @@ def phase_kernels(train, tiled_lib):
     records += [bwd_case(n, B, L, H, D, c, s, timer, gen, tiled_lib)
                 for n, B, L, H, D, c, s in bwd_cases]
     records += [ln_case(n, B, L, D, O, timer, gen) for n, B, L, D, O in ln_cases]
+    for M, D in LN_SHAPES:
+        records += layer_norm_case(M, D, timer, gen)
+        torch.cuda.empty_cache()
     del timer
     torch.cuda.empty_cache()
     bad = [(r["name"], r["shape"], r["max_abs_err"], r.get("out_rel_err"), r.get("max_abs_err_lse2"),
@@ -1849,6 +1944,15 @@ def read_dense_counts() -> Optional[dict]:
     return None if counts is None else dict(counts)
 
 
+def read_layer_norm_counts() -> Optional[dict]:
+    """The LayerNorm kernels' forward and backward launches since the
+    counters were set to 0 (None for a tree that does not count them)."""
+    from latteclip_torch.kernels import fused_ln_linear as FL
+
+    counts = getattr(FL, "layer_norm_counts", None)
+    return None if counts is None else dict(counts)
+
+
 def read_fwd_forms() -> Optional[dict]:
     """The forward's long-row launches by form since the counters were set to
     0 (None for a tree that does not count them)."""
@@ -1952,15 +2056,20 @@ def phase_train(smi: str, train: dict):
         _, warm_losses = timed_steps(step_fn, state, route_batches, gen, warm)
         torch.cuda.reset_peak_memory_stats()
         ips, losses, launches = counted_steps(step_fn, state, route_batches, gen, n)
-        forms, dense = read_short_forms(), read_dense_counts()
+        forms, dense, norms = read_short_forms(), read_dense_counts(), read_layer_norm_counts()
         routes[route] = {"images_per_s": ips, "losses": losses, "launches": launches,
                          "max_memory_allocated": torch.cuda.max_memory_allocated(), "short_forms": forms,
-                         "dense_counts": dense}
+                         "dense_counts": dense, "layer_norm_counts": norms}
         log(f"train kernels {route}: {json.dumps(launches)} short_forms {json.dumps(forms)} "
-            f"dense_counts {json.dumps(dense)}")
+            f"dense_counts {json.dumps(dense)} layer_norm_counts {json.dumps(norms)}")
         want = {**dict.fromkeys(launches, 0), **expected[route]}
         if launches != want:
             raise RuntimeError(f"{route} steps launched {launches}, expected {want}")
+        # every LayerNorm on the kernels: a forward and, under autograd, a
+        # backward a norm of each tower's forward (the bank's text under no_grad)
+        if norms is not None and (norms["backward"] < n * (vision_sites * 2 + 2 + text_sites)
+                                  or norms["forward"] < norms["backward"]):
+            raise RuntimeError(f"{route} steps ran LayerNorm kernels {norms}")
         # on CUDA every projection's bias rides its product's epilogue
         if dense is not None and model.logit_scale.is_cuda and (dense["separate"]
                                                                 or not dense["epilogue"]):

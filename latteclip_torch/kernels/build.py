@@ -22,7 +22,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu",
-           "ln_linear": CSRC / "ln_linear.cu", "lab": CSRC / "lab.cu"}
+           "ln_linear": CSRC / "ln_linear.cu", "lab": CSRC / "lab.cu",
+           "layer_norm": CSRC / "layer_norm.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,12 +17,16 @@ the bias in the product's epilogue, and rounds once too. ``FusedLnLinear``'s
 gradient is that of the unfused composition, as JAX's ``_bwd`` is.
 
 ``layer_norm`` and ``dense`` live here, beside the kernel that fuses them;
-:mod:`latteclip_torch.models.layers` re-exports them.
+:mod:`latteclip_torch.models.layers` re-exports them. On a CUDA tensor
+``layer_norm`` runs ``csrc/layer_norm.cu``'s kernels (:class:`LayerNormFunction`
+under autograd, the forward kernel alone otherwise), on the CPU its plain
+version :func:`layer_norm_plain`.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -43,19 +47,222 @@ launch_counts = counter_dict("fused_ln_linear.launch_counts", ("ln_linear",))
 # Float-weight dense calls with a bias, by where the bias was added: in the
 # product's epilogue (CUDA) or by a pass of its own after it (the CPU).
 dense_counts = counter_dict("fused_ln_linear.dense_counts", ("epilogue", "separate"))
+# Launches of csrc/layer_norm.cu: forward kernels, and backward pairs (the
+# backward kernel with its reduce kernel).
+layer_norm_counts = counter_dict("fused_ln_linear.layer_norm_counts", ("forward", "backward"))
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, dense_counts):
+    for counts in (launch_counts, dense_counts, layer_norm_counts):
         for name in counts:
             counts[name] = 0
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = LN_EPS) -> torch.Tensor:
-    """LayerNorm with float32 statistics, cast back to the input dtype."""
+def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to the input dtype: the
+    composition the CPU runs and the card's kernels are held to."""
     y = F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(), eps)
     return y.to(x.dtype)
+
+
+# The launch plan of csrc/layer_norm.cu; the constants are the kernels'.
+LN_ACCESS_BYTES = (16, 4)     # a lane's access, the wider that divides the row's bytes
+LN_MAX_K = 4                  # accesses a lane makes in a row
+LN_CTA_WARPS = 8              # warps a CTA where a row takes at most 8 (16-byte rows: always)
+LN_MAX_WARPS = 32             # warps a row of narrower accesses
+LN_BWD_THREADS_SM = 512       # the backward's persistent threads an SM (2 CTAs of 256)
+LN_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNormPlan:
+    """How ``csrc/layer_norm.cu`` covers a row of ``D`` elements: each lane
+    makes ``k`` accesses of ``vec`` elements, ``warps`` warps a row, ``rows``
+    rows a CTA; the backward runs ``ctas_per_sm`` persistent CTAs an SM."""
+    vec: int
+    k: int
+    warps: int
+    rows: int
+    ctas_per_sm: int
+
+    def bwd_ctas(self, M: int, sms: int) -> int:
+        """The backward's grid over ``M`` rows: persistent CTAs, no more than
+        there are row tiles."""
+        return max(1, min(-(-M // self.rows), self.ctas_per_sm * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def layer_norm_plan(D: int, itemsize: int) -> LayerNormPlan:
+    """The launch plan of LayerNorm over rows of ``D`` elements of
+    ``itemsize`` bytes (2: bf16 or fp16, 4: fp32).
+
+    * access: 16 bytes a lane where ``D * itemsize`` is a multiple of 16, so
+      that every row starts aligned, else 4 bytes (D = 2730 in bf16 takes
+      two elements); an odd width in bf16 or fp16 is refused;
+    * warps a row: as few as hold the row at ``k <= 4`` accesses a lane (one
+      warp up to D = 1024 in bf16, 512 in fp32), at most 8 for 16-byte
+      accesses (whose lanes hold up to 32 elements) and 32 for narrower ones;
+      ``k`` then the fewest that cover the row;
+    * rows a CTA: 8 // warps, so that a CTA has eight warps where it can;
+    * backward: 512 threads an SM, as 2 CTAs of 256 (1 of a wider row).
+    Raises past D = 8192 in bf16 (4096 in fp32, or where the access is 4
+    bytes)."""
+    access = next((b for b in LN_ACCESS_BYTES if D * itemsize % b == 0), None)
+    if itemsize not in (2, 4) or D <= 0 or access is None:
+        raise ValueError(f"the LayerNorm kernels take rows of a multiple of 4 bytes of 2- or "
+                         f"4-byte elements, got itemsize={itemsize}, D={D}")
+    vec = access // itemsize
+    accesses = D // vec
+    max_warps = LN_CTA_WARPS if access == 16 else LN_MAX_WARPS
+    warps = -(-accesses // (32 * LN_MAX_K))
+    if warps > max_warps:
+        limit = 32 * max_warps * LN_MAX_K * vec
+        raise ValueError(f"the LayerNorm kernels take rows of at most {limit} elements of "
+                         f"{itemsize} bytes at this alignment, got D={D}")
+    k = -(-accesses // (32 * warps))
+    rows = max(1, LN_CTA_WARPS // warps)
+    return LayerNormPlan(vec, k, warps, rows, max(1, LN_BWD_THREADS_SM // (32 * warps * rows)))
+
+
+# The C entries' arguments: pointers, ints (the plan's among them), eps, stream.
+_LN_ARGTYPES = {
+    "fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    "bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+}
+_ln_entries = {}
+
+
+def _ln_entry(name: str):
+    """The C entry ``latteclip_layernorm_<name>`` (fwd or bwd), loaded once."""
+    fn = _ln_entries.get(name)
+    if fn is None:
+        from latteclip_torch.kernels import build
+
+        fn = getattr(build.load("layer_norm"), f"latteclip_layernorm_{name}")
+        fn.argtypes, fn.restype = _LN_ARGTYPES[name], ctypes.c_int
+        _ln_entries[name] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return sm_count(index)
+
+
+def _rows(t: torch.Tensor, D: int) -> torch.Tensor:
+    """``t`` as contiguous 16-byte aligned rows ``[M, D]`` (a copy only where
+    it is neither, as a pooled ``x[:, 0]``)."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t.view(-1, D)
+
+
+def _param(t: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm parameter as the kernels read it: contiguous 16-byte
+    aligned float32."""
+    if t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
+
+
+def _call(name: str, device: torch.device, *args) -> None:
+    """Launch entry ``name`` on ``device``'s current stream; raise on its error."""
+    fn = _ln_entry(name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"latteclip_layernorm_{name} failed with CUDA error {err}")
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    code = LN_DTYPES.get(x.dtype)
+    if code is None:
+        raise ValueError(f"the LayerNorm kernels take bf16, fp16 or fp32 x, got {x.dtype}")
+    return code
+
+
+def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                   stats: bool):
+    """The forward kernel on a CUDA tensor: ``(y, mean, rstd, x2)``, y in
+    x's dtype and shape, mean and rstd ``[M]`` float32 (None unless
+    ``stats``), ``x2`` the ``[M, D]`` rows it read."""
+    code = _dtype_code(x)
+    D = x.shape[-1]
+    plan = layer_norm_plan(D, x.element_size())
+    x2 = _rows(x, D)
+    M = x2.shape[0]
+    y = torch.empty_like(x2)
+    mean = rstd = None
+    if stats:
+        mean, rstd = torch.empty((2, M), dtype=torch.float32, device=x.device)
+    if M:
+        _call("fwd", x.device, x2.data_ptr(), _param(weight).data_ptr(), _param(bias).data_ptr(),
+              y.data_ptr(), mean.data_ptr() if stats else None, rstd.data_ptr() if stats else None,
+              M, D, code, plan.vec, plan.k, plan.warps, plan.rows, eps)
+        layer_norm_counts["forward"] += 1
+    return y.view(x.shape), mean, rstd, x2
+
+
+def layer_norm_bwd(x2: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor):
+    """The backward pair on the card: ``(dx [M, D], dgamma, dbeta)``, dx in
+    x's dtype, the parameter gradients float32 ``[D]``."""
+    M, D = x2.shape
+    plan = layer_norm_plan(D, x2.element_size())
+    dy2 = _rows(dy, D)
+    dx = torch.empty_like(x2)
+    if not M:
+        zeros = torch.zeros((2, D), dtype=torch.float32, device=x2.device)
+        return dx, zeros[0], zeros[1]
+    ctas = plan.bwd_ctas(M, _sms(x2.device.index))
+    part = torch.empty((2, ctas, D), dtype=torch.float32, device=x2.device)
+    out = torch.empty((2, D), dtype=torch.float32, device=x2.device)
+    _call("bwd", x2.device, x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+          weight.data_ptr(), dx.data_ptr(), part.data_ptr(), out.data_ptr(),
+          M, D, _dtype_code(x2), plan.vec, plan.k, plan.warps, plan.rows, ctas)
+    layer_norm_counts["backward"] += 1
+    return dx, out[0], out[1]
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm on the card under autograd: the forward kernel, which also
+    writes each row's float32 mean and rstd, and the backward pair. Saves
+    x (in its own dtype), the float32 scale and the statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        w = _param(weight)
+        y, mean, rstd, x2 = layer_norm_fwd(x, w, bias, eps, stats=True)
+        ctx.save_for_backward(x2, w, mean, rstd)
+        ctx.shape, ctx.dtypes = x.shape, (weight.dtype, bias.dtype)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x2, w, mean, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x2, dy, w, mean, rstd)
+        return dx.view(ctx.shape), dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to the input dtype.
+
+    A CUDA tensor runs ``csrc/layer_norm.cu`` (bf16, fp16 or fp32 x, any
+    width :func:`layer_norm_plan` takes) and raises on anything else: through
+    :class:`LayerNormFunction` where autograd will need the gradient, else
+    the forward kernel alone, writing no statistics. A CPU tensor takes
+    :func:`layer_norm_plain`."""
+    if not x.is_cuda:
+        return layer_norm_plain(x, weight, bias, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    return layer_norm_fwd(x, weight, bias, eps, stats=False)[0]
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],

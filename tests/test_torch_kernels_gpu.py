@@ -38,6 +38,14 @@ atol = rtol = 2e-2 and ||y - ref|| / ||ref|| <= 1e-2 (both sides multiply
 the same bf16 operands in f32 and round once; they differ where the f32
 summation order flips one bf16 rounding of xn or y); its control zeroes one
 16-output block of W, which leaves those outputs at the bias alone.
+
+The LayerNorm kernels are held to the plain composition (F.layer_norm in
+float32, cast back) in the working dtype: y and dx, each a float32 value
+rounded once on both sides, as bf16 out is (the statistics' summation order
+may flip one rounding); mean and rstd to 1e-5 relative, the float32
+statistics of the same rows; dgamma and dbeta, float32 sums over up to
+131,584 rows, to ||d - ref|| / ||ref|| <= 1e-4 against the same sums in
+float64.
 """
 import numpy as np
 import pytest
@@ -1070,7 +1078,9 @@ def test_cuda_every_plan_form_counts_its_launch():
 def test_cuda_fused_ln_linear_function_matches_autograd_through_unfused():
     """FusedLnLinear's gradient is that of dense(layer_norm(x)): every input's
     gradient against autograd through the unfused composition, in bf16
-    (the same products, taken by other calls: ||d - ref|| / ||ref|| <= 1e-2)."""
+    (the same products, taken by other calls: ||d - ref|| / ||ref|| <= 1e-2).
+    The reference's LayerNorm is the plain composition, so that it does not
+    share the LayerNorm kernels that FusedLnLinear's backward runs."""
     _need_cuda()
     rng = np.random.default_rng(8)
     inputs = _ln_inputs(rng, 4, 77, 512, 1536)
@@ -1079,7 +1089,7 @@ def test_cuda_fused_ln_linear_function_matches_autograd_through_unfused():
     for fused in (True, False):
         args = [t.clone().requires_grad_(True) for t in inputs]
         y = (FL.FusedLnLinear.apply(*args, FL.LN_EPS) if fused
-             else FL.dense(FL.layer_norm(*args[:3]), args[3], args[4], torch.bfloat16))
+             else FL.dense(FL.layer_norm_plain(*args[:3]), args[3], args[4], torch.bfloat16))
         grads.append(torch.autograd.grad(y, args, dy))
     torch.cuda.synchronize()
     for name, a, r in zip(("x", "ln_w", "ln_b", "w", "wb"), *grads):
@@ -1835,3 +1845,210 @@ def test_cuda_resnet_tower_matches_float32_and_keeps_its_statistics():
     assert model.compute_dtype == torch.bfloat16 and ours.dtype == torch.float32
     cos = torch.nn.functional.cosine_similarity(ours, ref, dim=-1)
     assert float(cos.min()) >= 0.999
+
+
+# -- LayerNorm: csrc/layer_norm.cu ---------------------------------------------
+# The main path's rows: ViT-B/16 training's vision [100864, 768], ViT-L/14's
+# [131584, 1024], packed captions at 512 [43008, 512], the ViT-B/16 eval's
+# [50432, 768].
+LN_MAIN_SHAPES = [(100864, 768), (131584, 1024), (43008, 512), (50432, 768)]
+
+
+def _layer_norm_inputs(M, D, dtype=torch.bfloat16, seed=0):
+    """x [M, D] ~ 2 N(0, 1) + 0.5 in ``dtype``, float32 scale ~ 1 + N(0,
+    0.1^2) and bias ~ N(0, 0.1^2), and a cotangent ~ N(0, 1), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2 * torch.randn((M, D), generator=g, device="cuda") + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    b = 0.1 * torch.randn(D, generator=g, device="cuda")
+    dy = torch.randn((M, D), generator=g, device="cuda").to(dtype)
+    return x, w, b, dy
+
+
+def _assert_layer_norm_matches_plain(x, w, b, dy, eps=FL.LN_EPS):
+    """Forward, statistics, dx, dgamma and dbeta of the kernels against the
+    plain composition (y, dx) and float64 sums (statistics, dgamma, dbeta)."""
+    D = x.shape[-1]
+    xs, ws, bs = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    FL.reset_launch_counts()
+    y = FL.layer_norm(xs, ws, bs, eps)
+    dx, dw, db = torch.autograd.grad(y, (xs, ws, bs), dy)
+    assert FL.layer_norm_counts == {"forward": 1, "backward": 1}
+    assert y.dtype == dx.dtype == x.dtype and dw.dtype == db.dtype == torch.float32
+    xr, wr, br = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    y_ref = FL.layer_norm_plain(xr, wr, br, eps)
+    dx_ref, _, _ = torch.autograd.grad(y_ref, (xr, wr, br), dy)
+    torch.cuda.synchronize()
+    _assert_out_close(y, y_ref)
+    _assert_out_close(dx, dx_ref)
+    rows = x.detach().reshape(-1, D).double()
+    mean = rows.mean(-1, keepdim=True)
+    rstd = ((rows - mean).square().mean(-1, keepdim=True) + eps).rsqrt()
+    _, m, r, _ = FL.layer_norm_fwd(x.detach(), w, b, eps, stats=True)
+    torch.testing.assert_close(m.double(), mean[:, 0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(r.double(), rstd[:, 0], atol=0, rtol=1e-5)
+    dy64 = dy.reshape(-1, D).double()
+    for name, ours, ref in (("dgamma", dw, (dy64 * (rows - mean) * rstd).sum(0)),
+                            ("dbeta", db, dy64.sum(0))):
+        rel = float((ours.double() - ref).norm() / ref.norm())
+        assert rel <= 1e-4, f"{name}: {rel:.4g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,D", LN_MAIN_SHAPES)
+def test_cuda_layer_norm_matches_plain_version_at_main_path_shapes(M, D):
+    _need_cuda()
+    _assert_layer_norm_matches_plain(*_layer_norm_inputs(M, D, seed=M + D))
+
+
+# One row; rows not a multiple of a CTA's (8 at D <= 1024, 4 at 2048); D =
+# 2730 (EVA02's MLP norm: 4-byte accesses, 11 warps a row), 3072, 4-byte
+# accesses in bf16 and fp32 at small widths; flax's eps; fp32 and fp16 x.
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,D,dtype,eps", [
+    (1, 768, torch.bfloat16, 1e-5), (1003, 768, torch.bfloat16, 1e-5),
+    (1001, 2048, torch.bfloat16, 1e-5), (517, 2730, torch.bfloat16, 1e-5),
+    (300, 3072, torch.bfloat16, 1e-5), (129, 78, torch.bfloat16, 1e-5), (131, 77, torch.float32, 1e-5),
+    (999, 768, torch.bfloat16, 1e-6), (1003, 768, torch.float32, 1e-5),
+    (257, 1024, torch.float32, 1e-6), (1003, 512, torch.float16, 1e-5),
+])
+def test_cuda_layer_norm_matches_plain_version_at_edges(M, D, dtype, eps):
+    _need_cuda()
+    plan = FL.layer_norm_plan(D, torch.tensor([], dtype=dtype).element_size())
+    assert 32 * plan.warps * plan.k * plan.vec >= D
+    _assert_layer_norm_matches_plain(*_layer_norm_inputs(M, D, dtype, seed=M * D), eps=eps)
+
+
+@pytest.mark.gpu
+def test_cuda_layer_norm_takes_a_non_contiguous_x():
+    """A pooled ``x[:, 0]`` of [B, L, D] (rows D * L apart) is copied to rows
+    and gives the plain version's values and gradients."""
+    _need_cuda()
+    x, w, b, _ = _layer_norm_inputs(8 * 50, 768, seed=5)
+    x3 = x.view(8, 50, 768)
+    pooled = x3[:, 0]
+    assert not pooled.is_contiguous()
+    dy = torch.randn((8, 768), device="cuda").to(torch.bfloat16)
+    _assert_layer_norm_matches_plain(pooled, w, b, dy)
+
+
+@pytest.mark.gpu
+def test_cuda_layer_norm_backward_is_bitwise_repeatable():
+    """Two backward runs give the same bits: the partial sums of dgamma and
+    dbeta are folded in a fixed order, with no atomics."""
+    _need_cuda()
+    x, w, b, dy = _layer_norm_inputs(100864, 768, seed=11)
+    _, m, r, _ = FL.layer_norm_fwd(x, w, b, FL.LN_EPS, stats=True)
+    first = FL.layer_norm_bwd(x, dy, w, m, r)
+    second = FL.layer_norm_bwd(x, dy, w, m, r)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_cuda_layer_norm_under_no_grad_writes_no_statistics(monkeypatch):
+    """Under ``torch.no_grad()``, and where nothing requires a gradient, the
+    forward kernel runs alone: no statistics, no Function; under autograd the
+    Function runs and writes them."""
+    _need_cuda()
+    x, w, b, _ = _layer_norm_inputs(1003, 768, seed=2)
+    calls = []
+    fwd = FL.layer_norm_fwd
+    monkeypatch.setattr(FL, "layer_norm_fwd", lambda *a, **k: calls.append(k["stats"]) or fwd(*a, **k))
+    applied = []
+    apply = FL.LayerNormFunction.apply
+    monkeypatch.setattr(FL.LayerNormFunction, "apply", lambda *a: applied.append(1) or apply(*a))
+    FL.reset_launch_counts()
+    with torch.no_grad():
+        y = FL.layer_norm(x, w.requires_grad_(True), b)
+    y_free = FL.layer_norm(x, w.detach(), b)
+    assert calls == [False, False] and not applied
+    assert FL.layer_norm_counts == {"forward": 2, "backward": 0}
+    y_grad = FL.layer_norm(x, w, b)
+    assert calls == [False, False, True] and applied == [1] and y_grad.requires_grad
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_free) and torch.equal(y, y_grad.detach())
+
+
+@pytest.mark.gpu
+def test_cuda_layer_norm_refuses_a_plan_it_cannot_take():
+    """The forward entry returns an error for a plan that does not cover the
+    row, that a kernel cannot take, or an unaligned row; the wrapper raises
+    on a dtype the kernels do not take."""
+    _need_cuda()
+    x, w, b, _ = _layer_norm_inputs(16, 768, seed=3)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd = FL._ln_entry("fwd")
+    good = (8, 3, 1, 8)
+    assert FL.layer_norm_plan(768, 2) == FL.LayerNormPlan(*good, 2)
+    assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), None, None, 16, 768, 0,
+               *good, FL.LN_EPS, stream) == 0
+    for vec, k, warps, rows in ((8, 2, 1, 8), (8, 5, 1, 8), (8, 3, 9, 1), (8, 3, 2, 8),
+                                (3, 3, 8, 1), (1, 4, 8, 1), (8, 0, 1, 8), (8, 3, 1, 0)):
+        assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), None, None, 16, 768, 0,
+                   vec, k, warps, rows, FL.LN_EPS, stream) != 0, (vec, k, warps, rows)
+    assert fwd(x.data_ptr() + 2, w.data_ptr(), b.data_ptr(), y.data_ptr(), None, None, 15, 768, 0,
+               *good, FL.LN_EPS, stream) != 0
+    with pytest.raises(ValueError):
+        FL.layer_norm(x.double(), w, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_vit_b32_train_step_runs_every_layer_norm_on_the_kernels(monkeypatch):
+    """One ViT-B/32 v2 loss and backward (8 images): every LayerNorm runs the
+    forward kernel, every one under autograd the backward pair, and no
+    PyTorch LayerNorm operator runs."""
+    _need_cuda()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from latteclip_torch.config import get_model_config
+    from latteclip_torch.data import transforms as T
+    from latteclip_torch.data.packing import pack_caption_batch, pack_template_table
+    from latteclip_torch.models import clip as clip_mod
+    from latteclip_torch.models.tokenizer import get_tokenizer
+    from latteclip_torch.train import state as St, step as S
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_model_config("ViT-B-32")
+    model = clip_mod.init_clip_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    tok = get_tokenizer()
+    classes = [f"class {i}" for i in range(5)]
+    table = St.build_template_table(tok, classes, [lambda c: f"a photo of a {c}."])
+    bank = St.init_memory_bank(model, tok, classes, [lambda c: f"a photo of a {c}."])
+    rng = np.random.default_rng(0)
+    rows = np.zeros((16, 77), np.int32)
+    for r in range(16):
+        n = int(rng.integers(5, 40))
+        rows[r, :n - 1] = rng.integers(1, 40000, n - 1)
+        rows[r, n - 1] = tok.eot_token_id
+    batch = {"per_image_tokens": rows[:8], "per_group_tokens": rows[8:],
+             "zs_preds": rng.integers(0, 5, 8).astype(np.int32)}
+    batch.update(pack_caption_batch(rows[:8], rows[8:], 128, 8))
+    images = T.normalize_images(torch.from_numpy(
+        rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).cuda())
+    packed = tuple(torch.from_numpy(a).cuda() for a in pack_template_table(table, 128))
+    stats = []
+    fwd = FL.layer_norm_fwd
+    monkeypatch.setattr(FL, "layer_norm_fwd", lambda *a, **k: stats.append(k["stats"]) or fwd(*a, **k))
+    FL.reset_launch_counts()
+    hp = S.LatteHParams(augment=False, text_packing=True)
+    with Ops() as ops:
+        loss, _ = S.latteclip_loss_fn(model, hp, batch, images, bank, bank.clone(),
+                                      torch.from_numpy(table).cuda(), packed)
+        loss.backward()
+    torch.cuda.synchronize()
+    assert not {n for n in ops.names if "layer_norm" in n}, ops.names
+    # the vision tower's 26 (ln_pre, two a block, ln_post), each text forward's 25
+    assert len(stats) >= 26 + 25 and sum(stats) >= 26 + 25
+    assert FL.layer_norm_counts == {"forward": len(stats), "backward": sum(stats)}
